@@ -1,14 +1,18 @@
-"""Configuration of the serving path.
+"""Configuration of the serving and training paths.
 
-The fields this slice reads, with the defaults of
+The fields the port reads, with the defaults of
 ``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
 ``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
 define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
+Training knobs of the JAX config that the port does not implement are
+fields here too, so that ``check_supported`` can name them when a caller
+sets one instead of silently training another model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 #: Fields that define the model FUNCTION; checkpoints embed them.
 MODEL_CONFIG_FIELDS = (
@@ -24,9 +28,30 @@ MODEL_CONFIG_FIELDS = (
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     # ---- data ----
+    dataset: str = "hotel"
     n_past: int = 8
     n_next: int = 12
     batch_size: int = 256            # greedy scene-batch accumulation cap
+
+    # ---- optimisation (reference defaults) ----
+    n_epochs: int = 1000
+    lr_g: float = 1e-4
+    lr_d: float = 1e-3
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+
+    # ---- GAN step (socialways_tpu/config.py:110-176) ----
+    n_unrolling_steps: int = 1
+    use_info_loss: bool = True
+    loss_info_w: float = 0.5
+    d_restore: str = "full"          # "full" | "reference" | "none"
+    # D instance noise on the prediction inputs of every D evaluation,
+    # annealed linearly to 0 over d_input_noise_steps GAN steps (0 =
+    # constant, -1 = the whole planned run, resolved by the Trainer) and
+    # clamped from below by d_input_noise_floor
+    d_input_noise: float = 0.0
+    d_input_noise_steps: int = 0
+    d_input_noise_floor: float = 0.0
 
     # ---- architecture ----
     hidden_size: int = 64
@@ -47,10 +72,35 @@ class TrainConfig:
 
     # ---- evaluation ----
     n_gen_samples: int = 20
+    test_interval: int = 5           # epochs between eval runs
+    save_interval: int = 50          # epochs between checkpoints
 
     # ---- runtime ----
     seed: int = 0
     compute_dtype: str = "float32"
+    model_dir: str = "trained_models"
+
+    # ---- JAX training knobs not ported yet (check_supported names them)
+    grad_clip: float = 0.0
+    lr_decay_rate: float = 1.0
+    lr_decay_steps: int = 0
+    d_lr_decay_rate: float = 1.0
+    d_lr_decay_steps: int = 0
+    lr_warmup_steps: int = 0
+    d_lr_warmup_steps: int = 0
+    d_update_every: int = 1
+    d_update_every_end: int = 0
+    d_update_every_switch: int = 0
+    loss_info_w_end: float = 0.0
+    use_l2_loss: bool = False
+    use_variety_loss: bool = False
+    r1_gamma: float = 0.0
+    ms_weight: float = 0.0
+    ds_weight: float = 0.0
+    serial_rollout: bool = False
+    remat_steps: bool = False
+    grad_accum: int = 1
+    mesh_shape: Optional[int] = None
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -70,6 +120,9 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             "n_lstm_layers must be 1: the reference's decoder wiring only "
             "supports a single encoder layer")
+    if cfg.d_restore not in ("full", "reference", "none"):
+        raise ValueError(f"d_restore must be full, reference or none, got "
+                         f"{cfg.d_restore!r}")
     unsupported = [
         ("decoder", cfg.decoder != "fc"),
         ("latent_code_type", cfg.latent_code_type != "continuous"),
@@ -78,6 +131,26 @@ def check_supported(cfg: TrainConfig) -> None:
         ("pac", cfg.pac != 1),
         ("mb_std", bool(cfg.mb_std)),
         ("spectral_norm", bool(cfg.spectral_norm)),
+        ("grad_clip", cfg.grad_clip > 0),
+        ("lr_decay_rate", cfg.lr_decay_rate != 1.0),
+        ("lr_decay_steps", cfg.lr_decay_steps > 0),
+        ("d_lr_decay_rate", cfg.d_lr_decay_rate != 1.0),
+        ("d_lr_decay_steps", cfg.d_lr_decay_steps > 0),
+        ("lr_warmup_steps", cfg.lr_warmup_steps > 0),
+        ("d_lr_warmup_steps", cfg.d_lr_warmup_steps > 0),
+        ("d_update_every", cfg.d_update_every != 1),
+        ("d_update_every_end", cfg.d_update_every_end > 0),
+        ("d_update_every_switch", cfg.d_update_every_switch > 0),
+        ("loss_info_w_end", cfg.loss_info_w_end > 0),
+        ("use_l2_loss", bool(cfg.use_l2_loss)),
+        ("use_variety_loss", bool(cfg.use_variety_loss)),
+        ("r1_gamma", cfg.r1_gamma > 0),
+        ("ms_weight", cfg.ms_weight > 0),
+        ("ds_weight", cfg.ds_weight > 0),
+        ("serial_rollout", bool(cfg.serial_rollout)),
+        ("remat_steps", bool(cfg.remat_steps)),
+        ("grad_accum", cfg.grad_accum > 1),
+        ("mesh_shape", cfg.mesh_shape is not None),
     ]
     for field, bad in unsupported:
         if bad:

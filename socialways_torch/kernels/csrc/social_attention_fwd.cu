@@ -9,6 +9,10 @@
 //   score     s_ij = f_ij . wh_j          (wh = h W + b, computed outside)
 //   out_i     = sum_j softmax_j(s_ij) h_j  with a streaming softmax;
 //             a row with no neighbour gives 0.
+//   stats_i   = (m_i, l_i), the softmax max and normalizer, when the caller
+//             passes a stats buffer (training: the backward kernels rebuild
+//             a_ij from them); m starts at -1e9 and l at 0, so a row with no
+//             neighbour keeps (-1e9, 0), as the TPU kernel's :190-198.
 // The result equals socialways_torch/ops/social.py's dense form up to the
 // order of float sums.
 //
@@ -137,6 +141,7 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                             const float* __restrict__ w3,
                             const float* __restrict__ b3,
                             float* __restrict__ out,
+                            float2* __restrict__ stats,
                             const int n, const int hdim, const int feat) {
     // shared layout, every part 16-byte aligned (feat % 4 == 0):
     // w2 [32, 64] | w3 [64, F] | b2 [64] | b3 [F] | w1 [3, 32] | b1 [32]
@@ -202,6 +207,7 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
         if (d < hdim)
             out[(size_t)i * hdim + d] = l > 0.f ? acc[c] / fmaxf(l, 1e-20f) : 0.f;
     }
+    if (stats != nullptr && lane == 0) stats[i] = make_float2(m, l);
 }
 
 }  // namespace
@@ -212,14 +218,15 @@ extern "C" int social_attention_fwd_smem_bytes(int feat) {
 }
 
 // Launches on `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError() so the caller sees a refused launch.
+// cudaGetLastError() so the caller sees a refused launch.  `stats` [N, 2]
+// may be null (serving: no gradient, no extra stores).
 extern "C" int social_attention_fwd(const void* x4, const void* ids,
                                     const void* h, const void* wh,
                                     const void* w1, const void* b1,
                                     const void* w2, const void* b2,
                                     const void* w3, const void* b3,
-                                    void* out, int n, int hdim, int feat,
-                                    void* stream) {
+                                    void* out, void* stats, int n, int hdim,
+                                    int feat, void* stream) {
     if (n <= 0) return (int)cudaSuccess;
     const int smem = social_attention_fwd_smem_bytes(feat);
     const dim3 grid((n + kWarps - 1) / kWarps);
@@ -230,6 +237,7 @@ extern "C" int social_attention_fwd(const void* x4, const void* ids,
         static_cast<const float*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(w2), static_cast<const float*>(b2),
         static_cast<const float*>(w3), static_cast<const float*>(b3),
-        static_cast<float*>(out), n, hdim, feat);
+        static_cast<float*>(out), static_cast<float2*>(stats), n, hdim,
+        feat);
     return (int)cudaGetLastError();
 }

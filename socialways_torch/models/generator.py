@@ -13,6 +13,10 @@ DecoderFC (train.py:320-335): with d = hidden + social + noise the stack is
 Linear(d,d)+LReLU, Linear(d,d/2)+LReLU, Linear(d/2,d/4), Linear(d/4,2), with
 no activation after the third layer.
 
+The rollout is differentiable on both devices: on CUDA the social context
+goes through the kernels' autograd Function, on the CPU through the dense
+plain form under autograd.
+
 Parameter names are the JAX ones (``embed``, ``encoder``, ``feat_mlp``,
 ``attn_w``, ``decoder``), so ``state_dict`` keys such as ``feat_mlp.0.w``
 map one to one onto the JAX tree paths.

@@ -15,6 +15,8 @@ Features per ordered pair (i, j), from last-observed states x = (p, v):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from socialways_torch.ops.nn import Linear, linear_apply
@@ -29,13 +31,17 @@ def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
 
 
-def social_features(x4d_last: torch.Tensor) -> torch.Tensor:
+def social_features(x4d_last: torch.Tensor,
+                    x4d_cols: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, 4] (px, py, vx, vy) -> [N, N, 3] (dist, bearing, dca); entry
-    [i, j] describes agent j as seen from agent i."""
+    [i, j] describes agent j as seen from agent i.  ``x4d_cols`` gives the
+    seen agents' states separately (default: the same tensor), so that a
+    gradient can be taken on the seeing and the seen side apart."""
+    cols = x4d_last if x4d_cols is None else x4d_cols
     p = x4d_last[:, :2]
     v = x4d_last[:, 2:]
-    dp = p[:, None, :] - p[None, :, :]
-    dv = v[:, None, :] - v[None, :, :]
+    dp = p[:, None, :] - cols[None, :, :2]
+    dv = v[:, None, :] - cols[None, :, 2:]
 
     dist = safe_norm(dp)
     dot_dp_v = torch.einsum("ijk,ik->ij", dp, v)

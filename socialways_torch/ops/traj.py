@@ -22,6 +22,14 @@ def obsv_to_4d(obsv_p: torch.Tensor) -> torch.Tensor:
     return torch.cat([obsv_p, v], dim=-1)
 
 
+def pred_to_4d(obsv_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
+    """Future positions -> 4-D states, velocity diffed against the previous
+    future position (the last observation for the first step,
+    train.py:135-137)."""
+    prev = torch.cat([obsv_p[..., -1:, :], pred_p[..., :-1, :]], dim=-2)
+    return torch.cat([pred_p, pred_p - prev], dim=-1)
+
+
 def agent_frame_of(obsv_p: torch.Tensor) -> Frame:
     """Per-agent frame: origin = the last observed point, +x = the last
     observed displacement; zero displacement falls back to the identity

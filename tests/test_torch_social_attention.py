@@ -139,5 +139,6 @@ def test_torch_social_attention_kernel_refuses_bad_inputs_on_cuda():
         with pytest.raises(ValueError, match="contiguous"):
             sa.social_attention_fwd(gen.feat_mlp, gen.attn_w,
                                     x4c.t().contiguous().t(), hc, idc)
-    with pytest.raises(NotImplementedError):        # grad mode, params
-        sa.social_attention_fwd(gen.feat_mlp, gen.attn_w, x4c, hc, idc)
+    with pytest.raises(ValueError, match="scene_ids"):   # grad mode too
+        sa.social_attention_fwd(gen.feat_mlp, gen.attn_w, x4c, hc,
+                                idc.long())
