@@ -15,11 +15,16 @@ Phases (any failure raises):
 2. build every kernel from csrc/ (one nvcc per source, in parallel) and
    print ptxas's register and spill lines;
 3. the forward kernel against its plain PyTorch version on the card, f32,
-   at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats),
-   with and without the softmax stats the backward needs;
+   at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats):
+   its two launches alone (``_launch_fwd`` with wh = h W + b computed
+   beforehand) and, on a line of its own, the wrapper with wh; against the
+   launch floor (a one-element op) and the u-form bound;
 4. the backward kernels (dq, dkv) and the autograd Function against their
    plain versions and autograd through the plain forward, at three
-   synthetic shapes and on the training path's first chunk, timed;
+   synthetic shapes, shuffled scene ids, one dense 256-row scene, a ragged
+   N and the training path's first chunk, timed, with the forward's and
+   dkv's time split by launch (torch.profiler) and dkv run twice for equal
+   bits;
 5. the serving slice end to end through the CLI entry points at the loo
    model's full width (hidden 64, batch 256, K 20, 8+12 steps) on a seeded
    synthetic ETH/UCY-scale windowed npz: ``evaluate`` and ``predict``, the
@@ -56,6 +61,11 @@ KERNELS = ["social_attention_fwd", "social_attention_bwd"]
 SHAPES = [("eth-like N=256 H=F=64", 256, 64, 0),
           ("eth-like N=256 H=F=32", 256, 32, 0),
           ("scenes of 64 N=2048 H=F=64", 2048, 64, 64)]
+# more kernel checks: unsorted ids, the pair-batching stress (one scene of
+# 256: 65,280 pairs) and N not a multiple of the 2 rows a block takes
+EXTRA_SHAPES = [("eth-like shuffled ids N=256 H=F=64", 256, 64, "shuffled"),
+                ("one dense scene N=256 H=F=64", 256, 64, 256),
+                ("eth-like ragged N=301 H=F=64", 301, 64, 0)]
 
 
 def make_ethucy_like_npz(path: str, n_windows: int = 8000, seed: int = 0
@@ -126,15 +136,23 @@ def _bound(flop: float, nbytes: float) -> dict:
 
 
 def attention_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
-                    n_params: int) -> dict:
-    """Least time of the social-attention forward on this input: the FLOP
-    it does (same-scene ordered pairs x the 3->32->64->F MLP and the score,
-    plus wh = h W + b) at the f32 peak, against the bytes of x4, ids, h,
-    the weights and out at the HBM rate."""
+                    n_params: int, with_wh: bool = False) -> dict:
+    """Least time of the social-attention forward on this input, in the
+    u-form the kernel computes: same-scene ordered pairs x (3->32 and
+    32->64 layers and a2 . u_j: 96 + 2048 + 64 MAC), u = W3 wh (N 64 F)
+    and, where the timed call includes it, wh = h W + b (N H F), at the f32
+    peak; against the bytes of x4, ids, h, wh (or W), the weights, out, u
+    and c at the HBM rate.  ``old_*``: the count of the f_ij . wh_j form
+    (64 F + 2 F MAC a pair instead of 64), for comparison."""
     pairs = _pairs(ids)
-    mac = pairs * (3 * 32 + 32 * 64 + 64 * feat + 2 * feat) + n * hdim * feat
-    out = _bound(2 * mac, 4 * (4 * n + n + 2 * n * hdim + n_params))
-    out.update(pairs_needed=pairs, pairs_id_tested=n * 32 * ((n + 31) // 32))
+    wh_mac = n * hdim * feat if with_wh else 0
+    mac = pairs * (96 + 2048 + 64) + n * 64 * feat + wh_mac
+    old_mac = pairs * (96 + 2048 + 64 * feat + 2 * feat) + wh_mac
+    nbytes = 4 * (4 * n + n + 2 * n * hdim + (0 if with_wh else n * feat)
+                  + n_params + 65 * n)
+    out = _bound(2 * mac, nbytes)
+    out.update(pairs_needed=pairs, pairs_id_tested=n * n,
+               old_bound_ms=_bound(2 * old_mac, nbytes)["bound_ms"])
     return out
 
 
@@ -142,34 +160,36 @@ def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
                         n_mlp: int, kernel: str) -> dict:
     """Least time of a backward kernel on this input.  Per same-scene pair
     both recompute the score (features, 3->32 and 32->64 layers, and
-    a2 . u_j with u_j = W3 wh_j: 96 + 2048 + 64 MAC), take g_i . h_j (H)
-    and pull ds back to the features (the z2 cotangent 64, 64->32: 2048).
-    dq adds the 32->3 feature cotangent (96); dkv adds dh_j (H), the dW2
-    outer product (2048), db2/A_j (128) and dW1/db1 (128).  Fixed work:
-    u and c (N 64 F + N F); dkv also dwh_j (N 64 F), dW3 and db3 (N 64 F +
-    N F).  Bytes: x4, ids, h, wh, g, stats, r and the MLP weights read
-    once, the outputs written once."""
+    a2 . u_j with the forward's u_j = W3 wh_j: 96 + 2048 + 64 MAC), take
+    g_i . h_j (H) and pull ds back to the features (the z2 cotangent 64,
+    64->32: 2048).  dq adds the 32->3 feature cotangent (96); dkv adds
+    dh_j (H), the dW2 outer product (2048), db2/A_j (128) and dW1/db1
+    (128), and per column dwh_j (N 64 F) and dW3, db3 (N 64 F + N F).
+    Neither computes u or c: both read the forward's.  Bytes: x4, ids, h,
+    wh, g, stats, r, u, c and the MLP weights read once, the outputs
+    written once."""
     pairs = _pairs(ids)
     common = 96 + 2048 + 64 + hdim + 64 + 2048
-    in_bytes = 4 * (4 * n + n + 2 * n * hdim + n * feat + 3 * n + n_mlp)
+    in_bytes = 4 * (4 * n + n + 2 * n * hdim + n * feat + 3 * n + 65 * n
+                    + n_mlp)
     if kernel == "dq":
-        mac = pairs * (common + 96) + n * 64 * feat + n * feat
+        mac = pairs * (common + 96)
         out_bytes = 4 * 4 * n
     else:
         mac = (pairs * (common + hdim + 2048 + 128 + 128)
-               + 3 * n * 64 * feat + 2 * n * feat)
+               + 2 * n * 64 * feat + n * feat)
         out_bytes = 4 * (n * hdim + n * feat + n_mlp)
     out = _bound(2 * mac, in_bytes + out_bytes)
     out["pairs_needed"] = pairs
     return out
 
 
-def attention_inputs(rng, n: int, hdim: int, scene: int = 0):
+def attention_inputs(rng, n: int, hdim: int, scene=0):
     """Last-frame states in normalized units and tanh-range hidden states.
     Scene ids: ``scene`` > 0 gives equal scenes of that size; 0 gives sorted
     ETH/UCY-like scenes of 2-16 agents with one singleton scene and a padded
-    tail (-1) of about 10 %."""
-    if scene:
+    tail (-1) of about 10 %; "shuffled" gives those ids in random order."""
+    if isinstance(scene, int) and scene:
         ids = (np.arange(n) // scene).astype(np.int32)
     else:
         ids = np.full(n, -1, np.int32)
@@ -179,9 +199,31 @@ def attention_inputs(rng, n: int, hdim: int, scene: int = 0):
             ids[row:row + s] = sid
             row, sid = row + s, sid + 1
         ids[n_real:] = -1
+        if scene == "shuffled":
+            ids = ids[rng.permutation(n)]
     x4 = np.concatenate([rng.rand(n, 2), rng.randn(n, 2) * 0.02], axis=1)
     h = np.tanh(rng.randn(n, hdim))
     return x4.astype(np.float32), h.astype(np.float32), ids
+
+
+def by_launch(torch, fn, calls: int = 20) -> dict:
+    """Device time per call of each kernel ``fn()`` launches, by kernel
+    name, from torch.profiler over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.device_time / calls
+    return out
 
 
 def check_close(got, want, name: str, kind: str = "value") -> float:
@@ -211,10 +253,13 @@ def check_close(got, want, name: str, kind: str = "value") -> float:
 
 def dx_witness(torch, sa, name, g, x4, h, ids, gout, pairs) -> None:
     """Why dx has a per-row bound: the f64 plain version of the same
-    function on the same f32 inputs, against which both the kernel and the
-    f32 plain version are held at that bound.  Prints, for each, the worst
-    row's error over its scale and the elements outside the forward's
-    elementwise rtol 2e-4 / atol 2e-5."""
+    function on the same f32 inputs.  Prints, for the kernel and for the
+    f32 plain version, the worst row's error against f64 in units of the
+    row bound (1e-3 max|ref row| + 2e-5) and the elements outside the
+    forward's elementwise rtol 2e-4 / atol 2e-5.  Correct f32 arithmetic
+    reaches past the row bound on some draws (the plain version too), so
+    the kernel is held relative to the plain version: its worst row within
+    2x the plain version's + 0.1 of the bound."""
     import copy
     from socialways_torch.ops.nn import linear_apply
     fm = copy.deepcopy(g.feat_mlp).double()
@@ -229,20 +274,24 @@ def dx_witness(torch, sa, name, g, x4, h, ids, gout, pairs) -> None:
             (g64 * out64).sum(-1), w64)
     refs = {"dq dx_i": sa.social_attention_bwd_dq_plain(*args),
             "dkv dx_j": sa.social_attention_bwd_dkv_plain(*args)[0]}
-    parts = []
+    parts, over = [], []
     for key, (kern, plain) in pairs.items():
         ref = refs[key]
+        used = {}
         for who, got in (("kernel", kern), ("plain f32", plain)):
             err = (got.double() - ref).abs()
-            used = float((err.amax(dim=1)
-                          / (1e-3 * ref.abs().amax(dim=1) + 2e-5)).max())
-            if used > 1.0:
-                raise AssertionError(f"{name} {key}: {who} outside the "
-                                     f"per-row bound against f64 ({used:.2f})")
+            used[who] = float((err.amax(dim=1)
+                               / (1e-3 * ref.abs().amax(dim=1) + 2e-5)).max())
             n_out = int((err > ATOL + RTOL * ref.abs()).sum())
-            parts.append(f"{key} {who} {used:.3f} of the row bound, "
+            parts.append(f"{key} {who} {used[who]:.3f} of the row bound, "
                          f"{n_out}/{err.numel()} outside rtol/atol")
+        if used["kernel"] > 2.0 * used["plain f32"] + 0.1:
+            over.append(f"{key} kernel {used['kernel']:.2f} against plain "
+                        f"f32 {used['plain f32']:.2f}")
     print(f"dx vs f64 plain [{name}]: " + "; ".join(parts))
+    if over:
+        raise AssertionError(f"{name}: dx further from f64 than 2x the f32 "
+                             f"plain version + 0.1: {', '.join(over)}")
 
 
 def backward_case(torch, sa, name, g, x4, h, ids, seed):
@@ -274,27 +323,34 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
     w = [t.detach() for t in weights]
     with torch.no_grad():
         wh = linear_apply(g.attn_w, h)
-        k_out, stats = sa._launch_fwd(x4, ids, h, wh, w, with_stats=True)
+        k_out, stats, u, c = sa._launch_fwd(x4, ids, h, wh, w,
+                                            with_stats=True)
         p_out, m, l = sa.social_attention_stats_plain(g.feat_mlp, g.attn_w,
                                                       x4, h, ids)
     check_close(stats[:, 0], m, f"{name} m")
     check_close(stats[:, 1], l, f"{name} l")
+    check_close(u, wh @ w[4].T, f"{name} u")
+    check_close(c, wh @ w[5], f"{name} c")
     r = (gout * k_out).sum(-1)
     args = (x4, ids, h, wh, gout, stats, r, w)
-    dq = sa.social_attention_bwd_dq(*args)
+    uc = (u, c)
+    dq = sa.social_attention_bwd_dq(*args, *uc)
     dq_ref = sa.social_attention_bwd_dq_plain(*args)
     err_q = check_close(dq, dq_ref, f"{name} dq dx_i", "dx")
-    dkv = sa.social_attention_bwd_dkv(*args, need_dx=False)
+    dkv = sa.social_attention_bwd_dkv(*args, *uc, need_dx=False)
     dkv_ref = sa.social_attention_bwd_dkv_plain(*args, need_dx=False)
     kv_names = ["dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3", "db3"]
     err_kv = max(check_close(a, b, f"{name} dkv {nm}",
                              "weight" if i >= 2 else "value")
                  for i, (nm, a, b) in enumerate(zip(kv_names, dkv[1:],
                                                     dkv_ref[1:])))
-    dkv_x = sa.social_attention_bwd_dkv(*args)
+    dkv_x = sa.social_attention_bwd_dkv(*args, *uc)
     dkv_x_ref = sa.social_attention_bwd_dkv_plain(*args)
     err_kv = max(err_kv, check_close(dkv_x[0], dkv_x_ref[0],
                                      f"{name} dkv dx_j", "dx"))
+    for a, b in zip(dkv[1:], dkv_x[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} dkv: two runs differ in their bits")
     dx_witness(torch, sa, name, g, x4, h, ids, gout,
                {"dq dx_i": (dq, dq_ref), "dkv dx_j": (dkv_x[0], dkv_x_ref[0])})
 
@@ -306,32 +362,44 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
         stats_plain_ms = median_ms(
             torch, lambda: sa.social_attention_stats_plain(
                 g.feat_mlp, g.attn_w, x4, h, ids))
-    t = {"dq": (median_ms(torch, lambda: sa.social_attention_bwd_dq(*args)),
+        fwd_split = by_launch(torch, lambda: sa._launch_fwd(
+            x4, ids, h, wh, w, with_stats=True))
+    t = {"dq": (median_ms(torch,
+                          lambda: sa.social_attention_bwd_dq(*args, *uc)),
                 median_ms(torch,
                           lambda: sa.social_attention_bwd_dq_plain(*args))),
          "dkv": (median_ms(torch, lambda: sa.social_attention_bwd_dkv(
-                     *args, need_dx=False)),
+                     *args, *uc, need_dx=False)),
                  median_ms(torch, lambda: sa.social_attention_bwd_dkv_plain(
                      *args, need_dx=False)))}
+    dkv_split = by_launch(torch, lambda: sa.social_attention_bwd_dkv(
+        *args, *uc, need_dx=False))
     n, hdim = h.shape
     feat = wh.shape[1]
     n_mlp = sum(t_.numel() for t_ in w)
+    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
     ids_np = ids.cpu().numpy()
     bounds = {k: attention_bwd_bound(ids_np, n, hdim, feat, n_mlp, k)
               for k in ("dq", "dkv")}
-    print(f"backward [{name}]: Function vs autograd of plain ok; m, l ok; "
-          f"dq max abs {err_q:.3e}, dkv max abs {err_kv:.3e} | forward "
-          f"{fwd_ms * 1e3:.2f} us, with stats {stats_ms * 1e3:.2f} us "
-          f"(plain {stats_plain_ms * 1e3:.2f} us) | dq {t['dq'][0] * 1e3:.2f}"
-          f" us (plain {t['dq'][1] * 1e3:.2f}, bound "
+    bounds["fwd"] = attention_bound(ids_np, n, hdim, feat, n_params)
+    print(f"backward [{name}]: Function vs autograd of plain ok; m, l, u, c "
+          f"ok; dq max abs {err_q:.3e}, dkv max abs {err_kv:.3e}, dkv equal "
+          f"bits on two runs | forward alone {fwd_ms * 1e3:.2f} us, with "
+          f"stats {stats_ms * 1e3:.2f} us (plain {stats_plain_ms * 1e3:.2f} "
+          f"us, bound {bounds['fwd']['bound_ms'] * 1e3:.3f}) | dq "
+          f"{t['dq'][0] * 1e3:.2f} us (plain {t['dq'][1] * 1e3:.2f}, bound "
           f"{bounds['dq']['bound_ms'] * 1e3:.3f} {bounds['dq']['bound_by']})"
           f" | dkv {t['dkv'][0] * 1e3:.2f} us (plain "
           f"{t['dkv'][1] * 1e3:.2f}, bound "
           f"{bounds['dkv']['bound_ms'] * 1e3:.3f} "
           f"{bounds['dkv']['bound_by']}) | "
           f"{bounds['dq']['pairs_needed']} same-scene pairs")
+    fmt = lambda split: ", ".join(f"{k} {v:.2f} us" for k, v in split.items())
+    print(f"  by launch [{name}]: forward with stats: {fmt(fwd_split)}; "
+          f"dkv: {fmt(dkv_split)}")
     return {"err": {"dq": err_q, "dkv": err_kv}, "ms": t, "bounds": bounds,
-            "stats_ms": stats_ms, "fwd_ms": fwd_ms}
+            "stats_ms": stats_ms, "stats_plain_ms": stats_plain_ms,
+            "fwd_ms": fwd_ms, "split": {"fwd": fwd_split, "dkv": dkv_split}}
 
 
 def profile_step(torch, what: str, fn) -> None:
@@ -528,6 +596,7 @@ def main() -> int:
     from socialways_torch.kernels import social_attention as sa
     from socialways_torch.models.generator import (encode_observation,
                                                    init_generator)
+    from socialways_torch.ops.nn import linear_apply
     from socialways_torch.ops.traj import canonicalize_for_rollout, obsv_to_4d
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -573,9 +642,15 @@ def main() -> int:
         trainer = Trainer(cfg, ds, dev)
 
         # ---- 3. forward kernel against plain on the card
+        # the launch floor: device time of the smallest op there is, the
+        # yardstick beside bounds that sit below any launch at N = 256
+        tiny = torch.zeros(1, device=dev)
+        floor_ms = median_ms(torch, lambda: tiny.add_(1.0))
+        print(f"launch floor (one-element add_, CUDA events): "
+              f"{floor_ms * 1e3:.2f} us")
         rng = np.random.RandomState(0)
         cases = []
-        for name, n, hdim, scene in SHAPES:
+        for name, n, hdim, scene in SHAPES + EXTRA_SHAPES:
             g = init_generator(cfg.replace(hidden_size=hdim,
                                            social_feature_size=hdim,
                                            noise_len=hdim // 2),
@@ -593,6 +668,7 @@ def main() -> int:
         for name, g, x4, h, ids in cases:
             args = (g.feat_mlp, g.attn_w, torch.from_numpy(x4).to(dev),
                     torch.from_numpy(h).to(dev), torch.from_numpy(ids).to(dev))
+            w = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
             with torch.no_grad():
                 got = sa.social_attention_fwd(*args)
                 want = sa.social_attention_plain(*args)
@@ -600,25 +676,40 @@ def main() -> int:
                 err = (got - want).abs()
                 rel = float((err / want.abs().clamp_min(1e-30)).max())
                 check_close(got, want, f"forward {name}")
-                k_ms = median_ms(torch, lambda: sa.social_attention_fwd(*args))
+                wh = linear_apply(g.attn_w, args[3])
+                k_ms = median_ms(torch, lambda: sa._launch_fwd(
+                    args[2], args[4], args[3], wh, w, with_stats=False))
+                wr_ms = median_ms(torch, lambda: sa.social_attention_fwd(*args))
                 p_ms = median_ms(torch,
                                  lambda: sa.social_attention_plain(*args))
             n, hdim = h.shape
+            feat = g.attn_w.w.shape[1]
             n_params = sum(t.numel() for m in (g.feat_mlp, g.attn_w)
                            for t in m.parameters())
-            bound = attention_bound(ids, n, hdim, g.attn_w.w.shape[1],
-                                    n_params)
+            bound = attention_bound(ids, n, hdim, feat, n_params)
+            bound_wr = attention_bound(ids, n, hdim, feat, n_params,
+                                       with_wh=True)
             max_err = max(max_err, float(err.max()))
             print(f"forward vs plain [{name}]: max abs {float(err.max()):.3e} "
                   f"max rel {rel:.3e} (rtol {RTOL}, atol {ATOL}) ok | kernel "
-                  f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-                  f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}; "
-                  f"{bound['pairs_needed']} pairs need the MLP, "
-                  f"{bound['pairs_id_tested']} id tests)")
+                  f"alone {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+                  f"bound {bound['bound_ms'] * 1e3:.3f} us "
+                  f"({bound['bound_by']}; {bound['pairs_needed']} pairs need "
+                  f"the MLP, {bound['pairs_id_tested']} id tests), launch "
+                  f"floor {floor_ms * 1e3:.2f} us")
+            print(f"  forward wrapper with wh = h W + b [{name}]: "
+                  f"{wr_ms * 1e3:.2f} us (bound {bound_wr['bound_ms'] * 1e3:.3f}"
+                  f" us)")
             if name.startswith("path"):
-                path_timing = (k_ms, p_ms, bound)
+                path_timing = (k_ms, p_ms, bound, wr_ms)
+                print(f"  forward bound at the serving path: u-form "
+                      f"{bound['bound_ms'] * 1e3:.3f} us; the f . wh form "
+                      f"(64 F + 2 F MAC a pair instead of 64) "
+                      f"{bound['old_bound_ms'] * 1e3:.3f} us; with wh "
+                      f"{bound_wr['bound_ms'] * 1e3:.3f} / "
+                      f"{bound_wr['old_bound_ms'] * 1e3:.3f} us")
 
-        # ---- 4. backward kernels against plain, three shapes + the path
+        # ---- 4. backward kernels against plain, synthetic inputs + the path
         train_cfg = cfg.replace(d_input_noise=0.05, d_input_noise_steps=-1,
                                 d_input_noise_floor=0.02, n_epochs=200)
         t_tr = Trainer(train_cfg, ds, dev)
@@ -627,16 +718,17 @@ def main() -> int:
         t_in, _, t_sx4 = canonicalize_for_rollout(tc["obsvs"], True, True)
         with torch.no_grad():
             t_h = encode_observation(st0.g, obsv_to_4d(t_in))[0]
-        bwd_cases = cases[:3] + [("path: train chunk 0", st0.g,
-                                  t_sx4.contiguous().cpu().numpy(),
-                                  t_h.cpu().numpy(),
-                                  tc["scene_ids"].cpu().numpy())]
+        bwd_cases = cases[:-1] + [("path: train chunk 0", st0.g,
+                                   t_sx4.contiguous().cpu().numpy(),
+                                   t_h.cpu().numpy(),
+                                   tc["scene_ids"].cpu().numpy())]
         bwd_err = {"dq": 0.0, "dkv": 0.0}
         for i, (name, g, x4, h, ids) in enumerate(bwd_cases):
             res = backward_case(torch, sa, name, g, x4, h, ids, seed=100 + i)
             for k in bwd_err:
                 bwd_err[k] = max(bwd_err[k], res["err"][k])
-        bwd_path = res                 # the last case: the training path
+            if name.startswith("path"):
+                bwd_path = res
         del t_tr, st0
 
         # ---- 5. the serving slice end to end through the CLI, on the card
@@ -730,9 +822,11 @@ def main() -> int:
         # ---- 7. the CLI's train --recipe loo, resume, evaluate
         cli_phase(torch, cli_main, npz, work)
 
-        k_ms, p_ms, bound = path_timing
+        k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
+        # ms: the kernel's launches alone, at the training chunk, as the
+        # training path calls them; the forward's serving-chunk times beside
         kernels = [{
             "name": "social_attention_fwd",
             "route": "cuda",
@@ -742,13 +836,18 @@ def main() -> int:
             "launches_by_path": {"serving": launches_serving,
                                  "training": launches_train["fwd"]},
             "max_abs_err": max_err,
-            "ms": k_ms,
-            "kernel_ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"],
+            "ms": bwd_path["stats_ms"],
+            "kernel_ms": bwd_path["stats_ms"],
+            "plain_ms": bwd_path["stats_plain_ms"],
+            "bound_ms": bwd_path["bounds"]["fwd"]["bound_ms"],
+            "bound_by": bwd_path["bounds"]["fwd"]["bound_by"],
             "library_ms": None,
-            "with_stats_ms": bwd_path["stats_ms"],
+            "launch_floor_ms": floor_ms,
+            "by_launch_us": bwd_path["split"]["fwd"],
+            "serving_kernel_ms": k_ms,
+            "serving_plain_ms": p_ms,
+            "serving_bound_ms": bound["bound_ms"],
+            "serving_wrapper_ms": wr_ms,
         }]
         for key, fn, line in (("dq", "_bwd_dq_kernel", 317),
                               ("dkv", "_bwd_dkv_kernel", 372)):
@@ -765,7 +864,9 @@ def main() -> int:
                 "bound_ms": bwd_path["bounds"][key]["bound_ms"],
                 "bound_by": bwd_path["bounds"][key]["bound_by"],
                 "library_ms": None,
+                "launch_floor_ms": floor_ms,
             })
+        kernels[-1]["by_launch_us"] = bwd_path["split"]["dkv"]
         print(f"train steps/s (epoch 2, loo width, batch {BATCH}): "
               f"{steps_s:.2f}; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s")

@@ -3,34 +3,42 @@
 // Replace the Pallas TPU kernels of socialways_tpu/kernels/social_attention.py
 // `_bwd_dq_kernel` (:317-369) and `_bwd_dkv_kernel` (:372-461), driven by
 // `_pallas_backward` (:464-591).  The forward (social_attention_fwd.cu) saved
-// the per-row softmax stats (m_i, l_i).  For every same-scene pair (i, j),
-// both valid, i != j, the kernels rebuild
+// the per-row softmax stats (m_i, l_i) and u_j = W3 wh_j [64], c_j = b3 . wh_j.
+// For every same-scene pair (i, j), both valid, i != j, the kernels rebuild
 //   a1 = relu(W1 feat_ij + b1), a2 = relu(W2 a1 + b2)   (3->32->64)
-//   s_ij = a2 . u_j + c_j   with u_j = W3 wh_j, c_j = b3 . wh_j  (= f_ij . wh_j)
+//   s_ij = a2 . u_j + c_j   (= f_ij . wh_j)
 //   a_ij = exp(s_ij - m_i) / max(l_i, 1e-20)
 //   ds_ij = a_ij (g_i . h_j - r_i),  r_i = g_i . out_i
 // and pull ds_ij back through the pair MLP (df_ij = ds_ij wh_j, so the
 // cotangent of a2 is ds_ij u_j) and the pair features:
 //   dq  (one warp per row i, lanes over j):  dx_i = sum_j d s_ij / d x_i
-//   dkv (one warp per column j, lanes over i):
+//   dkv (a block per tile of columns j, all threads over its pairs):
 //        dh_j = sum_i a_ij g_i,   dx_j = sum_i d s_ij / d x_j,
 //        A_j = sum_i ds_ij a2_ij [64], S_j = sum_i ds_ij,
 //        dwh_j = A_j W3 + S_j b3 (= sum_i ds_ij f_ij),
-//        per-warp partial sums of dW2, db2, dW1, db1;
+//        one partial sum per block of dW2, db2, dW1, db1;
 //   finalize: dW3 = sum_j A_j (x) wh_j, db3 = sum_j S_j wh_j, and the
-//        per-warp partials of dW2, db2, dW1, db1 added in a fixed order.
+//        blocks' partials added, parallel over outputs and slices.
 // The TPU kernel summed the weight gradients across its sequential grid;
-// here the blocks run in parallel, so each warp keeps its own partial sums
-// and the finalize pass adds them warp by warp: deterministic, no atomics.
+// here the blocks run in parallel, so each keeps its own partial sums and
+// the finalize pass adds them: every sum in a fixed order, no atomics, so
+// two runs give equal bits.
 //
-// Design.  A warp walks the other index 32 at a time with the scene mask
-// tested first (one ballot skips a tile with no pair).  Each active lane
-// recomputes its pair in registers (a1[32], a2[64]).  In dkv the lanes then
-// stage a1, ds*a2, the a2 cotangent and the a1 cotangent in shared memory,
-// and lane l adds row l of the dW2 outer product (64 FMA a pair) and its
-// entries of db2, dW1, db1, A_j: the outer-product sums cost the same as the
-// pair work and need no atomics.  u_j and c_j come from a prologue kernel
-// (bwd_prep) so the score recompute is 64 FMA instead of 64 F.
+// dkv design (social_attention_pairs.cuh has the pair machinery it shares
+// with the forward).  A block owns kTile = 2 columns at a time (128 blocks at
+// N = 256, at most kDkvMaxBlocks in all, each walking tiles with a stride),
+// finds their same-scene rows by id tests and takes the pairs in batches of
+// 32.  Per batch, in shared memory and registers only:
+//   layer 1 and the register-tiled layer 2 (4 pairs x 4 outputs a thread);
+//   s, and g_i . h_j as a 16-lane product per pair, then a and ds;
+//   dz2 = [z2 > 0] ds u_j, stored transposed, and ds a2 summed per column;
+//   dz1 = [z1 > 0] dz2 W2^T, register-tiled (4 pairs x 2 outputs);
+//   dW2 += a1^T dz2 as a register tile (4 x 4 a thread, 4 pairs a step), db2,
+//   dW1, db1, A_j, S_j, dh_j and (when asked) dx_j, each in a fixed order.
+// No per-lane arrays of the pair's activations; the weight-gradient partials
+// live in registers for the block's life and are written once.  The
+// finalize is launched as dkv's programmatic dependent and waits for it
+// before its first read.
 //
 // Bound on this card: operations.  Per same-scene pair dq does ~4.4k FMA
 // (features, 3->32->64 recompute, score, the 64->32 and 32->3 cotangents),
@@ -40,94 +48,28 @@
 
 #include <cuda_runtime.h>
 
+#include "social_attention_pairs.cuh"
+
 namespace {
 
-constexpr int kIn = 3;
-constexpr int kH1 = 32;
-constexpr int kH2 = 64;
-constexpr int kDqWarps = 4;    // rows per dq block
-constexpr int kKvWarps = 2;    // warps per dkv block
-constexpr int kKvMaxWarps = 512;   // dkv warps in all: bounds the partials
+using namespace sa;
+
+constexpr int kDqWarps = 4;                // rows per dq block
+constexpr int kMaxWidth = 128;             // H and F at most
 constexpr int kPartial = kH1 * kH2 + kH2 + kIn * kH1 + kH1;   // 2240
-constexpr unsigned kFull = 0xffffffffu;
-
-// per-warp staging of 32 pairs in dkv (padded against bank conflicts)
-constexpr int kA1Stride = kH1 + 1;
-constexpr int kA2Stride = kH2 + 1;
-constexpr int kStage = 32 * kA1Stride       // a1
-                     + 32 * kA2Stride       // ds * a2
-                     + 32 * kA2Stride       // cotangent of z2
-                     + 32 * kA1Stride       // cotangent of z1
-                     + 32 * 4;              // features
-
-__device__ __forceinline__ float snorm(float sq) {
-    return sq > 0.f ? sqrtf(sq) : 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(kFull, v, off);
-    return v;
-}
-
-// The pair features and the intermediates their backward needs; the same
-// arithmetic as pair_score in social_attention_fwd.cu.
-struct Geo {
-    float dpx, dpy, dvx, dvy, dist, num_b, den_b, dvsq, num_t, ttca, cax,
-          cay, dca;
-    float feat[kIn];
-};
-
-__device__ __forceinline__ Geo pair_geo(const float4 xi, const float vi_norm,
-                                        const float4 xj) {
-    Geo q;
-    q.dpx = xi.x - xj.x; q.dpy = xi.y - xj.y;
-    q.dvx = xi.z - xj.z; q.dvy = xi.w - xj.w;
-    q.dist = snorm(q.dpx * q.dpx + q.dpy * q.dpy);
-    q.num_b = q.dpx * xi.z + q.dpy * xi.w;
-    q.den_b = q.dist * vi_norm + 1e-6f;
-    q.num_t = q.dpx * q.dvx + q.dpy * q.dvy;
-    q.dvsq = q.dvx * q.dvx + q.dvy * q.dvy + 1e-6f;
-    q.ttca = -q.num_t / q.dvsq;
-    q.cax = q.dpx + q.ttca * q.dvx;
-    q.cay = q.dpy + q.ttca * q.dvy;
-    q.dca = snorm(q.cax * q.cax + q.cay * q.cay);
-    q.feat[0] = q.dist;
-    q.feat[1] = q.num_b / q.den_b;
-    q.feat[2] = q.dca;
-    return q;
-}
-
-// Cotangents of x_i and x_j from those of (dist, bearing, dca).  sqrt has
-// derivative 0 where its argument is 0, as the forward's safe norm.
-__device__ __forceinline__ void geo_backward(const Geo& q, const float4 xi,
-                                             const float vi_norm,
-                                             const float* gf, float4& gi,
-                                             float4& gj) {
-    const float g_casq = q.dca > 0.f ? gf[2] * 0.5f / q.dca : 0.f;
-    const float g_cax = 2.f * q.cax * g_casq, g_cay = 2.f * q.cay * g_casq;
-    float g_dpx = g_cax, g_dpy = g_cay;
-    const float g_ttca = g_cax * q.dvx + g_cay * q.dvy;
-    float g_dvx = g_cax * q.ttca, g_dvy = g_cay * q.ttca;
-    const float g_num_t = -g_ttca / q.dvsq;
-    const float g_dvsq = g_ttca * q.num_t / (q.dvsq * q.dvsq);
-    g_dpx += g_num_t * q.dvx; g_dpy += g_num_t * q.dvy;
-    g_dvx += g_num_t * q.dpx + 2.f * q.dvx * g_dvsq;
-    g_dvy += g_num_t * q.dpy + 2.f * q.dvy * g_dvsq;
-    const float g_num_b = gf[1] / q.den_b;
-    const float g_den_b = -gf[1] * q.num_b / (q.den_b * q.den_b);
-    g_dpx += g_num_b * xi.z; g_dpy += g_num_b * xi.w;
-    float g_vix = g_num_b * q.dpx, g_viy = g_num_b * q.dpy;
-    const float g_dist = gf[0] + g_den_b * vi_norm;
-    const float g_vn = g_den_b * q.dist;
-    const float g_vsq = vi_norm > 0.f ? g_vn * 0.5f / vi_norm : 0.f;
-    g_vix += 2.f * xi.z * g_vsq; g_viy += 2.f * xi.w * g_vsq;
-    const float g_dsq = q.dist > 0.f ? g_dist * 0.5f / q.dist : 0.f;
-    g_dpx += 2.f * q.dpx * g_dsq; g_dpy += 2.f * q.dpy * g_dsq;
-    gi = make_float4(g_dpx, g_dpy, g_dvx + g_vix, g_dvy + g_viy);
-    gj = make_float4(-g_dpx, -g_dpy, -g_dvx, -g_dvy);
-}
+constexpr int kW2Stride = kH2 + 4;         // padded W2 rows in dkv
+constexpr int kDz2Stride = kBatch + 4;     // dz2^T [kH2][kBatch], padded
+constexpr int kDz1Stride = kH1 + 1;        // dz1 [kBatch][kH1], padded
+constexpr int kPairGroups = kThreads / 16;
+constexpr int kFinThreads = 1024;
+constexpr int kGroup = 8;                  // slices added per step of the tree
+constexpr int kW3Rows = 4;                 // rows of [dW3; db3] a finalize block
+constexpr int kW3Tiles = (kH2 + 1 + kW3Rows - 1) / kW3Rows;
+constexpr int kW3Slices = kFinThreads / 16;                 // 64
+constexpr int kPartCols = 32;              // partial elements a finalize block
+constexpr int kPartSlices = kFinThreads / kPartCols;        // 32
+constexpr int kPartBlocks = (kPartial + kPartCols - 1) / kPartCols;
+static_assert(kW3Slices % kGroup == 0 && kPartSlices % kGroup == 0, "tree");
 
 // a1 = relu(W1 feat + b1), a2 = relu(W2 a1 + b2); returns a2 . u + c.
 __device__ __forceinline__ float pair_recompute(
@@ -209,24 +151,6 @@ __device__ __forceinline__ void load_mlp12(const float* w1, const float* b1,
     for (int t = threadIdx.x; t < kH1; t += blockDim.x) s_b1[t] = b1[t];
 }
 
-// u = wh W3^T [N, 64], c = wh . b3 [N]: one block of 64 threads a row.
-__global__ void bwd_prep_kernel(const float* __restrict__ wh,
-                                const float* __restrict__ w3,
-                                const float* __restrict__ b3,
-                                float* __restrict__ u, float* __restrict__ c,
-                                const int feat) {
-    const int n = blockIdx.x, k = threadIdx.x;
-    const float* whn = wh + (size_t)n * feat;
-    float t = 0.f;
-    for (int f = 0; f < feat; ++f) t = fmaf(w3[k * feat + f], whn[f], t);
-    u[(size_t)n * kH2 + k] = t;
-    if (k == 0) {
-        float s = 0.f;
-        for (int f = 0; f < feat; ++f) s = fmaf(b3[f], whn[f], s);
-        c[n] = s;
-    }
-}
-
 __global__ void __launch_bounds__(kDqWarps * 32)
 bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const float* __restrict__ h, const float* __restrict__ g,
@@ -291,7 +215,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     if (lane == 0) dx[i] = acc;
 }
 
-__global__ void __launch_bounds__(kKvWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                const float* __restrict__ h, const float* __restrict__ g,
                const float2* __restrict__ stats, const float* __restrict__ r,
@@ -303,217 +227,419 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                float* __restrict__ dwh, float* __restrict__ a_sum,
                float* __restrict__ s_sum, float* __restrict__ partial,
                const int n, const int hdim, const int feat) {
-    // shared, 16-byte aligned parts: w2 [32,64] | w3 [64,F] | b2 [64] |
-    // b3 [F] | w1 [3,32] | b1 [32] | per warp: u_j [64] | h_j [128] |
-    // A_j [64] | staging
-    extern __shared__ __align__(16) float smem[];
-    float* s_w2 = smem;
-    float* s_w3 = s_w2 + kH1 * kH2;
-    float* s_b2 = s_w3 + kH2 * feat;
-    float* s_b3 = s_b2 + kH2;
-    float* s_w1 = s_b3 + feat;
-    float* s_b1 = s_w1 + kIn * kH1;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* s_warp = s_b1 + kH1 + warp * (kH2 + 128 + kH2 + kStage);
-    float* s_u = s_warp;
-    float* s_h = s_u + kH2;
-    float* s_A = s_h + 128;
-    float* st_a1 = s_A + kH2;
-    float* st_a2ds = st_a1 + 32 * kA1Stride;
-    float* st_dz2 = st_a2ds + 32 * kA2Stride;
-    float* st_dz1 = st_dz2 + 32 * kA2Stride;
-    float* st_feat = st_dz1 + 32 * kA1Stride;
-    load_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
-    for (int t = threadIdx.x; t < kH2 * feat; t += blockDim.x) s_w3[t] = w3[t];
-    for (int t = threadIdx.x; t < feat; t += blockDim.x) s_b3[t] = b3[t];
-    __syncthreads();
+    __shared__ __align__(16) float s_w2[kH1 * kW2Stride];
+    __shared__ __align__(16) float s_b2[kH2];
+    __shared__ float s_w1[kIn * kH1];
+    __shared__ float s_b1[kH1];
+    __shared__ __align__(16) float s_a1[kH1 * kA1Stride];    // a1^T
+    __shared__ __align__(16) float s_dz2[kH2 * kDz2Stride];  // dz2^T
+    __shared__ float s_dz1[kBatch * kDz1Stride];
+    __shared__ float s_apart[kPairGroups * kTile * kH2];   // ds a2 by group
+    __shared__ __align__(16) float s_u[kTile * kH2];
+    __shared__ float s_h[kTile * kMaxWidth];
+    __shared__ float s_A[kTile * kH2];
+    __shared__ float s_feat[kIn * kBatch];
+    __shared__ float s_m[kBatch], s_l[kBatch], s_r[kBatch], s_a[kBatch],
+        s_ds[kBatch];
+    __shared__ int s_row[kBatch], s_slot[kBatch];
+    __shared__ float4 s_gj[kBatch];
+    __shared__ float4 s_xt[kTile];
+    __shared__ float s_ct[kTile], s_S[kTile];
+    __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    const int wid = blockIdx.x * kKvWarps + warp;
-    const int n_warps = gridDim.x * kKvWarps;
-    // weight-gradient partials of this warp: lane l owns dW2 row l, db2
-    // entries l and l + 32, dW1 column l and db1 entry l
-    float p_w2[kH2];
+    for (int t = threadIdx.x; t < kH1 * kH2 / 4; t += kThreads)
+        reinterpret_cast<float4*>(s_w2)[(t / (kH2 / 4)) * (kW2Stride / 4) + t % (kH2 / 4)] =
+            reinterpret_cast<const float4*>(w2)[t];
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = b2[t];
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = w1[t];
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = b1[t];
+
+    pdl_launch_dependents();     // the finalize may start, and waits for us
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
+    // the block's weight-gradient partials: dW2[4 pg + i][og + 16 q],
+    // db2[og + 16 q] (pg == 0), and dW1[c][k] or db1[k] (c == 3) for
+    // (c, k) = (t >> 5, t & 31)
+    float p_w2[4][4], p_b2[4] = {0.f, 0.f, 0.f, 0.f}, p_w1 = 0.f;
 #pragma unroll
-    for (int o = 0; o < kH2; ++o) p_w2[o] = 0.f;
-    float p_b2[2] = {0.f, 0.f}, p_w1[kIn] = {0.f, 0.f, 0.f}, p_b1 = 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p_w2[i][q] = 0.f;
+    const int chunk = hdim >> 4;    // lane og's part of g . h: d = og + 16 q
+    const int n_tiles = (n + kTile - 1) / kTile;
 
-    for (int j = wid; j < n; j += n_warps) {
-        const int id_j = ids[j];
-        float A[2] = {0.f, 0.f}, S = 0.f;
-        float acc_h[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int col0 = tile * kTile;
+        int tile_id[kTile], tile_idx[kTile];
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) {
+            tile_idx[t] = col0 + t;
+            tile_id[t] = col0 + t < n ? ids[col0 + t] : -1;
+        }
+        if (threadIdx.x < kTile) {
+            const int j = col0 + threadIdx.x;
+            s_xt[threadIdx.x] = j < n ? x4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+            s_ct[threadIdx.x] = j < n ? cvec[j] : 0.f;
+        }
+        {
+            const int c = threadIdx.x >> 6, k = threadIdx.x & (kH2 - 1);
+            s_u[threadIdx.x] = col0 + c < n ? u[(size_t)(col0 + c) * kH2 + k] : 0.f;
+        }
+        for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
+            const int c = e / hdim, d = e - c * hdim;
+            s_h[c * kMaxWidth + d] =
+                col0 + c < n ? h[(size_t)(col0 + c) * hdim + d] : 0.f;
+        }
+        // per-column sums: A[t >> 6][t & 63], S and dx_j of column t < kTile,
+        // dh elements e = t + kThreads q of [kTile][hdim]
+        float A = 0.f, S = 0.f, acc_h[2] = {0.f, 0.f};
         float4 dxj = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (id_j >= 0) {
-            const float4 xj = x4[j];
-            s_u[lane] = u[(size_t)j * kH2 + lane];
-            s_u[lane + 32] = u[(size_t)j * kH2 + lane + 32];
-            for (int d = lane; d < hdim; d += 32) s_h[d] = h[(size_t)j * hdim + d];
-            const float c_j = cvec[j];
-            __syncwarp();
-            for (int i0 = 0; i0 < n; i0 += 32) {
-                const int i = i0 + lane;
-                const bool active = i < n && i != j && ids[i] == id_j;
-                const unsigned tile = __ballot_sync(kFull, active);
-                if (tile == 0u) continue;
-                float a = 0.f, ds = 0.f;
-                float4 gj = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (active) {
-                    const float4 xi = x4[i];
-                    const float vi_norm = snorm(xi.z * xi.z + xi.w * xi.w);
-                    const float2 st = stats[i];
-                    const Geo q = pair_geo(xi, vi_norm, xj);
-                    float a1[kH1], a2[kH2];
-                    const float s = pair_recompute(q, s_w1, s_b1, s_w2, s_b2,
-                                                   s_u, c_j, a1, a2);
-                    a = expf(s - st.x) / fmaxf(st.y, 1e-20f);
-                    const float* gi = g + (size_t)i * hdim;
+        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        __syncthreads();
+        while (true) {
+            fill_ring(pr, n, ids, tile_id, tile_idx);
+            if (pr.count == 0) break;
+            const int nb = pr.count < kBatch ? pr.count : kBatch;
+            // features, row, slot and the row's stats of each pair
+            if (threadIdx.x < kBatch) {
+                const int p = threadIdx.x;
+                float f[kIn] = {0.f, 0.f, 0.f};
+                int row = 0, slot = 0;
+                float2 st = make_float2(0.f, 1.f);
+                float r_i = 0.f;
+                if (p < nb) {
+                    const int e = s_ring[(pr.head + p) & (kRing - 1)];
+                    row = e / kTile;
+                    slot = e - row * kTile;
+                    const float4 xi = x4[row];
+                    const Geo q = pair_geo(xi, speed(xi), s_xt[slot]);
+                    f[0] = q.feat[0]; f[1] = q.feat[1]; f[2] = q.feat[2];
+                    st = stats[row];
+                    r_i = r[row];
+                }
+#pragma unroll
+                for (int c = 0; c < kIn; ++c) s_feat[c * kBatch + p] = f[c];
+                s_row[p] = row;
+                s_slot[p] = slot;
+                s_m[p] = st.x;
+                s_l[p] = st.y;
+                s_r[p] = r_i;
+            }
+            __syncthreads();
+            layer1(s_feat, s_w1, s_b1, s_a1);
+            __syncthreads();
+            {
+                float a2[4][4], ap[kTile][4];
+                layer2_tile(s_a1, s_w2, kW2Stride, s_b2, a2);
+#pragma unroll
+                for (int c = 0; c < kTile; ++c)
+#pragma unroll
+                    for (int o = 0; o < 4; ++o) ap[c][o] = 0.f;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int p = 4 * pg + i, slot = s_slot[p];
+                    const float4 u4 = reinterpret_cast<const float4*>(s_u + slot * kH2)[og];
+                    const float* gi = g + (size_t)s_row[p] * hdim + og;
+                    const float* hj = s_h + slot * kMaxWidth + og;
                     float gh = 0.f;
-                    for (int d = 0; d < hdim; ++d) gh = fmaf(gi[d], s_h[d], gh);
-                    ds = a * (gh - r[i]);
-#pragma unroll
-                    for (int k = 0; k < kH1; ++k) st_a1[lane * kA1Stride + k] = a1[k];
-#pragma unroll
-                    for (int o = 0; o < kH2; ++o) {
-                        st_a2ds[lane * kA2Stride + o] = ds * a2[o];
-                        a2[o] = a2[o] > 0.f ? ds * s_u[o] : 0.f;
-                        st_dz2[lane * kA2Stride + o] = a2[o];
+                    if (p < nb)
+                        for (int q = 0; q < chunk; ++q)
+                            gh = fmaf(gi[16 * q], hj[16 * q], gh);
+                    const float s = half_warp_sum(dot4(a2[i], u4)) + s_ct[slot];
+                    gh = half_warp_sum(gh);
+                    const float a = p < nb ? expf(s - s_m[p]) / fmaxf(s_l[p], 1e-20f)
+                                           : 0.f;
+                    const float ds = a * (gh - s_r[p]);
+                    if (og == 0) {
+                        s_a[p] = a;
+                        s_ds[p] = ds;
                     }
-                    z1_cotangent(s_w2, a2, a1);
+                    const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
-                    for (int k = 0; k < kH1; ++k) st_dz1[lane * kA1Stride + k] = a1[k];
+                    for (int o = 0; o < 4; ++o) {
 #pragma unroll
-                    for (int c = 0; c < kIn; ++c) st_feat[lane * 4 + c] = q.feat[c];
-                    if (dx != nullptr) {
+                        for (int c = 0; c < kTile; ++c)
+                            ap[c][o] = fmaf(slot == c ? ds : 0.f, a2[i][o], ap[c][o]);
+                        a2[i][o] = a2[i][o] > 0.f ? ds * uv[o] : 0.f;   // dz2
+                    }
+                }
+#pragma unroll
+                for (int o = 0; o < 4; ++o)
+                    reinterpret_cast<float4*>(s_dz2 + (4 * og + o) * kDz2Stride)[pg] =
+                        make_float4(a2[0][o], a2[1][o], a2[2][o], a2[3][o]);
+#pragma unroll
+                for (int c = 0; c < kTile; ++c)
+#pragma unroll
+                    for (int o = 0; o < 4; ++o)
+                        s_apart[(pg * kTile + c) * kH2 + 4 * og + o] = ap[c][o];
+            }
+            __syncthreads();
+            {
+                // dz1[p][k] for pairs 4 pg + i and k = og, og + 16
+                float z[4][2];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) z[i][0] = z[i][1] = 0.f;
+#pragma unroll 4
+                for (int o = 0; o < kH2; o += 4) {
+                    const float4 wa = *reinterpret_cast<const float4*>(s_w2 + og * kW2Stride + o);
+                    const float4 wb = *reinterpret_cast<const float4*>(s_w2 + (og + 16) * kW2Stride + o);
+                    const float wav[4] = {wa.x, wa.y, wa.z, wa.w};
+                    const float wbv[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const float4 d = reinterpret_cast<const float4*>(s_dz2 + (o + q) * kDz2Stride)[pg];
+                        const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            z[i][0] = fmaf(wav[q], dv[i], z[i][0]);
+                            z[i][1] = fmaf(wbv[q], dv[i], z[i][1]);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int p = 4 * pg + i;
+#pragma unroll
+                    for (int kk = 0; kk < 2; ++kk) {
+                        const int k = og + 16 * kk;
+                        s_dz1[p * kDz1Stride + k] =
+                            s_a1[k * kA1Stride + p] > 0.f ? z[i][kk] : 0.f;
+                    }
+                }
+            }
+            {
+                const int c = threadIdx.x >> 6, o = threadIdx.x & (kH2 - 1);
+                float a = A;
+#pragma unroll
+                for (int q = 0; q < kPairGroups; ++q)
+                    a += s_apart[(q * kTile + c) * kH2 + o];
+                A = a;
+            }
+            if (threadIdx.x < kTile)
+                for (int p = 0; p < nb; ++p)
+                    if (s_slot[p] == (int)threadIdx.x) S += s_ds[p];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int e = threadIdx.x + q * kThreads;
+                if (e < kTile * hdim) {
+                    const int c = e / hdim, d = e - c * hdim;
+                    float a = acc_h[q];
+                    for (int p = 0; p < nb; ++p)
+                        if (s_slot[p] == c)
+                            a = fmaf(s_a[p], g[(size_t)s_row[p] * hdim + d], a);
+                    acc_h[q] = a;
+                }
+            }
+            // dW2 += a1^T dz2 and db2 += sum dz2, four pairs a step (the
+            // pairs past nb have dz2 = 0)
+            for (int p4 = 0; p4 < (nb + 3) >> 2; ++p4) {
+                float av[4][4], dv[4][4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float4 a = reinterpret_cast<const float4*>(s_a1 + (4 * pg + i) * kA1Stride)[p4];
+                    av[i][0] = a.x; av[i][1] = a.y; av[i][2] = a.z; av[i][3] = a.w;
+                }
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const float4 d = reinterpret_cast<const float4*>(s_dz2 + (og + 16 * q) * kDz2Stride)[p4];
+                    dv[q][0] = d.x; dv[q][1] = d.y; dv[q][2] = d.z; dv[q][3] = d.w;
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            p_w2[i][q] = fmaf(av[i][e], dv[q][e], p_w2[i][q]);
+                if (pg == 0)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        p_b2[q] = p_b2[q] + dv[q][0] + dv[q][1] + dv[q][2] + dv[q][3];
+            }
+            __syncthreads();
+            {
+                const int c = threadIdx.x >> 5, k = threadIdx.x & (kH1 - 1);
+                float a = p_w1;
+                for (int p = 0; p < nb; ++p)
+                    a = fmaf(c < kIn ? s_feat[c * kBatch + p] : 1.f,
+                             s_dz1[p * kDz1Stride + k], a);
+                p_w1 = a;
+            }
+            if (dx != nullptr) {
+                if (threadIdx.x < kBatch) {
+                    const int p = threadIdx.x;
+                    float4 gj = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (p < nb) {
                         float gf[kIn];
-                        feat_cotangent(s_w1, a1, gf);
-                        float4 gi4;
-                        geo_backward(q, xi, vi_norm, gf, gi4, gj);
+#pragma unroll
+                        for (int c = 0; c < kIn; ++c) {
+                            float t = 0.f;
+#pragma unroll
+                            for (int k = 0; k < kH1; ++k)
+                                t = fmaf(s_w1[c * kH1 + k], s_dz1[p * kDz1Stride + k], t);
+                            gf[c] = t;
+                        }
+                        const float4 xi = x4[s_row[p]];
+                        const float vn = speed(xi);
+                        const Geo q = pair_geo(xi, vn, s_xt[s_slot[p]]);
+                        float4 gi;
+                        geo_backward(q, xi, vn, gf, gi, gj);
                     }
+                    s_gj[p] = gj;
                 }
-                __syncwarp();
-                S += warp_sum(ds);
-                if (dx != nullptr) {
-                    dxj.x += warp_sum(gj.x); dxj.y += warp_sum(gj.y);
-                    dxj.z += warp_sum(gj.z); dxj.w += warp_sum(gj.w);
-                }
-                unsigned bits = tile;
-                while (bits) {
-                    const int p = __ffs(bits) - 1;
-                    bits &= bits - 1u;
-                    const float ap = __shfl_sync(kFull, a, p);
-                    const float* gp = g + (size_t)(i0 + p) * hdim;
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        const int d = lane + 32 * c;
-                        if (d < hdim) acc_h[c] = fmaf(ap, gp[d], acc_h[c]);
-                    }
-                    const float a1v = st_a1[p * kA1Stride + lane];
-                    const float* dz2p = st_dz2 + p * kA2Stride;
-#pragma unroll
-                    for (int o = 0; o < kH2; ++o) p_w2[o] = fmaf(a1v, dz2p[o], p_w2[o]);
-                    p_b2[0] += dz2p[lane];
-                    p_b2[1] += dz2p[lane + 32];
-                    A[0] += st_a2ds[p * kA2Stride + lane];
-                    A[1] += st_a2ds[p * kA2Stride + lane + 32];
-                    const float dz1v = st_dz1[p * kA1Stride + lane];
-#pragma unroll
-                    for (int c = 0; c < kIn; ++c)
-                        p_w1[c] = fmaf(st_feat[p * 4 + c], dz1v, p_w1[c]);
-                    p_b1 += dz1v;
-                }
-                __syncwarp();
+                __syncthreads();
+                if (threadIdx.x < kTile)
+                    for (int p = 0; p < nb; ++p)
+                        if (s_slot[p] == (int)threadIdx.x) {
+                            const float4 v = s_gj[p];
+                            dxj.x += v.x; dxj.y += v.y; dxj.z += v.z; dxj.w += v.w;
+                        }
+            }
+            pr.head = (pr.head + nb) & (kRing - 1);
+            pr.count -= nb;
+            __syncthreads();     // the batch's shared arrays are free
+        }
+        // the tile's columns: A_j, S_j (for the finalize), dh_j, dx_j, dwh_j
+        {
+            const int c = threadIdx.x >> 6, o = threadIdx.x & (kH2 - 1);
+            s_A[threadIdx.x] = A;
+            if (col0 + c < n) a_sum[(size_t)(col0 + c) * kH2 + o] = A;
+        }
+        if (threadIdx.x < kTile) {
+            const int j = col0 + threadIdx.x;
+            s_S[threadIdx.x] = S;
+            if (j < n) {
+                s_sum[j] = S;
+                if (dx != nullptr) dx[j] = dxj;
             }
         }
-        // column epilogue: A_j, S_j for the finalize pass, dwh_j, dh_j, dx_j
-        s_A[lane] = A[0];
-        s_A[lane + 32] = A[1];
-        a_sum[(size_t)j * kH2 + lane] = A[0];
-        a_sum[(size_t)j * kH2 + lane + 32] = A[1];
-        if (lane == 0) s_sum[j] = S;
-        __syncwarp();
-        for (int f = lane; f < feat; f += 32) {
-            float t = S * s_b3[f];
-            for (int k = 0; k < kH2; ++k) t = fmaf(s_A[k], s_w3[k * feat + f], t);
-            dwh[(size_t)j * feat + f] = t;
-        }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int d = lane + 32 * c;
-            if (d < hdim) dh[(size_t)j * hdim + d] = acc_h[c];
+        for (int q = 0; q < 2; ++q) {
+            const int e = threadIdx.x + q * kThreads;
+            if (e < kTile * hdim) {
+                const int c = e / hdim, d = e - c * hdim;
+                if (col0 + c < n) dh[(size_t)(col0 + c) * hdim + d] = acc_h[q];
+            }
         }
-        if (dx != nullptr && lane == 0) dx[j] = dxj;
-        __syncwarp();
+        __syncthreads();
+        for (int e = threadIdx.x; e < kTile * feat; e += kThreads) {
+            const int c = e / feat, f = e - c * feat;
+            if (col0 + c >= n) continue;
+            float t = s_S[c] * b3[f];
+#pragma unroll 16
+            for (int k = 0; k < kH2; ++k)
+                t = fmaf(s_A[c * kH2 + k], w3[k * feat + f], t);
+            dwh[(size_t)(col0 + c) * feat + f] = t;
+        }
+        __syncthreads();         // s_A, s_S, s_xt, s_u, s_h are the next tile's
     }
-    float* part = partial + (size_t)wid * kPartial;
+    float* part = partial + (size_t)blockIdx.x * kPartial;
 #pragma unroll
-    for (int o = 0; o < kH2; ++o) part[lane * kH2 + o] = p_w2[o];
-    part[kH1 * kH2 + lane] = p_b2[0];
-    part[kH1 * kH2 + lane + 32] = p_b2[1];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < kIn; ++c) part[kH1 * kH2 + kH2 + c * kH1 + lane] = p_w1[c];
-    part[kH1 * kH2 + kH2 + kIn * kH1 + lane] = p_b1;
+        for (int q = 0; q < 4; ++q)
+            part[(4 * pg + i) * kH2 + og + 16 * q] = p_w2[i][q];
+    if (pg == 0)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[kH1 * kH2 + og + 16 * q] = p_b2[q];
+    part[kH1 * kH2 + kH2 + threadIdx.x] = p_w1;   // dW1 [3][32] | db1 [32]
 }
 
-// Second pass.  Blocks 0..63: row k of dW3 = sum_j A[j][k] wh_j; block 64:
-// db3 = sum_j S_j wh_j; the rest: the dkv warps' partials of dW2, db2, dW1,
-// db1 added warp by warp.  Every sum runs in a fixed order.
-__global__ void bwd_finalize_kernel(const float* __restrict__ wh,
-                                    const float* __restrict__ a_sum,
-                                    const float* __restrict__ s_sum,
-                                    const float* __restrict__ partial,
-                                    float* __restrict__ dw3,
-                                    float* __restrict__ db3,
-                                    float* __restrict__ dmlp12,
-                                    const int n, const int feat,
-                                    const int n_warps) {
-    const int b = blockIdx.x, t = threadIdx.x;
-    if (b <= kH2) {
-        if (t >= feat) return;
-        float acc = 0.f;
-        for (int j = 0; j < n; ++j) {
-            const float w = b < kH2 ? a_sum[(size_t)j * kH2 + b] : s_sum[j];
-            acc = fmaf(w, wh[(size_t)j * feat + t], acc);
+// Second pass, kFinThreads threads a block.  The first kW3Tiles x F/16
+// blocks: kW3Rows rows of [dW3; db3] (65 x F) = sum_j [A_j; S_j] (x) wh_j for
+// 16 columns, the N terms in kW3Slices strided slices.  The other
+// kPartBlocks blocks: kPartCols elements of dmlp12 = dW2 | db2 | dW1 | db1,
+// the dkv blocks' partials in kPartSlices strided slices.  The slices are
+// then added in a fixed tree: groups of kGroup in order, then the groups in
+// order.  Deterministic, no atomics.
+__global__ void __launch_bounds__(kFinThreads)
+bwd_finalize_kernel(const float* __restrict__ wh,
+                    const float* __restrict__ a_sum,
+                    const float* __restrict__ s_sum,
+                    const float* __restrict__ partial,
+                    float* __restrict__ dw3, float* __restrict__ db3,
+                    float* __restrict__ dmlp12, const int n, const int feat,
+                    const int n_slots) {
+    __shared__ float red[kFinThreads * kW3Rows];
+    __shared__ float red2[kFinThreads * kW3Rows / kGroup];
+    const int t = threadIdx.x;
+    pdl_wait();                  // the dkv kernel's sums are complete
+    const int f_tiles = feat / 16, w3_blocks = kW3Tiles * f_tiles;
+    if ((int)blockIdx.x < w3_blocks) {
+        const int kt = blockIdx.x / f_tiles, fc = blockIdx.x - kt * f_tiles;
+        const int fl = t & 15, slice = t >> 4, f = fc * 16 + fl;
+        float acc[kW3Rows];
+#pragma unroll
+        for (int q = 0; q < kW3Rows; ++q) acc[q] = 0.f;
+#pragma unroll 4
+        for (int j = slice; j < n; j += kW3Slices) {
+            const float w = wh[(size_t)j * feat + f];
+#pragma unroll
+            for (int q = 0; q < kW3Rows; ++q) {
+                const int k = kt * kW3Rows + q;
+                if (k < kH2) acc[q] = fmaf(a_sum[(size_t)j * kH2 + k], w, acc[q]);
+                else if (k == kH2) acc[q] = fmaf(s_sum[j], w, acc[q]);
+            }
         }
-        if (b < kH2) dw3[b * feat + t] = acc;
-        else db3[t] = acc;
+        // red [kW3Rows][kW3Slices][16], red2 [kW3Rows][kW3Slices / kGroup][16]
+#pragma unroll
+        for (int q = 0; q < kW3Rows; ++q) red[(q * kW3Slices + slice) * 16 + fl] = acc[q];
+        __syncthreads();
+        constexpr int groups = kW3Slices / kGroup;
+        if (t < kW3Rows * groups * 16) {
+            const int q = t / (groups * 16), gr = (t / 16) % groups;
+            float s = 0.f;
+            for (int sl = gr * kGroup; sl < (gr + 1) * kGroup; ++sl)
+                s += red[(q * kW3Slices + sl) * 16 + fl];
+            red2[(q * groups + gr) * 16 + fl] = s;
+        }
+        __syncthreads();
+        if (t < kW3Rows * 16) {
+            const int q = t >> 4, k = kt * kW3Rows + q, fo = fc * 16 + fl;
+            float s = 0.f;
+            for (int gr = 0; gr < groups; ++gr) s += red2[(q * groups + gr) * 16 + fl];
+            if (k < kH2) dw3[k * feat + fo] = s;
+            else if (k == kH2) db3[fo] = s;
+        }
         return;
     }
-    const int e = (b - kH2 - 1) * blockDim.x + t;
-    if (e >= kPartial) return;
+    const int col = t % kPartCols, slice = t / kPartCols;
+    const int e = ((int)blockIdx.x - w3_blocks) * kPartCols + col;
     float acc = 0.f;
-    for (int w = 0; w < n_warps; ++w) acc += partial[(size_t)w * kPartial + e];
-    dmlp12[e] = acc;
-}
-
-int dkv_warps(int n) { return n < kKvMaxWarps ? n : kKvMaxWarps; }
-
-size_t dkv_smem_bytes(int feat) {
-    return (size_t)(kH1 * kH2 + kH2 * feat + kH2 + feat + kIn * kH1 + kH1
-                    + kKvWarps * (kH2 + 128 + kH2 + kStage)) * sizeof(float);
+    if (e < kPartial)
+#pragma unroll 4
+        for (int b = slice; b < n_slots; b += kPartSlices)
+            acc += partial[(size_t)b * kPartial + e];
+    red[slice * kPartCols + col] = acc;      // [kPartSlices][kPartCols]
+    __syncthreads();
+    constexpr int groups = kPartSlices / kGroup;
+    if (t < groups * kPartCols) {
+        const int gr = t / kPartCols;
+        float s = 0.f;
+        for (int sl = gr * kGroup; sl < (gr + 1) * kGroup; ++sl)
+            s += red[sl * kPartCols + col];
+        red2[gr * kPartCols + col] = s;
+    }
+    __syncthreads();
+    if (t < kPartCols && e < kPartial) {
+        float s = 0.f;
+        for (int gr = 0; gr < groups; ++gr) s += red2[gr * kPartCols + t];
+        dmlp12[e] = s;
+    }
 }
 
 }  // namespace
 
-// Scratch sizes the caller allocates for social_attention_bwd_dkv, in floats.
-extern "C" int social_attention_bwd_partial_floats(int n) {
-    const int blocks = (dkv_warps(n) + kKvWarps - 1) / kKvWarps;
-    return blocks * kKvWarps * kPartial;
-}
-
-// dx_i [N, 4].  u [N, 64] and c [N] are scratch.  Launches on `stream`, does
-// not synchronise, allocates nothing; returns cudaGetLastError().
+// dx_i [N, 4] from the forward's u [N, 64] and c [N].  Launches on
+// `stream`, does not synchronise, allocates nothing; returns
+// cudaGetLastError().
 extern "C" int social_attention_bwd_dq(
-        const void* x4, const void* ids, const void* h, const void* wh,
-        const void* g, const void* stats, const void* r, const void* w1,
-        const void* b1, const void* w2, const void* b2, const void* w3,
-        const void* b3, void* u, void* c, void* dx, int n, int hdim,
-        int feat, void* stream) {
+        const void* x4, const void* ids, const void* h, const void* g,
+        const void* stats, const void* r, const void* u, const void* c,
+        const void* w1, const void* b1, const void* w2, const void* b2,
+        void* dx, int n, int hdim, void* stream) {
     if (n <= 0) return (int)cudaSuccess;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    bwd_prep_kernel<<<n, kH2, 0, st>>>(
-        static_cast<const float*>(wh), static_cast<const float*>(w3),
-        static_cast<const float*>(b3), static_cast<float*>(u),
-        static_cast<float*>(c), feat);
-    bwd_dq_kernel<<<(n + kDqWarps - 1) / kDqWarps, kDqWarps * 32, 0, st>>>(
+    bwd_dq_kernel<<<(n + kDqWarps - 1) / kDqWarps, kDqWarps * 32, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const float*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),
@@ -526,28 +652,25 @@ extern "C" int social_attention_bwd_dq(
 
 // dx_j [N, 4] (skipped when dx is null), dh_j [N, H], dwh_j [N, F],
 // dw3 [64, F], db3 [F] and dmlp12 [2240] = dW2 [32, 64] | db2 [64] |
-// dW1 [3, 32] | db1 [32].  u [N, 64], c [N], a_sum [N, 64], s_sum [N] and
-// partial [social_attention_bwd_partial_floats(n)] are scratch.
+// dW1 [3, 32] | db1 [32], from the forward's u [N, 64] and c [N].  `blocks`
+// dkv blocks, one partial slot each: a_sum [N, 64], s_sum [N] and
+// partial [partial_floats] are scratch.  A partial_floats other than
+// blocks x kPartial (the caller sized its slots or dmlp12 differently)
+// is refused with cudaErrorInvalidValue.  Two launches: dkv, then finalize.
 extern "C" int social_attention_bwd_dkv(
         const void* x4, const void* ids, const void* h, const void* wh,
-        const void* g, const void* stats, const void* r, const void* w1,
-        const void* b1, const void* w2, const void* b2, const void* w3,
-        const void* b3, void* u, void* c, void* a_sum, void* s_sum,
-        void* partial, void* dx, void* dh, void* dwh, void* dw3, void* db3,
-        void* dmlp12, int n, int hdim, int feat, void* stream) {
+        const void* g, const void* stats, const void* r, const void* u,
+        const void* c, const void* w1, const void* b1, const void* w2,
+        const void* b2, const void* w3, const void* b3, void* a_sum,
+        void* s_sum, void* partial, void* dx, void* dh, void* dwh, void* dw3,
+        void* db3, void* dmlp12, int n, int hdim, int feat, int blocks,
+        int partial_floats, void* stream) {
     if (n <= 0) return (int)cudaSuccess;
+    if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth || feat % 16 ||
+        (long long)partial_floats != (long long)blocks * kPartial)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const size_t smem = dkv_smem_bytes(feat);
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    bwd_prep_kernel<<<n, kH2, 0, st>>>(
-        static_cast<const float*>(wh), static_cast<const float*>(w3),
-        static_cast<const float*>(b3), static_cast<float*>(u),
-        static_cast<float*>(c), feat);
-    const int blocks = (dkv_warps(n) + kKvWarps - 1) / kKvWarps;
-    bwd_dkv_kernel<<<blocks, kKvWarps * 32, smem, st>>>(
+    bwd_dkv_kernel<<<blocks, kThreads, 0, st>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const float*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),
@@ -559,11 +682,13 @@ extern "C" int social_attention_bwd_dkv(
         static_cast<float*>(dwh), static_cast<float*>(a_sum),
         static_cast<float*>(s_sum), static_cast<float*>(partial), n, hdim,
         feat);
-    const int fin_blocks = kH2 + 1 + (kPartial + 127) / 128;
-    bwd_finalize_kernel<<<fin_blocks, 128, 0, st>>>(
-        static_cast<const float*>(wh), static_cast<const float*>(a_sum),
-        static_cast<const float*>(s_sum), static_cast<const float*>(partial),
-        static_cast<float*>(dw3), static_cast<float*>(db3),
-        static_cast<float*>(dmlp12), n, feat, blocks * kKvWarps);
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_dependent(
+        bwd_finalize_kernel, dim3(kW3Tiles * (feat / 16) + kPartBlocks),
+        dim3(kFinThreads), 0, st, static_cast<const float*>(wh),
+        static_cast<const float*>(a_sum), static_cast<const float*>(s_sum),
+        static_cast<const float*>(partial), static_cast<float*>(dw3),
+        static_cast<float*>(db3), static_cast<float*>(dmlp12), n, feat,
+        blocks);
 }

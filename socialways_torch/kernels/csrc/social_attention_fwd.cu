@@ -6,238 +6,280 @@
 // valid, j != i):
 //   features  dist, bearing, dca   from the last-frame states x4 (eps 1e-6)
 //   embedding f_ij = W3 relu(W2 relu(W1 feat + b1) + b2) + b3   (3->32->64->F)
-//   score     s_ij = f_ij . wh_j          (wh = h W + b, computed outside)
-//   out_i     = sum_j softmax_j(s_ij) h_j  with a streaming softmax;
+//   score     s_ij = f_ij . wh_j = a2_ij . u_j + c_j
+//             with u_j = W3 wh_j [64] and c_j = b3 . wh_j  (wh = h W + b,
+//             computed outside)
+//   out_i     = sum_j softmax_j(s_ij) h_j  with an online softmax;
 //             a row with no neighbour gives 0.
 //   stats_i   = (m_i, l_i), the softmax max and normalizer, when the caller
 //             passes a stats buffer (training: the backward kernels rebuild
 //             a_ij from them); m starts at -1e9 and l at 0, so a row with no
 //             neighbour keeps (-1e9, 0), as the TPU kernel's :190-198.
-// The result equals socialways_torch/ops/social.py's dense form up to the
-// order of float sums.
+// u and c are outputs too: the backward reads them instead of rebuilding
+// them.  The result equals socialways_torch/ops/social.py's dense form up to
+// the order of float sums.
 //
-// Design.  One warp owns one query row; a block of kWarps warps shares the
-// feature-MLP weights staged once in shared memory (25.6 KB at F = 64).
-// The warp walks the columns 32 at a time; lane l takes column j0 + l.  The
-// scene mask is tested first and a tile with no neighbour is skipped after
-// one ballot, so the MLP (about 6.4k FMA a pair at F = 64) runs only for the
-// pairs that exist.  No order of the scene ids is assumed: unsorted ids are
-// masked, never dropped.  Each active lane runs the whole pair MLP in
-// registers (a1[32], a2[64]); all lanes read the same weight at the same
-// time, a shared-memory broadcast, four floats per load.  The online softmax
-// keeps m, l in registers and the H-wide accumulator spread over the lanes.
+// Design (social_attention_pairs.cuh has the shared pair machinery).
+// - Prologue `u_prep_kernel`: u and c once per agent, 8 agents a block, W3
+//   staged transposed in shared memory.  A block of the main kernel needs u
+//   for every column its rows pair with, a whole scene; computing them
+//   there would repeat N x 64 x F MAC once per tile of each scene, while the
+//   prologue does it once, at the cost of one more launch.  The main kernel
+//   is launched as its programmatic dependent: it loads the weights, scans
+//   the ids and runs both MLP layers of its first batch while the prologue
+//   runs, and waits for it only before reading u and c.
+// - Main kernel: a block owns a tile of kTile = 2 query rows (128 blocks at
+//   N = 256, so the grid covers the 132 SMs), finds their same-scene
+//   columns by id tests, and takes the pairs in batches of 32 through the
+//   pair MLP with all 128 threads (the 32 -> 64 layer register-tiled, 4
+//   pairs x 4 outputs a thread).  The online softmax carries (m, l) and the
+//   H-wide accumulator from batch to batch, so shared memory is fixed
+//   (~19 KB) whatever the scene size.
 //
-// Bound on this card: operations.  At the serving shape (N = 256 rows,
-// scenes of 2-16 agents, H = F = 64) the needed work is the same-scene pairs
-// times ~12.8k FLOP of f32 FMA against ~0.2 MB of bytes; the design keeps the
-// pair intermediates out of device memory entirely and skips the work of
-// masked pairs, so what is left is the FMA work of the pairs that exist.
+// Bound on this card: operations, at the shapes the model runs (N = 256
+// rows in scenes of 2-16 agents, H = F = 64): the same-scene pairs times
+// 2.2k MAC of f32 FMA, plus N x 64 x F for u, against ~0.2 MB of bytes.  At
+// N = 256 that is well under a microsecond, below what a launch takes: the
+// design fills the card and keeps the pair intermediates in shared memory
+// and registers; what is left is the latency of its phases.
 
 #include <cuda_runtime.h>
 
+#include "social_attention_pairs.cuh"
+
 namespace {
 
-constexpr int kIn = 3;      // social features: dist, bearing, dca
-constexpr int kH1 = 32;     // feature-MLP hidden widths (fixed by the model)
-constexpr int kH2 = 64;
-constexpr int kWarps = 4;   // query rows per block
-constexpr float kNeg = -1e9f;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace sa;
 
-__device__ __forceinline__ float snorm(float sq) {
-    return sq > 0.f ? sqrtf(sq) : 0.f;
-}
+constexpr int kPrepRows = 8;        // agents a u_prep block
+constexpr int kMaxWidth = 128;      // H and F at most
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(kFull, v, off);
-    return v;
-}
-
-// Score s_ij of one pair: features -> MLP -> dot with wh_j.
-__device__ float pair_score(const float4 xi, const float vi_norm,
-                            const float4 xj, const float* __restrict__ whj,
-                            const float* s_w1, const float* s_b1,
-                            const float* s_w2, const float* s_b2,
-                            const float* s_w3, const float* s_b3,
-                            const int feat) {
-    const float dpx = xi.x - xj.x, dpy = xi.y - xj.y;
-    const float dvx = xi.z - xj.z, dvy = xi.w - xj.w;
-    const float dist = snorm(dpx * dpx + dpy * dpy);
-    const float bearing = (dpx * xi.z + dpy * xi.w) / (dist * vi_norm + 1e-6f);
-    const float ttca = -(dpx * dvx + dpy * dvy) / (dvx * dvx + dvy * dvy + 1e-6f);
-    const float cax = dpx + ttca * dvx, cay = dpy + ttca * dvy;
-    const float dca = snorm(cax * cax + cay * cay);
-
-    float a1[kH1];
-#pragma unroll
-    for (int k = 0; k < kH1; ++k) {
-        float t = dist * s_w1[k];
-        t = fmaf(bearing, s_w1[kH1 + k], t);
-        t = fmaf(dca, s_w1[2 * kH1 + k], t);
-        a1[k] = fmaxf(t + s_b1[k], 0.f);
+// u = wh W3^T [N, 64], c = wh . b3 [N].
+__global__ void __launch_bounds__(kThreads)
+u_prep_kernel(const float* __restrict__ wh, const float* __restrict__ w3,
+              const float* __restrict__ b3, float* __restrict__ u,
+              float* __restrict__ c, const int n, const int feat) {
+    __shared__ float s_w3t[kMaxWidth * (kH2 + 1)];    // W3^T [F][64 + 1]
+    __shared__ float s_wh[kPrepRows][kMaxWidth];
+    pdl_launch_dependents();     // the main kernel may start its prefix now
+    const int row0 = blockIdx.x * kPrepRows, f4 = feat / 4;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < kH2 * f4; e += kThreads) {
+        const int k = e / f4, f = 4 * (e - k * f4);
+        const float4 v = reinterpret_cast<const float4*>(w3)[e];
+        s_w3t[f * (kH2 + 1) + k] = v.x;
+        s_w3t[(f + 1) * (kH2 + 1) + k] = v.y;
+        s_w3t[(f + 2) * (kH2 + 1) + k] = v.z;
+        s_w3t[(f + 3) * (kH2 + 1) + k] = v.w;
     }
-
-    float a2[kH2];
+    for (int e = threadIdx.x; e < kPrepRows * f4; e += kThreads) {
+        const int r = e / f4, f = 4 * (e - r * f4);
+        const float4 v = row0 + r < n
+            ? reinterpret_cast<const float4*>(wh + (size_t)(row0 + r) * feat)[f / 4]
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        s_wh[r][f] = v.x; s_wh[r][f + 1] = v.y;
+        s_wh[r][f + 2] = v.z; s_wh[r][f + 3] = v.w;
+    }
+    __syncthreads();
+    const int k = threadIdx.x & (kH2 - 1), r0 = (threadIdx.x >> 6) * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int f = 0; f < feat; ++f) {
+        const float w = s_w3t[f * (kH2 + 1) + k];
 #pragma unroll
-    for (int o = 0; o < kH2; ++o) a2[o] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kH1; ++k) {
-        const float a = a1[k];
-        const float4* w = reinterpret_cast<const float4*>(s_w2 + k * kH2);
-#pragma unroll
-        for (int q = 0; q < kH2 / 4; ++q) {
-            const float4 wq = w[q];
-            a2[4 * q + 0] = fmaf(a, wq.x, a2[4 * q + 0]);
-            a2[4 * q + 1] = fmaf(a, wq.y, a2[4 * q + 1]);
-            a2[4 * q + 2] = fmaf(a, wq.z, a2[4 * q + 2]);
-            a2[4 * q + 3] = fmaf(a, wq.w, a2[4 * q + 3]);
-        }
+        for (int q = 0; q < 4; ++q) acc[q] = fmaf(w, s_wh[r0 + q][f], acc[q]);
     }
 #pragma unroll
-    for (int o = 0; o < kH2; ++o) a2[o] = fmaxf(a2[o] + s_b2[o], 0.f);
-
-    float s = 0.f;
-    const float4* wh4 = reinterpret_cast<const float4*>(whj);
-    const float4* b34 = reinterpret_cast<const float4*>(s_b3);
-#pragma unroll 1
-    for (int q = 0; q < feat / 4; ++q) {
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int k = 0; k < kH2; ++k) {
-            const float4 wq = reinterpret_cast<const float4*>(s_w3 + k * feat)[q];
-            f.x = fmaf(a2[k], wq.x, f.x);
-            f.y = fmaf(a2[k], wq.y, f.y);
-            f.z = fmaf(a2[k], wq.z, f.z);
-            f.w = fmaf(a2[k], wq.w, f.w);
-        }
-        const float4 b = b34[q];
-        const float4 v = wh4[q];
-        s = fmaf(f.x + b.x, v.x, s);
-        s = fmaf(f.y + b.y, v.y, s);
-        s = fmaf(f.z + b.z, v.z, s);
-        s = fmaf(f.w + b.w, v.w, s);
+    for (int q = 0; q < 4; ++q)
+        if (row0 + r0 + q < n) u[(size_t)(row0 + r0 + q) * kH2 + k] = acc[q];
+    if (threadIdx.x < kPrepRows && row0 + threadIdx.x < n) {
+        float s = 0.f;
+        for (int f = 0; f < feat; ++f)
+            s = fmaf(b3[f], s_wh[threadIdx.x][f], s);
+        c[row0 + threadIdx.x] = s;
     }
-    return s;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 social_attention_fwd_kernel(const float4* __restrict__ x4,
                             const int* __restrict__ ids,
                             const float* __restrict__ h,
-                            const float* __restrict__ wh,
+                            const float* __restrict__ u,
+                            const float* __restrict__ cvec,
                             const float* __restrict__ w1,
                             const float* __restrict__ b1,
                             const float* __restrict__ w2,
                             const float* __restrict__ b2,
-                            const float* __restrict__ w3,
-                            const float* __restrict__ b3,
                             float* __restrict__ out,
                             float2* __restrict__ stats,
-                            const int n, const int hdim, const int feat) {
-    // shared layout, every part 16-byte aligned (feat % 4 == 0):
-    // w2 [32, 64] | w3 [64, F] | b2 [64] | b3 [F] | w1 [3, 32] | b1 [32]
-    extern __shared__ __align__(16) float smem[];
-    float* s_w2 = smem;
-    float* s_w3 = s_w2 + kH1 * kH2;
-    float* s_b2 = s_w3 + kH2 * feat;
-    float* s_b3 = s_b2 + kH2;
-    float* s_w1 = s_b3 + feat;
-    float* s_b1 = s_w1 + kIn * kH1;
-    for (int t = threadIdx.x; t < kH1 * kH2; t += blockDim.x) s_w2[t] = w2[t];
-    for (int t = threadIdx.x; t < kH2 * feat; t += blockDim.x) s_w3[t] = w3[t];
-    for (int t = threadIdx.x; t < kH2; t += blockDim.x) s_b2[t] = b2[t];
-    for (int t = threadIdx.x; t < feat; t += blockDim.x) s_b3[t] = b3[t];
-    for (int t = threadIdx.x; t < kIn * kH1; t += blockDim.x) s_w1[t] = w1[t];
-    for (int t = threadIdx.x; t < kH1; t += blockDim.x) s_b1[t] = b1[t];
-    __syncthreads();
+                            const int n, const int hdim) {
+    __shared__ __align__(16) float s_w2[kH1 * kH2];
+    __shared__ __align__(16) float s_b2[kH2];
+    __shared__ float s_w1[kIn * kH1];
+    __shared__ float s_b1[kH1];
+    __shared__ __align__(16) float s_a1[kH1 * kA1Stride];   // a1^T
+    __shared__ float s_feat[kIn * kBatch];
+    __shared__ float s_s[kBatch], s_p[kBatch];
+    __shared__ int s_col[kBatch], s_slot[kBatch];
+    __shared__ float4 s_xt[kTile];
+    __shared__ float s_m[kTile], s_l[kTile], s_corr[kTile];
+    __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    const int lane = threadIdx.x & 31;
-    const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-    if (i >= n) return;                      // whole warp: no barrier follows
+    for (int t = threadIdx.x; t < kH1 * kH2 / 4; t += kThreads)
+        reinterpret_cast<float4*>(s_w2)[t] = reinterpret_cast<const float4*>(w2)[t];
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = b2[t];
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = w1[t];
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = b1[t];
 
-    const int id_i = ids[i];
-    float m = kNeg, l = 0.f;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};     // columns lane + 32 c, H <= 128
-    if (id_i >= 0) {
-        const float4 xi = x4[i];
-        const float vi_norm = snorm(xi.z * xi.z + xi.w * xi.w);
-        for (int j0 = 0; j0 < n; j0 += 32) {
-            const int j = j0 + lane;
-            const bool active = j < n && j != i && ids[j] == id_i;
-            const unsigned tile = __ballot_sync(kFull, active);
-            if (tile == 0u) continue;
-
-            float s = kNeg;
-            if (active)
-                s = pair_score(xi, vi_norm, x4[j], wh + (size_t)j * feat,
-                               s_w1, s_b1, s_w2, s_b2, s_w3, s_b3, feat);
-            const float m_new = fmaxf(m, warp_max(s));
-            const float corr = expf(m - m_new);
-            const float p = active ? expf(s - m_new) : 0.f;
-            l = l * corr + warp_sum(p);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
+    const int n_tiles = (n + kTile - 1) / kTile;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int row0 = tile * kTile;
+        int tile_id[kTile], tile_idx[kTile];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[c] *= corr;
-            unsigned bits = tile;
-            while (bits) {
-                const int jj = __ffs(bits) - 1;
-                bits &= bits - 1u;
-                const float pj = __shfl_sync(kFull, p, jj);
-                const float* hj = h + (size_t)(j0 + jj) * hdim;
+        for (int t = 0; t < kTile; ++t) {
+            tile_idx[t] = row0 + t;
+            tile_id[t] = row0 + t < n ? ids[row0 + t] : -1;
+        }
+        if (threadIdx.x < kTile) {
+            const int i = row0 + threadIdx.x;
+            s_xt[threadIdx.x] = i < n ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+            s_m[threadIdx.x] = kNeg;
+            s_l[threadIdx.x] = 0.f;
+        }
+        // accumulator elements e = threadIdx.x + kThreads q of [kTile][hdim]
+        float acc[2] = {0.f, 0.f};
+        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        __syncthreads();
+        while (true) {
+            fill_ring(pr, n, ids, tile_id, tile_idx);
+            if (pr.count == 0) break;
+            const int nb = pr.count < kBatch ? pr.count : kBatch;
+            // features, column and slot of each pair; 0 past nb
+            if (threadIdx.x < kBatch) {
+                const int p = threadIdx.x;
+                float f[kIn] = {0.f, 0.f, 0.f};
+                int col = 0, slot = 0;
+                if (p < nb) {
+                    const int e = s_ring[(pr.head + p) & (kRing - 1)];
+                    col = e / kTile;
+                    slot = e - col * kTile;
+                    const float4 xi = s_xt[slot];
+                    const Geo q = pair_geo(xi, speed(xi), x4[col]);
+                    f[0] = q.feat[0]; f[1] = q.feat[1]; f[2] = q.feat[2];
+                }
 #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int d = lane + 32 * c;
-                    if (d < hdim) acc[c] = fmaf(pj, hj[d], acc[c]);
+                for (int c = 0; c < kIn; ++c) s_feat[c * kBatch + p] = f[c];
+                s_col[p] = col;
+                s_slot[p] = slot;
+            }
+            __syncthreads();
+            layer1(s_feat, s_w1, s_b1, s_a1);
+            __syncthreads();
+            {
+                float a2[4][4];
+                layer2_tile(s_a1, s_w2, kH2, s_b2, a2);
+                pdl_wait();          // u and c come from u_prep_kernel
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int p = 4 * pg + i, col = s_col[p];
+                    const float4 u4 = p < nb
+                        ? reinterpret_cast<const float4*>(u + (size_t)col * kH2)[og]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+                    const float s = half_warp_sum(dot4(a2[i], u4));
+                    if (og == 0) s_s[p] = p < nb ? s + cvec[col] : 0.f;
                 }
             }
-            m = m_new;
-        }
-    }
+            __syncthreads();
+            // online softmax of the batch, per tile row (warp 0, lane = pair)
+            if (warp == 0) {
+                const bool act = lane < nb;
+                const int slot = s_slot[lane];
+                const float s = s_s[lane];
+                float pv = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const int d = lane + 32 * c;
-        if (d < hdim)
-            out[(size_t)i * hdim + d] = l > 0.f ? acc[c] / fmaxf(l, 1e-20f) : 0.f;
+                for (int t = 0; t < kTile; ++t) {
+                    const bool mine = act && slot == t;
+                    const float m_old = s_m[t];
+                    const float m_new = fmaxf(m_old, warp_max(mine ? s : kNeg));
+                    const float e = mine ? expf(s - m_new) : 0.f;
+                    if (mine) pv = e;
+                    const float l_add = warp_sum(e);
+                    if (lane == 0) {
+                        const float corr = expf(m_old - m_new);
+                        s_corr[t] = corr;
+                        s_m[t] = m_new;
+                        s_l[t] = s_l[t] * corr + l_add;
+                    }
+                }
+                s_p[lane] = pv;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int e = threadIdx.x + q * kThreads;
+                if (e < kTile * hdim) {
+                    const int t = e / hdim, d = e - t * hdim;
+                    float a = acc[q] * s_corr[t];
+                    for (int p = 0; p < nb; ++p)
+                        if (s_slot[p] == t)
+                            a = fmaf(s_p[p], h[(size_t)s_col[p] * hdim + d], a);
+                    acc[q] = a;
+                }
+            }
+            pr.head = (pr.head + nb) & (kRing - 1);
+            pr.count -= nb;
+            __syncthreads();     // the batch's shared arrays are free
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int e = threadIdx.x + q * kThreads;
+            if (e < kTile * hdim) {
+                const int t = e / hdim, d = e - t * hdim;
+                const float l = s_l[t];
+                if (row0 + t < n)
+                    out[(size_t)(row0 + t) * hdim + d] =
+                        l > 0.f ? acc[q] / fmaxf(l, 1e-20f) : 0.f;
+            }
+        }
+        if (stats != nullptr && threadIdx.x < kTile && row0 + threadIdx.x < n)
+            stats[row0 + threadIdx.x] = make_float2(s_m[threadIdx.x],
+                                                    s_l[threadIdx.x]);
+        __syncthreads();         // s_m, s_l, s_xt are the next tile's
     }
-    if (stats != nullptr && lane == 0) stats[i] = make_float2(m, l);
 }
 
 }  // namespace
 
-extern "C" int social_attention_fwd_smem_bytes(int feat) {
-    return (kH1 * kH2 + kH2 * feat + kH2 + feat + kIn * kH1 + kH1)
-           * (int)sizeof(float);
-}
-
-// Launches on `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError() so the caller sees a refused launch.  `stats` [N, 2]
-// may be null (serving: no gradient, no extra stores).
+// Launches u_prep_kernel and the main kernel (`blocks` blocks, each walking
+// tiles blockIdx.x, blockIdx.x + blocks, ...) on `stream`; does not
+// synchronise, allocates nothing; returns cudaGetLastError() so the caller
+// sees a refused launch.  u [N, 64] and c [N] are written for the backward;
+// `stats` [N, 2] may be null (serving: no extra stores).
 extern "C" int social_attention_fwd(const void* x4, const void* ids,
                                     const void* h, const void* wh,
                                     const void* w1, const void* b1,
                                     const void* w2, const void* b2,
                                     const void* w3, const void* b3,
-                                    void* out, void* stats, int n, int hdim,
-                                    int feat, void* stream) {
+                                    void* out, void* stats, void* u, void* c,
+                                    int n, int hdim, int feat, int blocks,
+                                    void* stream) {
     if (n <= 0) return (int)cudaSuccess;
-    const int smem = social_attention_fwd_smem_bytes(feat);
-    const dim3 grid((n + kWarps - 1) / kWarps);
-    social_attention_fwd_kernel<<<grid, kWarps * 32, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+    if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    u_prep_kernel<<<(n + kPrepRows - 1) / kPrepRows, kThreads, 0, st>>>(
+        static_cast<const float*>(wh), static_cast<const float*>(w3),
+        static_cast<const float*>(b3), static_cast<float*>(u),
+        static_cast<float*>(c), n, feat);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_dependent(
+        social_attention_fwd_kernel, dim3(blocks), dim3(kThreads), 0, st,
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
-        static_cast<const float*>(h), static_cast<const float*>(wh),
-        static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<const float*>(w3), static_cast<const float*>(b3),
-        static_cast<float*>(out), static_cast<float2*>(stats), n, hdim,
-        feat);
-    return (int)cudaGetLastError();
+        static_cast<const float*>(h), static_cast<const float*>(u),
+        static_cast<const float*>(c), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2),
+        static_cast<const float*>(b2), static_cast<float*>(out),
+        static_cast<float2*>(stats), n, hdim);
 }

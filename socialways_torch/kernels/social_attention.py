@@ -10,21 +10,27 @@ Source notes.
   ``_kernel`` of socialways_tpu/kernels/social_attention.py:150-198, driven
   by ``_pallas_forward`` (:219-314).  The TPU kernel kept all agents
   resident in VMEM and skipped j-tiles outside a band computed from sorted
-  scene ids; the CUDA kernel gives each query row one warp, stages only the
-  feature-MLP weights in shared memory, tests the scene mask before any
-  pair work, and so needs neither the VMEM agent caps nor sorted ids.
-  Under autograd it also writes the per-row softmax stats (m, l).
+  scene ids.  The CUDA forward is two launches: a prologue computes
+  u_j = W3 wh_j [64] and c_j = b3 . wh_j once per agent, so a pair's score
+  is a2_ij . u_j + c_j (2.2k MAC instead of 6.3k at F = 64); the main
+  kernel gives each block a tile of 2 query rows, finds their same-scene
+  columns by id tests (no sorted-id assumption, no VMEM agent caps) and runs
+  the pair MLP over batches of 32 pairs with all its threads.  It returns
+  u and c, and under autograd the per-row softmax stats (m, l).
 - Backward (csrc/social_attention_bwd.cu) replaces ``_bwd_dq_kernel``
   (:317-369) and ``_bwd_dkv_kernel`` (:372-461), driven by
-  ``_pallas_backward`` (:464-591): dq gives dL/dx_i (one warp per row), dkv
-  gives dL/dx_j, dL/dh_j, dL/d(wh)_j and the feature-MLP weight gradients
-  (one warp per column, per-warp partial sums added in a fixed order by a
-  second pass instead of the TPU's sequential-grid accumulation).
-- Bound on the H100: operations.  Per same-scene pair the forward's
-  3->32->64->F MLP and score cost ~12.8k FLOP at F = 64, dq ~8.8k and dkv
-  ~13k (f32 FMA, no tensor cores), against ~1-2 KB a row of bytes.  The
-  kernels keep the pair intermediates in registers and shared memory and
-  run the MLP only for pairs that exist.
+  ``_pallas_backward`` (:464-591); both read the forward's u and c.  dq
+  gives dL/dx_i (one warp per row).  dkv gives dL/dx_j, dL/dh_j, dL/d(wh)_j
+  and the feature-MLP weight gradients: a block per tile of 2 columns over
+  batches of their pairs, one partial slot per block, then a finalize
+  launch that adds the partials and forms dW3, db3 in parallel fixed-order
+  trees instead of the TPU's sequential-grid accumulation (no atomics:
+  two runs give equal bits).
+- Bound on the H100: operations.  Per same-scene pair the forward costs
+  ~4.4k FLOP at F = 64, dq ~8.8k and dkv ~13k (f32 FMA, no tensor cores),
+  against ~1-2 KB a row of bytes.  The kernels keep the pair intermediates
+  in registers and shared memory and run the MLP only for pairs that
+  exist.
 - ``wh = h W + b`` is one matmul outside the kernels, as the JAX wrapper
   computes it outside the Pallas call (:252-254); autograd pulls dL/d(wh)
   back through it, as the epilogue at :574-579 does.
@@ -47,6 +53,9 @@ from socialways_torch.ops.social import (_NEG_INF, attention_pool,
 _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
 _H2 = 64                      # second hidden width of the feature MLP
+_TILE = 2                     # rows (forward) or columns (dkv) a block takes
+_DKV_MAX_BLOCKS = 4 * 132     # 4 a streaming multiprocessor of an H100
+_PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
 
 
 # ----------------------------------------------------------- plain versions
@@ -119,6 +128,26 @@ def social_attention_bwd_dkv_plain(x4, ids, h, wh, g, stats, r, weights,
     return (dxj, a.T @ g, dwh, *grads)
 
 
+# ------------------------------------------------------------- launch sizes
+def fwd_blocks(n: int) -> int:
+    """Blocks of the forward's main kernel: one per tile of ``_TILE`` rows
+    (128 at N = 256, enough for the H100's 132 SMs)."""
+    return -(-n // _TILE)
+
+
+def dkv_blocks(n: int) -> int:
+    """Blocks of dkv: one per tile of ``_TILE`` columns, at most
+    ``_DKV_MAX_BLOCKS``; a block walks tiles with a stride of the grid, so
+    the per-block partials stay bounded at any N."""
+    return min(fwd_blocks(n), _DKV_MAX_BLOCKS)
+
+
+def dkv_partial_floats(n: int) -> int:
+    """Floats of dkv's partial scratch: one slot of dW2, db2, dW1, db1 per
+    block.  The pair batches live in shared memory, fixed in size."""
+    return dkv_blocks(n) * _PARTIAL
+
+
 # ------------------------------------------------------------------ launches
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     if t.device != device:
@@ -151,12 +180,14 @@ def _check_common(x4, ids, h, wh, weights) -> None:
         _check(f"feat_mlp {name}", t, shape, f32, dev)
 
 
-def _check_bwd(x4, ids, h, wh, g, stats, r, weights) -> None:
+def _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c) -> None:
     _check_common(x4, ids, h, wh, weights)
     n, dev = h.shape[0], h.device
     _check("g", g, tuple(h.shape), torch.float32, dev)
     _check("stats", stats, (n, 2), torch.float32, dev)
     _check("r", r, (n,), torch.float32, dev)
+    _check("u", u, (n, _H2), torch.float32, dev)
+    _check("c", c, (n,), torch.float32, dev)
 
 
 def _lib(name: str, fn: str, n_ptr: int, n_int: int):
@@ -181,71 +212,75 @@ def _call(name: str, f, *args) -> None:
 
 def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
                 with_stats: bool):
+    """(out [N, H], stats [N, 2] or None, u [N, 64], c [N]) from the two
+    launches of the forward kernel; u = wh W3^T and c = wh . b3 are what
+    the backward kernels read."""
     _check_common(x4, ids, h, wh, weights)
     n, hdim = h.shape
-    out = torch.empty((n, hdim), device=h.device, dtype=torch.float32)
-    stats = (torch.empty((n, 2), device=h.device, dtype=torch.float32)
-             if with_stats else None)
-    _call(_FWD, _lib(_FWD, "social_attention_fwd", 12, 3),
-          x4, ids, h, wh, *weights, out, stats, n, hdim, wh.shape[1])
+    kw = dict(device=h.device, dtype=torch.float32)
+    out = torch.empty((n, hdim), **kw)
+    stats = torch.empty((n, 2), **kw) if with_stats else None
+    u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
+    _call(_FWD, _lib(_FWD, "social_attention_fwd", 14, 4),
+          x4, ids, h, wh, *weights, out, stats, u, c, n, hdim, wh.shape[1],
+          fwd_blocks(n))
     social_attention_fwd.launches += 1
-    return out, stats
+    return out, stats, u, c
 
 
 # -------------------------------------------------------- backward wrappers
 def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
-                            weights: Sequence[torch.Tensor]) -> torch.Tensor:
+                            weights: Sequence[torch.Tensor], u: torch.Tensor,
+                            c: torch.Tensor) -> torch.Tensor:
     """dL/dx_i [N, 4] from the cotangent ``g`` [N, H], the forward's
-    ``stats`` [N, 2] = (m, l) and ``r`` [N] = g . out.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    ``stats`` [N, 2] = (m, l), ``r`` [N] = g . out and its ``u`` [N, 64] and
+    ``c`` [N].  CPU tensors take the plain version, which rebuilds the
+    scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
+    or raise."""
     if h.device.type == "cpu":
         return social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r,
                                              weights)
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dq: unsupported device "
                          f"{h.device}")
-    _check_bwd(x4, ids, h, wh, g, stats, r, weights)
+    _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     n, hdim = h.shape
-    kw = dict(device=h.device, dtype=torch.float32)
-    u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    dx = torch.empty((n, 4), **kw)
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 16, 3),
-          x4, ids, h, wh, g, stats, r, *weights, u, c, dx, n, hdim,
-          wh.shape[1])
+    dx = torch.empty((n, 4), device=h.device, dtype=torch.float32)
+    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 2),
+          x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim)
     social_attention_bwd_dq.launches += 1
     return dx
 
 
 def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
-                             weights: Sequence[torch.Tensor],
-                             need_dx: bool = True) -> List:
+                             weights: Sequence[torch.Tensor], u: torch.Tensor,
+                             c: torch.Tensor, need_dx: bool = True) -> List:
     """[dx_j or None, dh_j, dwh_j, dw1, db1, dw2, db2, dw3, db3]; see
-    ``social_attention_bwd_dkv_plain``.  ``need_dx=False`` skips the
-    feature backward of the neighbour side."""
+    ``social_attention_bwd_dkv_plain``, which the CPU path runs (it ignores
+    the forward's ``u`` and ``c``).  ``need_dx=False`` skips the feature
+    backward of the neighbour side.  On CUDA: two launches, dkv and its
+    finalize."""
     if h.device.type == "cpu":
         return list(social_attention_bwd_dkv_plain(
             x4, ids, h, wh, g, stats, r, weights, need_dx))
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dkv: unsupported device "
                          f"{h.device}")
-    _check_bwd(x4, ids, h, wh, g, stats, r, weights)
+    _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     n, hdim = h.shape
     feat = wh.shape[1]
     kw = dict(device=h.device, dtype=torch.float32)
-    lib = _lib(_BWD, "social_attention_bwd_dkv", 24, 3)
-    from socialways_torch.kernels._build import load
-    partial_floats = load(_BWD).social_attention_bwd_partial_floats
-    partial_floats.argtypes = [ctypes.c_int]
-    partial_floats.restype = ctypes.c_int
-    u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
     a_sum, s_sum = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    partial = torch.empty((partial_floats(n),), **kw)
+    partial = torch.empty((dkv_partial_floats(n),), **kw)
     dx = torch.empty((n, 4), **kw) if need_dx else None
     dh, dwh = torch.empty((n, hdim), **kw), torch.empty((n, feat), **kw)
     dw3, db3 = torch.empty((_H2, feat), **kw), torch.empty((feat,), **kw)
-    dmlp12 = torch.empty((32 * _H2 + _H2 + 3 * 32 + 32,), **kw)
-    _call(_BWD, lib, x4, ids, h, wh, g, stats, r, *weights, u, c, a_sum,
-          s_sum, partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim, feat)
+    dmlp12 = torch.empty((_PARTIAL,), **kw)
+    # the C entry refuses a partial size other than its own blocks x slot
+    _call(_BWD, _lib(_BWD, "social_attention_bwd_dkv", 24, 5),
+          x4, ids, h, wh, g, stats, r, u, c, *weights, a_sum, s_sum,
+          partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim, feat,
+          dkv_blocks(n), partial.numel())
     social_attention_bwd_dkv.launches += 1
     dw2 = dmlp12[:32 * _H2].view(32, _H2)
     db2 = dmlp12[32 * _H2:32 * _H2 + _H2]
@@ -261,22 +296,23 @@ class _SocialAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x4, ids, h, wh, *weights):
-        out, stats = _launch_fwd(x4, ids, h, wh, weights, with_stats=True)
-        ctx.save_for_backward(x4, ids, h, wh, out, stats, *weights)
+        out, stats, u, c = _launch_fwd(x4, ids, h, wh, weights,
+                                       with_stats=True)
+        ctx.save_for_backward(x4, ids, h, wh, out, stats, u, c, *weights)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x4, ids, h, wh, out, stats, *weights = ctx.saved_tensors
+        x4, ids, h, wh, out, stats, u, c, *weights = ctx.saved_tensors
         g = g.contiguous()
         r = (g * out).sum(dim=-1)
         need_x = ctx.needs_input_grad[0]
         dxj, dh, dwh, *dweights = social_attention_bwd_dkv(
-            x4, ids, h, wh, g, stats, r, weights, need_dx=need_x)
+            x4, ids, h, wh, g, stats, r, weights, u, c, need_dx=need_x)
         dx = None
         if need_x:
             dx = social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
-                                         weights) + dxj
+                                         weights, u, c) + dxj
         return (dx, None, dh, dwh, *dweights)
 
 

@@ -172,10 +172,11 @@ def test_torch_attention_bwd_wrappers_take_plain_path_on_cpu():
                                                     x4, h, ids)
         wh = linear_apply(gen.attn_w, h)
     stats, r, w = torch.stack([m, l], -1), (g * out).sum(-1), _weights(gen)
+    u, c = wh @ w[4].detach().T, wh @ w[5].detach()
     before = (sa.social_attention_bwd_dq.launches,
               sa.social_attention_bwd_dkv.launches)
-    dq = sa.social_attention_bwd_dq(x4, ids, h, wh, g, stats, r, w)
-    dkv = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w,
+    dq = sa.social_attention_bwd_dq(x4, ids, h, wh, g, stats, r, w, u, c)
+    dkv = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w, u, c,
                                       need_dx=False)
     assert dkv[0] is None and len(dkv) == 9
     assert torch.equal(dq, sa.social_attention_bwd_dq_plain(
@@ -249,23 +250,25 @@ def test_torch_attention_kernels_match_plain_versions_on_cuda():
     w = [t.detach() for t in _weights(gen)]
     with torch.no_grad():
         wh = linear_apply(gen.attn_w, h)
-        out, stats = sa._launch_fwd(x4, ids, h, wh, w, with_stats=True)
+        out, stats, u, c = sa._launch_fwd(x4, ids, h, wh, w, with_stats=True)
         p_out, m, l = sa.social_attention_stats_plain(gen.feat_mlp,
                                                       gen.attn_w, x4, h, ids)
     _assert_kernel_close(out, p_out, "out")
     _assert_kernel_close(stats[:, 0], m, "m")
     _assert_kernel_close(stats[:, 1], l, "l")
+    _assert_kernel_close(u, wh @ w[4].T, "u")
+    _assert_kernel_close(c, wh @ w[5], "c")
     r = (g * out).sum(-1)
-    got_q = sa.social_attention_bwd_dq(x4, ids, h, wh, g, stats, r, w)
+    got_q = sa.social_attention_bwd_dq(x4, ids, h, wh, g, stats, r, w, u, c)
     want_q = sa.social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r, w)
     _assert_kernel_close(got_q, want_q, "dx_i")
-    got = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w)
+    got = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w, u, c)
     want = sa.social_attention_bwd_dkv_plain(x4, ids, h, wh, g, stats, r, w)
     names = ["dx_j", "dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3",
              "db3"]
     for i, (name, a, b) in enumerate(zip(names, got, want)):
         _assert_kernel_close(a, b, name, weight=i >= 3)
-    no_dx = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w,
+    no_dx = sa.social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r, w, u, c,
                                         need_dx=False)
     assert no_dx[0] is None
     for a, b in zip(no_dx[1:], got[1:]):
