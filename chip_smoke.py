@@ -12,8 +12,8 @@ off for both, so the CUDA and CPU paths are held to f32 tolerances.
 
 Phases (any failure raises):
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
-2. build every kernel from csrc/ (one nvcc per source, in parallel) and
-   print ptxas's register and spill lines;
+2. build every kernel from csrc/ (one nvcc per source, in parallel),
+   print ptxas's register and spill lines, and fail if dq spills;
 3. the forward kernel against its plain PyTorch version on the card, f32,
    at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats):
    its two launches alone (``_launch_fwd`` with wh = h W + b computed
@@ -22,9 +22,9 @@ Phases (any failure raises):
 4. the backward kernels (dq, dkv) and the autograd Function against their
    plain versions and autograd through the plain forward, at three
    synthetic shapes, shuffled scene ids, one dense 256-row scene, a ragged
-   N and the training path's first chunk, timed, with the forward's and
-   dkv's time split by launch (torch.profiler) and dkv run twice for equal
-   bits;
+   N and the training path's first chunk, timed, with the forward's, dq's
+   and dkv's time split by launch (torch.profiler), and dq and dkv each
+   run twice for equal bits;
 5. the serving slice end to end through the CLI entry points at the loo
    model's full width (hidden 64, batch 256, K 20, 8+12 steps) on a seeded
    synthetic ETH/UCY-scale windowed npz: ``evaluate`` and ``predict``, the
@@ -44,6 +44,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -208,21 +209,26 @@ def attention_inputs(rng, n: int, hdim: int, scene=0):
 
 def by_launch(torch, fn, calls: int = 20) -> dict:
     """Device time per call of each kernel ``fn()`` launches, by kernel
-    name, from torch.profiler over ``calls`` calls after a warm-up."""
+    name, from torch.profiler over ``calls`` calls after a warm-up.  A
+    trace with no device events (the profiler has returned one now and
+    then) is taken again, up to three times; {} if none has any."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("::")[-1]
-            out[name] = out.get(name, 0.0) + e.device_time / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("::")[-1]
+                out[name] = out.get(name, 0.0) + e.device_time / calls
+        if out:
+            break
     return out
 
 
@@ -337,6 +343,8 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
     dq = sa.social_attention_bwd_dq(*args, *uc)
     dq_ref = sa.social_attention_bwd_dq_plain(*args)
     err_q = check_close(dq, dq_ref, f"{name} dq dx_i", "dx")
+    if not torch.equal(dq, sa.social_attention_bwd_dq(*args, *uc)):
+        raise AssertionError(f"{name} dq: two runs differ in their bits")
     dkv = sa.social_attention_bwd_dkv(*args, *uc, need_dx=False)
     dkv_ref = sa.social_attention_bwd_dkv_plain(*args, need_dx=False)
     kv_names = ["dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3", "db3"]
@@ -374,6 +382,7 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
                      *args, need_dx=False)))}
     dkv_split = by_launch(torch, lambda: sa.social_attention_bwd_dkv(
         *args, *uc, need_dx=False))
+    dq_split = by_launch(torch, lambda: sa.social_attention_bwd_dq(*args, *uc))
     n, hdim = h.shape
     feat = wh.shape[1]
     n_mlp = sum(t_.numel() for t_ in w)
@@ -383,12 +392,13 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
               for k in ("dq", "dkv")}
     bounds["fwd"] = attention_bound(ids_np, n, hdim, feat, n_params)
     print(f"backward [{name}]: Function vs autograd of plain ok; m, l, u, c "
-          f"ok; dq max abs {err_q:.3e}, dkv max abs {err_kv:.3e}, dkv equal "
-          f"bits on two runs | forward alone {fwd_ms * 1e3:.2f} us, with "
+          f"ok; dq max abs {err_q:.3e}, dkv max abs {err_kv:.3e}, dq and dkv "
+          f"equal bits on two runs | forward alone {fwd_ms * 1e3:.2f} us, with "
           f"stats {stats_ms * 1e3:.2f} us (plain {stats_plain_ms * 1e3:.2f} "
           f"us, bound {bounds['fwd']['bound_ms'] * 1e3:.3f}) | dq "
           f"{t['dq'][0] * 1e3:.2f} us (plain {t['dq'][1] * 1e3:.2f}, bound "
-          f"{bounds['dq']['bound_ms'] * 1e3:.3f} {bounds['dq']['bound_by']})"
+          f"{bounds['dq']['bound_ms'] * 1e3:.3f} {bounds['dq']['bound_by']}, "
+          f"{t['dq'][0] / bounds['dq']['bound_ms']:.0f}x)"
           f" | dkv {t['dkv'][0] * 1e3:.2f} us (plain "
           f"{t['dkv'][1] * 1e3:.2f}, bound "
           f"{bounds['dkv']['bound_ms'] * 1e3:.3f} "
@@ -396,10 +406,27 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
           f"{bounds['dq']['pairs_needed']} same-scene pairs")
     fmt = lambda split: ", ".join(f"{k} {v:.2f} us" for k, v in split.items())
     print(f"  by launch [{name}]: forward with stats: {fmt(fwd_split)}; "
-          f"dkv: {fmt(dkv_split)}")
+          f"dq: {fmt(dq_split)}; dkv: {fmt(dkv_split)}")
     return {"err": {"dq": err_q, "dkv": err_kv}, "ms": t, "bounds": bounds,
             "stats_ms": stats_ms, "stats_plain_ms": stats_plain_ms,
-            "fwd_ms": fwd_ms, "split": {"fwd": fwd_split, "dkv": dkv_split}}
+            "fwd_ms": fwd_ms,
+            "split": {"fwd": fwd_split, "dq": dq_split, "dkv": dkv_split}}
+
+
+def ptxas_spills(log: str) -> dict:
+    """{entry function: (spill store bytes, spill load bytes)} from nvcc's
+    ``-Xptxas -v`` output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+            entry = None
+    return out
 
 
 def profile_step(torch, what: str, fn) -> None:
@@ -623,6 +650,13 @@ def main() -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()[:150]}")
+    dq_spills = {k: v for k, v in ptxas_spills(
+        _build.build_logs.get("social_attention_bwd", "")).items()
+        if "bwd_dq_kernel" in k}
+    if len(dq_spills) != 1 or any(sum(v) for v in dq_spills.values()):
+        raise AssertionError(f"bwd_dq_kernel ptxas spills: {dq_spills}")
+    print(f"ptxas: bwd_dq_kernel spill stores/loads "
+          f"{list(dq_spills.values())[0]} bytes")
 
     dev = torch.device("cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -723,10 +757,15 @@ def main() -> int:
                                    t_h.cpu().numpy(),
                                    tc["scene_ids"].cpu().numpy())]
         bwd_err = {"dq": 0.0, "dkv": 0.0}
+        dq_by_input = {}
         for i, (name, g, x4, h, ids) in enumerate(bwd_cases):
             res = backward_case(torch, sa, name, g, x4, h, ids, seed=100 + i)
             for k in bwd_err:
                 bwd_err[k] = max(bwd_err[k], res["err"][k])
+            dq_by_input[name] = {
+                "ms": res["ms"]["dq"][0], "plain_ms": res["ms"]["dq"][1],
+                "bound_ms": res["bounds"]["dq"]["bound_ms"],
+                "by_launch_us": res["split"]["dq"]}
             if name.startswith("path"):
                 bwd_path = res
         del t_tr, st0
@@ -866,7 +905,9 @@ def main() -> int:
                 "library_ms": None,
                 "launch_floor_ms": floor_ms,
             })
-        kernels[-1]["by_launch_us"] = bwd_path["split"]["dkv"]
+        kernels[1]["by_launch_us"] = bwd_path["split"]["dq"]
+        kernels[1]["by_input"] = dq_by_input
+        kernels[2]["by_launch_us"] = bwd_path["split"]["dkv"]
         print(f"train steps/s (epoch 2, loo width, batch {BATCH}): "
               f"{steps_s:.2f}; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s")

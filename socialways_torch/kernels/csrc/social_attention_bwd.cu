@@ -11,7 +11,8 @@
 //   ds_ij = a_ij (g_i . h_j - r_i),  r_i = g_i . out_i
 // and pull ds_ij back through the pair MLP (df_ij = ds_ij wh_j, so the
 // cotangent of a2 is ds_ij u_j) and the pair features:
-//   dq  (one warp per row i, lanes over j):  dx_i = sum_j d s_ij / d x_i
+//   dq  (a block per tile of rows i, all threads over its pairs):
+//        dx_i = sum_j d s_ij / d x_i
 //   dkv (a block per tile of columns j, all threads over its pairs):
 //        dh_j = sum_i a_ij g_i,   dx_j = sum_i d s_ij / d x_j,
 //        A_j = sum_i ds_ij a2_ij [64], S_j = sum_i ds_ij,
@@ -24,27 +25,36 @@
 // the finalize pass adds them: every sum in a fixed order, no atomics, so
 // two runs give equal bits.
 //
-// dkv design (social_attention_pairs.cuh has the pair machinery it shares
-// with the forward).  A block owns kTile = 2 columns at a time (128 blocks at
-// N = 256, at most kDkvMaxBlocks in all, each walking tiles with a stride),
-// finds their same-scene rows by id tests and takes the pairs in batches of
-// 32.  Per batch, in shared memory and registers only:
+// Design (social_attention_pairs.cuh has the pair machinery both share with
+// the forward).  A block owns kTile = 2 agents at a time: query rows in dq
+// (one block per tile), columns in dkv (128 blocks at N = 256, at most 528
+// in all); each walks tiles with the grid's stride, finds the
+// tile's same-scene partners by id tests and takes the pairs in batches of
+// 32.  Per batch, in shared memory and registers only, both kernels run
+// (the helpers below):
 //   layer 1 and the register-tiled layer 2 (4 pairs x 4 outputs a thread);
-//   s, and g_i . h_j as a 16-lane product per pair, then a and ds;
-//   dz2 = [z2 > 0] ds u_j, stored transposed, and ds a2 summed per column;
-//   dz1 = [z1 > 0] dz2 W2^T, register-tiled (4 pairs x 2 outputs);
-//   dW2 += a1^T dz2 as a register tile (4 x 4 a thread, 4 pairs a step), db2,
-//   dW1, db1, A_j, S_j, dh_j and (when asked) dx_j, each in a fixed order.
-// No per-lane arrays of the pair's activations; the weight-gradient partials
-// live in registers for the block's life and are written once.  The
-// finalize is launched as dkv's programmatic dependent and waits for it
-// before its first read.
+//   s, then a and ds from g_i . h_j (pair_ds; dq reads g_i from shared
+//   memory and h_j, u_j, c_j from device memory, dkv the other way round);
+//   dz2 = [z2 > 0] ds u_j, stored transposed (dz2_of, store_dz2);
+//   dz1 = [z1 > 0] dz2 W2^T, register-tiled, 4 pairs x 2 outputs (dz1_tile);
+//   one thread a pair: gf = W1 dz1 and the feature backward (pair_dx).
+// dq forms g_i . h_j one thread a pair, in the plain version's order
+// (gh_serial), beside the features; dkv over a half warp (gh_half_warp).
+// dq then adds each row's dx_i over the batch, thread t < kTile for tile
+// row t in ring order (ascending j), and writes it once per row: one
+// launch, no atomics, no scratch.  dkv also sums ds a2 per column, dW2 +=
+// a1^T dz2 as a register tile (4 x 4 a thread, 4 pairs a step), db2, dW1,
+// db1, A_j, S_j, dh_j and (when asked) dx_j, each in a fixed order; its
+// weight-gradient partials live in registers for the block's life and are
+// written once, and the finalize is launched as its programmatic dependent
+// and waits for it before its first read.  No per-lane arrays of a pair's
+// activations in either kernel.
 //
 // Bound on this card: operations.  Per same-scene pair dq does ~4.4k FMA
-// (features, 3->32->64 recompute, score, the 64->32 and 32->3 cotangents),
-// dkv ~6.5k (the same plus the dW2 outer product); both are f32 FMA work
-// against ~2 KB of bytes a row.  The pair intermediates never reach device
-// memory, and pairs outside a scene cost one id test.
+// (features, 3->32->64 recompute, score, g_i . h_j, the 64->32 and 32->3
+// cotangents), dkv ~6.5k (the same plus the dW2 outer product); both are
+// f32 FMA work against ~2 KB of bytes a row.  The pair intermediates never
+// reach device memory, and pairs outside a scene cost one id test.
 
 #include <cuda_runtime.h>
 
@@ -54,10 +64,11 @@ namespace {
 
 using namespace sa;
 
-constexpr int kDqWarps = 4;                // rows per dq block
 constexpr int kMaxWidth = 128;             // H and F at most
+constexpr int kGStride = kMaxWidth + 16;   // dq's two g_i rows, padded so
+                                           // they start in other banks
 constexpr int kPartial = kH1 * kH2 + kH2 + kIn * kH1 + kH1;   // 2240
-constexpr int kW2Stride = kH2 + 4;         // padded W2 rows in dkv
+constexpr int kW2Stride = kH2 + 4;         // padded W2 rows
 constexpr int kDz2Stride = kBatch + 4;     // dz2^T [kH2][kBatch], padded
 constexpr int kDz1Stride = kH1 + 1;        // dz1 [kBatch][kH1], padded
 constexpr int kPairGroups = kThreads / 16;
@@ -71,67 +82,132 @@ constexpr int kPartSlices = kFinThreads / kPartCols;        // 32
 constexpr int kPartBlocks = (kPartial + kPartCols - 1) / kPartCols;
 static_assert(kW3Slices % kGroup == 0 && kPartSlices % kGroup == 0, "tree");
 
-// a1 = relu(W1 feat + b1), a2 = relu(W2 a1 + b2); returns a2 . u + c.
-__device__ __forceinline__ float pair_recompute(
-        const Geo& q, const float* s_w1, const float* s_b1, const float* s_w2,
-        const float* s_b2, const float* u, const float c, float* a1,
-        float* a2) {
-#pragma unroll
-    for (int k = 0; k < kH1; ++k) {
-        float t = q.feat[0] * s_w1[k];
-        t = fmaf(q.feat[1], s_w1[kH1 + k], t);
-        t = fmaf(q.feat[2], s_w1[2 * kH1 + k], t);
-        a1[k] = fmaxf(t + s_b1[k], 0.f);
-    }
-#pragma unroll
-    for (int o = 0; o < kH2; ++o) a2[o] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kH1; ++k) {
-        const float a = a1[k];
-        const float4* w = reinterpret_cast<const float4*>(s_w2 + k * kH2);
-#pragma unroll
-        for (int q4 = 0; q4 < kH2 / 4; ++q4) {
-            const float4 wq = w[q4];
-            a2[4 * q4 + 0] = fmaf(a, wq.x, a2[4 * q4 + 0]);
-            a2[4 * q4 + 1] = fmaf(a, wq.y, a2[4 * q4 + 1]);
-            a2[4 * q4 + 2] = fmaf(a, wq.z, a2[4 * q4 + 2]);
-            a2[4 * q4 + 3] = fmaf(a, wq.w, a2[4 * q4 + 3]);
-        }
-    }
-    float s = c;
-#pragma unroll
-    for (int o = 0; o < kH2; ++o) {
-        a2[o] = fmaxf(a2[o] + s_b2[o], 0.f);
-        s = fmaf(a2[o], u[o], s);
-    }
-    return s;
+// W1, b1, b2 and W2 (rows padded to kW2Stride) into shared memory.
+__device__ __forceinline__ void stage_mlp12(const float* w1, const float* b1,
+                                            const float* w2, const float* b2,
+                                            float* s_w1, float* s_b1,
+                                            float* s_w2, float* s_b2) {
+    for (int t = threadIdx.x; t < kH1 * kH2 / 4; t += kThreads)
+        reinterpret_cast<float4*>(s_w2)[(t / (kH2 / 4)) * (kW2Stride / 4) + t % (kH2 / 4)] =
+            reinterpret_cast<const float4*>(w2)[t];
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = b2[t];
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = w1[t];
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = b1[t];
 }
 
-// The cotangent of z1 from that of z2 (dz2 [64]), written over a1 where
-// a1 > 0 and 0 elsewhere: dz1_k = [a1_k > 0] sum_o W2[k][o] dz2_o.
-__device__ __forceinline__ void z1_cotangent(const float* s_w2,
-                                             const float* dz2, float* a1) {
-    // reload W2 from shared memory: without this barrier the compiler may
-    // keep all 2048 values from pair_recompute live, and spill them
-    asm volatile("" ::: "memory");
+struct PairDs {
+    float a, ds;
+};
+
+// g_i . h_j over the 16 lanes of a half warp (dkv): lane og = lane & 15
+// adds gi[16 q] hj[16 q] (gi, hj point at element og; chunk = H / 16), then
+// the 16 partials in a fixed tree.  A pair past the batch gives 0.
+__device__ __forceinline__ float gh_half_warp(const float* gi, const float* hj,
+                                              const int chunk, const bool act) {
+    float gh = 0.f;
+    if (act)
+        for (int q = 0; q < chunk; ++q) gh = fmaf(gi[16 * q], hj[16 * q], gh);
+    return half_warp_sum(gh);
+}
+
+// g_i . h_j by one thread (dq), one FMA after another over d = 0 .. H - 1:
+// the order of the plain version's g h^T on the card.  In a row where
+// sum_j a_ij (g_i . h_j - r_i) nearly cancels, dx_i is set by how g . h is
+// rounded; in this order the kernel's rounding is the plain version's.
+// gi and hj 16-byte aligned, H a multiple of 4.
+__device__ __forceinline__ float gh_serial(const float* gi, const float* hj,
+                                           const int hdim) {
+    const float4* g4 = reinterpret_cast<const float4*>(gi);
+    const float4* h4 = reinterpret_cast<const float4*>(hj);
+    float gh = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < hdim / 4; ++q) {
+        const float4 a = g4[q], b = h4[q];
+        gh = fmaf(a.x, b.x, gh);
+        gh = fmaf(a.y, b.y, gh);
+        gh = fmaf(a.z, b.z, gh);
+        gh = fmaf(a.w, b.w, gh);
+    }
+    return gh;
+}
+
+// a_ij and ds_ij of one pair from g_i . h_j, computed by the 16 lanes of a
+// half warp: s = a2 . u_j + c_j from this lane's four outputs (a2i,
+// u4 = u_j + 4 og).  A pair past the batch (act false) gives a = ds = 0.
+// Every lane ends with the same bits.
+__device__ __forceinline__ PairDs pair_ds(const float (&a2i)[4],
+                                          const float4 u4, const float c,
+                                          const float gh, const bool act,
+                                          const float m, const float l,
+                                          const float r) {
+    const float s = half_warp_sum(dot4(a2i, u4)) + c;
+    const float a = act ? expf(s - m) / fmaxf(l, 1e-20f) : 0.f;
+    return {a, a * (gh - r)};
+}
+
+// dz2 = [z2 > 0] ds u_j over this lane's four outputs, written over a2i.
+__device__ __forceinline__ void dz2_of(float (&a2i)[4], const float4 u4,
+                                       const float ds) {
+    const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
-    for (int k = 0; k < kH1; ++k) {
-        const float4* w = reinterpret_cast<const float4*>(s_w2 + k * kH2);
-        float t = 0.f;
+    for (int o = 0; o < 4; ++o) a2i[o] = a2i[o] > 0.f ? ds * uv[o] : 0.f;
+}
+
+// The layer-2 tile's dz2 (pairs 4 pg + i, outputs 4 og + o) into
+// dz2^T [kH2][kDz2Stride].
+__device__ __forceinline__ void store_dz2(float* s_dz2,
+                                          const float (&dz2)[4][4]) {
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
 #pragma unroll
-        for (int q4 = 0; q4 < kH2 / 4; ++q4) {
-            const float4 wq = w[q4];
-            t = fmaf(wq.x, dz2[4 * q4 + 0], t);
-            t = fmaf(wq.y, dz2[4 * q4 + 1], t);
-            t = fmaf(wq.z, dz2[4 * q4 + 2], t);
-            t = fmaf(wq.w, dz2[4 * q4 + 3], t);
+    for (int o = 0; o < 4; ++o)
+        reinterpret_cast<float4*>(s_dz2 + (4 * og + o) * kDz2Stride)[pg] =
+            make_float4(dz2[0][o], dz2[1][o], dz2[2][o], dz2[3][o]);
+}
+
+// dz1 [kBatch][kDz1Stride] = [a1 > 0] dz2 W2^T, register-tiled: thread
+// (pg, og) takes pairs 4 pg + i and outputs k = og, og + 16, so two float4
+// loads of W2 and four of dz2^T feed 32 FMA.
+__device__ __forceinline__ void dz1_tile(const float* s_w2,
+                                         const float* s_dz2,
+                                         const float* s_a1, float* s_dz1) {
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
+    float z[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) z[i][0] = z[i][1] = 0.f;
+#pragma unroll 4
+    for (int o = 0; o < kH2; o += 4) {
+        const float4 wa = *reinterpret_cast<const float4*>(s_w2 + og * kW2Stride + o);
+        const float4 wb = *reinterpret_cast<const float4*>(s_w2 + (og + 16) * kW2Stride + o);
+        const float wav[4] = {wa.x, wa.y, wa.z, wa.w};
+        const float wbv[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float4 d = reinterpret_cast<const float4*>(s_dz2 + (o + q) * kDz2Stride)[pg];
+            const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                z[i][0] = fmaf(wav[q], dv[i], z[i][0]);
+                z[i][1] = fmaf(wbv[q], dv[i], z[i][1]);
+            }
         }
-        a1[k] = a1[k] > 0.f ? t : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int p = 4 * pg + i;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+            const int k = og + 16 * kk;
+            s_dz1[p * kDz1Stride + k] = s_a1[k * kA1Stride + p] > 0.f ? z[i][kk] : 0.f;
+        }
     }
 }
 
-__device__ __forceinline__ void feat_cotangent(const float* s_w1,
-                                               const float* dz1, float* gf) {
+// One thread, one pair (i, j): gf = W1 dz1 (dz1 = the pair's row) and the
+// cotangents of x_i and x_j from it.
+__device__ __forceinline__ void pair_dx(const float* s_w1, const float* dz1,
+                                        const float4 xi, const float4 xj,
+                                        float4& gi, float4& gj) {
+    float gf[kIn];
 #pragma unroll
     for (int c = 0; c < kIn; ++c) {
         float t = 0.f;
@@ -139,19 +215,12 @@ __device__ __forceinline__ void feat_cotangent(const float* s_w1,
         for (int k = 0; k < kH1; ++k) t = fmaf(s_w1[c * kH1 + k], dz1[k], t);
         gf[c] = t;
     }
+    const float vn = speed(xi);
+    const Geo q = pair_geo(xi, vn, xj);
+    geo_backward(q, xi, vn, gf, gi, gj);
 }
 
-__device__ __forceinline__ void load_mlp12(const float* w1, const float* b1,
-                                           const float* w2, const float* b2,
-                                           float* s_w1, float* s_b1,
-                                           float* s_w2, float* s_b2) {
-    for (int t = threadIdx.x; t < kH1 * kH2; t += blockDim.x) s_w2[t] = w2[t];
-    for (int t = threadIdx.x; t < kH2; t += blockDim.x) s_b2[t] = b2[t];
-    for (int t = threadIdx.x; t < kIn * kH1; t += blockDim.x) s_w1[t] = w1[t];
-    for (int t = threadIdx.x; t < kH1; t += blockDim.x) s_b1[t] = b1[t];
-}
-
-__global__ void __launch_bounds__(kDqWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const float* __restrict__ h, const float* __restrict__ g,
               const float2* __restrict__ stats, const float* __restrict__ r,
@@ -159,60 +228,130 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const float* __restrict__ w1, const float* __restrict__ b1,
               const float* __restrict__ w2, const float* __restrict__ b2,
               float4* __restrict__ dx, const int n, const int hdim) {
-    // shared: w2 [32, 64] | b2 [64] | w1 [3, 32] | b1 [32] | g_i per warp
-    __shared__ __align__(16) float s_w2[kH1 * kH2];
-    __shared__ float s_b2[kH2];
+    // Static shared memory, bytes: padded W2 8,704 | a1^T 4,608 | dz2^T
+    // 9,216 | dz1 4,224 | ring 4,096 | g_i 1,152 | W1, b1, b2, the batch's
+    // features, columns, c_j, g_i . h_j and dx_i terms, the tile's stats
+    // 2,248: 34,248 in all (under the 48 KB of static shared memory).
+    __shared__ __align__(16) float s_w2[kH1 * kW2Stride];
+    __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
     __shared__ float s_b1[kH1];
-    __shared__ float s_g[kDqWarps][128];
-    load_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
-    __syncthreads();
+    __shared__ __align__(16) float s_a1[kH1 * kA1Stride];    // a1^T
+    __shared__ __align__(16) float s_dz2[kH2 * kDz2Stride];  // dz2^T
+    __shared__ float s_dz1[kBatch * kDz1Stride];
+    __shared__ __align__(16) float s_g[kTile * kGStride];    // g_i rows
+    __shared__ float s_feat[kIn * kBatch];
+    __shared__ float s_c[kBatch], s_gh[kBatch];
+    __shared__ int s_col[kBatch], s_slot[kBatch];
+    __shared__ float4 s_gi[kBatch];
+    __shared__ float4 s_xt[kTile];
+    __shared__ float s_m[kTile], s_l[kTile], s_r[kTile];
+    __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int i = blockIdx.x * kDqWarps + warp;
-    if (i >= n) return;                      // whole warp: no barrier follows
+    stage_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
+    const int n_tiles = (n + kTile - 1) / kTile;
 
-    const int id_i = ids[i];
-    const float2 st = stats[i];
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (id_i >= 0 && st.y > 0.f) {
-        for (int d = lane; d < hdim; d += 32) s_g[warp][d] = g[(size_t)i * hdim + d];
-        __syncwarp();
-        const float4 xi = x4[i];
-        const float vi_norm = snorm(xi.z * xi.z + xi.w * xi.w);
-        const float l_i = fmaxf(st.y, 1e-20f), r_i = r[i];
-        for (int j0 = 0; j0 < n; j0 += 32) {
-            const int j = j0 + lane;
-            const bool active = j < n && j != i && ids[j] == id_i;
-            if (__ballot_sync(kFull, active) == 0u) continue;
-            if (active) {
-                const Geo q = pair_geo(xi, vi_norm, x4[j]);
-                const float* uj = u + (size_t)j * kH2;
-                float a1[kH1], a2[kH2];
-                const float s = pair_recompute(q, s_w1, s_b1, s_w2, s_b2, uj,
-                                               cvec[j], a1, a2);
-                const float a = expf(s - st.x) / l_i;
-                const float* hj = h + (size_t)j * hdim;
-                float gh = 0.f;
-                for (int d = 0; d < hdim; ++d)
-                    gh = fmaf(s_g[warp][d], hj[d], gh);
-                const float ds = a * (gh - r_i);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int row0 = tile * kTile;
+        int tile_id[kTile], tile_idx[kTile];
 #pragma unroll
-                for (int o = 0; o < kH2; ++o)
-                    a2[o] = a2[o] > 0.f ? ds * uj[o] : 0.f;
-                z1_cotangent(s_w2, a2, a1);
-                float gf[kIn];
-                feat_cotangent(s_w1, a1, gf);
-                float4 gi, gj;
-                geo_backward(q, xi, vi_norm, gf, gi, gj);
-                acc.x += gi.x; acc.y += gi.y; acc.z += gi.z; acc.w += gi.w;
-            }
-            __syncwarp();
+        for (int t = 0; t < kTile; ++t) {
+            tile_idx[t] = row0 + t;
+            tile_id[t] = row0 + t < n ? ids[row0 + t] : -1;
         }
+        if (threadIdx.x < kTile) {
+            const int i = row0 + threadIdx.x;
+            const float2 st = i < n ? stats[i] : make_float2(0.f, 0.f);
+            s_xt[threadIdx.x] = i < n ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+            s_m[threadIdx.x] = st.x;
+            s_l[threadIdx.x] = st.y;
+            s_r[threadIdx.x] = i < n ? r[i] : 0.f;
+        }
+        for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
+            const int t = e / hdim, d = e - t * hdim;
+            s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(row0 + t) * hdim + d] : 0.f;
+        }
+        float4 dxi = make_float4(0.f, 0.f, 0.f, 0.f);   // row t < kTile's sum
+        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        __syncthreads();
+        while (true) {
+            fill_ring(pr, n, ids, tile_id, tile_idx);
+            if (pr.count == 0) break;
+            const int nb = pr.count < kBatch ? pr.count : kBatch;
+            // warp 0: features, column, slot and c_j of each pair; warp 1:
+            // g_i . h_j of each pair; 0 past nb
+            if (threadIdx.x < kBatch) {
+                const int p = threadIdx.x;
+                float f[kIn] = {0.f, 0.f, 0.f};
+                int col = 0, slot = 0;
+                float cj = 0.f;
+                if (p < nb) {
+                    const int e = s_ring[(pr.head + p) & (kRing - 1)];
+                    col = e / kTile;
+                    slot = e - col * kTile;
+                    const float4 xi = s_xt[slot];
+                    const Geo q = pair_geo(xi, speed(xi), x4[col]);
+                    f[0] = q.feat[0]; f[1] = q.feat[1]; f[2] = q.feat[2];
+                    cj = cvec[col];
+                }
+#pragma unroll
+                for (int c = 0; c < kIn; ++c) s_feat[c * kBatch + p] = f[c];
+                s_col[p] = col;
+                s_slot[p] = slot;
+                s_c[p] = cj;
+            } else if (threadIdx.x < 2 * kBatch) {
+                const int p = threadIdx.x - kBatch;
+                float gh = 0.f;
+                if (p < nb) {
+                    const int e = s_ring[(pr.head + p) & (kRing - 1)];
+                    const int col = e / kTile;
+                    gh = gh_serial(s_g + (e - col * kTile) * kGStride,
+                                   h + (size_t)col * hdim, hdim);
+                }
+                s_gh[p] = gh;
+            }
+            __syncthreads();
+            layer1(s_feat, s_w1, s_b1, s_a1);
+            __syncthreads();
+            {
+                float a2[4][4];
+                layer2_tile(s_a1, s_w2, kW2Stride, s_b2, a2);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int p = 4 * pg + i, col = s_col[p], slot = s_slot[p];
+                    const float4 u4 = reinterpret_cast<const float4*>(u + (size_t)col * kH2)[og];
+                    const PairDs d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
+                                             s_m[slot], s_l[slot], s_r[slot]);
+                    dz2_of(a2[i], u4, d.ds);
+                }
+                store_dz2(s_dz2, a2);
+            }
+            __syncthreads();
+            dz1_tile(s_w2, s_dz2, s_a1, s_dz1);
+            __syncthreads();
+            if (threadIdx.x < kBatch) {     // warp 0
+                const int p = threadIdx.x;
+                float4 gi = make_float4(0.f, 0.f, 0.f, 0.f), gj;
+                if (p < nb)
+                    pair_dx(s_w1, s_dz1 + p * kDz1Stride, s_xt[s_slot[p]],
+                            x4[s_col[p]], gi, gj);
+                s_gi[p] = gi;
+                __syncwarp();
+                if (p < kTile)
+                    for (int q = 0; q < nb; ++q)
+                        if (s_slot[q] == p) {
+                            const float4 v = s_gi[q];
+                            dxi.x += v.x; dxi.y += v.y; dxi.z += v.z; dxi.w += v.w;
+                        }
+            }
+            pr.head = (pr.head + nb) & (kRing - 1);
+            pr.count -= nb;
+            __syncthreads();     // the batch's shared arrays are free
+        }
+        if (threadIdx.x < kTile && row0 + (int)threadIdx.x < n) dx[row0 + threadIdx.x] = dxi;
+        __syncthreads();         // s_xt, s_m, s_l, s_r, s_g are the next tile's
     }
-    acc.x = warp_sum(acc.x); acc.y = warp_sum(acc.y);
-    acc.z = warp_sum(acc.z); acc.w = warp_sum(acc.w);
-    if (lane == 0) dx[i] = acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -247,13 +386,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float s_ct[kTile], s_S[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    for (int t = threadIdx.x; t < kH1 * kH2 / 4; t += kThreads)
-        reinterpret_cast<float4*>(s_w2)[(t / (kH2 / 4)) * (kW2Stride / 4) + t % (kH2 / 4)] =
-            reinterpret_cast<const float4*>(w2)[t];
-    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = b2[t];
-    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = w1[t];
-    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = b1[t];
-
+    stage_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
     pdl_launch_dependents();     // the finalize may start, and waits for us
     const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
     // the block's weight-gradient partials: dW2[4 pg + i][og + 16 q],
@@ -338,34 +471,23 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(s_u + slot * kH2)[og];
-                    const float* gi = g + (size_t)s_row[p] * hdim + og;
-                    const float* hj = s_h + slot * kMaxWidth + og;
-                    float gh = 0.f;
-                    if (p < nb)
-                        for (int q = 0; q < chunk; ++q)
-                            gh = fmaf(gi[16 * q], hj[16 * q], gh);
-                    const float s = half_warp_sum(dot4(a2[i], u4)) + s_ct[slot];
-                    gh = half_warp_sum(gh);
-                    const float a = p < nb ? expf(s - s_m[p]) / fmaxf(s_l[p], 1e-20f)
-                                           : 0.f;
-                    const float ds = a * (gh - s_r[p]);
+                    const float gh = gh_half_warp(g + (size_t)s_row[p] * hdim + og,
+                                                  s_h + slot * kMaxWidth + og, chunk,
+                                                  p < nb);
+                    const PairDs d = pair_ds(a2[i], u4, s_ct[slot], gh, p < nb,
+                                             s_m[p], s_l[p], s_r[p]);
                     if (og == 0) {
-                        s_a[p] = a;
-                        s_ds[p] = ds;
+                        s_a[p] = d.a;
+                        s_ds[p] = d.ds;
                     }
-                    const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
-                    for (int o = 0; o < 4; ++o) {
+                    for (int o = 0; o < 4; ++o)
 #pragma unroll
                         for (int c = 0; c < kTile; ++c)
-                            ap[c][o] = fmaf(slot == c ? ds : 0.f, a2[i][o], ap[c][o]);
-                        a2[i][o] = a2[i][o] > 0.f ? ds * uv[o] : 0.f;   // dz2
-                    }
+                            ap[c][o] = fmaf(slot == c ? d.ds : 0.f, a2[i][o], ap[c][o]);
+                    dz2_of(a2[i], u4, d.ds);
                 }
-#pragma unroll
-                for (int o = 0; o < 4; ++o)
-                    reinterpret_cast<float4*>(s_dz2 + (4 * og + o) * kDz2Stride)[pg] =
-                        make_float4(a2[0][o], a2[1][o], a2[2][o], a2[3][o]);
+                store_dz2(s_dz2, a2);
 #pragma unroll
                 for (int c = 0; c < kTile; ++c)
 #pragma unroll
@@ -373,39 +495,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                         s_apart[(pg * kTile + c) * kH2 + 4 * og + o] = ap[c][o];
             }
             __syncthreads();
-            {
-                // dz1[p][k] for pairs 4 pg + i and k = og, og + 16
-                float z[4][2];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) z[i][0] = z[i][1] = 0.f;
-#pragma unroll 4
-                for (int o = 0; o < kH2; o += 4) {
-                    const float4 wa = *reinterpret_cast<const float4*>(s_w2 + og * kW2Stride + o);
-                    const float4 wb = *reinterpret_cast<const float4*>(s_w2 + (og + 16) * kW2Stride + o);
-                    const float wav[4] = {wa.x, wa.y, wa.z, wa.w};
-                    const float wbv[4] = {wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) {
-                        const float4 d = reinterpret_cast<const float4*>(s_dz2 + (o + q) * kDz2Stride)[pg];
-                        const float dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            z[i][0] = fmaf(wav[q], dv[i], z[i][0]);
-                            z[i][1] = fmaf(wbv[q], dv[i], z[i][1]);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int p = 4 * pg + i;
-#pragma unroll
-                    for (int kk = 0; kk < 2; ++kk) {
-                        const int k = og + 16 * kk;
-                        s_dz1[p * kDz1Stride + k] =
-                            s_a1[k * kA1Stride + p] > 0.f ? z[i][kk] : 0.f;
-                    }
-                }
-            }
+            dz1_tile(s_w2, s_dz2, s_a1, s_dz1);
             {
                 const int c = threadIdx.x >> 6, o = threadIdx.x & (kH2 - 1);
                 float a = A;
@@ -467,23 +557,10 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             if (dx != nullptr) {
                 if (threadIdx.x < kBatch) {
                     const int p = threadIdx.x;
-                    float4 gj = make_float4(0.f, 0.f, 0.f, 0.f);
-                    if (p < nb) {
-                        float gf[kIn];
-#pragma unroll
-                        for (int c = 0; c < kIn; ++c) {
-                            float t = 0.f;
-#pragma unroll
-                            for (int k = 0; k < kH1; ++k)
-                                t = fmaf(s_w1[c * kH1 + k], s_dz1[p * kDz1Stride + k], t);
-                            gf[c] = t;
-                        }
-                        const float4 xi = x4[s_row[p]];
-                        const float vn = speed(xi);
-                        const Geo q = pair_geo(xi, vn, s_xt[s_slot[p]]);
-                        float4 gi;
-                        geo_backward(q, xi, vn, gf, gi, gj);
-                    }
+                    float4 gi, gj = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (p < nb)
+                        pair_dx(s_w1, s_dz1 + p * kDz1Stride, x4[s_row[p]],
+                                s_xt[s_slot[p]], gi, gj);
                     s_gj[p] = gj;
                 }
                 __syncthreads();
@@ -629,17 +706,20 @@ bwd_finalize_kernel(const float* __restrict__ wh,
 
 }  // namespace
 
-// dx_i [N, 4] from the forward's u [N, 64] and c [N].  Launches on
-// `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError().
+// dx_i [N, 4] from the forward's u [N, 64] and c [N]: one launch of
+// `blocks` blocks, each walking row tiles blockIdx.x, blockIdx.x + blocks,
+// ...  Launches on `stream`, does not synchronise, allocates nothing;
+// returns cudaGetLastError(), or cudaErrorInvalidValue for blocks <= 0 or
+// an H the kernel does not take (a multiple of 16 up to 128).
 extern "C" int social_attention_bwd_dq(
         const void* x4, const void* ids, const void* h, const void* g,
         const void* stats, const void* r, const void* u, const void* c,
         const void* w1, const void* b1, const void* w2, const void* b2,
-        void* dx, int n, int hdim, void* stream) {
+        void* dx, int n, int hdim, int blocks, void* stream) {
     if (n <= 0) return (int)cudaSuccess;
-    bwd_dq_kernel<<<(n + kDqWarps - 1) / kDqWarps, kDqWarps * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    if (blocks <= 0 || hdim <= 0 || hdim > kMaxWidth || hdim % 16)
+        return (int)cudaErrorInvalidValue;
+    bwd_dq_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const float*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),

@@ -1,10 +1,13 @@
-// Pair machinery shared by the social-attention forward
-// (social_attention_fwd.cu) and the dkv backward (social_attention_bwd.cu).
+// Pair machinery shared by the three social-attention kernels: the forward
+// (social_attention_fwd.cu) and the dq and dkv backward
+// (social_attention_bwd.cu, which also holds the backward steps dq and dkv
+// share).
 //
-// Both kernels work on the same-scene pairs (i, j), both valid, i != j.  A
-// block owns a tile of kTile agents (query rows in the forward, columns in
-// dkv) and finds their partners by id tests over all N agents, so no order
-// of the scene ids is assumed (unsorted ids are masked, never dropped).  The
+// All three work on the same-scene pairs (i, j), both valid, i != j.  A
+// block owns a tile of kTile agents (query rows in the forward and dq,
+// columns in dkv) and finds their partners by id tests over all N agents, so
+// no order of the scene ids is assumed (unsorted ids are masked, never
+// dropped).  The
 // pairs it finds go into a ring in shared memory and leave it in batches of
 // at most kBatch; per batch all kThreads threads run the pair MLP:
 //   features (dist, bearing, dca)        one thread a pair
@@ -14,7 +17,7 @@
 //        from shared memory feed 16 FMA
 //   s  = a2 . u_j + c_j       u_j = W3 wh_j [64], c_j = b3 . wh_j
 //        (= f_ij . wh_j; 2,208 MAC a pair instead of 6,304 at F = 64)
-// Every sum runs in a fixed order, so the forward and dkv rebuild the same
+// Every sum runs in a fixed order, so the three kernels rebuild the same
 // score bits from the same u and c.
 
 #pragma once

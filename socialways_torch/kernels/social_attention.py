@@ -19,13 +19,16 @@ Source notes.
   u and c, and under autograd the per-row softmax stats (m, l).
 - Backward (csrc/social_attention_bwd.cu) replaces ``_bwd_dq_kernel``
   (:317-369) and ``_bwd_dkv_kernel`` (:372-461), driven by
-  ``_pallas_backward`` (:464-591); both read the forward's u and c.  dq
-  gives dL/dx_i (one warp per row).  dkv gives dL/dx_j, dL/dh_j, dL/d(wh)_j
-  and the feature-MLP weight gradients: a block per tile of 2 columns over
-  batches of their pairs, one partial slot per block, then a finalize
-  launch that adds the partials and forms dW3, db3 in parallel fixed-order
-  trees instead of the TPU's sequential-grid accumulation (no atomics:
-  two runs give equal bits).
+  ``_pallas_backward`` (:464-591); both read the forward's u and c and take
+  a tile of 2 agents a block over batches of their pairs from the same
+  shared-memory pair ring as the forward, with the same register-tiled
+  cotangent steps.  dq gives dL/dx_i: a tile of 2 query rows, each row's
+  sum added in ring order and written once (one launch, no scratch).  dkv
+  gives dL/dx_j, dL/dh_j, dL/d(wh)_j and the feature-MLP weight gradients:
+  a tile of 2 columns, one partial slot per block, then a finalize launch
+  that adds the partials and forms dW3, db3 in parallel fixed-order trees
+  instead of the TPU's sequential-grid accumulation.  No atomics in
+  either: two runs give equal bits.
 - Bound on the H100: operations.  Per same-scene pair the forward costs
   ~4.4k FLOP at F = 64, dq ~8.8k and dkv ~13k (f32 FMA, no tensor cores),
   against ~1-2 KB a row of bytes.  The kernels keep the pair intermediates
@@ -53,7 +56,7 @@ from socialways_torch.ops.social import (_NEG_INF, attention_pool,
 _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
 _H2 = 64                      # second hidden width of the feature MLP
-_TILE = 2                     # rows (forward) or columns (dkv) a block takes
+_TILE = 2                     # rows (forward, dq) or columns (dkv) a block takes
 _DKV_MAX_BLOCKS = 4 * 132     # 4 a streaming multiprocessor of an H100
 _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
 
@@ -133,6 +136,12 @@ def fwd_blocks(n: int) -> int:
     """Blocks of the forward's main kernel: one per tile of ``_TILE`` rows
     (128 at N = 256, enough for the H100's 132 SMs)."""
     return -(-n // _TILE)
+
+
+def dq_blocks(n: int) -> int:
+    """Blocks of dq: one per tile of ``_TILE`` query rows, as the forward.
+    dq keeps no per-block partials, so its grid needs no cap."""
+    return fwd_blocks(n)
 
 
 def dkv_blocks(n: int) -> int:
@@ -236,7 +245,7 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     ``stats`` [N, 2] = (m, l), ``r`` [N] = g . out and its ``u`` [N, 64] and
     ``c`` [N].  CPU tensors take the plain version, which rebuilds the
     scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
-    or raise."""
+    (one launch of ``dq_blocks(N)`` blocks) or raise."""
     if h.device.type == "cpu":
         return social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r,
                                              weights)
@@ -246,8 +255,9 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     n, hdim = h.shape
     dx = torch.empty((n, 4), device=h.device, dtype=torch.float32)
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 2),
-          x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim)
+    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 3),
+          x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim,
+          dq_blocks(n))
     social_attention_bwd_dq.launches += 1
     return dx
 

@@ -116,15 +116,17 @@ def test_torch_uform_attention_matches_xla_reference(kind, hidden):
 @pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 1055, 1056, 1057,
                                2048, 100_000])
 def test_torch_attention_launch_sizes(n):
-    """Tiles of 2 agents: ceil(N / 2) forward blocks; dkv at most 528
+    """Tiles of 2 agents: ceil(N / 2) forward and dq blocks (dq keeps no
+    per-block partials, so its grid is not capped); dkv at most 528
     blocks, one 2240-float partial slot each; a block walks tiles b,
     b + blocks, ... so every tile is taken exactly once."""
     tiles = (n + 1) // 2
     assert sa.fwd_blocks(n) == tiles
+    assert sa.dq_blocks(n) == tiles
     assert sa.dkv_blocks(n) == min(tiles, 528)
     assert sa.dkv_partial_floats(n) == sa.dkv_blocks(n) * 2240
-    assert sa.fwd_blocks(256) == 128          # fills the H100's 132 SMs
-    for blocks in (sa.fwd_blocks(n), sa.dkv_blocks(n)):
+    assert sa.fwd_blocks(256) == sa.dq_blocks(256) == 128   # ~ the 132 SMs
+    for blocks in (sa.fwd_blocks(n), sa.dq_blocks(n), sa.dkv_blocks(n)):
         walked = np.concatenate([np.arange(b, tiles, blocks)
                                  for b in range(blocks)])
         assert walked.size == tiles
