@@ -35,7 +35,15 @@ Phases (any failure raises):
    counts, train steps/s, a profiled step, ``reinit_discriminator``;
 7. ``cli train --recipe loo`` for 2 epochs, a resumed 3rd, ``evaluate`` of
    the final checkpoint;
-8. a ``kernels`` JSON line, then the device JSON as the last line.
+8. the real-data pipeline at the same width: five synthetic obsmat scenes
+   in the public layouts (a space-separated zara file among them, plus an
+   umbrella-directory file and a decoy that are not scenes), ``cli
+   eth-ucy`` on them (discovery, npz build, 5 folds of 3 epochs with an
+   eval each) with the kernels' launches against its steps and eval
+   chunks, the folds' train steps/s and the projected 30k-epoch fold;
+   ``cli predict`` on a raw obsmat file; ``cli evaluate --linear kalman``
+   and ``predict_kalman`` on the card against the CPU;
+9. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -604,6 +612,192 @@ def cli_phase(torch, cli_main, npz, work):
         raise AssertionError(f"cli evaluate returned {rc}")
 
 
+#: the public layouts of the ETH/UCY obsmat files; zara01 space-separated
+#: (the BIWI 'zara' rule asks for tabs), zara02 tab-separated
+SCENE_LAYOUT = {
+    "eth": ("ewap_dataset/seq_eth/obsmat.txt", " "),
+    "hotel": ("ewap_dataset/seq_hotel/obsmat.txt", " "),
+    "univ": ("crowds/students003/obsmat.txt", " "),
+    "zara1": ("crowds/zara01/obsmat.txt", " "),
+    "zara2": ("obsmat_zara2.txt", "\t"),
+}
+
+
+def write_obsmat_scenes(root: str, n_agents: int = 110, seed: int = 0
+                        ) -> dict:
+    """Five synthetic ETH/UCY scenes as obsmat files (rows ``ts id px pz py
+    vx vz vy``, frame interval 10, 0.4 s a step) in SCENE_LAYOUT, plus an
+    obsmat under the 'ethucy' umbrella directory and a decoy that fails
+    validation, neither of which is a scene.  Per scene: ``n_agents``
+    pedestrians entering every other frame or so, walking 0.8-1.6 m/s for
+    22-30 steps with slight turns in a 15 m square.  Returns {scene: path}."""
+    paths = {}
+    files = dict(SCENE_LAYOUT, umbrella=("ethucy/obsmat.txt", " "))
+    for i, (name, (rel, sep)) in enumerate(files.items()):
+        rng = np.random.RandomState(seed + i)
+        rows, t0 = [], 0
+        for aid in range(1, n_agents + 1):
+            t0 += int(rng.poisson(1.2))
+            n = int(rng.randint(22, 31))
+            heading = rng.uniform(0, 2 * np.pi) + np.cumsum(
+                rng.normal(0, 0.05, n))
+            vel = rng.uniform(0.8, 1.6) * np.stack(
+                [np.cos(heading), np.sin(heading)], axis=1)
+            pos = rng.uniform(0, 15, 2) + np.cumsum(vel * 0.4, axis=0)
+            rows += [((t0 + k) * 10, aid, pos[k, 0], 0.0, pos[k, 1],
+                      vel[k, 0], 0.0, vel[k, 1]) for k in range(n)]
+        rows.sort(key=lambda r: (r[0], r[1]))
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.writelines(sep.join(f"{v:.6f}" for v in r) + "\n"
+                          for r in rows)
+        paths[name] = path
+    with open(os.path.join(root, "notes_obsmat.txt"), "w") as fh:
+        fh.write("1 2 3\n4 5 6\n")
+    del paths["umbrella"]
+    return paths
+
+
+def realdata_phase(torch, sa, cli_main, dev, ckpt, work):
+    """Phase 8: the real-data pipeline on the card at the loo width: cli
+    eth-ucy on five discovered obsmat scenes (3 epochs, an eval each),
+    cli predict on a raw obsmat file, cli evaluate --linear kalman and
+    predict_kalman on the card against the CPU."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
+    from socialways_torch.data.forecast import forecast_windows
+    from socialways_torch.data.parsers import BIWIParser
+    from socialways_torch.engine.ethucy import merge_scenes
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.ops.kalman import predict_kalman
+
+    tic_phase = time.perf_counter()
+    data = os.path.join(work, "ethucy_raw")
+    obsmat = write_obsmat_scenes(data)
+    epochs = 3
+    out_json = os.path.join(work, "loo.json")
+    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
+               sa.social_attention_bwd_dkv):
+        fn.launches = 0
+    buf, tic = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["eth-ucy", "--data-dir", data, "--epochs",
+                       str(epochs), "--eval-every", "1", "--out-json",
+                       out_json])
+    torch.cuda.synchronize()
+    loo_s = time.perf_counter() - tic
+    launches = {"fwd": sa.social_attention_fwd.launches,
+                "dq": sa.social_attention_bwd_dq.launches,
+                "dkv": sa.social_attention_bwd_dkv.launches}
+    for line in buf.getvalue().splitlines():
+        print(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"cli eth-ucy returned {rc}")
+    with open(out_json) as fh:
+        res = json.load(fh)
+    found = {s: m["obsmat"] for s, m in res["scenes"].items()}
+    if found != obsmat:
+        raise AssertionError(f"eth-ucy discovered {found}, not {obsmat}")
+
+    # the steps and eval chunks the run had to launch the kernels for
+    scenes = list(obsmat)
+    files = {s: os.path.join(data, f"{s}-8-12.npz") for s in scenes}
+    steps = evals = 0
+    folds = {}
+    for held in scenes:
+        r = res["folds"][held]
+        for key in ("ade_min", "best_ade_min", "train_time_s"):
+            if not np.isfinite(r[key]):
+                raise AssertionError(f"fold {held}: {key} = {r[key]}")
+        ds = merge_scenes([files[s] for s in scenes if s != held],
+                          files[held])
+        n_steps = len(greedy_chunks(ds.train_batches, BATCH))
+        n_eval = len(greedy_chunks(ds.test_batches, BATCH))
+        steps += n_steps * epochs
+        evals += n_eval * epochs
+        folds[held] = (n_steps, ds.n_train_samples, r)
+        print(f"eth-ucy fold {held}: {ds.n_train_samples} training windows "
+              f"in {n_steps} chunks, {epochs} epochs in "
+              f"{r['train_time_s']:.3f} s train ({r['total_wall_s']:.3f} s "
+              f"fold wall) = {n_steps * epochs / r['train_time_s']:.2f} "
+              f"train steps/s; min-ADE/FDE {r['ade_min']:.3f}/"
+              f"{r['fde_min']:.3f} m, best {r['best_ade_min']:.3f}")
+    # one forward a step and an eval chunk (the final eval reuses the last
+    # in-loop one), the key-side backward a step
+    if launches["fwd"] != steps + evals or launches["dkv"] != steps \
+            or launches["dq"] != 0:
+        raise AssertionError(f"eth-ucy launched {launches} for {steps} "
+                             f"train steps and {evals} eval chunks")
+    rate = steps / sum(f[2]["train_time_s"] for f in folds.values())
+    per_epoch = np.mean([f[0] for f in folds.values()])
+    print(f"eth-ucy: 5 scenes discovered (decoy and umbrella left out), "
+          f"{steps} train steps + {evals} eval chunks, launches fwd "
+          f"{launches['fwd']} dkv {launches['dkv']} dq {launches['dq']}; "
+          f"{loo_s:.2f} s wall (CLI, incl. discovery and npz build); "
+          f"{rate:.2f} train steps/s over the folds -> a 30k-epoch fold "
+          f"({per_epoch:.1f} steps an epoch) projects to "
+          f"{30000 * per_epoch / rate / 3600:.2f} h")
+
+    # raw-file serving: everyone in the zara1 scene at its busiest frame
+    raw = obsmat["zara1"]
+    p = BIWIParser().load(raw)
+
+    def n_ready(t):
+        try:
+            return len(forecast_windows(p.p_data, p.t_data, N_PAST, 10,
+                                        t)[1])
+        except ValueError:
+            return 0
+    busiest = int(max(np.unique(np.concatenate(p.t_data)), key=n_ready))
+    want_idx = forecast_windows(p.p_data, p.t_data, N_PAST, 10, busiest)[1]
+    out = os.path.join(work, "raw_predictions.npz")
+    sa.social_attention_fwd.launches = 0
+    buf, tic = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["predict", "--data", raw, "--model-file", ckpt,
+                       "--at-time", str(busiest), "--out", out])
+    raw_s = time.perf_counter() - tic
+    raw_launches = sa.social_attention_fwd.launches
+    if rc != 0:
+        raise AssertionError(f"cli predict on {raw} returned {rc}")
+    with np.load(out) as d:
+        n = len(want_idx)
+        if (d["preds_our"].shape != (K, n, N_NEXT, 2)
+                or d["obsvs"].shape != (n, N_PAST, 2)
+                or not np.isfinite(d["preds_our"]).all()
+                or not np.array_equal(d["agent_idx"], want_idx)
+                or int(d["timestamp"]) != busiest or raw_launches != 1):
+            raise AssertionError(
+                f"raw predict: preds_our {d['preds_our'].shape}, agent_idx "
+                f"{d['agent_idx']} (want {want_idx}), timestamp "
+                f"{d['timestamp']} (want {busiest}), {raw_launches} "
+                f"launches")
+    print(f"predict on raw {os.path.relpath(raw, data)}: {n} agents at "
+          f"t={busiest}, preds_our {(K, n, N_NEXT, 2)}, {raw_launches} "
+          f"forward launch, {raw_s:.3f} s wall (CLI, incl. parse and load)")
+
+    # the Kalman baseline: the CLI on the card, and the card against the CPU
+    npz = files["eth"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["evaluate", "--data", npz, "--linear", "kalman"])
+    if rc != 0:
+        raise AssertionError(f"cli evaluate --linear kalman returned {rc}")
+    print(f"cli evaluate --linear kalman: {buf.getvalue().strip()}")
+    tr = Trainer(TrainConfig(), load_npz_dataset(npz), dev)
+    obsv = chunk_of(tr.test_dev, 0)["obsvs"]
+    k_dev = predict_kalman(obsv, N_NEXT)
+    k_cpu = predict_kalman(obsv.cpu(), N_NEXT)
+    diff = float((k_dev.cpu() - k_cpu).abs().max())
+    if not bool(k_dev.isfinite().all()) or diff > 1e-5:
+        raise AssertionError(f"predict_kalman cuda vs cpu: max abs {diff}")
+    print(f"predict_kalman cuda vs cpu on test chunk 0 ({obsv.shape[0]} "
+          f"rows): max abs {diff:.3e} (atol 1e-5, normalized units)")
+    print(f"real-data phase: {time.perf_counter() - tic_phase:.2f} s wall")
+    return launches, raw_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -861,6 +1055,10 @@ def main() -> int:
         # ---- 7. the CLI's train --recipe loo, resume, evaluate
         cli_phase(torch, cli_main, npz, work)
 
+        # ---- 8. the real-data pipeline: eth-ucy, raw predict, Kalman
+        launches_loo, launches_raw = realdata_phase(torch, sa, cli_main, dev,
+                                                    ckpt, work)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -873,7 +1071,9 @@ def main() -> int:
             "replaces": f"{tpu}:150 (_kernel)",
             "launches": launches_train["fwd"],
             "launches_by_path": {"serving": launches_serving,
-                                 "training": launches_train["fwd"]},
+                                 "training": launches_train["fwd"],
+                                 "eth_ucy": launches_loo["fwd"],
+                                 "raw_predict": launches_raw},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -896,6 +1096,8 @@ def main() -> int:
                 "source": src + "social_attention_bwd.cu",
                 "replaces": f"{tpu}:{line} ({fn})",
                 "launches": launches_train[key],
+                "launches_by_path": {"training": launches_train[key],
+                                     "eth_ucy": launches_loo[key]},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],

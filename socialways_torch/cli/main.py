@@ -1,19 +1,25 @@
-"""Command-line entry points of the port: training and serving.
+"""Command-line entry points of the port: training, serving and the
+real-data pipeline.
 
+    python -m socialways_torch.cli.main create-dataset obsmat.txt hotel-8-12.npz
+    python -m socialways_torch.cli.main create-toy --npz toy.npz
     python -m socialways_torch.cli.main train --recipe loo --data hotel-8-12.npz --epochs 100
+    python -m socialways_torch.cli.main eth-ucy --data-dir ethucy/ --epochs 30000
     python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --model-file ckpt.npz
-    python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --linear
+    python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --linear kalman
     python -m socialways_torch.cli.main predict --data hotel-8-12.npz --model-file ckpt.npz --out preds.npz
+    python -m socialways_torch.cli.main predict --data obsmat.txt --model-file ckpt.npz
     python -m socialways_torch.cli.main --cpu train ...   # run on the CPU
 
-Flags, outputs and printouts follow socialways_tpu/cli/main.py:519-762
-(train) and :822-974 (evaluate, predict).  Everything runs on the GPU
-unless ``--cpu`` is given.  ``train`` takes only the flags of what the port
-implements (the loo recipe's feature set); argparse refuses the others.
-The model flags of evaluate/predict are the widths and switches of the
-served FC generator; a checkpoint's embedded config overrides them.  The
-other recipes, ``eth-ucy``, ``predict`` on raw annotation files and
-``--linear kalman`` belong to later slices of the port.
+Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
+(create-toy, create-dataset), :519-762 (train), :822-974 (evaluate,
+predict) and :1039-1101 (eth-ucy).  Everything that runs a model runs on
+the GPU unless ``--cpu`` is given; ``create-*`` are host-only.  ``train``
+and ``eth-ucy`` take only the flags of what the port implements (the loo
+recipe's feature set); argparse refuses the others, and ``eth-ucy``
+without ``--recipe`` runs the loo recipe (``--recipe=`` opts out).  The
+model flags of evaluate/predict are the widths and switches of the served
+FC generator; a checkpoint's embedded config overrides them.
 """
 
 from __future__ import annotations
@@ -26,11 +32,12 @@ import numpy as np
 import torch
 
 
-#: ``train --recipe NAME`` expands to these flags right after ``train``, so
-#: explicit flags override them (socialways_tpu/cli/main.py:50-58: the
-#: record real-data arm: agent frame + social attention + EMA + annealed D
-#: instance noise with a 0.02 floor + the signature-gated ADE-stall
-#: rescue).  The JAX package's other recipes are not ported.
+#: ``--recipe NAME`` (``train``, ``eth-ucy``) expands to these flags right
+#: after the subcommand, so explicit flags override them
+#: (socialways_tpu/cli/main.py:50-58: the record real-data arm: agent frame
+#: + social attention + EMA + annealed D instance noise with a 0.02 floor +
+#: the signature-gated ADE-stall rescue).  The JAX package's other recipes
+#: are not ported.
 RECIPES = {
     "loo": ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
             "--d-input-noise", "0.05", "--d-input-noise-steps", "-1",
@@ -86,6 +93,49 @@ def _load_generator(args, cfg, device):
     return gen, 0, None
 
 
+def cmd_create_toy(args) -> int:
+    from socialways_torch.data.toy import (create_toy_samples,
+                                           make_toy_npz_arrays, write_toy_txt)
+    arrays = make_toy_npz_arrays(n_samples=args.n_samples,
+                                 n_conditions=args.n_conditions,
+                                 n_modes=args.n_modes,
+                                 n_per_batch=args.n_per_batch,
+                                 seed=args.seed)
+    if args.npz:
+        np.savez(args.npz, **arrays)
+        print(f"wrote {args.npz}: obsvs {arrays['obsvs'].shape}, "
+              f"{len(arrays['batches'])} scene batches")
+    if args.txt:
+        rng = np.random.RandomState(args.seed)
+        samples, stamps = create_toy_samples(
+            args.n_samples, args.n_conditions, args.n_modes,
+            args.n_per_batch, rng=rng)
+        write_toy_txt(samples, stamps, args.txt)
+        print(f"wrote {args.txt}")
+    return 0
+
+
+def cmd_create_dataset(args) -> int:
+    from socialways_torch.data.parsers import PARSERS
+    from socialways_torch.data.windowing import create_dataset
+    p = PARSERS[args.parser]()
+    p.load(args.input, down_sample=args.down_sample)
+    if not p.p_data:
+        raise SystemExit(f"error: no trajectories parsed from {args.input} "
+                         f"with the '{args.parser}' parser — wrong format?")
+    interval = p.interval if p.interval > 0 else 1
+    # the half-open range of the JAX CLI (eth-ucy's scene build closes it)
+    t_range = range(int(p.min_t), int(p.max_t), interval)
+    obsvs, preds, times, batches = create_dataset(
+        p.p_data, p.t_data, t_range, n_past=args.n_past, n_next=args.n_next)
+    np.savez(args.output, obsvs=obsvs, preds=preds, times=times,
+             batches=batches)
+    print(f"wrote {args.output}: {obsvs.shape[0]} samples "
+          f"({args.n_past} obs / {args.n_next} pred), "
+          f"{len(batches)} scene batches, interval {interval}")
+    return 0
+
+
 def cmd_evaluate(args, device) -> int:
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.trainer import Trainer, chunk_of
@@ -101,12 +151,14 @@ def cmd_evaluate(args, device) -> int:
 
     if args.linear:
         from socialways_torch.eval.metrics import k_sample_errors
+        from socialways_torch.ops.kalman import predict_kalman
         from socialways_torch.ops.traj import predict_cv
+        lnr_fn = predict_kalman if args.linear == "kalman" else predict_cv
         total_ade = total_fde = 0.0
         n = 0
         for i in range(trainer.test_packed.n_chunks):
             chunk = chunk_of(trainer.test_dev, i)
-            lnr = predict_cv(chunk["obsvs"], cfg.n_next)
+            lnr = lnr_fn(chunk["obsvs"], cfg.n_next)
             err = k_sample_errors(lnr[None], chunk["preds"])[0]
             valid = chunk["valid"]
             total_ade += float(err.mean(dim=-1)[valid].sum())
@@ -126,24 +178,38 @@ def cmd_evaluate(args, device) -> int:
 
 
 def cmd_predict(args, device) -> int:
-    """Inference-only forecasting of every window of a windowed npz from a
-    checkpoint — the serving path.  Normalization uses the CHECKPOINT's
+    """Inference-only forecasting from a checkpoint — the serving path: (a)
+    every window of a ``create-dataset`` npz, or (b) everyone in the scene
+    at ``--at-time`` of a RAW annotation file (``data/forecast.py`` builds
+    the observation-only windows).  Normalization uses the CHECKPOINT's
     Scale, never one refit on the inference data."""
     from socialways_torch.data.dataset import pack_scene_batches
     from socialways_torch.eval.metrics import draw_noise, k_sample_rollout
     from socialways_torch.io.checkpoint import adopt_checkpoint_config
     from socialways_torch.ops.traj import predict_cv
 
-    if not args.data.endswith(".npz"):
-        raise SystemExit("error: predict takes a windowed .npz; raw "
-                         "annotation input is not ported yet")
     cfg = adopt_checkpoint_config(_cfg_from_args(args), args.model_file)
+    agent_idx = at_time = None
+    # explicit flags win, else the checkpoint's training horizons
+    n_past = args.n_past if args.n_past is not None else cfg.n_past
     n_next = args.n_next if args.n_next is not None else cfg.n_next
-    with np.load(args.data) as d:
-        obsvs_w = np.asarray(d["obsvs"], np.float32)          # world coords
-        batches = np.asarray(d["batches"], np.int64)
-        if "preds" in d.files:       # windowed training npz: its horizon
-            n_next = d["preds"].shape[1]
+    if args.data.endswith(".npz"):
+        with np.load(args.data) as d:
+            obsvs_w = np.asarray(d["obsvs"], np.float32)      # world coords
+            batches = np.asarray(d["batches"], np.int64)
+            if "preds" in d.files:   # windowed training npz: its horizon
+                n_next = d["preds"].shape[1]
+    else:
+        from socialways_torch.data.forecast import forecast_windows
+        from socialways_torch.data.parsers import PARSERS
+        p = PARSERS[args.parser]()
+        p.load(args.data, down_sample=args.down_sample)
+        obsvs_w, agent_idx, at_time = forecast_windows(
+            p.p_data, p.t_data, n_past=n_past,
+            at_time=args.at_time if args.at_time >= 0 else None)
+        obsvs_w = obsvs_w.astype(np.float32)
+        batches = np.asarray([[0, len(obsvs_w)]], np.int64)
+        print(f"forecasting {len(obsvs_w)} agents at t={at_time}")
     cfg = cfg.replace(n_past=obsvs_w.shape[1], n_next=n_next)
 
     gen, epoch, scale = _load_generator(args, cfg, device)
@@ -180,6 +246,9 @@ def cmd_predict(args, device) -> int:
         "epoch": np.asarray(epoch, np.int64),
         "k": np.asarray(k, np.int64),
     }
+    if agent_idx is not None:
+        payload["agent_idx"] = agent_idx
+        payload["timestamp"] = np.asarray(at_time, np.int64)
     np.savez(args.out, **payload)
     print(f"wrote {args.out}: preds_our {payload['preds_our'].shape} "
           f"(K={k}, world units) + CV baseline")
@@ -196,7 +265,6 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "annealed over the run to a 0.02 floor + the "
                         "signature-gated ADE-stall rescue); explicit flags "
                         "override it")
-    p.add_argument("--data", required=True, help="a windowed .npz")
     p.add_argument("--epochs", "--e", type=int, default=1000)
     p.add_argument("--batch-size", "--b", type=int, default=256)
     p.add_argument("--hidden-size", "--h-size", type=int, default=64)
@@ -260,13 +328,6 @@ def _train_cfg(args):
         save_interval=args.save_interval, model_dir=args.model_dir)
 
 
-def _fork(rng: torch.Generator) -> int:
-    """A seed drawn from the training stream (for the eval noise and a
-    re-initialized discriminator)."""
-    return int(torch.randint(0, 2 ** 62, (1,), generator=rng,
-                             device=rng.device))
-
-
 def cmd_train(args, device) -> int:
     """The JAX training loop (socialways_tpu/cli/main.py:519-762) for the
     ported feature set: resume with the checkpoint's config, periodic
@@ -276,7 +337,7 @@ def cmd_train(args, device) -> int:
     from socialways_torch.engine.rescue import (StallTracker,
                                                 reinit_discriminator)
     from socialways_torch.engine.train_step import eval_params
-    from socialways_torch.engine.trainer import Trainer
+    from socialways_torch.engine.trainer import Trainer, fork_seed
     from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -342,7 +403,7 @@ def cmd_train(args, device) -> int:
             print(f"saved checkpoint to {model_file}")
         if epoch % cfg.test_interval or trainer.test_packed is None:
             continue
-        ev = trainer.evaluate(eval_params(state), _fork(rng))
+        ev = trainer.evaluate(eval_params(state), fork_seed(rng))
         print(f"Avg ADE,FDE ({cfg.n_next})= ({ev['ade_avg']:.3f}, "
               f"{ev['fde_avg']:.3f}) | Min({cfg.n_gen_samples}) ADE,FDE "
               f"({cfg.n_next})= ({ev['ade_min']:.3f}, "
@@ -356,7 +417,7 @@ def cmd_train(args, device) -> int:
                 and epoch < cfg.n_epochs and os.path.isfile(best_file)):
             state, b_epoch, _, _ = restore_checkpoint(best_file, cfg, device)
             state = reinit_discriminator(
-                state, cfg, torch.Generator().manual_seed(_fork(rng)))
+                state, cfg, torch.Generator().manual_seed(fork_seed(rng)))
             tracker.fired(best_ade, at_epoch=epoch)
             trigger = (f"{tracker.last_signature} signature matched for "
                        f"{args.ade_stall_classify} evals"
@@ -374,6 +435,43 @@ def cmd_train(args, device) -> int:
     return 0
 
 
+def cmd_eth_ucy(args, device) -> int:
+    """The leave-one-scene-out protocol; obsmat files found under
+    ``--data-dir`` are windowed first when a scene npz is missing."""
+    import json
+    from socialways_torch.engine.ethucy import (prepare_scenes,
+                                                run_leave_one_out)
+
+    cfg = _train_cfg(args)
+    scenes = tuple(args.scenes.split(","))
+    out = {}
+    npz_missing = [s for s in scenes if not os.path.exists(os.path.join(
+        args.data_dir, f"{s}-{cfg.n_past}-{cfg.n_next}.npz"))]
+    if npz_missing or args.prepare_only:
+        manifest = prepare_scenes(args.data_dir, cfg, scenes=scenes)
+        out["scenes"] = manifest
+        if args.prepare_only:
+            print(json.dumps(manifest, indent=2, default=str))
+            if args.out_json:
+                with open(args.out_json, "w") as fh:
+                    json.dump(out, fh, indent=2, default=str)
+            return 0
+
+    out["folds"] = run_leave_one_out(
+        args.data_dir, cfg, scenes=scenes, fused_block=args.fused_block,
+        eval_every=args.eval_every,
+        ade_stall_recover=args.ade_stall_recover,
+        ade_stall_grace=args.ade_stall_grace,
+        ade_stall_max_rescues=args.ade_stall_max_rescues,
+        ade_stall_classify=args.ade_stall_classify, device=device)
+
+    if args.out_json:
+        with open(args.out_json, "w") as fh:
+            json.dump(out, fh, indent=2, default=str)
+        print(f"wrote {args.out_json}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="socialways-torch",
@@ -383,8 +481,32 @@ def build_parser() -> argparse.ArgumentParser:
                          "without one the command fails)")
     sub = ap.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("create-toy", help="generate the toy dataset")
+    p.add_argument("--npz", default="")
+    p.add_argument("--txt", default="")
+    p.add_argument("--n_conditions", type=int, default=6)
+    p.add_argument("--n_modes", type=int, default=3)
+    p.add_argument("--n_samples", type=int, default=3 * 6 * 12)
+    p.add_argument("--n_per_batch", type=int, default=6)
+    p.add_argument("--seed", type=int, default=30)
+    p.set_defaults(fn=cmd_create_toy, host_only=True)
+
+    p = sub.add_parser("create-dataset",
+                       help="parse raw annotations into a training npz")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--parser", default="biwi",
+                   choices=["biwi", "trajnet", "sdd", "seyfried"])
+    p.add_argument("--n-past", type=int, default=8)
+    p.add_argument("--n-next", type=int, default=12)
+    p.add_argument("--down-sample", type=int, default=None,
+                   help="frame subsampling; default = the parser's own "
+                        "(SDD: 12, others: 1)")
+    p.set_defaults(fn=cmd_create_dataset, host_only=True)
+
     p = sub.add_parser("train", help="train the GAN (checkpoints, eval, "
                                      "the gated stall rescue)")
+    p.add_argument("--data", required=True, help="a windowed .npz")
     _add_train_flags(p)
     p.set_defaults(fn=cmd_train)
 
@@ -392,52 +514,98 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data", required=True)
     p.add_argument("--model-file", default="")
     p.add_argument("--linear", nargs="?", const="cv", default="",
-                   choices=["cv"],
-                   help="evaluate the constant-velocity baseline instead "
-                        "(reference utils/linear_models.py:9-20)")
+                   choices=["cv", "kalman"],
+                   help="evaluate a linear baseline instead: 'cv' "
+                        "(constant velocity, reference "
+                        "utils/linear_models.py:9-20; bare --linear) or "
+                        "'kalman' (the constant-acceleration Kalman filter "
+                        "of ops/kalman.py, rolled forward)")
     _add_model_flags(p)
     p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("predict",
-                       help="forecast every window of a windowed npz from "
-                            "a checkpoint (no ground-truth futures needed)")
-    p.add_argument("--data", required=True, help="a create-dataset npz")
+                       help="inference-only forecasting from a checkpoint "
+                            "(no ground-truth futures needed)")
+    p.add_argument("--data", required=True,
+                   help="a create-dataset npz (forecast every window) or "
+                        "a RAW annotation file (forecast everyone in the "
+                        "scene at --at-time; see --parser)")
     p.add_argument("--model-file", required=True)
     p.add_argument("--out", default="predictions.npz")
+    p.add_argument("--parser", default="biwi",
+                   choices=["biwi", "trajnet", "sdd", "seyfried"],
+                   help="raw-mode annotation format")
+    p.add_argument("--down-sample", type=int, default=None)
+    p.add_argument("--n-past", type=int, default=None,
+                   help="raw mode: observation window length (default: "
+                        "the checkpoint's training n_past)")
     p.add_argument("--n-next", type=int, default=None,
                    help="forecast horizon when the npz has no preds "
                         "(default: the checkpoint's training n_next)")
+    p.add_argument("--at-time", type=int, default=-1,
+                   help="raw mode: forecast the scene at this timestamp "
+                        "(-1 = the latest with a full-history agent)")
     _add_model_flags(p)
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("eth-ucy",
+                       help="leave-one-scene-out ETH/UCY benchmark")
+    p.add_argument("--data-dir", required=True,
+                   help="directory with <scene>-8-12.npz files, OR raw "
+                        "obsmat annotation files in any standard layout "
+                        "(detected, validated, fingerprinted and windowed)")
+    p.add_argument("--scenes", default="eth,hotel,univ,zara1,zara2")
+    p.add_argument("--fused-block", type=int, default=10)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="evaluate the held-out scene every N epochs and "
+                        "report the best state (best_ade_min/best_fde_min/"
+                        "best_at_epoch) beside the final eval; 0 = final "
+                        "eval only (the stall rescue defaults it to "
+                        "n_epochs/30)")
+    p.add_argument("--prepare-only", action="store_true",
+                   help="stop after obsmat discovery + npz building")
+    p.add_argument("--out-json", default="")
+    _add_train_flags(p)
+    p.set_defaults(fn=cmd_eth_ucy)
     return ap
 
 
 def parse_args(argv):
-    """Parse ``argv``; a ``train --recipe NAME`` is expanded into its flags
-    right after the subcommand (explicit flags, wherever they stand, then
-    override the bundle) and parsed again."""
+    """Parse ``argv``; a ``--recipe NAME`` is expanded into its flags right
+    after the subcommand (explicit flags, wherever they stand, then
+    override the bundle) and parsed again.  ``eth-ucy`` without a
+    ``--recipe`` runs ``loo``; ``--recipe=`` opts out."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if getattr(args, "recipe", ""):
-        rest, i = [], 0
-        while i < len(argv):
-            tok = argv[i]
-            if tok == "--recipe":
-                i += 2
-                continue
-            if not tok.startswith("--recipe="):
-                rest.append(tok)
-            i += 1
-        sub_i = next(k for k, tok in enumerate(rest)
-                     if not tok.startswith("-"))
-        args = ap.parse_args(rest[:sub_i + 1] + RECIPES[args.recipe]
-                             + rest[sub_i + 1:])
-    return args
+    given = any(tok == "--recipe" or tok.startswith("--recipe=")
+                for tok in argv)
+    name = getattr(args, "recipe", "")
+    if args.command == "eth-ucy" and not given:
+        print("NOTE: eth-ucy defaults to --recipe loo (the record arm: "
+              "af+social+EMA+noise-floor+gated rescue); pass --recipe= "
+              "for bare reference-default hyperparameters",
+              file=sys.stderr)
+        name = "loo"
+    if not name:
+        return args
+    rest, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok == "--recipe":
+            i += 2
+            continue
+        if not tok.startswith("--recipe="):
+            rest.append(tok)
+        i += 1
+    sub_i = next(k for k, tok in enumerate(rest) if not tok.startswith("-"))
+    return ap.parse_args(rest[:sub_i + 1] + RECIPES[name] + rest[sub_i + 1:])
 
 
 def main(argv=None) -> int:
     from socialways_torch.device import resolve_device
     args = parse_args(sys.argv[1:] if argv is None else list(argv))
+    if getattr(args, "host_only", False):
+        return args.fn(args)
     device = resolve_device("cpu" if args.cpu else None)
     return args.fn(args, device)
 

@@ -38,6 +38,13 @@ def packed_to_device(packed: PackedBatches, device) -> Dict[str, torch.Tensor]:
     }
 
 
+def fork_seed(rng: torch.Generator) -> int:
+    """A seed drawn from ``rng``'s stream (for an eval's noise or a
+    re-initialized discriminator)."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=rng,
+                             device=rng.device))
+
+
 def chunk_of(batches: Dict[str, torch.Tensor], i: int
              ) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in batches.items()}
