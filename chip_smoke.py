@@ -43,7 +43,16 @@ Phases (any failure raises):
    chunks, the folds' train steps/s and the projected 30k-epoch fold;
    ``cli predict`` on a raw obsmat file; ``cli evaluate --linear kalman``
    and ``predict_kalman`` on the card against the CPU;
-9. a ``kernels`` JSON line, then the device JSON as the last line.
+9. the toy protocol at the same width on the JAX protocol's big toy set
+   (``create-toy``, scenes of 8 agents, 2+2 steps): ``cli train --recipe
+   toy-flagship`` for 12 epochs with dumps, metrics log, a profiler trace
+   of epoch 2 (it must name the forward and dkv kernels), coverage
+   tracking and the rescues; ``cli stats`` over the dumps; ``cli sweep``
+   over unroll 0/1/5 x info 0/1; forward launches held equal to train
+   steps + rollouts (eval chunks, coverage, dumps) and dkv to the steps in
+   both runs; one toy-flagship step profiled; an unroll-5 categorical step
+   with a decayed D lr on the card against the CPU;
+10. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -469,28 +478,33 @@ def profile_step(torch, what: str, fn) -> None:
         print(f"  {us:9.1f} us {cnt:4d}x {nm[:90]}")
 
 
-def training_phase(torch, sa, dev, npz, cfg):
-    """Phase 6: the training slice at full loo width on the card."""
-    from socialways_torch.data.dataset import load_npz_dataset
-    from socialways_torch.engine.rescue import reinit_discriminator
+def reset_launches(sa) -> None:
+    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
+               sa.social_attention_bwd_dkv):
+        fn.launches = 0
+
+
+def read_launches(sa) -> dict:
+    return {"fwd": sa.social_attention_fwd.launches,
+            "dq": sa.social_attention_bwd_dq.launches,
+            "dkv": sa.social_attention_bwd_dkv.launches}
+
+
+def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
+    """One ``gan_step`` of ``trainer``'s first training chunk on the card
+    and on the CPU, from copies of ``state`` under the same draws: losses
+    and ADE/FDE sums within rel 1e-4, gradients (Adam's first moments)
+    within 1e-3 of their scale, new parameters within 1e-2 lr."""
     from socialways_torch.engine.train_step import (StepDraws, draw_step,
                                                     gan_step)
-    from socialways_torch.engine.trainer import Trainer, chunk_of
-    from socialways_torch.io.checkpoint import (state_from_flat,
-                                                flatten_state)
+    from socialways_torch.engine.trainer import chunk_of
+    from socialways_torch.io.checkpoint import flatten_state, state_from_flat
 
-    ds = load_npz_dataset(npz)
-    trainer = Trainer(cfg, ds, dev)
-    tcfg = trainer.cfg
-    state = trainer.init_state(seed=1)
-    width, n_steps = trainer.train_packed.width, trainer.n_steps_per_epoch
-
-    # the first step on the card and on the CPU from one state, one draw
+    tcfg, packed = trainer.cfg, trainer.train_packed
     s_dev = state_from_flat(flatten_state(state), tcfg, dev)
     s_cpu = state_from_flat(flatten_state(state), tcfg, "cpu")
-    draws = draw_step(width, tcfg, torch.Generator().manual_seed(7))
+    draws = draw_step(packed.width, tcfg, torch.Generator().manual_seed(7))
     draws_dev = StepDraws(*(None if t is None else t.to(dev) for t in draws))
-    packed = trainer.train_packed
     c_cpu = {k: torch.from_numpy(getattr(packed, k)[0])
              for k in ("obsvs", "preds", "scene_ids", "valid")}
     nv0 = int(packed.n_valid[0])
@@ -500,22 +514,27 @@ def training_phase(torch, sa, dev, npz, cfg):
     for nm in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
         a, b = float(getattr(m_dev, nm)), float(getattr(m_cpu, nm))
         if abs(a - b) > 1e-4 * abs(b):
-            raise AssertionError(f"first step {nm}: cuda {a} vs cpu {b}")
+            raise AssertionError(f"{what} {nm}: cuda {a} vs cpu {b}")
     # gradients: Adam's first moment after one G update is 0.1 g_G, after
-    # the two D updates 0.09 g_D1 + 0.1 g_D2 -- compared leaf by leaf at
-    # max|err| <= 1e-3 max|ref| + 1e-9 (sums over 256 rows through the
-    # 20-step rollout and the attention, in another order)
+    # the D updates a weighted sum of D's gradients -- compared leaf by leaf
+    # at max|err| <= 1e-3 max|ref| + 1e-9 (sums over the rows through the
+    # rollout and the attention, in another order)
     f_dev, f_cpu = flatten_state(s_dev), flatten_state(s_cpu)
-    worst_g, worst_p = 0.0, {"G": 0.0, "D": 0.0}
+    if sorted(f_dev) != sorted(f_cpu):
+        raise AssertionError(f"{what}: the two states' leaves differ")
+    worst_g, worst_p = (0.0, ""), {"G": 0.0, "D": 0.0}
     for key, ref in f_cpu.items():
         got = f_dev[key]
-        if "/.mu/" in key:
+        if key.endswith(".count"):
+            if int(got) != int(ref):
+                raise AssertionError(f"{what} {key}: {got} vs {ref}")
+        elif "/.mu/" in key:
             err = float(np.abs(got - ref).max())
             scale = float(np.abs(ref).max())
             if err > 1e-3 * scale + 1e-9:
-                raise AssertionError(f"first step gradient {key}: max abs "
+                raise AssertionError(f"{what} gradient {key}: max abs "
                                      f"{err:.3e} vs max ref {scale:.3e}")
-            worst_g = max(worst_g, err / max(scale, 1e-30))
+            worst_g = max(worst_g, (err / (1e-3 * scale + 1e-9), key))
         elif key.startswith((".g_params/", ".d_params/")):
             side = "G" if key.startswith(".g") else "D"
             worst_p[side] = max(worst_p[side],
@@ -524,25 +543,40 @@ def training_phase(torch, sa, dev, npz, cfg):
     # the difference of their updates, each about +-lr: held at 1e-2 lr
     for side, lr in (("G", tcfg.lr_g), ("D", tcfg.lr_d)):
         if worst_p[side] > 1e-2 * lr:
-            raise AssertionError(f"first step new {side} params differ by "
+            raise AssertionError(f"{what}: new {side} params differ by "
                                  f"{worst_p[side]:.3e} > 1e-2 lr ({lr:g})")
-    print(f"train step cuda vs cpu: losses and ADE/FDE sums within rel "
-          f"1e-4 (d_loss {float(m_dev.d_loss):.6f}/{float(m_cpu.d_loss):.6f}"
-          f", g_loss {float(m_dev.g_loss):.6f}/{float(m_cpu.g_loss):.6f}); "
-          f"gradients (Adam first moments) max rel {worst_g:.3e} (bound "
-          f"1e-3); new params max abs diff G {worst_p['G']:.3e} (bound "
+    print(f"{what} cuda vs cpu: losses and ADE/FDE sums within rel 1e-4 "
+          f"(d_loss {float(m_dev.d_loss):.6f}/{float(m_cpu.d_loss):.6f}, "
+          f"g_loss {float(m_dev.g_loss):.6f}/{float(m_cpu.g_loss):.6f}); "
+          f"gradients (Adam first moments) at most {worst_g[0]:.3f} of "
+          f"their bound 1e-3 max|ref| + 1e-9 (at {worst_g[1]}); new "
+          f"params max abs diff G {worst_p['G']:.3e} (bound "
           f"{1e-2 * tcfg.lr_g:g}), D {worst_p['D']:.3e} (bound "
-          f"{1e-2 * tcfg.lr_d:g})")
+          f"{1e-2 * tcfg.lr_d:g}); counts equal")
+
+
+def training_phase(torch, sa, dev, npz, cfg):
+    """Phase 6: the training slice at full loo width on the card."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.rescue import reinit_discriminator
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+
+    ds = load_npz_dataset(npz)
+    trainer = Trainer(cfg, ds, dev)
+    tcfg = trainer.cfg
+    state = trainer.init_state(seed=1)
+    width, n_steps = trainer.train_packed.width, trainer.n_steps_per_epoch
+    packed = trainer.train_packed
+    nv0 = int(packed.n_valid[0])
+
+    first_step_cuda_vs_cpu(torch, trainer, state, dev, "train step")
 
     # one epoch: the kernels' launch counts on the main path
     rng = torch.Generator(device=dev).manual_seed(3)
-    sa.social_attention_fwd.launches = 0
-    sa.social_attention_bwd_dq.launches = 0
-    sa.social_attention_bwd_dkv.launches = 0
+    reset_launches(sa)
     state, m1 = trainer.train_epoch(state, rng)
-    launches = {"fwd": sa.social_attention_fwd.launches,
-                "dq": sa.social_attention_bwd_dq.launches,
-                "dkv": sa.social_attention_bwd_dkv.launches}
+    launches = read_launches(sa)
     if launches["fwd"] < n_steps or launches["dkv"] < n_steps:
         raise AssertionError(f"epoch of {n_steps} steps launched {launches}")
     if launches["dq"] != 0:
@@ -677,9 +711,7 @@ def realdata_phase(torch, sa, cli_main, dev, ckpt, work):
     obsmat = write_obsmat_scenes(data)
     epochs = 3
     out_json = os.path.join(work, "loo.json")
-    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
-               sa.social_attention_bwd_dkv):
-        fn.launches = 0
+    reset_launches(sa)
     buf, tic = io.StringIO(), time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(["eth-ucy", "--data-dir", data, "--epochs",
@@ -687,9 +719,7 @@ def realdata_phase(torch, sa, cli_main, dev, ckpt, work):
                        out_json])
     torch.cuda.synchronize()
     loo_s = time.perf_counter() - tic
-    launches = {"fwd": sa.social_attention_fwd.launches,
-                "dq": sa.social_attention_bwd_dq.launches,
-                "dkv": sa.social_attention_bwd_dkv.launches}
+    launches = read_launches(sa)
     for line in buf.getvalue().splitlines():
         print(f"  | {line}")
     if rc != 0:
@@ -796,6 +826,199 @@ def realdata_phase(torch, sa, cli_main, dev, ckpt, work):
           f"rows): max abs {diff:.3e} (atol 1e-5, normalized units)")
     print(f"real-data phase: {time.perf_counter() - tic_phase:.2f} s wall")
     return launches, raw_launches
+
+
+#: phase 9's toy set: the JAX toy protocol's "big" set
+#: (benchmarks/coverage_robustness.py:330-334): scenes of 8 agents, 2
+#: observed and 2 predicted steps
+TOY_SET = ["--n_conditions", "8", "--n_samples", "768", "--n_per_batch", "8"]
+#: the toy-flagship model, as sweep takes it (sweep has no --recipe: the
+#: bundle's --auto-recover is train's)
+TOY_MODEL = ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
+             "--latent-code", "categorical", "--n-latent-codes", "3",
+             "--d-lr", "5e-4", "--d-lr-decay-rate", "0.7",
+             "--d-lr-decay-steps", "10000", "--d-input-noise", "0.05",
+             "--d-input-noise-steps", "-1"]
+TOY_EPOCHS, TOY_TEST_INTERVAL, SWEEP_EPOCHS = 12, 2, 4
+
+
+def run_cli(cli_main, argv, tag: str) -> str:
+    """One CLI command with its stdout captured and echoed; fails on a
+    non-zero return."""
+    buf, tic = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    out = buf.getvalue()
+    print(f"cli {tag}: rc {rc}, {time.perf_counter() - tic:.2f} s wall")
+    for line in out.splitlines():
+        print(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {tag} returned {rc}")
+    return out
+
+
+def check_launches(what: str, launches: dict, steps: int,
+                   rollouts: int) -> None:
+    """One forward a train step and a rollout, dkv a step, no dq."""
+    if (launches["fwd"] != steps + rollouts or launches["dkv"] != steps
+            or launches["dq"] != 0):
+        raise AssertionError(f"{what} launched {launches} for {steps} train "
+                             f"steps and {rollouts} rollouts")
+    print(f"{what} launches: fwd {launches['fwd']} = {steps} train steps + "
+          f"{rollouts} rollouts, dkv {launches['dkv']}, dq {launches['dq']}")
+
+
+def toy_phase(torch, sa, cli_main, dev, work):
+    """Phase 9: the toy protocol at its full width (hidden 64, batch 256,
+    K 20) on the JAX protocol's big toy set: cli train --recipe
+    toy-flagship with dumps, metrics log, profiler trace, coverage and the
+    rescues; cli stats over the dumps; cli sweep; one unroll-5 categorical
+    step with a decayed D lr on the card against the CPU."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+
+    tic_phase = time.perf_counter()
+    toy = os.path.join(work, "toy.npz")
+    run_cli(cli_main, ["create-toy", "--npz", toy] + TOY_SET, "create-toy")
+    ds = load_npz_dataset(toy)
+    steps_epoch = len(greedy_chunks(ds.train_batches, BATCH))
+    eval_chunks = len(greedy_chunks(ds.test_batches, BATCH))
+    n_evals = TOY_EPOCHS // TOY_TEST_INTERVAL
+
+    # ---- cli train --recipe toy-flagship with every output of the loop
+    mdir, dump, log, prof = (os.path.join(work, "toy_" + n)
+                             for n in ("models", "dumps", "log", "prof"))
+    reset_launches(sa)
+    out = run_cli(cli_main, [
+        "train", "--recipe", "toy-flagship", "--data", toy, "--epochs",
+        str(TOY_EPOCHS), "--test-interval", str(TOY_TEST_INTERVAL),
+        "--model-dir", mdir, "--dump-dir", dump, "--lnr-model", "kalman",
+        "--metrics-log", log, "--profile-dir", prof, "--track-coverage",
+        "--stall-recover", "2", "--stall-reset-d", "--rescue-keep-clock"],
+        "train --recipe toy-flagship")
+    torch.cuda.synchronize()
+    launches_train = read_launches(sa)
+    steps = TOY_EPOCHS * steps_epoch
+    # an eval, a coverage rollout and a dump rollout every test interval
+    check_launches("toy train", launches_train, steps,
+                   n_evals * (eval_chunks + 2))
+    eval_epochs = list(range(TOY_TEST_INTERVAL, TOY_EPOCHS + 1,
+                             TOY_TEST_INTERVAL))
+    root = os.path.join(dump, "hotel", "socialWays")
+    if sorted(os.listdir(root), key=int) != [str(e) for e in eval_epochs]:
+        raise AssertionError(f"dump epochs {os.listdir(root)}")
+    for e in eval_epochs:
+        files = os.listdir(os.path.join(root, str(e)))
+        if len(files) != 1:
+            raise AssertionError(f"epoch {e} dumps: {files}")
+        with np.load(os.path.join(root, str(e), files[0])) as d:
+            n = d["obsvs"].shape[0]
+            want = {"timestamp": (), "obsvs": (n, 2, 2),
+                    "preds_our": (K, n, 2, 2), "preds_gtt": (n, 2, 2),
+                    "preds_lnr": (n, 2, 2)}
+            got = {k: d[k].shape for k in d.files}
+            if got != want or not all(np.isfinite(d[k]).all()
+                                      for k in d.files):
+                raise AssertionError(f"epoch {e} dump {got} (want {want})")
+    with open(log) as fh:
+        recs = [json.loads(line) for line in fh]
+    kinds = [(r["kind"], r["epoch"]) for r in recs
+             if r["kind"] in ("train", "eval", "coverage")]
+    want_kinds = []
+    for e in range(1, TOY_EPOCHS + 1):
+        want_kinds.append(("train", e))
+        if e in eval_epochs:
+            want_kinds += [("eval", e), ("coverage", e)]
+    if kinds != want_kinds:
+        raise AssertionError(f"metrics log {kinds}")
+    for suffix in ("-best", "-bestcov"):
+        if not os.path.isfile(os.path.join(mdir,
+                                           f"socialWays-hotel{suffix}.npz")):
+            raise AssertionError(f"no {suffix} checkpoint: "
+                                 f"{os.listdir(mdir)}")
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    for name in ("social_attention_fwd_kernel", "bwd_dkv_kernel"):
+        if not any(name in k for k in kernels):
+            raise AssertionError(f"profiled epoch has no {name} among "
+                                 f"{len(kernels)} kernels")
+    covs = [r["coverage"] for r in recs if r["kind"] == "coverage"]
+    train = {r["epoch"]: r for r in recs if r["kind"] == "train"}
+    timed = [train[e]["epoch_time_s"] for e in range(3, TOY_EPOCHS + 1)]
+    toy_rate = steps_epoch * len(timed) / sum(timed)
+    print(f"toy train: {steps} steps ({steps_epoch} an epoch), {n_evals} "
+          f"evals of {eval_chunks} chunks + coverage + dump; dumps of "
+          f"epochs {eval_epochs} in JAX's schema; log kinds ok; -best and "
+          f"-bestcov written; profiled epoch 2 names both CUDA kernels "
+          f"({len(kernels)} kernel names, {len(events)} events); coverage "
+          f"{covs}; rescues: {out.count('STALLED') + out.count('DIVERGED')}")
+    print(f"toy train steps/s (epochs 3-{TOY_EPOCHS}, toy-flagship, batch "
+          f"{BATCH}): {toy_rate:.2f}")
+
+    # ---- cli stats over the dump tree (host only)
+    out = run_cli(cli_main, ["stats", "--preds-dir", root, "--real-npz", toy,
+                             "--group", "8"], "stats")
+    rows = re.findall(r"epoch = (\d+), EMD = (\S+), 1nn = (\S+)", out)
+    if ([int(r[0]) for r in rows] != eval_epochs
+            or not all(np.isfinite(float(v)) for r in rows for v in r[1:])
+            or not os.path.isfile(os.path.join(root, "stats20.npz"))):
+        raise AssertionError(f"stats printed {rows}")
+
+    # ---- cli sweep over unroll x info weight at the toy-flagship model
+    out_json = os.path.join(work, "sweep.json")
+    unrolls, infos = (0, 1, 5), (0.0, 1.0)
+    reset_launches(sa)
+    tic = time.perf_counter()
+    run_cli(cli_main, ["sweep", "--data", toy, "--unrolls",
+                       ",".join(map(str, unrolls)), "--info-weights",
+                       ",".join(map(str, infos)), "--sweep-epochs",
+                       str(SWEEP_EPOCHS), "--out-json", out_json]
+            + TOY_MODEL, "sweep")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - tic
+    launches_sweep = read_launches(sa)
+    n_var = len(unrolls) * len(infos)
+    check_launches("sweep", launches_sweep, n_var * SWEEP_EPOCHS * steps_epoch,
+                   n_var * (eval_chunks + 1))
+    with open(out_json) as fh:
+        res = json.load(fh)
+    if list(res) != [f"unroll{u}-info{w}" for u in unrolls for w in infos]:
+        raise AssertionError(f"sweep keys {list(res)}")
+    for key, r in res.items():
+        if (set(r) != {"ade_avg", "fde_avg", "ade_min", "fde_min",
+                       "mode_coverage", "final_train_ade"}
+                or not all(np.isfinite(v) for v in r.values())
+                or not 0.0 <= r["mode_coverage"] <= 1.0):
+            raise AssertionError(f"sweep {key}: {r}")
+    print(f"sweep: {n_var} variants x {SWEEP_EPOCHS} epochs, wall "
+          f"{sweep_s:.2f} s (CLI, incl. 6 Trainer builds)")
+
+    # ---- one unroll-5 categorical step with D-lr decay, card vs CPU
+    cfg = TrainConfig(
+        agent_frame=True, use_social=True, g_ema_decay=0.999,
+        latent_code_type="categorical", n_latent_codes=3, loss_info_w=1.0,
+        lr_d=5e-4, d_lr_decay_rate=0.7, d_lr_decay_steps=1,
+        d_input_noise=0.05, d_input_noise_steps=-1, n_unrolling_steps=5,
+        hidden_size=HIDDEN, social_feature_size=HIDDEN,
+        noise_len=HIDDEN // 2, batch_size=BATCH, n_gen_samples=K,
+        n_epochs=TOY_EPOCHS)
+    # one profiled toy-flagship step (unroll 1, the recipe's)
+    trainer = Trainer(cfg.replace(n_unrolling_steps=1), ds, dev)
+    state, rng = trainer.init_state(seed=2), torch.Generator(device=dev)
+    chunk, nv = chunk_of(trainer.train_dev, 1), int(
+        trainer.train_packed.n_valid[1])
+    profile_step(torch, "one toy train step", lambda: gan_step(
+        state, chunk, draw_step(trainer.train_packed.width, trainer.cfg,
+                                rng, dev), trainer.cfg, nv))
+    trainer = Trainer(cfg, ds, dev)
+    first_step_cuda_vs_cpu(torch, trainer, trainer.init_state(seed=2), dev,
+                           "toy unroll-5 categorical D-lr-decay step")
+    print(f"toy phase: {time.perf_counter() - tic_phase:.2f} s wall")
+    return launches_train, launches_sweep, toy_rate, sweep_s
 
 
 def main() -> int:
@@ -1059,6 +1282,10 @@ def main() -> int:
         launches_loo, launches_raw = realdata_phase(torch, sa, cli_main, dev,
                                                     ckpt, work)
 
+        # ---- 9. the toy protocol: train with its outputs, stats, sweep
+        launches_toy, launches_sweep, toy_rate, sweep_s = toy_phase(
+            torch, sa, cli_main, dev, work)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -1073,7 +1300,9 @@ def main() -> int:
             "launches_by_path": {"serving": launches_serving,
                                  "training": launches_train["fwd"],
                                  "eth_ucy": launches_loo["fwd"],
-                                 "raw_predict": launches_raw},
+                                 "raw_predict": launches_raw,
+                                 "toy_train": launches_toy["fwd"],
+                                 "sweep": launches_sweep["fwd"]},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -1097,7 +1326,9 @@ def main() -> int:
                 "replaces": f"{tpu}:{line} ({fn})",
                 "launches": launches_train[key],
                 "launches_by_path": {"training": launches_train[key],
-                                     "eth_ucy": launches_loo[key]},
+                                     "eth_ucy": launches_loo[key],
+                                     "toy_train": launches_toy[key],
+                                     "sweep": launches_sweep[key]},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],
@@ -1111,7 +1342,8 @@ def main() -> int:
         kernels[1]["by_input"] = dq_by_input
         kernels[2]["by_launch_us"] = bwd_path["split"]["dkv"]
         print(f"train steps/s (epoch 2, loo width, batch {BATCH}): "
-              f"{steps_s:.2f}; chip_smoke wall "
+              f"{steps_s:.2f}; toy train steps/s {toy_rate:.2f}; sweep "
+              f"{sweep_s:.2f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -1,9 +1,12 @@
-"""Command-line entry points of the port: training, serving and the
-real-data pipeline.
+"""Command-line entry points of the port: training, serving, the
+real-data pipeline and the toy protocol.
 
     python -m socialways_torch.cli.main create-dataset obsmat.txt hotel-8-12.npz
     python -m socialways_torch.cli.main create-toy --npz toy.npz
     python -m socialways_torch.cli.main train --recipe loo --data hotel-8-12.npz --epochs 100
+    python -m socialways_torch.cli.main train --recipe toy-flagship --data toy.npz --dump-dir dumps --track-coverage
+    python -m socialways_torch.cli.main stats --preds-dir dumps/hotel/socialWays --real-npz toy.npz
+    python -m socialways_torch.cli.main sweep --data toy.npz --unrolls 0,1,5 --info-weights 0.0,1.0
     python -m socialways_torch.cli.main eth-ucy --data-dir ethucy/ --epochs 30000
     python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --model-file ckpt.npz
     python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --linear kalman
@@ -12,11 +15,14 @@ real-data pipeline.
     python -m socialways_torch.cli.main --cpu train ...   # run on the CPU
 
 Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
-(create-toy, create-dataset), :519-762 (train), :822-974 (evaluate,
-predict) and :1039-1101 (eth-ucy).  Everything that runs a model runs on
-the GPU unless ``--cpu`` is given; ``create-*`` are host-only.  ``train``
-and ``eth-ucy`` take only the flags of what the port implements (the loo
-recipe's feature set); argparse refuses the others, and ``eth-ucy``
+(create-toy, create-dataset), :519-819 (train), :822-974 (evaluate,
+predict), :977-1036 (sweep), :1039-1101 (eth-ucy) and :1172-1191 (stats).
+Everything that runs a model runs on the GPU unless ``--cpu`` is given;
+``create-*`` and ``stats`` are host-only.  ``train``, ``eth-ucy`` and
+``sweep`` take only the flags of what the port implements; argparse
+refuses the others.  The loop's outputs and rescues (dumps, metrics log,
+profiler trace, coverage, ``--auto-recover``) are ``train``'s alone:
+``eth-ucy`` and ``sweep`` refuse them rather than ignore them.  ``eth-ucy``
 without ``--recipe`` runs the loo recipe (``--recipe=`` opts out).  The
 model flags of evaluate/predict are the widths and switches of the served
 FC generator; a checkpoint's embedded config overrides them.
@@ -25,25 +31,41 @@ FC generator; a checkpoint's embedded config overrides them.
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 
-#: ``--recipe NAME`` (``train``, ``eth-ucy``) expands to these flags right
-#: after the subcommand, so explicit flags override them
-#: (socialways_tpu/cli/main.py:50-58: the record real-data arm: agent frame
-#: + social attention + EMA + annealed D instance noise with a 0.02 floor +
-#: the signature-gated ADE-stall rescue).  The JAX package's other recipes
-#: are not ported.
+#: ``--recipe NAME`` expands to these flags right after the subcommand, so
+#: explicit flags override them (socialways_tpu/cli/main.py:27-58, token for
+#: token).  The toy protocol's bundles: robust1 = categorical codes + a
+#: cooled D + the divergence rescue; inoise2 = + D instance noise annealed
+#: over the run; toy-flagship = + agent frame, social attention and EMA.
+#: loo is the record real-data arm: agent frame + social attention + EMA +
+#: annealed D instance noise with a 0.02 floor + the signature-gated
+#: ADE-stall rescue.
 RECIPES = {
-    "loo": ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
-            "--d-input-noise", "0.05", "--d-input-noise-steps", "-1",
-            "--d-input-noise-floor", "0.02",
-            "--ade-stall-recover", "-1", "--ade-stall-classify", "5"],
+    "robust1": ["--latent-code", "categorical", "--n-latent-codes", "3",
+                "--d-lr", "5e-4", "--info-weight", "1.0",
+                "--d-lr-decay-rate", "0.7", "--d-lr-decay-steps", "10000",
+                "--auto-recover"],
 }
+RECIPES["inoise2"] = RECIPES["robust1"] + [
+    "--d-input-noise", "0.05", "--d-input-noise-steps", "-1"]
+RECIPES["toy-flagship"] = RECIPES["inoise2"] + [
+    "--agent-frame", "--use-social", "--g-ema-decay", "0.999"]
+RECIPES["loo"] = ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
+                  "--d-input-noise", "0.05", "--d-input-noise-steps", "-1",
+                  "--d-input-noise-floor", "0.02",
+                  "--ade-stall-recover", "-1", "--ade-stall-classify", "5"]
+
+#: deprecated recipe names -> their replacement (expanded with a note)
+RECIPE_ALIASES = {"flagship": "toy-flagship"}
 
 
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
@@ -255,16 +277,10 @@ def cmd_predict(args, device) -> int:
     return 0
 
 
-def _add_train_flags(p: argparse.ArgumentParser) -> None:
-    """The flags of the training this port implements (the JAX names and
-    defaults, socialways_tpu/cli/main.py:98-399)."""
-    p.add_argument("--recipe", default="", choices=[""] + list(RECIPES),
-                   help="expand a documented flag bundle: 'loo' = the "
-                        "record real-data arm (--agent-frame --use-social "
-                        "--g-ema-decay 0.999 + D instance noise 0.05 "
-                        "annealed over the run to a 0.02 floor + the "
-                        "signature-gated ADE-stall rescue); explicit flags "
-                        "override it")
+def _add_gan_flags(p: argparse.ArgumentParser) -> None:
+    """The run's length, model and GAN-step flags that train, eth-ucy and
+    sweep share (the JAX names and defaults,
+    socialways_tpu/cli/main.py:130-346)."""
     p.add_argument("--epochs", "--e", type=int, default=1000)
     p.add_argument("--batch-size", "--b", type=int, default=256)
     p.add_argument("--hidden-size", "--h-size", type=int, default=64)
@@ -274,20 +290,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-gen-samples", "--k", type=int, default=20)
-    p.add_argument("--test-interval", type=int, default=5)
-    p.add_argument("--save-interval", type=int, default=50)
-    p.add_argument("--model-dir", default="trained_models")
-    p.add_argument("--model", "--m", default="socialWays",
-                   choices=["socialWays"])
-    p.add_argument("--dataset", "--data-name", default="hotel")
     p.add_argument("--use-social", action="store_true",
                    help="social attention pooling (the paper's mechanism)")
     p.add_argument("--agent-frame", action="store_true",
                    help="per-agent canonical heading frames (pairwise "
                         "social geometry stays world-frame)")
     p.add_argument("--g-ema-decay", type=float, default=0.0,
-                   help="EMA of the generator (e.g. 0.999); evaluation "
-                        "and the best checkpoint use it (0 = off)")
+                   help="EMA of the generator (e.g. 0.999); evaluation, "
+                        "dumps and the best checkpoints use it (0 = off)")
     p.add_argument("--d-input-noise", type=float, default=0.0,
                    help="D instance noise: Gaussian std on the prediction "
                         "inputs of every D evaluation (0 = off)")
@@ -296,6 +306,60 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "many GAN steps (0 = constant; -1 = the whole run)")
     p.add_argument("--d-input-noise-floor", type=float, default=0.0,
                    help="clamp the annealed noise std from below")
+    p.add_argument("--unrolling-steps", "--unroll", type=int, default=1,
+                   help="lookahead D updates before the G update")
+    p.add_argument("--d-restore", default="full",
+                   choices=["full", "reference", "none"],
+                   help="D after the G update: the post-first-update "
+                        "snapshot (full), its linear layers only "
+                        "(reference, the reference's partial restore) or "
+                        "the unrolled D (none)")
+    p.add_argument("--no-info-loss", action="store_true")
+    p.add_argument("--info-weight", type=float, default=0.5)
+    p.add_argument("--n-latent-codes", type=int, default=2)
+    p.add_argument("--latent-code", default="continuous",
+                   choices=["continuous", "categorical"],
+                   help="InfoGAN code: continuous (MSE Q-loss on the first "
+                        "noise dims, reference parity) or categorical "
+                        "(one-hot code + cross-entropy Q-loss)")
+    p.add_argument("--lr-decay-rate", type=float, default=1.0,
+                   help="staircase exponential lr decay factor for both "
+                        "optimizers (1.0 = constant)")
+    p.add_argument("--lr-decay-steps", type=int, default=0,
+                   help="optimizer updates per decay stair")
+    p.add_argument("--d-lr-decay-rate", type=float, default=1.0,
+                   help="D-only staircase lr decay factor (overrides the "
+                        "shared schedule for D)")
+    p.add_argument("--d-lr-decay-steps", type=int, default=0,
+                   help="optimizer updates per D-only decay stair")
+    p.add_argument("--lr-warmup-steps", type=int, default=0,
+                   help="linear lr warmup over the first N optimizer "
+                        "updates, both optimizers (0 = off)")
+    p.add_argument("--d-lr-warmup-steps", type=int, default=0,
+                   help="D-only lr warmup override (0 = use "
+                        "--lr-warmup-steps)")
+
+
+def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
+    """The flags of train and eth-ucy: a recipe out of ``recipes``, the
+    checkpoint layout, the ADE-stall rescue and the GAN flags."""
+    p.add_argument("--recipe", default="", choices=[""] + list(recipes),
+                   help="expand a documented flag bundle; explicit flags "
+                        "override it.  Real data: 'loo' = the record arm "
+                        "(--agent-frame --use-social --g-ema-decay 0.999 "
+                        "+ D instance noise 0.05 annealed over the run to "
+                        "a 0.02 floor + the signature-gated ADE-stall "
+                        "rescue).  Toy protocol (train only): robust1 = "
+                        "categorical codes + cooled D + --auto-recover; "
+                        "inoise2 = + annealed D instance noise; "
+                        "toy-flagship = + agent frame, social attention "
+                        "and EMA")
+    p.add_argument("--test-interval", type=int, default=5)
+    p.add_argument("--save-interval", type=int, default=50)
+    p.add_argument("--model-dir", default="trained_models")
+    p.add_argument("--model", "--m", default="socialWays",
+                   choices=["socialWays"])
+    p.add_argument("--dataset", "--data-name", default="hotel")
     p.add_argument("--ade-stall-recover", type=int, default=0,
                    help="after N evals without a >2%% better min-K ADE, "
                         "restore the best checkpoint with a re-initialized "
@@ -309,35 +373,160 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ade-stall-classify", type=int, default=0,
                    help="fire after N flat evals matching the under-fit "
                         "or diversity-collapse signature (0 = off)")
+    _add_gan_flags(p)
+
+
+def _add_loop_flags(p: argparse.ArgumentParser) -> None:
+    """train's outputs and rescues (socialways_tpu/cli/main.py:177-254,
+    350-357)."""
+    p.add_argument("--dump-dir", default="",
+                   help="each test interval, dump the first test chunk's "
+                        "K predictions in the reference's npz schema under "
+                        "DIR/<dataset>/socialWays/<epoch>/")
+    p.add_argument("--lnr-model", default="cv", choices=["cv", "kalman"],
+                   help="linear baseline written to the dumps' preds_lnr "
+                        "(cv = reference parity)")
+    p.add_argument("--metrics-log", default="",
+                   help="append one JSON line per train epoch, eval, "
+                        "coverage eval and rescue to this file")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler Chrome trace of the second "
+                        "epoch of the run (the first holds the kernels' "
+                        "build) into this directory")
+    p.add_argument("--auto-recover", action="store_true",
+                   help="on training divergence (non-finite train ADE or "
+                        "> 5x the best + 0.1), restore the best checkpoint "
+                        "and continue")
+    p.add_argument("--track-coverage", action="store_true",
+                   help="also score toy mode coverage at each eval and "
+                        "keep the best-coverage checkpoint (-bestcov.npz)")
+    p.add_argument("--stall-recover", type=int, default=0,
+                   help="with --track-coverage: after N consecutive "
+                        "coverage evals without a new best, restore the "
+                        "best-coverage checkpoint and continue (0 = off)")
+    p.add_argument("--stall-reset-d", action="store_true",
+                   help="with --stall-recover: also re-initialize the "
+                        "discriminator (params + optimizer) on each stall "
+                        "rescue")
+    p.add_argument("--rescue-keep-clock", action="store_true",
+                   help="checkpoint-restore rescues (--auto-recover, "
+                        "--stall-recover, the ADE-stall rescue) keep the "
+                        "optimizer step counts instead of rewinding them, "
+                        "so count-keyed schedules (the instance-noise "
+                        "anneal, lr decay) continue forward")
 
 
 def _train_cfg(args):
     from socialways_torch.config import TrainConfig
+    if args.d_lr_decay_rate != 1.0 and args.d_lr_decay_steps == 0:
+        print("WARNING: --d-lr-decay-rate is ignored without "
+              "--d-lr-decay-steps > 0 (the D optimizer falls back to the "
+              "shared --lr-decay-* schedule)", file=sys.stderr)
     h = args.hidden_size
     return TrainConfig(
-        dataset=args.dataset, batch_size=args.batch_size,
-        n_epochs=args.epochs, lr_g=args.g_learning_rate,
-        lr_d=args.d_learning_rate,
+        dataset=getattr(args, "dataset", "hotel"),
+        batch_size=args.batch_size, n_epochs=args.epochs,
+        lr_g=args.g_learning_rate, lr_d=args.d_learning_rate,
+        n_unrolling_steps=args.unrolling_steps,
+        use_info_loss=not args.no_info_loss, loss_info_w=args.info_weight,
+        d_restore=args.d_restore,
         hidden_size=h, social_feature_size=h, noise_len=h // 2,
+        n_latent_codes=args.n_latent_codes,
+        latent_code_type=args.latent_code,
         use_social=args.use_social, agent_frame=args.agent_frame,
         d_input_noise=args.d_input_noise,
         d_input_noise_steps=args.d_input_noise_steps,
         d_input_noise_floor=args.d_input_noise_floor,
-        g_ema_decay=args.g_ema_decay, seed=args.seed,
-        n_gen_samples=args.n_gen_samples, test_interval=args.test_interval,
-        save_interval=args.save_interval, model_dir=args.model_dir)
+        g_ema_decay=args.g_ema_decay,
+        lr_decay_rate=args.lr_decay_rate, lr_decay_steps=args.lr_decay_steps,
+        d_lr_decay_rate=args.d_lr_decay_rate,
+        d_lr_decay_steps=args.d_lr_decay_steps,
+        lr_warmup_steps=args.lr_warmup_steps,
+        d_lr_warmup_steps=args.d_lr_warmup_steps,
+        seed=args.seed, n_gen_samples=args.n_gen_samples,
+        test_interval=getattr(args, "test_interval", 5),
+        save_interval=getattr(args, "save_interval", 50),
+        model_dir=getattr(args, "model_dir", "trained_models"),
+        dump_dir=getattr(args, "dump_dir", ""),
+        lnr_model=getattr(args, "lnr_model", "cv"))
+
+
+def _log_metrics(path: str, **record) -> None:
+    """Append one JSON line to ``path`` (nothing when it is empty): the
+    machine-readable counterpart of train's prints
+    (socialways_tpu/cli/main.py:765-773)."""
+    if not path:
+        return
+    record["t"] = round(time.time(), 3)
+    with open(path, "a") as fh:
+        fh.write(json.dumps(record) + "\n")
+
+
+def _coverage(g_params, ds, cfg, k: int, seed: int, device) -> float:
+    """Toy mode coverage of ``k`` rollouts of (up to) the first 64 test
+    samples, their noise seeded with ``seed`` (socialways_tpu/cli/main.py:
+    776-792, 1011-1021)."""
+    from socialways_torch.eval.metrics import k_sample_rollout
+    from socialways_torch.eval.stats import toy_mode_coverage
+    nt = ds.n_train_samples
+    obs = ds.obsvs[nt:nt + 64]
+    ids = ds.scene_ids_for_rows(nt, obs.shape[0])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pk = k_sample_rollout(g_params, torch.from_numpy(obs).to(device),
+                          torch.from_numpy(ids).to(device), k, cfg, gen)
+    return toy_mode_coverage(ds.scale.denormalize(obs),
+                             ds.scale.denormalize(pk[..., :2].cpu().numpy()))
+
+
+def _dump_first_chunk(trainer, g_params, epoch: int, seed: int) -> str:
+    """The first test chunk's K rollouts (noise seeded with ``seed``), its
+    truth and the linear baseline, dumped in the reference's schema
+    (socialways_tpu/cli/main.py:795-819)."""
+    from socialways_torch.engine.trainer import chunk_of
+    from socialways_torch.eval.metrics import k_sample_rollout
+    from socialways_torch.io.dumps import dump_predictions
+    if trainer.cfg.lnr_model == "kalman":
+        from socialways_torch.ops.kalman import predict_kalman as lnr_fn
+    else:
+        from socialways_torch.ops.traj import predict_cv as lnr_fn
+    cfg, ds = trainer.cfg, trainer.dataset
+    chunk = chunk_of(trainer.test_dev, 0)
+    nv = int(trainer.test_packed.n_valid[0])
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+    pred_k = k_sample_rollout(g_params, chunk["obsvs"], chunk["scene_ids"],
+                              cfg.n_gen_samples, cfg, gen)
+    lnr = lnr_fn(chunk["obsvs"], cfg.n_next)
+    nt = ds.n_train_samples
+    t0 = ds.times[nt] if len(ds.times) > nt else 0
+    wr_dir = os.path.join(cfg.dump_dir, cfg.dataset, "socialWays",
+                          str(epoch))
+    return dump_predictions(wr_dir, epoch, t0,
+                            chunk["obsvs"][:nv].cpu().numpy(),
+                            pred_k[:, :nv].cpu().numpy(),
+                            chunk["preds"][:nv].cpu().numpy(),
+                            lnr[:nv].cpu().numpy(), ds.scale)
+
+
+#: side streams of a train run, keyed by (cfg.seed, stream, epoch): the
+#: coverage and dump rollouts draw their noise there, so tracking them does
+#: not move the training draws (JAX folds its key, cli/main.py:789, 754)
+_COVERAGE_STREAM, _DUMP_STREAM = 99, 98
 
 
 def cmd_train(args, device) -> int:
-    """The JAX training loop (socialways_tpu/cli/main.py:519-762) for the
-    ported feature set: resume with the checkpoint's config, periodic
-    checkpoints, eval and a ``-best`` checkpoint, the gated ADE-stall
-    rescue, and always a final checkpoint."""
+    """The JAX training loop (socialways_tpu/cli/main.py:519-762): resume
+    with the checkpoint's config, the optional profiled epoch, the metrics
+    log, the divergence rescue, periodic checkpoints, eval and a ``-best``
+    checkpoint, the gated ADE-stall rescue, toy coverage with its
+    ``-bestcov`` checkpoint and stall rescue, prediction dumps, and always
+    a final checkpoint."""
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.rescue import (StallTracker,
                                                 reinit_discriminator)
-    from socialways_torch.engine.train_step import eval_params
-    from socialways_torch.engine.trainer import Trainer, fork_seed
+    from socialways_torch.engine.train_step import (eval_params,
+                                                    transplant_schedule_clock)
+    from socialways_torch.engine.trainer import (Trainer, fork_seed,
+                                                 stream_seed)
     from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -355,11 +544,11 @@ def cmd_train(args, device) -> int:
               f"{trainer.cfg.d_input_noise_steps} GAN steps")
     cfg = trainer.cfg
 
-    model_file = os.path.join(cfg.model_dir,
-                              f"{args.model}-{cfg.dataset}.npz")
-    best_file = os.path.join(cfg.model_dir,
-                             f"{args.model}-{cfg.dataset}-best.npz")
-    best_ade = float("inf")
+    stem = os.path.join(cfg.model_dir, f"{args.model}-{cfg.dataset}")
+    model_file, best_file = stem + ".npz", stem + "-best.npz"
+    bestcov_file = stem + "-bestcov.npz"
+    best_ade = best_train_ade = float("inf")
+    best_cov, cov_stall = -1.0, 0
     tracker = StallTracker(args.ade_stall_recover,
                            grace=args.ade_stall_grace,
                            max_rescues=args.ade_stall_max_rescues,
@@ -385,6 +574,18 @@ def cmd_train(args, device) -> int:
             rng.set_state(rng_state[1])
         start_epoch = last_epoch + 1
         print(f"resumed from {model_file} at epoch {last_epoch}")
+    if args.auto_recover and not os.path.isfile(best_file):
+        # a baseline, so that a divergence before the first eval restores
+        # the initial state
+        save_checkpoint(best_file, state, 0, rng, ds.scale, cfg)
+
+    def rescue_restore(path: str):
+        """The checkpoint at ``path``, on the run's clock under
+        --rescue-keep-clock (``state`` is only read)."""
+        restored, at_epoch, _, _ = restore_checkpoint(path, cfg, device)
+        if args.rescue_keep_clock:
+            restored = transplant_schedule_clock(restored, state)
+        return restored, at_epoch
 
     print(f"{args.data}  # training samples: {ds.n_train_samples}  "
           f"chunks: {trainer.train_packed.n_chunks}  "
@@ -394,10 +595,30 @@ def cmd_train(args, device) -> int:
 
     epoch = start_epoch - 1
     while epoch < cfg.n_epochs:
-        state, m = trainer.train_epoch(state, rng)
+        if args.profile_dir and epoch == start_epoch:
+            # the run's second epoch: the first holds the kernels' build
+            from socialways_torch.utils.profiling import trace
+            with trace(args.profile_dir):
+                state, m = trainer.train_epoch(state, rng)
+            print(f"wrote profiler trace to {args.profile_dir}")
+        else:
+            state, m = trainer.train_epoch(state, rng)
         epoch += 1
         print(f" Epc={epoch:4d}, Train ADE,FDE = ({m['train_ade']:.3f}, "
               f"{m['train_fde']:.3f}) | time = {m['epoch_time_s']:.2f}s")
+        _log_metrics(args.metrics_log, kind="train", epoch=epoch,
+                     train_ade=m["train_ade"], train_fde=m["train_fde"],
+                     epoch_time_s=m["epoch_time_s"], n_block=1)
+
+        # divergence: a non-finite train ADE or a jump past 5x the best
+        diverged = (not math.isfinite(m["train_ade"])
+                    or m["train_ade"] > 5 * best_train_ade + 0.1)
+        best_train_ade = min(best_train_ade, m["train_ade"])
+        if args.auto_recover and diverged and os.path.isfile(best_file):
+            state, b_epoch = rescue_restore(best_file)
+            print(f"DIVERGED at epoch {epoch} (ADE {m['train_ade']:.3f}); "
+                  f"restored best checkpoint from epoch {b_epoch}")
+
         if epoch % cfg.save_interval == 0:
             save_checkpoint(model_file, state, epoch, rng, ds.scale, cfg)
             print(f"saved checkpoint to {model_file}")
@@ -408,6 +629,9 @@ def cmd_train(args, device) -> int:
               f"{ev['fde_avg']:.3f}) | Min({cfg.n_gen_samples}) ADE,FDE "
               f"({cfg.n_next})= ({ev['ade_min']:.3f}, "
               f"{ev['fde_min']:.3f})")
+        _log_metrics(args.metrics_log, kind="eval", epoch=epoch,
+                     ade_avg=ev["ade_avg"], fde_avg=ev["fde_avg"],
+                     ade_min=ev["ade_min"], fde_min=ev["fde_min"])
         if ev["ade_min"] < best_ade:
             best_ade = ev["ade_min"]
             save_checkpoint(best_file, state, epoch, rng, ds.scale, cfg)
@@ -415,7 +639,7 @@ def cmd_train(args, device) -> int:
         if (tracker.observe(ev["ade_min"], ade_avg=ev["ade_avg"],
                             train_ade=m["train_ade"])
                 and epoch < cfg.n_epochs and os.path.isfile(best_file)):
-            state, b_epoch, _, _ = restore_checkpoint(best_file, cfg, device)
+            state, b_epoch = rescue_restore(best_file)
             state = reinit_discriminator(
                 state, cfg, torch.Generator().manual_seed(fork_seed(rng)))
             tracker.fired(best_ade, at_epoch=epoch)
@@ -427,11 +651,104 @@ def cmd_train(args, device) -> int:
             print(f"ADE STALLED at epoch {epoch} (best {best_ade:.3f}, "
                   f"{trigger}); restored best checkpoint from epoch "
                   f"{b_epoch} with a RE-INITIALIZED discriminator")
+            _log_metrics(args.metrics_log, kind="rescue", epoch=epoch,
+                         ade_stall=True, trigger=tracker.last_trigger,
+                         signature=tracker.last_signature)
+        if args.track_coverage:
+            cov = _coverage(eval_params(state), ds, cfg, cfg.n_gen_samples,
+                            stream_seed(cfg.seed, _COVERAGE_STREAM, epoch),
+                            device)
+            print(f"mode coverage = {cov:.2f}")
+            _log_metrics(args.metrics_log, kind="coverage", epoch=epoch,
+                         coverage=cov)
+            if cov > best_cov:
+                best_cov, cov_stall = cov, 0
+                save_checkpoint(bestcov_file, state, epoch, rng, ds.scale,
+                                cfg)
+                print(f"new best coverage saved to {bestcov_file}")
+            else:
+                cov_stall += 1
+                if (args.stall_recover > 0
+                        and cov_stall >= args.stall_recover
+                        and best_cov < 1.0
+                        and os.path.isfile(bestcov_file)):
+                    state, c_epoch = rescue_restore(bestcov_file)
+                    cov_stall = 0
+                    extra = ""
+                    if args.stall_reset_d:
+                        state = reinit_discriminator(
+                            state, cfg,
+                            torch.Generator().manual_seed(fork_seed(rng)))
+                        extra = " with a RE-INITIALIZED discriminator"
+                    print(f"coverage STALLED at epoch {epoch} "
+                          f"({cov:.2f} < best {best_cov:.2f}); restored "
+                          f"best-coverage checkpoint from epoch "
+                          f"{c_epoch}{extra}, continuing on a fresh "
+                          f"stream")
+        if cfg.dump_dir:
+            f = _dump_first_chunk(trainer, eval_params(state), epoch,
+                                  stream_seed(cfg.seed, _DUMP_STREAM, epoch))
+            print(f"saved predictions to {f}")
 
     # always leave a final checkpoint (evaluate and resume then work)
     if epoch % cfg.save_interval != 0:
         save_checkpoint(model_file, state, epoch, rng, ds.scale, cfg)
         print(f"saved final checkpoint to {model_file}")
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """1-NN accuracy and EMD of each dumped epoch against the real toy
+    sample sets (socialways_tpu/cli/main.py:1172-1180), cached to
+    ``stats<num_samples>.npz`` in the dump directory."""
+    from socialways_torch.eval.stats import (calc_and_store_stats,
+                                             load_real_samples)
+    real = load_real_samples(args.real_npz, group=args.group)
+    per_epoch = calc_and_store_stats(args.preds_dir, real,
+                                     num_samples=args.num_samples)
+    for epoch in sorted(per_epoch):
+        one_nn, emd = per_epoch[epoch]
+        print(f"epoch = {epoch}, EMD = {emd:.5f}, 1nn = {one_nn:.5f}")
+    print(f"cached to "
+          f"{os.path.join(args.preds_dir, f'stats{args.num_samples}.npz')}")
+    return 0
+
+
+def cmd_sweep(args, device) -> int:
+    """The unroll x info-weight grid (socialways_tpu/cli/main.py:977-1036):
+    train each variant for ``--sweep-epochs`` from the same seed, then
+    score its eval ADE/FDE and the toy mode coverage of ``--coverage-k``
+    rollouts over 64 test samples; write JAX's JSON."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.train_step import eval_params
+    from socialways_torch.engine.trainer import Trainer, fork_seed
+
+    base = _train_cfg(args)
+    ds = load_npz_dataset(args.data)
+    results = {}
+    for unroll in [int(u) for u in args.unrolls.split(",")]:
+        for info_w in [float(w) for w in args.info_weights.split(",")]:
+            cfg = base.replace(n_unrolling_steps=unroll, loss_info_w=info_w,
+                               use_info_loss=info_w > 0)
+            tr = Trainer(cfg, ds, device)
+            state = tr.init_state()
+            rng = torch.Generator(device=device).manual_seed(cfg.seed)
+            state, m = tr.train_epochs(state, rng, args.sweep_epochs)
+            ev = tr.evaluate(eval_params(state), fork_seed(rng))
+            cov = _coverage(eval_params(state), ds, tr.cfg, args.coverage_k,
+                            fork_seed(rng), device)
+            key = f"unroll{unroll}-info{info_w}"
+            results[key] = {**ev, "mode_coverage": cov,
+                            "final_train_ade": m["train_ade"]}
+            print(f"{key}: ADE/FDE min-{base.n_gen_samples} = "
+                  f"{ev['ade_min']:.3f}/{ev['fde_min']:.3f} | "
+                  f"coverage = {cov:.2f}")
+            del tr, state
+    best = max(results, key=lambda k: results[k]["mode_coverage"])
+    print(f"best coverage: {best} ({results[best]['mode_coverage']:.2f})")
+    with open(args.out_json, "w") as fh:
+        json.dump(results, fh, indent=2)
+    print(f"wrote {args.out_json}")
     return 0
 
 
@@ -505,10 +822,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_create_dataset, host_only=True)
 
     p = sub.add_parser("train", help="train the GAN (checkpoints, eval, "
-                                     "the gated stall rescue)")
+                                     "dumps, coverage, the rescues)")
     p.add_argument("--data", required=True, help="a windowed .npz")
-    _add_train_flags(p)
+    _add_train_flags(p, list(RECIPES) + list(RECIPE_ALIASES))
+    _add_loop_flags(p)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("stats",
+                       help="EMD + 1-NN distribution stats over dumps")
+    p.add_argument("--preds-dir", required=True)
+    p.add_argument("--real-npz", required=True,
+                   help="dataset npz providing the real sample sets")
+    p.add_argument("--num-samples", type=int, default=20)
+    p.add_argument("--group", type=int, default=6,
+                   help="pedestrians per real sample set")
+    p.set_defaults(fn=cmd_stats, host_only=True)
+
+    p = sub.add_parser("sweep",
+                       help="unrolled-GAN x info-weight sweep on the toy "
+                            "set with mode-coverage scoring")
+    p.add_argument("--data", required=True)
+    p.add_argument("--unrolls", default="0,1,5")
+    p.add_argument("--info-weights", default="0.0,0.5,1.0")
+    p.add_argument("--sweep-epochs", type=int, default=20000)
+    p.add_argument("--coverage-k", type=int, default=64)
+    p.add_argument("--out-json", default="sweep.json")
+    _add_gan_flags(p)
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("evaluate", help="evaluate a checkpoint")
     p.add_argument("--data", required=True)
@@ -565,7 +905,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prepare-only", action="store_true",
                    help="stop after obsmat discovery + npz building")
     p.add_argument("--out-json", default="")
-    _add_train_flags(p)
+    # the toy recipes carry --auto-recover, a flag of train's loop
+    _add_train_flags(p, ["loo"])
     p.set_defaults(fn=cmd_eth_ucy)
     return ap
 
@@ -588,6 +929,13 @@ def parse_args(argv):
         name = "loo"
     if not name:
         return args
+    if name in RECIPE_ALIASES:
+        new = RECIPE_ALIASES[name]
+        print(f"NOTE: --recipe {name} is deprecated — it is the TOY "
+              f"bundle (6.4x worse than defaults on the LOO protocol, "
+              f"BASELINE.md r4m); renamed to '{new}'. For real "
+              f"trajectory data use --recipe loo.", file=sys.stderr)
+        name = new
     rest, i = [], 0
     while i < len(argv):
         tok = argv[i]

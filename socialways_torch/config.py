@@ -75,19 +75,25 @@ class TrainConfig:
     test_interval: int = 5           # epochs between eval runs
     save_interval: int = 50          # epochs between checkpoints
 
-    # ---- runtime ----
-    seed: int = 0
-    compute_dtype: str = "float32"
-    model_dir: str = "trained_models"
-
-    # ---- JAX training knobs not ported yet (check_supported names them)
-    grad_clip: float = 0.0
+    # ---- learning-rate schedules (socialways_tpu/config.py): staircase
+    # exponential decay and linear warmup for both optimizers; the d_*
+    # fields override the shared ones for D
     lr_decay_rate: float = 1.0
     lr_decay_steps: int = 0
     d_lr_decay_rate: float = 1.0
     d_lr_decay_steps: int = 0
     lr_warmup_steps: int = 0
     d_lr_warmup_steps: int = 0
+
+    # ---- runtime ----
+    seed: int = 0
+    compute_dtype: str = "float32"
+    model_dir: str = "trained_models"
+    dump_dir: str = ""               # prediction dumps each test interval
+    lnr_model: str = "cv"            # the dumps' linear baseline: cv | kalman
+
+    # ---- JAX training knobs not ported yet (check_supported names them)
+    grad_clip: float = 0.0
     d_update_every: int = 1
     d_update_every_end: int = 0
     d_update_every_switch: int = 0
@@ -113,8 +119,8 @@ class TrainConfig:
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for a model this port does not implement yet.
 
-    A checkpoint or flag can select one; serving it with the FC/continuous/
-    uniform/float32 generator instead would silently be a different model
+    A checkpoint or flag can select one; serving it with the FC/uniform/
+    float32 generator instead would silently be a different model
     (the failure socialways_tpu/io/checkpoint.py:11-19 warns about)."""
     if cfg.n_lstm_layers != 1:
         raise ValueError(
@@ -125,19 +131,14 @@ def check_supported(cfg: TrainConfig) -> None:
                          f"{cfg.d_restore!r}")
     unsupported = [
         ("decoder", cfg.decoder != "fc"),
-        ("latent_code_type", cfg.latent_code_type != "continuous"),
+        ("latent_code_type",
+         cfg.latent_code_type not in ("continuous", "categorical")),
         ("noise_dist", cfg.noise_dist != "uniform"),
         ("compute_dtype", cfg.compute_dtype != "float32"),
         ("pac", cfg.pac != 1),
         ("mb_std", bool(cfg.mb_std)),
         ("spectral_norm", bool(cfg.spectral_norm)),
         ("grad_clip", cfg.grad_clip > 0),
-        ("lr_decay_rate", cfg.lr_decay_rate != 1.0),
-        ("lr_decay_steps", cfg.lr_decay_steps > 0),
-        ("d_lr_decay_rate", cfg.d_lr_decay_rate != 1.0),
-        ("d_lr_decay_steps", cfg.d_lr_decay_steps > 0),
-        ("lr_warmup_steps", cfg.lr_warmup_steps > 0),
-        ("d_lr_warmup_steps", cfg.d_lr_warmup_steps > 0),
         ("d_update_every", cfg.d_update_every != 1),
         ("d_update_every_end", cfg.d_update_every_end > 0),
         ("d_update_every_switch", cfg.d_update_every_switch > 0),

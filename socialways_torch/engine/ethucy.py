@@ -32,7 +32,7 @@ from socialways_torch.data.dataset import TrajectoryDataset
 from socialways_torch.data.scale import Scale
 from socialways_torch.engine.rescue import StallTracker, reinit_discriminator
 from socialways_torch.engine.train_step import eval_params
-from socialways_torch.engine.trainer import Trainer, fork_seed
+from socialways_torch.engine.trainer import Trainer, fork_seed, stream_seed
 
 SCENES = ("eth", "hotel", "univ", "zara1", "zara2")
 
@@ -227,12 +227,6 @@ def merge_scenes(files_train: Sequence[str], file_test: str
                              train_size=train_size)
 
 
-def _stream_seed(seed: int, stream: int) -> int:
-    """A 32-bit seed for random stream ``stream`` of a run seeded ``seed``
-    (numpy's SeedSequence hash of the pair)."""
-    return int(np.random.SeedSequence((seed, stream)).generate_state(1)[0])
-
-
 def _evaluate(trainer: Trainer, state, eval_rng: torch.Generator
               ) -> Dict[str, float]:
     """The held-out eval of ``state``'s eval generator, its noise seeded by
@@ -302,8 +296,8 @@ def run_leave_one_out(
         # weights on the CPU, seeded with the SeedSequence hashes of
         # (cfg.seed, 1) and (cfg.seed, 2)
         rng = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
-        eval_rng = torch.Generator().manual_seed(_stream_seed(cfg.seed, 1))
-        rescue_rng = torch.Generator().manual_seed(_stream_seed(cfg.seed, 2))
+        eval_rng = torch.Generator().manual_seed(stream_seed(cfg.seed, 1))
+        rescue_rng = torch.Generator().manual_seed(stream_seed(cfg.seed, 2))
         best = {"best_ade_min": float("inf"), "best_fde_min": float("inf"),
                 "best_at_epoch": 0}
         best_state = copy.deepcopy(state)

@@ -1,11 +1,13 @@
-"""GAN losses (LSGAN + continuous InfoGAN) with padding-aware masking.
+"""GAN losses (LSGAN + InfoGAN) with padding-aware masking.
 
-Counterpart of socialways_tpu/engine/losses.py:21-139 for the continuous
-code and ``pac == 1`` (reference train.py:471-536):
+Counterpart of socialways_tpu/engine/losses.py:21-139 for ``pac == 1``
+(reference train.py:471-536):
 - LSGAN MSE labels with one smoothing scalar per batch: fake targets are
   U(0, 0.1), real targets U(0.9, 1.0) (train.py:471-472);
 - InfoGAN Q-loss: MSE between the Q-head output and the first
-  ``n_latent_codes`` dims of the uniform noise (train.py:485, 516).
+  ``n_latent_codes`` dims of the uniform noise (train.py:485, 516), or, for
+  categorical codes, the cross-entropy of the Q-head's logits against the
+  one-hot code embedded in those dims.
 
 Every mean is masked: padded samples contribute nothing and the denominator
 counts only valid elements.
@@ -13,18 +15,29 @@ counts only valid elements.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 
-def sample_noise(n: int, noise_len: int,
+def sample_noise(shape: Tuple[int, ...], cfg,
                  generator: Optional[torch.Generator] = None,
                  device=None) -> torch.Tensor:
-    """The generator's noise [n, noise_len], U(0, 1) as the reference draws
-    it (train.py:473).  torch cannot reproduce ``jax.random``'s stream;
-    tests pass JAX's draw in instead."""
-    return torch.rand((n, noise_len), generator=generator, device=device)
+    """The generator's noise [*shape, noise_len], U(0, 1) as the reference
+    draws it (train.py:473).  With categorical codes a uniform code in
+    [0, n_latent_codes) is one-hot embedded into the first
+    ``n_latent_codes`` dims.  torch cannot reproduce ``jax.random``'s
+    stream; tests pass JAX's draw in instead."""
+    z = torch.rand(tuple(shape) + (cfg.noise_len,), generator=generator,
+                   device=device)
+    if cfg.latent_code_type == "categorical":
+        n_codes = cfg.n_latent_codes
+        c = torch.randint(0, n_codes, tuple(shape), generator=generator,
+                          device=device)
+        # F.one_hot would read its input's range back to the host
+        onehot = (c[..., None] == torch.arange(n_codes, device=c.device))
+        z = torch.cat([onehot.to(z.dtype), z[..., n_codes:]], dim=-1)
+    return z
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -41,33 +54,52 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return total / count
 
 
+def masked_xent(logits: torch.Tensor, labels: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy over valid samples.  logits [N, C], labels
+    [N]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None])[:, 0]
+    return (torch.where(valid, nll, 0.0).sum()
+            / torch.clamp(valid.sum(), min=1))
+
+
 def info_loss(code_hat: torch.Tensor, noise: torch.Tensor,
-              valid: torch.Tensor, n_latent_codes: int) -> torch.Tensor:
-    """Continuous InfoGAN surrogate: regress the first ``n_latent_codes``
-    noise dims."""
-    return masked_mse(code_hat, noise[:, :n_latent_codes], valid)
+              valid: torch.Tensor, n_latent_codes: int,
+              latent_code_type: str = "continuous") -> torch.Tensor:
+    """InfoGAN surrogate against the code in the first ``n_latent_codes``
+    noise dims: regression for continuous codes, cross-entropy against the
+    one-hot's index for categorical ones."""
+    target = noise[:, :n_latent_codes]
+    if latent_code_type == "categorical":
+        return masked_xent(code_hat, torch.argmax(target, dim=-1), valid)
+    return masked_mse(code_hat, target, valid)
 
 
 def lsgan_d_loss(fake_label, real_label, fake_code, noise, valid,
                  zeros_target, ones_target, use_info_loss: bool,
-                 loss_info_w: float, n_latent_codes: int) -> torch.Tensor:
+                 loss_info_w: float, n_latent_codes: int,
+                 latent_code_type: str = "continuous") -> torch.Tensor:
     """Discriminator loss (train.py:482-494); labels [N, 1]."""
     loss = (masked_mse(fake_label, zeros_target, valid)
             + masked_mse(real_label, ones_target, valid))
     if use_info_loss:
         loss = loss + loss_info_w * info_loss(fake_code, noise, valid,
-                                              n_latent_codes)
+                                              n_latent_codes,
+                                              latent_code_type)
     return loss
 
 
 def lsgan_g_loss(gen_label, gen_code, noise, valid, ones_target,
                  use_info_loss: bool, loss_info_w: float,
-                 n_latent_codes: int) -> torch.Tensor:
+                 n_latent_codes: int,
+                 latent_code_type: str = "continuous") -> torch.Tensor:
     """Generator fooling (+ info) loss (train.py:510-523)."""
     loss = masked_mse(gen_label, ones_target, valid)
     if use_info_loss:
         loss = loss + loss_info_w * info_loss(gen_code, noise, valid,
-                                              n_latent_codes)
+                                              n_latent_codes,
+                                              latent_code_type)
     return loss
 
 

@@ -1,11 +1,12 @@
-"""The unrolled LSGAN + InfoGAN training step of the loo model.
+"""The unrolled LSGAN + InfoGAN training step.
 
 Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764 for the
-feature set of ``cli train --recipe loo``: agent frame, social attention,
-EMA generator, D instance noise annealed to a floor, ``n_unrolling_steps``
-lookahead D updates with a configurable restore, the continuous info loss,
-``pac == 1``, float32.  The other ``gan_step`` variants raise in
-``check_supported``.
+feature set of ``cli train`` with the loo and toy recipes: agent frame,
+social attention, EMA generator, D instance noise annealed to a floor,
+``n_unrolling_steps`` lookahead D updates with a configurable restore, the
+continuous or categorical info loss, staircase lr decay and linear warmup
+(shared and D-only), ``pac == 1``, float32.  The other ``gan_step``
+variants raise in ``check_supported``.
 
 The step, in JAX's order:
 1. canonicalize to the agent frame, keeping the world-frame last states
@@ -32,7 +33,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -55,19 +57,24 @@ from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
 
 @dataclasses.dataclass
 class AdamState:
-    """optax ``ScaleByAdamState``: the step count and the two moments, keyed
-    by parameter name.  The count is a host integer: the schedules read it
-    without a device round trip."""
+    """optax's state of ``adam(lr)``: ``ScaleByAdamState`` (the step count
+    and the two moments, keyed by parameter name) and, when the lr is a
+    schedule, ``ScaleByScheduleState``'s count (``schedule_count``; None
+    for a constant lr, whose state is empty).  The counts are host
+    integers: the schedules read them without a device round trip."""
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    schedule_count: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """optax.adam with a constant learning rate:
-    ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, eps outside the root."""
-    lr: float
+    """optax.adam: ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, eps outside
+    the root.  ``lr`` is a constant or a schedule of the update count,
+    which, as optax's ``scale_by_schedule``, reads the count BEFORE the
+    update; the bias correction reads the count after it."""
+    lr: Union[float, Callable[[int], float]]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -75,13 +82,18 @@ class Adam:
     def init(self, params: nn.Module) -> AdamState:
         zeros = lambda: {k: torch.zeros_like(p)
                          for k, p in params.named_parameters()}
-        return AdamState(0, zeros(), zeros())
+        return AdamState(0, zeros(), zeros(),
+                         0 if callable(self.lr) else None)
 
     @torch.no_grad()
     def step(self, opt: AdamState, params: nn.Module,
              grads: Sequence[torch.Tensor]) -> None:
         """One update of ``params`` in place from ``grads`` (in
         ``parameters()`` order)."""
+        lr = self.lr
+        if callable(lr):
+            lr = lr(opt.schedule_count)
+            opt.schedule_count += 1
         ps = list(params.parameters())
         mu, nu = list(opt.mu.values()), list(opt.nu.values())
         grads = list(grads)
@@ -95,7 +107,7 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(m_hat, denom)
-        torch._foreach_add_(ps, m_hat, alpha=-self.lr)
+        torch._foreach_add_(ps, m_hat, alpha=-lr)
 
 
 @dataclasses.dataclass
@@ -118,7 +130,7 @@ class StepMetrics(NamedTuple):
 class StepDraws(NamedTuple):
     """Every random draw of one ``gan_step`` (train.py:471-473;
     socialways_tpu/engine/train_step.py:282-287, 428-443)."""
-    noise: torch.Tensor                  # [N, noise_len], U(0, 1)
+    noise: torch.Tensor                  # [N, noise_len], sample_noise
     zero_label: torch.Tensor             # scalar, U(0, 0.1)
     one_label: torch.Tensor              # scalar, U(0.9, 1.0)
     eps_fake: Optional[torch.Tensor] = None    # [N, n_next, 4], N(0, 1)
@@ -131,10 +143,63 @@ def eval_params(state: TrainState) -> Generator:
     return state.g_ema if state.g_ema is not None else state.g
 
 
+def lr_schedule(lr: float, decay_rate: float, decay_steps: int,
+                warmup_steps: int) -> Union[float, Callable[[int], float]]:
+    """``lr``, or JAX's schedule of it (socialways_tpu/engine/train_step.py:
+    75-84): optax's staircase ``exponential_decay`` when ``decay_rate`` !=
+    1 and ``decay_steps`` > 0, times the linear warmup ``min(1, (count +
+    1) / warmup_steps)`` when ``warmup_steps`` > 0.  Computed in float32,
+    as the JAX step computes it."""
+    decay = decay_rate != 1.0 and decay_steps > 0
+    if not decay and warmup_steps <= 0:
+        return lr
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        v = f32(lr)
+        # optax keeps a zero rate's schedule constant
+        if decay and decay_rate != 0 and count > 0:
+            p = np.floor(f32(count) / f32(decay_steps))
+            v = f32(lr) * np.power(f32(decay_rate), p)
+        if warmup_steps > 0:
+            v = v * min(f32(1.0), (f32(count) + f32(1.0)) / f32(warmup_steps))
+        return float(v)
+    return schedule
+
+
 def make_optimizers(cfg: TrainConfig) -> Tuple[Adam, Adam]:
-    """(G, D) optimizers: Adam with constant learning rates."""
-    return (Adam(cfg.lr_g, cfg.adam_b1, cfg.adam_b2),
-            Adam(cfg.lr_d, cfg.adam_b1, cfg.adam_b2))
+    """(G, D) Adam optimizers with JAX's lr schedules; the D-only decay and
+    warmup override the shared ones for D (:90-98)."""
+    if cfg.d_lr_decay_steps > 0:
+        d_decay = (cfg.d_lr_decay_rate, cfg.d_lr_decay_steps)
+    else:
+        d_decay = (cfg.lr_decay_rate, cfg.lr_decay_steps)
+    d_warmup = cfg.d_lr_warmup_steps or cfg.lr_warmup_steps
+    g_lr = lr_schedule(cfg.lr_g, cfg.lr_decay_rate, cfg.lr_decay_steps,
+                       cfg.lr_warmup_steps)
+    d_lr = lr_schedule(cfg.lr_d, *d_decay, d_warmup)
+    return (Adam(g_lr, cfg.adam_b1, cfg.adam_b2),
+            Adam(d_lr, cfg.adam_b1, cfg.adam_b2))
+
+
+def transplant_schedule_clock(restored: TrainState,
+                              clock: TrainState) -> TrainState:
+    """``restored`` with every optimizer count (Adam's and the schedule's)
+    taken from ``clock`` (socialways_tpu/engine/train_step.py:129-153).
+
+    A checkpoint-restore rescue rewinds the counts and with them every
+    count-keyed schedule (the instance-noise anneal, lr decay); with this
+    transplant the rescue restores parameters and moments but keeps the
+    schedules on the run's clock.  ``clock`` is only read: pass the state
+    as it was before the restore."""
+    def merge(r: AdamState, c: AdamState) -> AdamState:
+        return dataclasses.replace(
+            r, count=c.count,
+            schedule_count=(c.schedule_count
+                            if r.schedule_count is not None else None))
+    return dataclasses.replace(restored,
+                               g_opt=merge(restored.g_opt, clock.g_opt),
+                               d_opt=merge(restored.d_opt, clock.d_opt))
 
 
 def _ema_copy(g: Generator) -> Generator:
@@ -160,7 +225,7 @@ def draw_step(n: int, cfg: TrainConfig,
               device=None) -> StepDraws:
     """One step's draws from ``generator``; the eps tensors only when D
     instance noise is on."""
-    noise = sample_noise(n, cfg.noise_len, generator, device)
+    noise = sample_noise((n,), cfg, generator, device)
     u = torch.rand(2, generator=generator, device=device)
     eps = [None] * 3
     if cfg.d_input_noise > 0:
@@ -228,7 +293,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     zeros_t = torch.zeros((n, 1), device=dev) + draws.zero_label
     ones_t = torch.ones((n, 1), device=dev) * draws.one_label
     obsv_4d, pred_4d = obsv_to_4d(obsv), pred_to_4d(obsv, pred)
-    info = (cfg.use_info_loss, cfg.loss_info_w, cfg.n_latent_codes)
+    info = (cfg.use_info_loss, cfg.loss_info_w, cfg.n_latent_codes,
+            cfg.latent_code_type)
 
     # one rollout with its graph: the D phase reads it detached, the G
     # phase backpropagates through it once

@@ -15,6 +15,7 @@ import functools
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from socialways_torch.config import TrainConfig, check_supported
@@ -43,6 +44,13 @@ def fork_seed(rng: torch.Generator) -> int:
     re-initialized discriminator)."""
     return int(torch.randint(0, 2 ** 62, (1,), generator=rng,
                              device=rng.device))
+
+
+def stream_seed(seed: int, *stream: int) -> int:
+    """A 32-bit seed for random stream ``stream`` of a run seeded ``seed``
+    (numpy's SeedSequence hash of the tuple): draws from it leave the run's
+    own stream where it is, as ``jax.random.fold_in`` does."""
+    return int(np.random.SeedSequence((seed,) + stream).generate_state(1)[0])
 
 
 def chunk_of(batches: Dict[str, torch.Tensor], i: int

@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from socialways_torch.config import TrainConfig
+from socialways_torch.engine.losses import sample_noise
 from socialways_torch.models.generator import (Generator, decode_rollout,
                                                prepare_rollout)
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
@@ -32,10 +33,11 @@ def draw_noise(k: int, n: int, cfg: TrainConfig,
                generator: Optional[torch.Generator] = None,
                device=None) -> torch.Tensor:
     """The rollout noise [K, N, noise_len], U(0, 1) as the reference draws
-    it (train.py:583-585).  torch cannot reproduce ``jax.random``'s
-    stream; tests pass JAX's draw in instead."""
-    return torch.rand((k, n, cfg.noise_len), generator=generator,
-                      device=device)
+    it (train.py:583-585); with categorical codes each of the K draws
+    embeds its own one-hot code, as ``sample_noise`` per K sample does in
+    JAX (socialways_tpu/eval/metrics.py:54-58).  torch cannot reproduce
+    ``jax.random``'s stream; tests pass JAX's draw in instead."""
+    return sample_noise((k, n), cfg, generator, device)
 
 
 @torch.no_grad()

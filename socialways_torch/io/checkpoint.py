@@ -6,7 +6,8 @@ checkpoint.py:62-167): ``.g_params/['feat_mlp']/[2]/['w']``,
 ``.d_params/['obsv_lstm']/['w']``, ``.g_ema/['encoder']/['b']``, the optax
 Adam state as ``.g_opt/[0]/.count`` (int32) and
 ``.g_opt/[0]/.mu/['embed']/['w']``, ``.g_opt/[0]/.nu/...`` (the same for
-``.d_opt``), plus ``__epoch__``, ``__rng__`` (a uint32[2] JAX key),
+``.d_opt``; an optimizer with an lr schedule adds its schedule count as
+``.g_opt/[1]/.count``), plus ``__epoch__``, ``__rng__`` (a uint32[2] JAX key),
 ``__scale__/*`` and ``__config__`` (the JSON of ``MODEL_CONFIG_FIELDS``).
 This module reads and writes those keys as strings, without JAX, so the
 two packages read each other's checkpoints.  The port's own random stream
@@ -205,6 +206,9 @@ def flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
             flat[prefix + _name_to_jax_path(name)] = t.detach().cpu().numpy()
     for prefix, opt in zip(_OPTS, (state.g_opt, state.d_opt)):
         flat[f"{prefix}[0]/.count"] = np.asarray(opt.count, np.int32)
+        if opt.schedule_count is not None:
+            flat[f"{prefix}[1]/.count"] = np.asarray(opt.schedule_count,
+                                                     np.int32)
         for moment in ("mu", "nu"):
             for name, t in getattr(opt, moment).items():
                 flat[f"{prefix}[0]/.{moment}/{_name_to_jax_path(name)}"] = (
@@ -238,9 +242,15 @@ def state_from_flat(flat: Mapping[str, np.ndarray], cfg: TrainConfig,
             {name: take(prefix + _name_to_jax_path(name), t)
              for name, t in module.state_dict().items()}, strict=True)
     for prefix, opt in zip(_OPTS, (state.g_opt, state.d_opt)):
-        if f"{prefix}[0]/.count" not in flat:
-            raise KeyError(f"checkpoint missing leaf {prefix}[0]/.count")
-        opt.count = int(flat[f"{prefix}[0]/.count"])
+        # the schedule's count only where cfg gives the optimizer a
+        # schedule; JAX's restore ignores the leaf elsewhere too
+        counts = [("count", f"{prefix}[0]/.count")]
+        if opt.schedule_count is not None:
+            counts.append(("schedule_count", f"{prefix}[1]/.count"))
+        for attr, key in counts:
+            if key not in flat:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            setattr(opt, attr, int(flat[key]))
         for moment in ("mu", "nu"):
             tensors = getattr(opt, moment)
             for name, t in tensors.items():
@@ -261,8 +271,8 @@ def train_state_from_jax(tree, cfg: TrainConfig, device=None) -> TrainState:
     """The weight bridge for the whole training state: the numpy leaves of
     a JAX ``TrainState`` (``jax.device_get(state)``: ``g_params``,
     ``d_params``, ``g_opt``/``d_opt`` as optax ``(ScaleByAdamState(count,
-    mu, nu), EmptyState())`` and ``g_ema``) -> the port's state, optimizer
-    moments and counts included."""
+    mu, nu), EmptyState() or ScaleByScheduleState(count))`` and ``g_ema``)
+    -> the port's state, optimizer moments and counts included."""
     flat = {}
     for field in ("g_params", "d_params", "g_ema"):
         sub = getattr(tree, field)
@@ -271,8 +281,10 @@ def train_state_from_jax(tree, cfg: TrainConfig, device=None) -> TrainState:
         for name, v in _flatten_tree(sub).items():
             flat[f".{field}/{_name_to_jax_path(name)}"] = np.asarray(v)
     for field in ("g_opt", "d_opt"):
-        adam = getattr(tree, field)[0]
+        adam, sched = getattr(tree, field)[:2]
         flat[f".{field}/[0]/.count"] = np.asarray(adam.count)
+        if "count" in getattr(sched, "_fields", ()):    # not EmptyState
+            flat[f".{field}/[1]/.count"] = np.asarray(sched.count)
         for moment in ("mu", "nu"):
             for name, v in _flatten_tree(getattr(adam, moment)).items():
                 flat[f".{field}/[0]/.{moment}/{_name_to_jax_path(name)}"] = (

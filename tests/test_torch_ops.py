@@ -166,7 +166,7 @@ def test_torch_social_dense_forms_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("decoder", "lstm"), ("latent_code_type", "categorical"),
+    ("decoder", "lstm"), ("latent_code_type", "binary"),
     ("noise_dist", "gaussian"), ("compute_dtype", "bfloat16"),
     ("pac", 2), ("mb_std", True), ("spectral_norm", True)])
 def test_torch_config_rejects_unported_models(field, value):

@@ -268,12 +268,12 @@ def test_torch_cli_recipe_expands_and_explicit_flags_override(toy_npz):
             args.d_input_noise_steps, args.ade_stall_classify) == (
         True, True, 0.5, -1, 5)
     with pytest.raises(SystemExit):
-        parse_args(["train", "--data", toy_npz, "--recipe", "robust1"])
+        parse_args(["train", "--data", toy_npz, "--recipe", "robust9"])
 
 
 @pytest.mark.parametrize("flag", ["--grad-clip", "--pallas", "--bf16",
-                                  "--unrolling-steps", "--info-weight",
-                                  "--no-info-loss", "--d-restore"])
+                                  "--pac", "--spectral-norm", "--mb-std",
+                                  "--grad-accum"])
 def test_torch_cli_refuses_unported_training_flags(flag, toy_npz, capsys):
     with pytest.raises(SystemExit):
         parse_args(["train", "--data", toy_npz, flag, "1"])
