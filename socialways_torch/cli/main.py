@@ -19,13 +19,15 @@ Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
 predict), :977-1036 (sweep), :1039-1101 (eth-ucy) and :1172-1191 (stats).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
 ``create-*`` and ``stats`` are host-only.  ``train``, ``eth-ucy`` and
-``sweep`` take only the flags of what the port implements; argparse
-refuses the others.  The loop's outputs and rescues (dumps, metrics log,
+``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--bf16``,
+``--pallas``, ``--mesh`` and ``--max-scene-size`` (not ported yet);
+argparse refuses those.  The loop's outputs and rescues (dumps, metrics log,
 profiler trace, coverage, ``--auto-recover``) are ``train``'s alone:
 ``eth-ucy`` and ``sweep`` refuse them rather than ignore them.  ``eth-ucy``
 without ``--recipe`` runs the loo recipe (``--recipe=`` opts out).  The
 model flags of evaluate/predict are the widths and switches of the served
-FC generator; a checkpoint's embedded config overrides them.
+generator; a checkpoint's embedded config overrides them and brings the
+ones they lack (``decoder``, ``noise_dist``, ...).
 """
 
 from __future__ import annotations
@@ -338,6 +340,75 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--d-lr-warmup-steps", type=int, default=0,
                    help="D-only lr warmup override (0 = use "
                         "--lr-warmup-steps)")
+    p.add_argument("--info-weight-end", type=float, default=0.0,
+                   help="ramp the info weight linearly from --info-weight "
+                        "to this over --info-weight-steps GAN steps (0 = "
+                        "constant, reference parity)")
+    p.add_argument("--info-weight-steps", type=int, default=0)
+    p.add_argument("--decoder", default="fc", choices=["fc", "lstm"])
+    p.add_argument("--noise-dist", default="uniform",
+                   choices=["uniform", "gaussian"],
+                   help="generator noise distribution (the reference uses "
+                        "U(0,1), torch.rand at train.py:473)")
+    p.add_argument("--use-l2-loss", action="store_true")
+    p.add_argument("--use-variety-loss", action="store_true")
+    p.add_argument("--l2-weight", type=float, default=0.5)
+    p.add_argument("--r1-gamma", type=float, default=0.0,
+                   help="R1 gradient penalty weight on the real-data D "
+                        "output (0 = off, reference behavior)")
+    p.add_argument("--pac", type=int, default=1,
+                   help="PacGAN: the LSGAN classifier scores packs of "
+                        "this many consecutive samples (one label per "
+                        "pack); the InfoGAN Q-head stays per-sample (1 = "
+                        "off, reference parity)")
+    p.add_argument("--spectral-norm", action="store_true",
+                   help="SN-GAN: spectrally normalize D's feed-forward "
+                        "Linear weights at every evaluation (stateless "
+                        "power iteration; Q-head and LSTM untouched)")
+    p.add_argument("--mb-std", action="store_true",
+                   help="ProGAN minibatch stddev: append the fake/real "
+                        "block's diversity scalar to D's classifier input")
+    p.add_argument("--ms-weight", type=float, default=0.0,
+                   help="MSGAN mode-seeking regularizer weight: the G "
+                        "loss adds w/(r+1e-5) with r = output-diversity / "
+                        "latent-distance between noise draws (0 = off)")
+    p.add_argument("--ds-weight", type=float, default=0.0,
+                   help="DSGAN diversity hinge weight: per-sample "
+                        "max(0, tau - d_i/dz_i) over extra rollouts (0 = "
+                        "off)")
+    p.add_argument("--ds-tau", type=float, default=1.0,
+                   help="diversity-ratio target for --ds-weight")
+    p.add_argument("--ds-k", type=int, default=2,
+                   help="rollouts pooled by the diversity regularizers "
+                        "(d_i/dz_i = mean over all K(K-1)/2 pairs; K-1 "
+                        "extra rollouts)")
+    p.add_argument("--d-update-every", type=int, default=1,
+                   help="run the D phase only on every k-th GAN step "
+                        "(skipped steps leave D untouched and train G "
+                        "against the current D; 1 = reference parity)")
+    p.add_argument("--d-update-every-end", type=int, default=0,
+                   help="warmup-style D/G ratio schedule: switch "
+                        "--d-update-every to this value after "
+                        "--d-update-every-switch steps (0 = constant)")
+    p.add_argument("--d-update-every-switch", type=int, default=0,
+                   help="G-step count at which the D/G ratio switches")
+    p.add_argument("--grad-clip", type=float, default=0.0,
+                   help="global-norm gradient clip (0 = off, reference "
+                        "behavior)")
+    p.add_argument("--serial-rollout", action="store_true",
+                   help="the D phase sees a no-grad rollout and the G "
+                        "phase recomputes it under grad: the two phases' "
+                        "saved activations are never held together")
+    p.add_argument("--remat-steps", action="store_true",
+                   help="checkpoint the LSTM and decode steps in training "
+                        "(recomputed in the backward: less memory, more "
+                        "compute)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="exact gradient accumulation over N micro-chunks "
+                        "per step (valid-share-weighted; equals the "
+                        "full-batch gradient). Batch rows must divide by "
+                        "N and (with --use-social) scene boundaries must "
+                        "align to chunk boundaries")
 
 
 def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
@@ -429,10 +500,24 @@ def _train_cfg(args):
         lr_g=args.g_learning_rate, lr_d=args.d_learning_rate,
         n_unrolling_steps=args.unrolling_steps,
         use_info_loss=not args.no_info_loss, loss_info_w=args.info_weight,
+        loss_info_w_end=args.info_weight_end,
+        loss_info_w_steps=args.info_weight_steps,
         d_restore=args.d_restore,
         hidden_size=h, social_feature_size=h, noise_len=h // 2,
+        decoder=args.decoder, noise_dist=args.noise_dist,
         n_latent_codes=args.n_latent_codes,
         latent_code_type=args.latent_code,
+        use_l2_loss=args.use_l2_loss,
+        use_variety_loss=args.use_variety_loss, loss_l2_w=args.l2_weight,
+        r1_gamma=args.r1_gamma, pac=args.pac,
+        spectral_norm=args.spectral_norm, mb_std=args.mb_std,
+        ms_weight=args.ms_weight, ds_weight=args.ds_weight,
+        ds_tau=args.ds_tau, ds_k=args.ds_k,
+        d_update_every=args.d_update_every,
+        d_update_every_end=args.d_update_every_end,
+        d_update_every_switch=args.d_update_every_switch,
+        grad_clip=args.grad_clip, serial_rollout=args.serial_rollout,
+        remat_steps=args.remat_steps, grad_accum=args.grad_accum,
         use_social=args.use_social, agent_frame=args.agent_frame,
         d_input_noise=args.d_input_noise,
         d_input_noise_steps=args.d_input_noise_steps,

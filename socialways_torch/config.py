@@ -4,9 +4,10 @@ The fields the port reads, with the defaults of
 ``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
 ``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
 define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
-Training knobs of the JAX config that the port does not implement are
-fields here too, so that ``check_supported`` can name them when a caller
-sets one instead of silently training another model.
+The JAX fields the port does not implement yet (bf16, a mesh, the
+windowed attention's ``max_scene_size``) are fields here too, so that
+``check_supported`` can name them when a caller sets one instead of
+silently training another model.
 """
 
 from __future__ import annotations
@@ -40,10 +41,14 @@ class TrainConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
 
-    # ---- GAN step (socialways_tpu/config.py:110-176) ----
+    # ---- GAN step (socialways_tpu/config.py:36-198) ----
     n_unrolling_steps: int = 1
     use_info_loss: bool = True
     loss_info_w: float = 0.5
+    # info-weight ramp: loss_info_w -> loss_info_w_end over
+    # loss_info_w_steps G steps, then held (0 = constant)
+    loss_info_w_end: float = 0.0
+    loss_info_w_steps: int = 0
     d_restore: str = "full"          # "full" | "reference" | "none"
     # D instance noise on the prediction inputs of every D evaluation,
     # annealed linearly to 0 over d_input_noise_steps GAN steps (0 =
@@ -92,20 +97,31 @@ class TrainConfig:
     dump_dir: str = ""               # prediction dumps each test interval
     lnr_model: str = "cv"            # the dumps' linear baseline: cv | kalman
 
-    # ---- JAX training knobs not ported yet (check_supported names them)
-    grad_clip: float = 0.0
+    # ---- the other GAN-step variants (socialways_tpu/config.py:36-198)
+    grad_clip: float = 0.0           # global-norm clip before Adam (0 = off)
+    # the D phase runs on every k-th G step; after d_update_every_switch G
+    # steps k becomes d_update_every_end (0 = no switch)
     d_update_every: int = 1
     d_update_every_end: int = 0
     d_update_every_switch: int = 0
-    loss_info_w_end: float = 0.0
     use_l2_loss: bool = False
     use_variety_loss: bool = False
-    r1_gamma: float = 0.0
-    ms_weight: float = 0.0
-    ds_weight: float = 0.0
+    loss_l2_w: float = 0.5           # weight of the l2 and variety losses
+    variety_k: int = 20              # rollouts of the min-over-K variety loss
+    r1_gamma: float = 0.0            # R1 penalty on D's real-data gradient
+    ms_weight: float = 0.0           # mode seeking: w / (r + 1e-5)
+    ds_weight: float = 0.0           # diversity hinge: w max(0, tau - d/dz)
+    ds_tau: float = 1.0
+    ds_k: int = 2                    # draws the diversity terms pair over
+    # the D phase sees a no-grad rollout; G recomputes it under grad
     serial_rollout: bool = False
+    # checkpoint each LSTM and decode step (recomputed in the backward)
     remat_steps: bool = False
+    # exact gradient accumulation over this many scene-aligned micro-chunks
     grad_accum: int = 1
+
+    # ---- JAX knobs not ported yet (check_supported names them)
+    max_scene_size: int = 0
     mesh_shape: Optional[int] = None
 
     def replace(self, **kw) -> "TrainConfig":
@@ -119,8 +135,8 @@ class TrainConfig:
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for a model this port does not implement yet.
 
-    A checkpoint or flag can select one; serving it with the FC/uniform/
-    float32 generator instead would silently be a different model
+    A checkpoint or flag can select one; serving or training it as the
+    float32 single-device model instead would silently be a different run
     (the failure socialways_tpu/io/checkpoint.py:11-19 warns about)."""
     if cfg.n_lstm_layers != 1:
         raise ValueError(
@@ -130,27 +146,12 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(f"d_restore must be full, reference or none, got "
                          f"{cfg.d_restore!r}")
     unsupported = [
-        ("decoder", cfg.decoder != "fc"),
+        ("decoder", cfg.decoder not in ("fc", "lstm")),
         ("latent_code_type",
          cfg.latent_code_type not in ("continuous", "categorical")),
-        ("noise_dist", cfg.noise_dist != "uniform"),
+        ("noise_dist", cfg.noise_dist not in ("uniform", "gaussian")),
         ("compute_dtype", cfg.compute_dtype != "float32"),
-        ("pac", cfg.pac != 1),
-        ("mb_std", bool(cfg.mb_std)),
-        ("spectral_norm", bool(cfg.spectral_norm)),
-        ("grad_clip", cfg.grad_clip > 0),
-        ("d_update_every", cfg.d_update_every != 1),
-        ("d_update_every_end", cfg.d_update_every_end > 0),
-        ("d_update_every_switch", cfg.d_update_every_switch > 0),
-        ("loss_info_w_end", cfg.loss_info_w_end > 0),
-        ("use_l2_loss", bool(cfg.use_l2_loss)),
-        ("use_variety_loss", bool(cfg.use_variety_loss)),
-        ("r1_gamma", cfg.r1_gamma > 0),
-        ("ms_weight", cfg.ms_weight > 0),
-        ("ds_weight", cfg.ds_weight > 0),
-        ("serial_rollout", bool(cfg.serial_rollout)),
-        ("remat_steps", bool(cfg.remat_steps)),
-        ("grad_accum", cfg.grad_accum > 1),
+        ("max_scene_size", cfg.max_scene_size > 0),
         ("mesh_shape", cfg.mesh_shape is not None),
     ]
     for field, bad in unsupported:

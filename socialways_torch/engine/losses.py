@@ -1,13 +1,15 @@
 """GAN losses (LSGAN + InfoGAN) with padding-aware masking.
 
-Counterpart of socialways_tpu/engine/losses.py:21-139 for ``pac == 1``
-(reference train.py:471-536):
+Counterpart of socialways_tpu/engine/losses.py:21-139 (reference
+train.py:471-536):
 - LSGAN MSE labels with one smoothing scalar per batch: fake targets are
   U(0, 0.1), real targets U(0.9, 1.0) (train.py:471-472);
 - InfoGAN Q-loss: MSE between the Q-head output and the first
   ``n_latent_codes`` dims of the uniform noise (train.py:485, 516), or, for
   categorical codes, the cross-entropy of the Q-head's logits against the
-  one-hot code embedded in those dims.
+  one-hot code embedded in those dims;
+- under PacGAN the labels are one a pack, masked by ``label_valid``;
+- the l2 loss and the min-over-K variety loss (off by default).
 
 Every mean is masked: padded samples contribute nothing and the denominator
 counts only valid elements.
@@ -24,12 +26,13 @@ def sample_noise(shape: Tuple[int, ...], cfg,
                  generator: Optional[torch.Generator] = None,
                  device=None) -> torch.Tensor:
     """The generator's noise [*shape, noise_len], U(0, 1) as the reference
-    draws it (train.py:473).  With categorical codes a uniform code in
-    [0, n_latent_codes) is one-hot embedded into the first
-    ``n_latent_codes`` dims.  torch cannot reproduce ``jax.random``'s
-    stream; tests pass JAX's draw in instead."""
-    z = torch.rand(tuple(shape) + (cfg.noise_len,), generator=generator,
-                   device=device)
+    draws it (train.py:473), or N(0, 1) for ``noise_dist="gaussian"``.
+    With categorical codes a uniform code in [0, n_latent_codes) is
+    one-hot embedded into the first ``n_latent_codes`` dims.  torch cannot
+    reproduce ``jax.random``'s stream; tests pass JAX's draw in instead."""
+    draw = torch.randn if cfg.noise_dist == "gaussian" else torch.rand
+    z = draw(tuple(shape) + (cfg.noise_len,), generator=generator,
+             device=device)
     if cfg.latent_code_type == "categorical":
         n_codes = cfg.n_latent_codes
         c = torch.randint(0, n_codes, tuple(shape), generator=generator,
@@ -79,28 +82,54 @@ def info_loss(code_hat: torch.Tensor, noise: torch.Tensor,
 def lsgan_d_loss(fake_label, real_label, fake_code, noise, valid,
                  zeros_target, ones_target, use_info_loss: bool,
                  loss_info_w: float, n_latent_codes: int,
-                 latent_code_type: str = "continuous") -> torch.Tensor:
-    """Discriminator loss (train.py:482-494); labels [N, 1]."""
-    loss = (masked_mse(fake_label, zeros_target, valid)
-            + masked_mse(real_label, ones_target, valid))
+                 latent_code_type: str = "continuous", label_valid=None,
+                 w_label=1.0, w_info=1.0) -> torch.Tensor:
+    """Discriminator loss (train.py:482-494).  Labels are [N, 1], or under
+    PacGAN [N/pac, 1] with ``label_valid`` the packs' validity (the info
+    term stays per sample on ``valid``).  ``w_label`` and ``w_info`` weight
+    the two terms apart: gradient accumulation weights a micro-chunk's
+    label term by its share of valid packs and its info term by its share
+    of valid samples."""
+    lv = valid if label_valid is None else label_valid
+    m = fake_label.shape[0]
+    loss = w_label * (masked_mse(fake_label, zeros_target[:m], lv)
+                      + masked_mse(real_label, ones_target[:m], lv))
     if use_info_loss:
-        loss = loss + loss_info_w * info_loss(fake_code, noise, valid,
-                                              n_latent_codes,
-                                              latent_code_type)
+        loss = loss + w_info * loss_info_w * info_loss(
+            fake_code, noise, valid, n_latent_codes, latent_code_type)
     return loss
 
 
 def lsgan_g_loss(gen_label, gen_code, noise, valid, ones_target,
                  use_info_loss: bool, loss_info_w: float,
-                 n_latent_codes: int,
-                 latent_code_type: str = "continuous") -> torch.Tensor:
-    """Generator fooling (+ info) loss (train.py:510-523)."""
-    loss = masked_mse(gen_label, ones_target, valid)
+                 n_latent_codes: int, latent_code_type: str = "continuous",
+                 label_valid=None, w_label=1.0, w_info=1.0) -> torch.Tensor:
+    """Generator fooling (+ info) loss (train.py:510-523); ``label_valid``
+    and the term weights as in :func:`lsgan_d_loss`."""
+    lv = valid if label_valid is None else label_valid
+    m = gen_label.shape[0]
+    loss = w_label * masked_mse(gen_label, ones_target[:m], lv)
     if use_info_loss:
-        loss = loss + loss_info_w * info_loss(gen_code, noise, valid,
-                                              n_latent_codes,
-                                              latent_code_type)
+        loss = loss + w_info * loss_info_w * info_loss(
+            gen_code, noise, valid, n_latent_codes, latent_code_type)
     return loss
+
+
+def l2_traj_loss(pred_hat_p: torch.Tensor, pred_p: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Plain L2 between predicted and true positions (train.py:512)."""
+    return masked_mse(pred_hat_p, pred_p, valid)
+
+
+def variety_loss(pred_hat_p_k: torch.Tensor, pred_p: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Min-over-K per-sample L2 (the SGAN variety loss; JAX's corrected
+    form of train.py:527-536).  pred_hat_p_k [K, N, T, 2], pred_p
+    [N, T, 2]."""
+    sq = torch.mean((pred_hat_p_k - pred_p[None]) ** 2, dim=(-2, -1))
+    per_sample_min = torch.min(sq, dim=0).values
+    return (torch.where(valid, per_sample_min, 0.0).sum()
+            / torch.clamp(valid.sum(), min=1))
 
 
 def traj_errors(pred_hat_p: torch.Tensor, pred_p: torch.Tensor

@@ -1,32 +1,46 @@
 """The unrolled LSGAN + InfoGAN training step.
 
-Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764 for the
-feature set of ``cli train`` with the loo and toy recipes: agent frame,
-social attention, EMA generator, D instance noise annealed to a floor,
-``n_unrolling_steps`` lookahead D updates with a configurable restore, the
-continuous or categorical info loss, staircase lr decay and linear warmup
-(shared and D-only), ``pac == 1``, float32.  The other ``gan_step``
-variants raise in ``check_supported``.
+Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764 without a
+mesh, in float32: agent frame, social attention, EMA generator, D instance
+noise annealed to a floor, ``n_unrolling_steps`` lookahead D updates with a
+configurable restore, the continuous or categorical info loss and its
+ramp, lr schedules and a global-norm gradient clip, the LSTM decoder,
+PacGAN, minibatch stddev, spectral norm, R1, the l2, variety, mode-seeking
+and diversity-hinge losses, the D/G update-ratio schedule, the serial
+rollout, step rematerialization and exact gradient accumulation.
 
 The step, in JAX's order:
 1. canonicalize to the agent frame, keeping the world-frame last states
    for the social geometry (:210-220);
-2. ONE rollout with its autograd graph; the D phase sees it detached and
-   the G phase backpropagates through it once (:403-405);
+2. the fake rollout (:376-405): by default ONE rollout with its autograd
+   graph, which the D phase sees detached and the G phase backpropagates
+   through once; a no-grad rollout for the D phase and a second one under
+   grad in the G phase when a loss needs extra rollouts (variety, mode
+   seeking, diversity hinge) or under ``serial_rollout``; a no-grad
+   rollout per micro-chunk under ``grad_accum``;
 3. D instance noise with sigma from the G optimizer's count BEFORE the
    update, annealed and floored (:407-443);
 4. the D phase: ``n_unrolling_steps + 1`` Adam updates, D snapshotted after
-   the first (:536-549);
-5. the G phase against the unrolled D with a fresh eps (:583-598, 687-693);
+   the first (:536-549), or, on a step the D/G ratio skips, only the
+   forward loss of the current D (:551-576);
+5. the G phase against the unrolled D with a fresh eps (:580-701);
 6. the EMA of G (:705-710);
 7. D restored by ``d_restore`` while its optimizer keeps every update
    (:712-718);
 8. the metrics; ``d_loss`` is the first D update's loss (:720-729).
 
+The extra rollouts of the G phase share one encode and one social pooling
+and decode as K·N rows, as ``k_sample_rollout`` does: JAX's ``vmap`` over
+the noise leaves that half unbatched, so the gradient is the same up to
+float reassociation, and the step launches one social-attention forward
+and one backward for them together.
+
 State lives in modules updated in place.  Every random draw is an explicit
 tensor in a ``StepDraws`` (torch cannot reproduce ``jax.random``; tests
-feed JAX's draws in).  A chunk with no valid row leaves the state as it is
-(:732-763), decided on the host from its valid count.
+feed JAX's draws in).  The schedules (info weight, instance noise, D/G
+ratio) read the G optimizer's count on the host.  A chunk with no valid
+row leaves the state as it is (:732-763), decided on the host from its
+valid count.
 """
 
 from __future__ import annotations
@@ -41,16 +55,21 @@ import torch
 from torch import nn
 
 from socialways_torch.config import TrainConfig
-from socialways_torch.engine.losses import (lsgan_d_loss, lsgan_g_loss,
-                                            sample_noise, traj_errors)
+from socialways_torch.engine.losses import (l2_traj_loss, lsgan_d_loss,
+                                            lsgan_g_loss, sample_noise,
+                                            traj_errors, variety_loss)
 from socialways_torch.models.discriminator import (Discriminator,
                                                    discriminator_apply,
                                                    discriminator_heads,
                                                    encode_obsv,
                                                    init_discriminator,
-                                                   restore_linear_only)
-from socialways_torch.models.generator import (Generator, generator_rollout,
-                                               init_generator)
+                                                   mb_std_feature,
+                                                   restore_linear_only,
+                                                   spectral_normalize_d)
+from socialways_torch.models.generator import (Generator, decode_rollout,
+                                               generator_rollout,
+                                               init_generator,
+                                               prepare_rollout)
 from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
                                        pred_to_4d, to_agent_frame)
 
@@ -60,12 +79,15 @@ class AdamState:
     """optax's state of ``adam(lr)``: ``ScaleByAdamState`` (the step count
     and the two moments, keyed by parameter name) and, when the lr is a
     schedule, ``ScaleByScheduleState``'s count (``schedule_count``; None
-    for a constant lr, whose state is empty).  The counts are host
+    for a constant lr, whose state is empty).  ``clipped``: the optimizer
+    is ``chain(clip_by_global_norm, adam)``, whose (empty) clip state comes
+    first and nests the Adam state one level deeper.  The counts are host
     integers: the schedules read them without a device round trip."""
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     schedule_count: Optional[int] = None
+    clipped: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,17 +95,19 @@ class Adam:
     """optax.adam: ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, eps outside
     the root.  ``lr`` is a constant or a schedule of the update count,
     which, as optax's ``scale_by_schedule``, reads the count BEFORE the
-    update; the bias correction reads the count after it."""
+    update; the bias correction reads the count after it.  ``clip`` > 0
+    puts optax's ``clip_by_global_norm(clip)`` before it."""
     lr: Union[float, Callable[[int], float]]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    clip: float = 0.0
 
     def init(self, params: nn.Module) -> AdamState:
         zeros = lambda: {k: torch.zeros_like(p)
                          for k, p in params.named_parameters()}
         return AdamState(0, zeros(), zeros(),
-                         0 if callable(self.lr) else None)
+                         0 if callable(self.lr) else None, self.clip > 0)
 
     @torch.no_grad()
     def step(self, opt: AdamState, params: nn.Module,
@@ -97,6 +121,8 @@ class Adam:
         ps = list(params.parameters())
         mu, nu = list(opt.mu.values()), list(opt.nu.values())
         grads = list(grads)
+        if self.clip > 0:
+            grads = clip_by_global_norm(grads, self.clip)
         opt.count += 1
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
@@ -108,6 +134,16 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(m_hat, denom)
         torch._foreach_add_(ps, m_hat, alpha=-lr)
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: every leaf times ``max_norm / g``
+    when the norm ``g`` of all leaves together reaches ``max_norm``.  The
+    test stays on the device."""
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
 
 
 @dataclasses.dataclass
@@ -129,13 +165,17 @@ class StepMetrics(NamedTuple):
 
 class StepDraws(NamedTuple):
     """Every random draw of one ``gan_step`` (train.py:471-473;
-    socialways_tpu/engine/train_step.py:282-287, 428-443)."""
+    socialways_tpu/engine/train_step.py:233, 282-287, 428-443, 603-619)."""
     noise: torch.Tensor                  # [N, noise_len], sample_noise
     zero_label: torch.Tensor             # scalar, U(0, 0.1)
     one_label: torch.Tensor              # scalar, U(0.9, 1.0)
     eps_fake: Optional[torch.Tensor] = None    # [N, n_next, 4], N(0, 1)
     eps_real: Optional[torch.Tensor] = None
     eps_g: Optional[torch.Tensor] = None
+    # [variety_k, N, noise_len]: JAX's draw_noise over split(k_var, K)
+    variety_noise: Optional[torch.Tensor] = None
+    # [max(1, ds_k - 1), N, noise_len]: draw_noise(fold_in(rng, 17 + j))
+    extra_noise: Optional[torch.Tensor] = None
 
 
 def eval_params(state: TrainState) -> Generator:
@@ -178,8 +218,8 @@ def make_optimizers(cfg: TrainConfig) -> Tuple[Adam, Adam]:
     g_lr = lr_schedule(cfg.lr_g, cfg.lr_decay_rate, cfg.lr_decay_steps,
                        cfg.lr_warmup_steps)
     d_lr = lr_schedule(cfg.lr_d, *d_decay, d_warmup)
-    return (Adam(g_lr, cfg.adam_b1, cfg.adam_b2),
-            Adam(d_lr, cfg.adam_b1, cfg.adam_b2))
+    return (Adam(g_lr, cfg.adam_b1, cfg.adam_b2, clip=cfg.grad_clip),
+            Adam(d_lr, cfg.adam_b1, cfg.adam_b2, clip=cfg.grad_clip))
 
 
 def transplant_schedule_clock(restored: TrainState,
@@ -220,18 +260,80 @@ def init_train_state(cfg: TrainConfig,
                       _ema_copy(g) if cfg.g_ema_decay > 0 else None)
 
 
+def n_extra_draws(cfg: TrainConfig) -> int:
+    """Extra noise draws the mode-seeking and diversity terms pair with the
+    step's own (JAX's ``k_extra``)."""
+    return max(1, cfg.ds_k - 1)
+
+
 def draw_step(n: int, cfg: TrainConfig,
               generator: Optional[torch.Generator] = None,
               device=None) -> StepDraws:
     """One step's draws from ``generator``; the eps tensors only when D
-    instance noise is on."""
+    instance noise is on, the variety and extra noise only for the losses
+    that decode them."""
     noise = sample_noise((n,), cfg, generator, device)
     u = torch.rand(2, generator=generator, device=device)
     eps = [None] * 3
     if cfg.d_input_noise > 0:
         eps = list(torch.randn((3, n, cfg.n_next, 4), generator=generator,
                                device=device).unbind(0))
-    return StepDraws(noise, 0.1 * u[0], 0.9 + 0.1 * u[1], *eps)
+    variety = extra = None
+    if cfg.use_variety_loss:
+        variety = sample_noise((cfg.variety_k, n), cfg, generator, device)
+    if cfg.ms_weight > 0 or cfg.ds_weight > 0:
+        extra = sample_noise((n_extra_draws(cfg), n), cfg, generator, device)
+    return StepDraws(noise, 0.1 * u[0], 0.9 + 0.1 * u[1], *eps, variety,
+                     extra)
+
+
+def info_weight(cfg: TrainConfig, step: int) -> float:
+    """The info-loss weight at G step ``step``: the ramp from
+    ``loss_info_w`` to ``loss_info_w_end`` over ``loss_info_w_steps``
+    steps, in float32 as the JAX step computes it (:291-300)."""
+    if cfg.loss_info_w_end > 0 and cfg.loss_info_w_steps > 0:
+        f32 = np.float32
+        frac = min(f32(1.0), f32(step) / f32(cfg.loss_info_w_steps))
+        return float(f32(cfg.loss_info_w)
+                     + f32(cfg.loss_info_w_end - cfg.loss_info_w) * frac)
+    return cfg.loss_info_w
+
+
+def d_phase_due(cfg: TrainConfig, step: int) -> bool:
+    """Whether the D phase runs at G step ``step``: every
+    ``d_update_every``-th step, every ``d_update_every_end``-th from
+    ``d_update_every_switch`` on (:551-569).  JAX decides it on the device
+    (``lax.cond``); here it is a host branch on the host count."""
+    scheduled = (cfg.d_update_every_end > 0 and cfg.d_update_every_switch > 0
+                 and cfg.d_update_every_end != cfg.d_update_every)
+    if cfg.d_update_every <= 1 and not scheduled:
+        return True
+    every = cfg.d_update_every
+    if scheduled and step >= cfg.d_update_every_switch:
+        every = cfg.d_update_every_end
+    return step % every == 0
+
+
+def check_rows(cfg: TrainConfig, n: int) -> None:
+    """JAX's argument checks of a chunk of ``n`` rows (:223-224, 321-335)."""
+    if cfg.pac > 1 and n % cfg.pac:
+        raise ValueError(f"batch rows {n} not divisible by pac {cfg.pac}")
+    if cfg.grad_accum <= 1:
+        return
+    if cfg.use_variety_loss:
+        raise ValueError("grad_accum>1 does not support the variety "
+                         "loss (each chunk would re-draw K rollouts)")
+    if cfg.ms_weight > 0 or cfg.ds_weight > 0:
+        raise ValueError("grad_accum>1 does not support the "
+                         "mode-seeking/diversity-hinge losses (they "
+                         "need a second rollout under grad)")
+    if n % cfg.grad_accum:
+        raise ValueError(f"batch rows {n} not divisible by "
+                         f"grad_accum {cfg.grad_accum}")
+    n_chunk = n // cfg.grad_accum
+    if cfg.pac > 1 and n_chunk % cfg.pac:
+        raise ValueError(f"micro-chunk rows {n_chunk} not divisible "
+                         f"by pac {cfg.pac}")
 
 
 def instance_noise_sigma(cfg: TrainConfig, step0: int) -> Optional[float]:
@@ -264,6 +366,23 @@ def _copy_params(dst: nn.Module, src: nn.Module) -> None:
         a.copy_(b)
 
 
+
+
+def _pair_mean(t: torch.Tensor) -> torch.Tensor:
+    """[K, n, ...] -> per-row mean |t_a - t_b| over all K(K-1)/2 pairs."""
+    k, n = t.shape[0], t.shape[1]
+    acc = 0.0
+    for a in range(k):
+        for b in range(a + 1, k):
+            acc = acc + torch.abs(t[a] - t[b]).reshape(n, -1).mean(dim=-1)
+    return acc / (k * (k - 1) // 2)
+
+
+def _masked_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return (torch.where(valid, per, 0.0).sum()
+            / torch.clamp(valid.sum().float(), min=1.0))
+
+
 def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws, cfg: TrainConfig,
              n_valid: Optional[int] = None
@@ -289,53 +408,216 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if frame is not None:
         pred = to_agent_frame(pred, frame)
     n = obsv.shape[0]
-    noise = draws.noise
+    check_rows(cfg, n)
+    scene_ids, noise = batch["scene_ids"], draws.noise
     zeros_t = torch.zeros((n, 1), device=dev) + draws.zero_label
     ones_t = torch.ones((n, 1), device=dev) * draws.one_label
     obsv_4d, pred_4d = obsv_to_4d(obsv), pred_to_4d(obsv, pred)
-    info = (cfg.use_info_loss, cfg.loss_info_w, cfg.n_latent_codes,
+    step0 = state.g_opt.count
+    info = (cfg.use_info_loss, info_weight(cfg, step0), cfg.n_latent_codes,
             cfg.latent_code_type)
+    accum = cfg.grad_accum > 1
+    diverse = cfg.ms_weight > 0 or cfg.ds_weight > 0
+    separate = not accum and (cfg.use_variety_loss or cfg.serial_rollout
+                              or diverse)
 
-    # one rollout with its graph: the D phase reads it detached, the G
-    # phase backpropagates through it once
-    g_params = list(state.g.parameters())
-    with torch.enable_grad():
-        pred_hat = generator_rollout(state.g, obsv, noise, cfg.n_next,
-                                     batch["scene_ids"], cfg.use_social,
-                                     social_x4)
+    def group_valid(v):
+        """A pack counts only when all its rows are valid."""
+        return v if cfg.pac == 1 else v.reshape(-1, cfg.pac).all(dim=1)
+
+    def mb_feat(block, valid_):
+        return mb_std_feature(block, valid_) if cfg.mb_std else None
+
+    def rollout_on(obsv_, z, sids, sx4):
+        return generator_rollout(state.g, obsv_, z, cfg.n_next, sids,
+                                 cfg.use_social, sx4, cfg.decoder,
+                                 cfg.remat_steps)
+
+    # micro-chunks: the rows split into grad_accum equal scene-aligned parts
+    rows = {"obsv": obsv, "obsv_4d": obsv_4d, "noise": noise,
+            "scene_ids": scene_ids, "valid": valid, "zeros": zeros_t,
+            "ones": ones_t, "pred": pred, "social_x4": social_x4}
+    n_parts = cfg.grad_accum if accum else 1
+    parts = [{k: None if v is None else v.chunk(n_parts)[a]
+              for k, v in rows.items()} for a in range(n_parts)]
+
+    # the fake rollout: with its graph (shared by both phases), or
+    # forward-only for the D phase when the G phase recomputes it
+    pred_hat = None
+    if accum or separate:
+        with torch.no_grad():
+            pred_hat_fwd = torch.cat([
+                rollout_on(c["obsv"], c["noise"], c["scene_ids"],
+                           c["social_x4"]) for c in parts])
+    else:
+        with torch.enable_grad():
+            pred_hat = rollout_on(obsv, noise, scene_ids, social_x4)
+        pred_hat_fwd = pred_hat.detach()
 
     # D instance noise on the prediction inputs (observations stay clean);
     # sigma from the G step count before this step's update
-    sigma = instance_noise_sigma(cfg, state.g_opt.count)
-    pred_hat_d, pred_4d_d = pred_hat.detach(), pred_4d
+    sigma = instance_noise_sigma(cfg, step0)
+    pred_hat_d, pred_4d_d, eps_g = pred_hat_fwd, pred_4d, None
     if sigma is not None:
         pred_hat_d = pred_hat_d + sigma * draws.eps_fake
         pred_4d_d = pred_4d + sigma * draws.eps_real
-    futures_d = torch.cat([pred_hat_d, pred_4d_d], dim=0)
+        eps_g = draws.eps_g
+    for k, v in (("pred_hat", pred_hat_d), ("pred_4d", pred_4d_d),
+                 ("eps_g", eps_g)):
+        for a, c in enumerate(parts):
+            c[k] = None if v is None else v.chunk(n_parts)[a]
+    # each part's loss is weighted by its share of the valid samples (info,
+    # r1, l2) and of the valid packs (labels): their sums are the
+    # full-batch masked means (:347-357)
+    if accum:
+        w_sample = (valid.reshape(n_parts, -1).sum(dim=1).float()
+                    / torch.clamp(valid.sum(), min=1).float()).unbind(0)
+        gv = group_valid(valid).reshape(n_parts, -1)
+        w_pack = (gv.sum(dim=1).float()
+                  / torch.clamp(gv.sum(), min=1).float()).unbind(0)
+    else:
+        w_sample = w_pack = (1.0,)
 
-    # D phase: n_unrolling_steps + 1 updates, snapshot after the first
+    sn = spectral_normalize_d if cfg.spectral_norm else (lambda p: p)
+
+    def d_part_loss(c, w_label, w_rest):
+        """The D loss of one part (:469-509), at the current D."""
+        dp = sn(state.d)
+        nn_ = c["obsv_4d"].shape[0]
+        obsv_code = encode_obsv(dp, c["obsv_4d"], cfg.remat_steps)
+        extra = None
+        if cfg.mb_std:
+            # one statistic per provenance block, fake and real apart
+            extra = torch.cat([mb_feat(c["pred_hat"], c["valid"]),
+                               mb_feat(c["pred_4d"], c["valid"])])
+        labels, codes = discriminator_heads(
+            dp, obsv_code, torch.cat([c["pred_hat"], c["pred_4d"]]),
+            cfg.pac, extra)
+        n_packs = nn_ // cfg.pac
+        gv_c = group_valid(c["valid"])
+        loss = lsgan_d_loss(labels[:n_packs], labels[n_packs:], codes[:nn_],
+                            c["noise"], c["valid"], c["zeros"], c["ones"],
+                            *info, label_valid=gv_c, w_label=w_label,
+                            w_info=w_rest)
+        if cfg.r1_gamma > 0:
+            # R1: |d D(obsv, real) / d real|^2, differentiated again below
+            p4 = c["pred_4d"].detach().requires_grad_(True)
+            lbl, _ = discriminator_heads(dp, obsv_code, p4, cfg.pac,
+                                         mb_feat(p4, c["valid"]))
+            (g_real,) = torch.autograd.grad((lbl * gv_c[:, None]).sum(), p4,
+                                            create_graph=True)
+            per = (g_real.reshape(nn_, -1) ** 2).sum(dim=-1)
+            r1 = (torch.where(c["valid"], per, 0.0).sum()
+                  / torch.clamp(c["valid"].sum(), min=1))
+            loss = loss + w_rest * 0.5 * cfg.r1_gamma * r1
+        return loss
+
     d_params = list(state.d.parameters())
-    d_backup, d_loss_first = None, None
-    for u in range(cfg.n_unrolling_steps + 1):
-        with torch.enable_grad():
-            labels, codes = discriminator_heads(
-                state.d, encode_obsv(state.d, obsv_4d), futures_d)
-            d_loss = lsgan_d_loss(labels[:n], labels[n:], codes[:n], noise,
-                                  valid, zeros_t, ones_t, *info)
-            d_grads = _grads(d_loss, d_params)
-        d_tx.step(state.d_opt, state.d, d_grads)
-        if u == 0:
-            d_loss_first = d_loss.detach()
-            if cfg.n_unrolling_steps > 0:
-                d_backup = copy.deepcopy(state.d)
 
-    # G phase against the unrolled D, through the saved rollout
+    def d_value_and_grad(with_grads: bool = True):
+        """(loss, grads) summed over the parts; grads None when not
+        asked for."""
+        total, grads = None, None
+        graph = with_grads or cfg.r1_gamma > 0
+        with torch.enable_grad() if graph else torch.no_grad():
+            for c, wp, ws in zip(parts, w_pack, w_sample):
+                loss = d_part_loss(c, wp, ws)
+                total = loss.detach() if total is None else (
+                    total + loss.detach())
+                if with_grads:
+                    g = _grads(loss, d_params)
+                    grads = g if grads is None else [
+                        a + b for a, b in zip(grads, g)]
+        return total, grads
+
+    # D phase: n_unrolling_steps + 1 updates, snapshot after the first; a
+    # step the D/G ratio skips leaves D and its optimizer as they are
+    d_backup = None
+    if d_phase_due(cfg, step0):
+        for u in range(cfg.n_unrolling_steps + 1):
+            d_loss, d_grads = d_value_and_grad()
+            d_tx.step(state.d_opt, state.d, d_grads)
+            if u == 0:
+                d_loss_first = d_loss
+                if cfg.n_unrolling_steps > 0:
+                    d_backup = copy.deepcopy(state.d)
+    else:
+        d_loss_first, _ = d_value_and_grad(with_grads=False)
+
+    # G phase against the unrolled D, normalized once
+    with torch.no_grad():
+        d_g = sn(state.d)
+
+    def g_part_loss(ph, c, w_label, w_info):
+        """The G loss of one part against D (:583-601, 664-682)."""
+        ph_in = ph if c["eps_g"] is None else ph + sigma * c["eps_g"]
+        gen_label, gen_code = discriminator_apply(
+            d_g, c["obsv_4d"], ph_in, cfg.remat_steps, cfg.pac,
+            mb_feat(ph_in, c["valid"]))
+        loss = lsgan_g_loss(gen_label, gen_code, c["noise"], c["valid"],
+                            c["ones"], *info,
+                            label_valid=group_valid(c["valid"]),
+                            w_label=w_label, w_info=w_info)
+        if cfg.use_l2_loss:
+            loss = loss + w_info * cfg.loss_l2_w * l2_traj_loss(
+                ph[..., :2], c["pred"], c["valid"])
+        return loss
+
+    g_params = list(state.g.parameters())
     with torch.enable_grad():
-        ph_in = pred_hat if sigma is None else pred_hat + sigma * draws.eps_g
-        gen_label, gen_code = discriminator_apply(state.d, obsv_4d, ph_in)
-        g_loss = lsgan_g_loss(gen_label, gen_code, noise, valid, ones_t,
-                              *info)
-        g_grads = _grads(g_loss, g_params)
+        if accum:
+            g_loss, g_grads = None, None
+            for c, wp, ws in zip(parts, w_pack, w_sample):
+                ph = rollout_on(c["obsv"], c["noise"], c["scene_ids"],
+                                c["social_x4"])
+                loss = g_part_loss(ph, c, wp, ws)
+                g_loss = loss.detach() if g_loss is None else (
+                    g_loss + loss.detach())
+                g = _grads(loss, g_params)
+                g_grads = g if g_grads is None else [
+                    a + b for a, b in zip(g_grads, g)]
+            pred_hat = pred_hat_fwd
+        elif not separate:
+            g_loss = g_part_loss(pred_hat, parts[0], 1.0, 1.0)
+            g_grads = _grads(g_loss, g_params)
+        else:
+            # recompute under grad: encode and pool once, decode the step's
+            # noise and every extra draw as rows of one batch
+            noises = [noise[None]]
+            if cfg.use_variety_loss:
+                noises.append(draws.variety_noise)
+            if diverse:
+                noises.append(draws.extra_noise)
+            z = torch.cat(noises)
+            r = z.shape[0]
+            prep = prepare_rollout(state.g, obsv, scene_ids, cfg.use_social,
+                                   social_x4, cfg.remat_steps)
+            out = decode_rollout(state.g, tuple(t.repeat(r, 1) for t in prep),
+                                 z.reshape(r * n, -1), cfg.n_next,
+                                 cfg.decoder, cfg.remat_steps)
+            out = out.reshape(r, n, cfg.n_next, 4)
+            pred_hat = out[0]
+            g_loss = g_part_loss(pred_hat, parts[0], 1.0, 1.0)
+            first = 1
+            if cfg.use_variety_loss:
+                first += cfg.variety_k
+                g_loss = g_loss + cfg.loss_l2_w * variety_loss(
+                    out[1:first, ..., :2], pred, valid)
+            if diverse:
+                # pairs of the step's draw and the extra ones (:609-661)
+                d_row = _pair_mean(out[[0] + list(range(first, r)), ..., :2])
+                dz_row = _pair_mean(torch.cat([noise[None],
+                                               draws.extra_noise]))
+                if cfg.ms_weight > 0:
+                    ratio = (_masked_mean(d_row, valid)
+                             / (_masked_mean(dz_row, valid) + 1e-8))
+                    g_loss = g_loss + cfg.ms_weight / (ratio + 1e-5)
+                if cfg.ds_weight > 0:
+                    hinge = torch.clamp(cfg.ds_tau - d_row / (dz_row + 1e-8),
+                                        min=0.0)
+                    g_loss = g_loss + cfg.ds_weight * _masked_mean(hinge,
+                                                                   valid)
+            g_grads = _grads(g_loss, g_params)
     g_tx.step(state.g_opt, state.g, g_grads)
 
     if cfg.g_ema_decay > 0:

@@ -1,8 +1,9 @@
 """Trainer: packed data on the device, the epoch loop, and K-sample
 evaluation.
 
-Counterpart of socialways_tpu/engine/trainer.py:91-134 (packing and the
-one-time transfer of both splits, the -1 anneal sentinel), :153-266 (the
+Counterpart of socialways_tpu/engine/trainer.py:51-77 (the grad-accum
+alignment check), :91-134 (packing and the one-time transfer of both
+splits, the -1 anneal sentinel), :153-266 (the
 epoch loop) and :269-290 (``evaluate``), without a mesh.  JAX scans the GAN
 step over the chunks on the device; here an epoch is a Python loop of
 ``gan_step`` over the chunks (no CUDA graph, no ``torch.compile``) with the
@@ -53,6 +54,34 @@ def stream_seed(seed: int, *stream: int) -> int:
     return int(np.random.SeedSequence((seed,) + stream).generate_state(1)[0])
 
 
+def check_grad_accum_alignment(packed: PackedBatches, grad_accum: int,
+                               use_social: bool) -> None:
+    """``grad_accum``'s contract on the packed chunks
+    (socialways_tpu/engine/trainer.py:51-77): the width divides into equal
+    micro-chunks and, with social attention (the one case where rows
+    interact), no scene crosses a micro-chunk boundary."""
+    width = packed.scene_ids.shape[1]
+    if width % grad_accum:
+        raise ValueError(
+            f"packed chunk width {width} is not divisible by "
+            f"grad_accum={grad_accum}; pick a divisor of the width "
+            "(= max(batch_size, largest scene group))")
+    if not use_social:
+        return
+    sub = width // grad_accum
+    for b in range(sub, width, sub):
+        left, right = packed.scene_ids[:, b - 1], packed.scene_ids[:, b]
+        bad = (left == right) & (right != -1)
+        if bad.any():
+            ci = int(np.argmax(bad))
+            raise ValueError(
+                f"grad_accum={grad_accum} splits scene "
+                f"{int(right[ci])} of packed chunk {ci} at row {b}: "
+                "social attention must not cross micro-chunk boundaries "
+                "(re-pack with scene-aligned widths or use a smaller "
+                "grad_accum)")
+
+
 def chunk_of(batches: Dict[str, torch.Tensor], i: int
              ) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in batches.items()}
@@ -90,8 +119,12 @@ class Trainer:
     def train_packed(self) -> PackedBatches:
         ds = self.dataset
         nt = ds.n_train_samples
-        return pack_scene_batches(ds.obsvs[:nt], ds.preds[:nt],
-                                  ds.train_batches, self.cfg.batch_size)
+        packed = pack_scene_batches(ds.obsvs[:nt], ds.preds[:nt],
+                                    ds.train_batches, self.cfg.batch_size)
+        if self.cfg.grad_accum > 1:
+            check_grad_accum_alignment(packed, self.cfg.grad_accum,
+                                       self.cfg.use_social)
+        return packed
 
     @functools.cached_property
     def train_dev(self) -> Dict[str, torch.Tensor]:

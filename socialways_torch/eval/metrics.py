@@ -33,9 +33,10 @@ def draw_noise(k: int, n: int, cfg: TrainConfig,
                generator: Optional[torch.Generator] = None,
                device=None) -> torch.Tensor:
     """The rollout noise [K, N, noise_len], U(0, 1) as the reference draws
-    it (train.py:583-585); with categorical codes each of the K draws
-    embeds its own one-hot code, as ``sample_noise`` per K sample does in
-    JAX (socialways_tpu/eval/metrics.py:54-58).  torch cannot reproduce
+    it (train.py:583-585) or N(0, 1) (``noise_dist="gaussian"``); with
+    categorical codes each of the K draws embeds its own one-hot code, as
+    ``sample_noise`` per K sample does in JAX
+    (socialways_tpu/eval/metrics.py:54-58).  torch cannot reproduce
     ``jax.random``'s stream; tests pass JAX's draw in instead."""
     return sample_noise((k, n), cfg, generator, device)
 
@@ -58,7 +59,8 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
     # K draws as a batch: row kk*N + i is sample kk of agent i
     prep_k = tuple(t.repeat(k, 1) for t in prep)
     out = decode_rollout(g_params, prep_k, noise.reshape(k * n, -1),
-                         cfg.n_next).reshape(k, n, cfg.n_next, 4)
+                         cfg.n_next, cfg.decoder)
+    out = out.reshape(k, n, cfg.n_next, 4)
     if frame is not None:
         out = from_agent_frame_4d(out, frame)    # frame [N] broadcasts to K
     return out

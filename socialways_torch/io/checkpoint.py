@@ -7,8 +7,10 @@ checkpoint.py:62-167): ``.g_params/['feat_mlp']/[2]/['w']``,
 Adam state as ``.g_opt/[0]/.count`` (int32) and
 ``.g_opt/[0]/.mu/['embed']/['w']``, ``.g_opt/[0]/.nu/...`` (the same for
 ``.d_opt``; an optimizer with an lr schedule adds its schedule count as
-``.g_opt/[1]/.count``), plus ``__epoch__``, ``__rng__`` (a uint32[2] JAX key),
-``__scale__/*`` and ``__config__`` (the JSON of ``MODEL_CONFIG_FIELDS``).
+``.g_opt/[1]/.count``; under a gradient clip, optax's ``chain(clip,
+adam)`` puts an empty state first and the Adam keys one level deeper,
+``.g_opt/[1]/[0]/.count``), plus ``__epoch__``, ``__rng__`` (a uint32[2]
+JAX key), ``__scale__/*`` and ``__config__`` (the JSON of ``MODEL_CONFIG_FIELDS``).
 This module reads and writes those keys as strings, without JAX, so the
 two packages read each other's checkpoints.  The port's own random stream
 travels beside ``__rng__`` as ``__torch_rng__/<device type>``.
@@ -193,6 +195,12 @@ _OPTS = (".g_opt/", ".d_opt/")
 _TORCH_RNG = "__torch_rng__/"
 
 
+def _opt_prefix(prefix: str, opt) -> str:
+    """Where an optimizer's Adam state sits: under ``[1]/`` when the clip
+    state comes first."""
+    return prefix + ("[1]/" if opt.clipped else "")
+
+
 def flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
     """The JAX ``TrainState`` leaves of ``state``, keyed as JAX flattens
     them."""
@@ -205,6 +213,7 @@ def flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
         for name, t in module.state_dict().items():
             flat[prefix + _name_to_jax_path(name)] = t.detach().cpu().numpy()
     for prefix, opt in zip(_OPTS, (state.g_opt, state.d_opt)):
+        prefix = _opt_prefix(prefix, opt)
         flat[f"{prefix}[0]/.count"] = np.asarray(opt.count, np.int32)
         if opt.schedule_count is not None:
             flat[f"{prefix}[1]/.count"] = np.asarray(opt.schedule_count,
@@ -242,6 +251,7 @@ def state_from_flat(flat: Mapping[str, np.ndarray], cfg: TrainConfig,
             {name: take(prefix + _name_to_jax_path(name), t)
              for name, t in module.state_dict().items()}, strict=True)
     for prefix, opt in zip(_OPTS, (state.g_opt, state.d_opt)):
+        prefix = _opt_prefix(prefix, opt)
         # the schedule's count only where cfg gives the optimizer a
         # schedule; JAX's restore ignores the leaf elsewhere too
         counts = [("count", f"{prefix}[0]/.count")]
@@ -271,8 +281,9 @@ def train_state_from_jax(tree, cfg: TrainConfig, device=None) -> TrainState:
     """The weight bridge for the whole training state: the numpy leaves of
     a JAX ``TrainState`` (``jax.device_get(state)``: ``g_params``,
     ``d_params``, ``g_opt``/``d_opt`` as optax ``(ScaleByAdamState(count,
-    mu, nu), EmptyState() or ScaleByScheduleState(count))`` and ``g_ema``)
-    -> the port's state, optimizer moments and counts included."""
+    mu, nu), EmptyState() or ScaleByScheduleState(count))``, behind an
+    empty clip state under a gradient clip, and ``g_ema``) -> the port's
+    state, optimizer moments and counts included."""
     flat = {}
     for field in ("g_params", "d_params", "g_ema"):
         sub = getattr(tree, field)
@@ -281,13 +292,16 @@ def train_state_from_jax(tree, cfg: TrainConfig, device=None) -> TrainState:
         for name, v in _flatten_tree(sub).items():
             flat[f".{field}/{_name_to_jax_path(name)}"] = np.asarray(v)
     for field in ("g_opt", "d_opt"):
-        adam, sched = getattr(tree, field)[:2]
-        flat[f".{field}/[0]/.count"] = np.asarray(adam.count)
+        opt, prefix = getattr(tree, field), f".{field}/"
+        if not hasattr(opt[0], "mu"):       # chain(clip, adam)
+            opt, prefix = opt[1], prefix + "[1]/"
+        adam, sched = opt[:2]
+        flat[f"{prefix}[0]/.count"] = np.asarray(adam.count)
         if "count" in getattr(sched, "_fields", ()):    # not EmptyState
-            flat[f".{field}/[1]/.count"] = np.asarray(sched.count)
+            flat[f"{prefix}[1]/.count"] = np.asarray(sched.count)
         for moment in ("mu", "nu"):
             for name, v in _flatten_tree(getattr(adam, moment)).items():
-                flat[f".{field}/[0]/.{moment}/{_name_to_jax_path(name)}"] = (
+                flat[f"{prefix}[0]/.{moment}/{_name_to_jax_path(name)}"] = (
                     np.asarray(v))
     return state_from_flat(flat, cfg, device)
 

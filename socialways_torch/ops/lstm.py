@@ -5,7 +5,8 @@ Counterpart of socialways_tpu/ops/lstm.py:25-85: torch-convention gate math
 with the input and hidden projections fused into ONE ``[x ‖ h] @ W``
 GEMM per step, ``W [in+h, 4h]`` and one fused bias.  Gate math runs in
 float32.  Sequences here are 8 observed steps, so the time loop is a plain
-Python loop.
+Python loop; under ``remat`` each step is a ``torch.utils.checkpoint``
+(recomputed in the backward, as ``jax.checkpoint`` of the scan step).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]     # (h, c), each [..., hidden]
 
@@ -54,12 +56,22 @@ def lstm_cell(p: LSTMCell, x: torch.Tensor, state: LSTMState) -> LSTMState:
     return h_new, c_new
 
 
-def lstm_seq(p: LSTMCell, xs: torch.Tensor, state: LSTMState
-             ) -> Tuple[torch.Tensor, LSTMState]:
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed when ``remat`` and a graph is being
+    recorded: its intermediates are dropped and recomputed in the
+    backward."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def lstm_seq(p: LSTMCell, xs: torch.Tensor, state: LSTMState,
+             remat: bool = False) -> Tuple[torch.Tensor, LSTMState]:
     """xs [B, T, in_dim] -> (ys [B, T, hidden], final state)."""
     ys = []
     for t in range(xs.shape[-2]):
-        state = lstm_cell(p, xs[..., t, :], state)
+        state = remat_call(remat, lambda x, h, c: lstm_cell(p, x, (h, c)),
+                           xs[..., t, :], *state)
         ys.append(state[0])
     return torch.stack(ys, dim=-2), state
 

@@ -1,6 +1,6 @@
 """Linear layers and MLPs in the JAX package's parameter layout.
 
-Counterpart of socialways_tpu/ops/nn.py:24-47, 77-96.  A linear layer keeps
+Counterpart of socialways_tpu/ops/nn.py:24-96.  A linear layer keeps
 ``w [in, out]`` and ``b [out]`` (so a JAX checkpoint loads without
 transposes) and computes ``x @ w + b``.  Initialization is torch's
 ``nn.Linear`` reset rule, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights
@@ -43,6 +43,27 @@ def linear_apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def spectral_normalize(w: torch.Tensor, n_iters: int = 30,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """``w / sigma_max(w)`` with the top singular value estimated by
+    ``n_iters`` power iterations from the fixed start ``1/sqrt(rows)``
+    (SN-GAN; socialways_tpu/ops/nn.py:50-74).  ``u`` and ``v`` are
+    constants of the gradient, which flows through ``w`` in the numerator
+    and in ``sigma = u w v``.  Stateless, so not torch's
+    ``spectral_norm`` (a persistent ``u``) nor an SVD: each gives another
+    function."""
+    with torch.no_grad():
+        u = torch.full((w.shape[0],), 1.0 / (w.shape[0] ** 0.5),
+                       dtype=w.dtype, device=w.device)
+        for _ in range(n_iters):
+            v = w.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = w @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ w @ v
+    return w / torch.clamp(sigma, min=eps)
 
 
 def mlp_apply(layers: Sequence[Linear], x: torch.Tensor,

@@ -41,11 +41,13 @@ CATEGORICAL = dict(latent_code_type="categorical", n_latent_codes=3,
 
 def jax_draws(key, n, jcfg) -> StepDraws:
     """Every draw JAX's gan_step makes from ``key`` (train_step.py:233,
-    282-287, 428-443), the noise through JAX's own ``sample_noise`` (the
-    categorical code from ``randint(fold_in(k_noise, 1), ...)``)."""
-    k_noise, k_zero, k_one, _ = jax.random.split(key, 4)
+    282-287, 428-443, 603-619), the noise through JAX's own
+    ``sample_noise`` (the categorical code from ``randint(fold_in(k_noise,
+    1), ...)``), the variety draws from ``split(k_var, variety_k)`` and the
+    extra draws of the diversity terms from ``fold_in(key, 17 + j)``."""
+    k_noise, k_zero, k_one, k_var = jax.random.split(key, 4)
     t = lambda a: torch.from_numpy(np.array(a))
-    noise = jlosses.sample_noise(k_noise, n, jcfg)
+    draw = lambda k: jlosses.sample_noise(k, n, jcfg)
     zero = jax.random.uniform(k_zero, (), jnp.float32, 0.0, 0.1)
     one = jax.random.uniform(k_one, (), jnp.float32, 0.9, 1.0)
     eps = [None] * 3
@@ -53,7 +55,13 @@ def jax_draws(key, n, jcfg) -> StepDraws:
         kf, kr, kg = jax.random.split(jax.random.fold_in(key, 13), 3)
         eps = [t(jax.random.normal(k, (n, jcfg.n_next, 4)))
                for k in (kf, kr, kg)]
-    return StepDraws(t(noise), t(zero), t(one), *eps)
+    variety = extra = None
+    if jcfg.use_variety_loss:
+        variety = t(jax.vmap(draw)(jax.random.split(k_var, jcfg.variety_k)))
+    if jcfg.ms_weight > 0 or jcfg.ds_weight > 0:
+        extra = t(jnp.stack([draw(jax.random.fold_in(key, 17 + j))
+                             for j in range(max(1, jcfg.ds_k - 1))]))
+    return StepDraws(t(draw(k_noise)), t(zero), t(one), *eps, variety, extra)
 
 
 def run_one_step(flags, seed=7, n=32):

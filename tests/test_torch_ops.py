@@ -170,6 +170,26 @@ def test_torch_social_dense_forms_match_jax():
     ("noise_dist", "gaussian"), ("compute_dtype", "bfloat16"),
     ("pac", 2), ("mb_std", True), ("spectral_norm", True)])
 def test_torch_config_rejects_unported_models(field, value):
+    """Binary codes and bf16 are refused, naming the field.  The LSTM
+    decoder, gaussian noise, PacGAN, minibatch stddev and spectral norm
+    are ported: they pass and build JAX's parameter shapes."""
+    from socialways_torch.engine.losses import sample_noise
+    from socialways_torch.models.discriminator import init_discriminator
+    from socialways_torch.models.generator import init_generator
     check_supported(TrainConfig())
-    with pytest.raises(NotImplementedError, match=field):
-        check_supported(TrainConfig().replace(**{field: value}))
+    cfg = TrainConfig().replace(**{field: value})
+    if field in ("latent_code_type", "compute_dtype"):
+        with pytest.raises(NotImplementedError, match=field):
+            check_supported(cfg)
+        return
+    check_supported(cfg)
+    gen = torch.Generator().manual_seed(0)
+    g = init_generator(cfg, gen, "cpu")
+    d = init_discriminator(cfg, gen, "cpu")
+    h = cfg.hidden_size
+    assert hasattr(g, "dec_lstm") == (cfg.decoder == "lstm")
+    assert hasattr(g, "decoder") == (cfg.decoder == "fc")
+    assert tuple(d.classifier[0].w.shape) == (
+        (h + int(cfg.mb_std)) * cfg.pac, h // 2)
+    z = sample_noise((4096,), cfg, gen)
+    assert bool((z < 0).any()) == (cfg.noise_dist == "gaussian")

@@ -178,11 +178,21 @@ def test_torch_generator_checkpoint_round_trip(tmp_path):
     for a, b in zip(gen.parameters(), back.parameters()):
         assert torch.equal(a, b)
 
+    # an FC generator under an LSTM-decoder config is refused by its
+    # missing leaves; an LSTM-decoder generator round-trips
     lstm = str(tmp_path / "lstm.npz")
     save_generator_checkpoint(lstm, gen, 1, cfg=cfg.replace(decoder="lstm"))
-    with pytest.raises(NotImplementedError, match="decoder"):
+    with pytest.raises(KeyError, match="dec_lstm"):
         restore_generator(lstm, adopt_checkpoint_config(TrainConfig(), lstm),
                           "cpu")
+    lstm_cfg = cfg.replace(decoder="lstm")
+    gen = init_generator(lstm_cfg, torch.Generator().manual_seed(6), "cpu")
+    save_generator_checkpoint(lstm, gen, 2, cfg=lstm_cfg)
+    back, epoch, _ = restore_generator(
+        lstm, adopt_checkpoint_config(TrainConfig(), lstm), "cpu")
+    assert epoch == 2 and hasattr(back, "dec_fc")
+    for a, b in zip(gen.parameters(), back.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_torch_port_imports_no_jax():
