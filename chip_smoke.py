@@ -62,7 +62,22 @@ Phases (any failure raises):
    Each run's first step on the card against the CPU; forward, dkv and dq
    launches held to the per-step counts PERF.md predicts plus one forward
    a rollout; train steps/s over each run's last epoch;
-11. a ``kernels`` JSON line, then the device JSON as the last line.
+11. crowd scale, at the loo model's width: (a) the kernels at N = 10,000
+   in sorted scenes of 16 with a padded tail: forward with and without
+   stats, dq and dkv at scene window w = 16 equal their w = 0 launch bit
+   for bit and match the plain windowed form, each timed alone at both w
+   beside its bound; the w = 16 forward at N = 1,048,576, timed and held
+   against the plain windowed form; (b) ``cli simulate`` at its defaults
+   (10,000 agents in scenes of 16, 4 windows) and at 1,048,576 agents from
+   phase 7's loo checkpoint, agent-steps/s, exactly 8 forward launches a
+   run and no backward, the trajectories at 10,000 agents and 1 window
+   against the CPU under the same checkpoint and noise, and one window
+   profiled at each size; (c) ``cli
+   train --recipe loo --max-scene-size 16`` on a synthetic crowd npz at
+   batch 4,608 (the CPU takes the windowed form; first step card vs CPU)
+   and 16,384 (train steps/s), launches one forward and one dkv a step
+   plus one forward an eval chunk;
+12. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -647,7 +662,8 @@ def training_phase(torch, sa, dev, npz, cfg):
 
 
 def cli_phase(torch, cli_main, npz, work):
-    """Phase 7: cli train --recipe loo, a resumed epoch, evaluate."""
+    """Phase 7: cli train --recipe loo, a resumed epoch, evaluate.  Returns
+    the final checkpoint."""
     mdir = os.path.join(work, "models")
     base = ["train", "--recipe", "loo", "--data", npz, "--test-interval",
             "1", "--save-interval", "1", "--model-dir", mdir]
@@ -677,6 +693,7 @@ def cli_phase(torch, cli_main, npz, work):
           f"{buf.getvalue().strip()}")
     if rc != 0:
         raise AssertionError(f"cli evaluate returned {rc}")
+    return final
 
 
 #: the public layouts of the ETH/UCY obsmat files; zara01 space-separated
@@ -875,14 +892,15 @@ TOY_MODEL = ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
 TOY_EPOCHS, TOY_TEST_INTERVAL, SWEEP_EPOCHS = 12, 2, 4
 
 
-def run_cli(cli_main, argv, tag: str) -> str:
+def run_cli(cli_main, argv, tag: str, card: str = "") -> str:
     """One CLI command with its stdout captured and echoed; fails on a
-    non-zero return."""
+    non-zero return.  ``card`` (name, power limit) tags the wall time."""
     buf, tic = io.StringIO(), time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(argv)
     out = buf.getvalue()
-    print(f"cli {tag}: rc {rc}, {time.perf_counter() - tic:.2f} s wall")
+    print(f"cli {tag}: rc {rc}, {time.perf_counter() - tic:.2f} s wall"
+          + (f" [{card}]" if card else ""))
     for line in out.splitlines():
         print(f"  | {line}")
     if rc != 0:
@@ -1084,38 +1102,45 @@ GAN_RUNS = {
 }
 
 
-def gan_run(torch, sa, cli_main, dev, data, work, tag):
-    """One phase-10 run: its config's first step on the card against the
-    CPU and one profiled step, then ``cli train`` with the launches held to
-    the predicted counts and train steps/s over the last epoch.  Returns
-    (launches, rate, model dir)."""
+def gan_run(torch, sa, cli_main, dev, data, work, tag, run=None,
+            cpu_check=True, card=""):
+    """One phase-10 run (``GAN_RUNS[tag]``, or ``run`` in its layout): its
+    config's first step on the card against the CPU (unless not
+    ``cpu_check``) and one profiled step, then ``cli train`` with the
+    launches held to the predicted counts and train steps/s over the last
+    epoch; ``card`` tags its times.  Returns (launches, rate, model
+    dir)."""
     from socialways_torch.cli.main import _train_cfg, parse_args
     from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
     from socialways_torch.engine.train_step import draw_step, gan_step
     from socialways_torch.engine.trainer import Trainer, chunk_of
 
-    flags, epochs, interval, per_step = GAN_RUNS[tag]
+    flags, epochs, interval, per_step = run or GAN_RUNS[tag]
     ds = load_npz_dataset(data)
-    steps_epoch = len(greedy_chunks(ds.train_batches, BATCH))
-    eval_chunks = len(greedy_chunks(ds.test_batches, BATCH))
     argv = ["train", "--data", data] + flags + [
         "--epochs", str(epochs), "--test-interval", str(interval),
         "--save-interval", str(interval)]
     trainer = Trainer(_train_cfg(parse_args(argv)), ds, dev)
-    first_step_cuda_vs_cpu(torch, trainer, trainer.init_state(seed=4), dev,
-                           f"{tag} first step")
+    batch = trainer.cfg.batch_size
+    steps_epoch = len(greedy_chunks(ds.train_batches, batch))
+    eval_chunks = len(greedy_chunks(ds.test_batches, batch))
+    if cpu_check:
+        first_step_cuda_vs_cpu(torch, trainer, trainer.init_state(seed=4),
+                               dev, f"{tag} first step")
     # one profiled step of the run's config (device ops, idle share)
     state, rng = trainer.init_state(seed=4), torch.Generator(device=dev)
     chunk, nv = chunk_of(trainer.train_dev, 0), int(
         trainer.train_packed.n_valid[0])
-    profile_step(torch, f"one {tag} train step", lambda: gan_step(
-        state, chunk, draw_step(trainer.train_packed.width, trainer.cfg,
-                                rng, dev), trainer.cfg, nv))
+    profile_step(torch, f"one {tag} train step" + (f" [{card}]" if card
+                                                   else ""),
+                 lambda: gan_step(state, chunk, draw_step(
+                     trainer.train_packed.width, trainer.cfg, rng, dev),
+                     trainer.cfg, nv))
     del trainer, state
     mdir, log = (os.path.join(work, f"gan_{tag}_{n}") for n in ("m", "log"))
     reset_launches(sa)
     run_cli(cli_main, argv + ["--model-dir", mdir, "--metrics-log", log],
-            f"train {tag}")
+            f"train {tag}", card)
     torch.cuda.synchronize()
     launches = read_launches(sa)
     check_launches(tag, launches, epochs * steps_epoch,
@@ -1132,7 +1157,8 @@ def gan_run(torch, sa, cli_main, dev, data, work, tag):
     rate = steps_epoch / train[-1]["epoch_time_s"]
     print(f"{tag}: {epochs} epochs of {steps_epoch} steps, train steps/s "
           f"over the last epoch {rate:.2f}; last eval min ADE/FDE "
-          f"{evals[-1]['ade_min']:.4f}/{evals[-1]['fde_min']:.4f}")
+          f"{evals[-1]['ade_min']:.4f}/{evals[-1]['fde_min']:.4f}"
+          + (f" [{card}]" if card else ""))
     return launches, rate, mdir
 
 
@@ -1180,6 +1206,297 @@ def gan_variants_phase(torch, sa, cli_main, dev, npz, work):
     print(f"gan variants phase: {time.perf_counter() - tic_phase:.2f} s "
           f"wall")
     return launches, rates
+
+
+#: phase 11: sorted scenes of 16 (simulate's and the packing's layout) at
+#: simulate's default crowd and at a million agents
+CROWD_N, CROWD_1M, CROWD_SCENE = 10_000, 1_048_576, 16
+#: phase 11's crowd training runs, in GAN_RUNS's layout: just over the CPU's
+#: dense cutoff (4,096 rows, so the CPU runs the windowed form) for the
+#: card-vs-CPU step, and a 16k batch for train steps/s
+CROWD_RUNS = {
+    "crowd_train_4608": (["--recipe", "loo", "--max-scene-size", "16",
+                          "--batch-size", "4608"], 1, 1, (1, 1)),
+    "crowd_train_16384": (["--recipe", "loo", "--max-scene-size", "16",
+                           "--batch-size", "16384"], 2, 2, (1, 1)),
+}
+
+
+def crowd_inputs(rng, n: int, hdim: int, scene: int = CROWD_SCENE):
+    """Sorted scenes of ``scene`` agents and a padded tail (-1) of about
+    4 %, with attention_inputs' states: the windowed contract at w =
+    ``scene``."""
+    ids = (np.arange(n) // scene).astype(np.int32)
+    ids[(n - n // 25) // scene * scene:] = -1
+    x4 = np.concatenate([rng.rand(n, 2), rng.randn(n, 2) * 0.02], axis=1)
+    h = np.tanh(rng.randn(n, hdim))
+    return x4.astype(np.float32), h.astype(np.float32), ids
+
+
+def windowed_plain(torch, sa, g, x4, ids, h, wh, gout, w, block=512):
+    """The plain versions taken window by window, as the windowed form
+    takes its row blocks: each block of rows against the ``block + 2 w``
+    rows around it, which hold every partner when scenes are sorted,
+    contiguous and at most w rows.  Returns (stats [N, 2], dq [N, 4], dkv
+    list as social_attention_bwd_dkv's).  The backward zeroes the
+    cotangent of the window's rows outside the block, so every pair enters
+    the column sums and the weight gradients exactly once."""
+    n = h.shape[0]
+    win = min(block + 2 * w, n)
+    weights = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
+    stats = torch.zeros((n, 2), device=h.device)
+    dq = torch.zeros((n, 4), device=h.device)
+    dkv = None
+    for i0 in range(0, n, block):
+        j0 = min(max(i0 - w, 0), n - win)
+        sl, rows = slice(j0, j0 + win), slice(i0 - j0, min(i0 + block, n) - j0)
+        with torch.no_grad():
+            o, m, l = sa.social_attention_stats_plain(
+                g.feat_mlp, g.attn_w, x4[sl], h[sl], ids[sl])
+        st = torch.stack([m, l], 1)
+        keep = torch.zeros(win, dtype=torch.bool, device=h.device)
+        keep[rows] = True
+        gk = torch.where(keep[:, None], gout[sl], 0.0)
+        rk = (gk * o).sum(-1)
+        args = (x4[sl], ids[sl], h[sl], wh[sl], gk, st, rk, weights)
+        stats[i0:i0 + block] = st[rows]
+        dq[i0:i0 + block] = sa.social_attention_bwd_dq_plain(*args)[rows]
+        part = sa.social_attention_bwd_dkv_plain(*args)
+        if dkv is None:
+            dkv = ([torch.zeros((n,) + t.shape[1:], device=h.device)
+                    for t in part[:3]] + [torch.zeros_like(t)
+                                          for t in part[3:]])
+        for k, t in enumerate(part):
+            if k < 3:
+                dkv[k][sl] += t
+            else:
+                dkv[k] += t
+    return stats, dq, dkv
+
+
+def crowd_kernels(torch, sa, dev, cfg, card):
+    """Phase 11a: each kernel at N = 10,000 at w = 16 and w = 0 (equal
+    bits), against the plain windowed forms, timed alone at both; the w =
+    16 forward at N = 1,048,576.  Returns (launches of the checks, the
+    JSON entries by kernel)."""
+    from socialways_torch.models.generator import init_generator
+    from socialways_torch.ops.nn import linear_apply
+    from socialways_torch.ops.social import social_context_windowed
+
+    w = CROWD_SCENE
+    g = init_generator(cfg, torch.Generator().manual_seed(17), dev)
+    weights = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
+    n_mlp = sum(t.numel() for t in weights)
+    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
+    rng = np.random.RandomState(23)
+    x4_np, h_np, ids_np = crowd_inputs(rng, CROWD_N, HIDDEN)
+    x4, h, ids = (torch.from_numpy(a).to(dev) for a in (x4_np, h_np, ids_np))
+    gout = torch.from_numpy(rng.randn(CROWD_N, HIDDEN).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        wh = linear_apply(g.attn_w, h)
+
+    def run_all(ww):
+        out, _, _, _ = sa._launch_fwd(x4, ids, h, wh, weights, False, ww)
+        out_s, stats, u, c = sa._launch_fwd(x4, ids, h, wh, weights, True, ww)
+        r = (gout * out_s).sum(-1)
+        args = (x4, ids, h, wh, gout, stats, r, weights, u, c)
+        dq = sa.social_attention_bwd_dq(*args, max_scene=ww)
+        dkv = sa.social_attention_bwd_dkv(*args, max_scene=ww)
+        return [out, out_s, stats, u, c, dq, *dkv], args
+
+    reset_launches(sa)
+    full, _ = run_all(0)
+    win, args_w = run_all(w)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(full, win)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"crowd N={CROWD_N}: output {k} of the w = "
+                                 f"{w} launch differs from w = 0 in its bits")
+    with torch.no_grad():
+        p_out = social_context_windowed(g.feat_mlp, g.attn_w, x4, h, ids, w)
+    p_stats, p_dq, p_dkv = windowed_plain(torch, sa, g, x4, ids, h, wh, gout,
+                                          w)
+    err = {"fwd": check_close(win[0], p_out, "crowd forward"),
+           "fwd_stats": max(check_close(win[1], p_out, "crowd forward stats"),
+                            check_close(win[2][:, 0], p_stats[:, 0],
+                                        "crowd m"),
+                            check_close(win[2][:, 1], p_stats[:, 1],
+                                        "crowd l")),
+           "dq": check_close(win[5], p_dq, "crowd dq dx_i", "dx")}
+    kv = ["dx_j", "dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3", "db3"]
+    err["dkv"] = max(check_close(a, b, f"crowd dkv {nm}",
+                                 "dx" if i == 0 else
+                                 "weight" if i >= 3 else "value")
+                     for i, (nm, a, b) in enumerate(zip(kv, win[6:], p_dkv)))
+    launches = read_launches(sa)
+
+    # each launch alone at both windows (dkv as training calls it, without
+    # dx_j), the plain windowed forms beside
+    calls = {"fwd": lambda ww: lambda: sa._launch_fwd(
+                 x4, ids, h, wh, weights, False, ww),
+             "fwd_stats": lambda ww: lambda: sa._launch_fwd(
+                 x4, ids, h, wh, weights, True, ww),
+             "dq": lambda ww: lambda: sa.social_attention_bwd_dq(
+                 *args_w, max_scene=ww),
+             "dkv": lambda ww: lambda: sa.social_attention_bwd_dkv(
+                 *args_w, need_dx=False, max_scene=ww)}
+    with torch.no_grad():
+        plain_ms = {"fwd": median_ms(torch, lambda: social_context_windowed(
+            g.feat_mlp, g.attn_w, x4, h, ids, w))}
+    plain_ms["fwd_stats"] = plain_ms["fwd"]
+    bwd_plain_ms = median_ms(torch, lambda: windowed_plain(
+        torch, sa, g, x4, ids, h, wh, gout, w), repeats=3)
+    plain_ms["dq"] = plain_ms["dkv"] = bwd_plain_ms
+    bounds = {"fwd": attention_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
+                                     n_params),
+              "dq": attention_bwd_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
+                                        n_mlp, "dq"),
+              "dkv": attention_bwd_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
+                                         n_mlp, "dkv")}
+    bounds["fwd_stats"] = bounds["fwd"]
+    entries = {}
+    with torch.no_grad():
+        for key, mk in calls.items():
+            t_w, t_0 = median_ms(torch, mk(w)), median_ms(torch, mk(0))
+            b = bounds[key]
+            entries[key] = {
+                "n": CROWD_N, "scene": w, "pairs": b["pairs_needed"],
+                "window_ms": t_w, "full_scan_ms": t_0,
+                "plain_windowed_ms": plain_ms[key],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "max_abs_err": err[key]}
+            print(f"crowd kernel {key} N={CROWD_N} scenes of {w}: window w="
+                  f"{w} {t_w * 1e3:.2f} us, full scan w=0 {t_0 * 1e3:.2f} us "
+                  f"({t_0 / t_w:.1f}x), plain windowed "
+                  f"{plain_ms[key] * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}, "
+                  f"{b['pairs_needed']} pairs), max abs err {err[key]:.3e}; "
+                  f"w={w} bits == w=0 bits [{card}]")
+
+    # the window at a million agents: the forward only (a full scan there
+    # is ~5.5e11 id tests)
+    del x4, h, ids, wh, gout, full, win, args_w, p_dq, p_dkv
+    x4_np, h_np, ids_np = crowd_inputs(rng, CROWD_1M, HIDDEN)
+    x4, h, ids = (torch.from_numpy(a).to(dev) for a in (x4_np, h_np, ids_np))
+    with torch.no_grad():
+        wh = linear_apply(g.attn_w, h)
+        reset_launches(sa)
+        out = sa._launch_fwd(x4, ids, h, wh, weights, False, w)[0]
+        launches["fwd"] += read_launches(sa)["fwd"]
+        p_out = social_context_windowed(g.feat_mlp, g.attn_w, x4, h, ids, w)
+        torch.cuda.synchronize()
+        err_1m = check_close(out, p_out, f"crowd forward N={CROWD_1M}")
+        t_1m = median_ms(torch, lambda: sa._launch_fwd(
+            x4, ids, h, wh, weights, False, w))
+        p_1m = median_ms(torch, lambda: social_context_windowed(
+            g.feat_mlp, g.attn_w, x4, h, ids, w), repeats=3)
+    b = attention_bound(ids_np, CROWD_1M, HIDDEN, HIDDEN, n_params)
+    entries["fwd_1m"] = {"n": CROWD_1M, "scene": w,
+                         "pairs": b["pairs_needed"], "window_ms": t_1m,
+                         "full_scan_ms": None, "plain_windowed_ms": p_1m,
+                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                         "max_abs_err": err_1m}
+    print(f"crowd kernel fwd N={CROWD_1M} scenes of {w}: window w={w} "
+          f"{t_1m * 1e3:.1f} us, plain windowed {p_1m * 1e3:.1f} us, bound "
+          f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}, "
+          f"{b['pairs_needed']} pairs), max abs err {err_1m:.3e} [{card}]")
+    return launches, entries
+
+
+def crowd_simulate_runs(torch, sa, cli_main, dev, ckpt, card):
+    """Phase 11b: ``cli simulate`` at its defaults and at a million agents
+    from the loo checkpoint, with exact launches, then the trajectories at
+    10,000 agents and 1 window against the CPU under the same noise."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.engine.losses import sample_noise
+    from socialways_torch.engine.simulate import crowd_simulate, initial_crowd
+    from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
+                                                restore_generator)
+
+    rates, launches = {}, {"fwd": 0, "dq": 0, "dkv": 0}
+    for agents in (CROWD_N, CROWD_1M):
+        reset_launches(sa)
+        out = run_cli(cli_main, ["simulate", "--model-file", ckpt, "--agents",
+                                 str(agents)], f"simulate {agents} agents",
+                      card)
+        torch.cuda.synchronize()
+        got = read_launches(sa)
+        if got != {"fwd": 8, "dq": 0, "dkv": 0}:
+            raise AssertionError(f"simulate {agents}: launched {got}, not 2 "
+                                 f"calls x 4 windows forwards")
+        for k in launches:
+            launches[k] += got[k]
+        m = re.search(r"x (\d+) steps .* in ([\d.]+) ms = ", out)
+        if not m or "route=cuda kernel" not in out:
+            raise AssertionError(f"simulate {agents}: printed {out!r}")
+        steps, ms = int(m.group(1)), float(m.group(2))
+        rates[agents] = agents * steps / (ms * 1e-3)
+        print(f"simulate {agents} agents x {steps} steps: {ms} ms, "
+              f"{rates[agents]} agent-steps/s, launches {got} [{card}]")
+
+    cfg = adopt_checkpoint_config(TrainConfig(), ckpt).replace(
+        max_scene_size=CROWD_SCENE)
+    obsv0, ids = initial_crowd(CROWD_N, CROWD_SCENE, cfg.n_past, 0)
+    noise = sample_noise((1, CROWD_N), cfg, torch.Generator().manual_seed(9))
+    traj = []      # on the card, then on the CPU
+    for where in (dev, torch.device("cpu")):
+        gen = restore_generator(ckpt, cfg, where)[0]
+        traj.append(crowd_simulate(
+            gen, torch.from_numpy(obsv0).to(where),
+            torch.from_numpy(ids).to(where), 1, cfg,
+            noise=noise.to(where)).cpu())
+    diff = float((traj[0] - traj[1]).abs().max())
+    if not bool(traj[0].isfinite().all()) or diff > 1e-4:
+        raise AssertionError(f"simulate cuda vs cpu: max abs diff {diff:.3e}"
+                             f" > 1e-4")
+    print(f"simulate cuda vs cpu: {CROWD_N} agents x 1 window, max abs diff "
+          f"{diff:.3e} (atol 1e-4, the checkpoint's normalized units; CPU "
+          f"windowed form)")
+    # where a window's time goes, at both crowd sizes
+    gen = restore_generator(ckpt, cfg, dev)[0]
+    for agents in (CROWD_N, CROWD_1M):
+        obsv0, ids = (torch.from_numpy(a).to(dev) for a in initial_crowd(
+            agents, CROWD_SCENE, cfg.n_past, 0))
+        noise = sample_noise((1, agents), cfg, torch.Generator(
+            device=dev).manual_seed(3), dev)
+        profile_step(torch, f"one simulate window of {agents} agents "
+                            f"[{card}]",
+                     lambda: crowd_simulate(gen, obsv0, ids, 1, cfg,
+                                            noise=noise))
+    return launches, rates
+
+
+def crowd_phase(torch, sa, cli_main, dev, ckpt, work, card):
+    """Phase 11: crowd scale (the kernels' scene window, ``simulate``,
+    crowd training with ``--max-scene-size``)."""
+    from socialways_torch.config import TrainConfig
+    tic_phase = time.perf_counter()
+    cfg = TrainConfig(hidden_size=HIDDEN, social_feature_size=HIDDEN,
+                      noise_len=HIDDEN // 2)
+    launches = {}
+    launches["crowd_kernels"], kernels = crowd_kernels(torch, sa, dev, cfg,
+                                                       card)
+    launches["simulate"], sim_rates = crowd_simulate_runs(
+        torch, sa, cli_main, dev, ckpt, card)
+    # a synthetic crowd: ETH/UCY-like scenes of 2-16, 82k windows
+    npz = os.path.join(work, "crowd-8-12.npz")
+    make_ethucy_like_npz(npz, n_windows=82_000, seed=1)
+    train_rates = {}
+    for tag, run in CROWD_RUNS.items():
+        launches[tag], train_rates[tag], _ = gan_run(
+            torch, sa, cli_main, dev, npz, work, tag, run,
+            cpu_check=tag == "crowd_train_4608", card=card)
+    launches["crowd_train"] = {k: sum(launches[t][k] for t in CROWD_RUNS)
+                               for k in ("fwd", "dq", "dkv")}
+    for tag in CROWD_RUNS:
+        del launches[tag]
+    print(f"crowd phase: {time.perf_counter() - tic_phase:.2f} s wall "
+          f"[{card}]")
+    return {"launches": launches, "kernels": kernels,
+            "simulate_rates": {k: float(f"{v:.6g}") for k, v in
+                               sim_rates.items()},
+            "train_rates": {k: float(f"{v:.6g}") for k, v in
+                            train_rates.items()}}
 
 
 def main() -> int:
@@ -1437,7 +1754,7 @@ def main() -> int:
                                                  train_cfg)
 
         # ---- 7. the CLI's train --recipe loo, resume, evaluate
-        cli_phase(torch, cli_main, npz, work)
+        loo_ckpt = cli_phase(torch, cli_main, npz, work)
 
         # ---- 8. the real-data pipeline: eth-ucy, raw predict, Kalman
         launches_loo, launches_raw = realdata_phase(torch, sa, cli_main, dev,
@@ -1450,6 +1767,9 @@ def main() -> int:
         # ---- 10. every gan_step variant: loo (G side), toy (D side, accum)
         launches_gan, gan_rates = gan_variants_phase(torch, sa, cli_main,
                                                      dev, npz, work)
+
+        # ---- 11. crowd scale: window-scan kernels, simulate, training
+        crowd = crowd_phase(torch, sa, cli_main, dev, loo_ckpt, work, smi)
 
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
@@ -1469,7 +1789,9 @@ def main() -> int:
                                  "toy_train": launches_toy["fwd"],
                                  "sweep": launches_sweep["fwd"],
                                  **{f"gan_{k}": v["fwd"]
-                                    for k, v in launches_gan.items()}},
+                                    for k, v in launches_gan.items()},
+                                 **{k: v["fwd"] for k, v in
+                                    crowd["launches"].items()}},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -1483,6 +1805,9 @@ def main() -> int:
             "serving_plain_ms": p_ms,
             "serving_bound_ms": bound["bound_ms"],
             "serving_wrapper_ms": wr_ms,
+            "crowd": crowd["kernels"]["fwd"],
+            "crowd_stats": crowd["kernels"]["fwd_stats"],
+            "crowd_1m": crowd["kernels"]["fwd_1m"],
         }]
         for key, fn, line in (("dq", "_bwd_dq_kernel", 317),
                               ("dkv", "_bwd_dkv_kernel", 372)):
@@ -1497,7 +1822,9 @@ def main() -> int:
                                      "toy_train": launches_toy[key],
                                      "sweep": launches_sweep[key],
                                      **{f"gan_{k}": v[key]
-                                        for k, v in launches_gan.items()}},
+                                        for k, v in launches_gan.items()},
+                                     **{k: v[key] for k, v in
+                                        crowd["launches"].items()}},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],
@@ -1506,6 +1833,7 @@ def main() -> int:
                 "bound_by": bwd_path["bounds"][key]["bound_by"],
                 "library_ms": None,
                 "launch_floor_ms": floor_ms,
+                "crowd": crowd["kernels"][key],
             })
         kernels[1]["by_launch_us"] = bwd_path["split"]["dq"]
         kernels[1]["by_input"] = dq_by_input
@@ -1514,7 +1842,10 @@ def main() -> int:
               f"{steps_s:.2f}; toy train steps/s {toy_rate:.2f}; sweep "
               f"{sweep_s:.2f} s; gan variants train steps/s "
               f"{', '.join(f'{k} {v:.2f}' for k, v in gan_rates.items())}; "
-              f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+              f"crowd: simulate {crowd['simulate_rates']} agent-steps/s, "
+              f"crowd train steps/s {crowd['train_rates']}; "
+              f"chip_smoke wall {time.perf_counter() - t_start:.1f} s "
+              f"[{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -12,18 +12,24 @@ real-data pipeline and the toy protocol.
     python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --linear kalman
     python -m socialways_torch.cli.main predict --data hotel-8-12.npz --model-file ckpt.npz --out preds.npz
     python -m socialways_torch.cli.main predict --data obsmat.txt --model-file ckpt.npz
+    python -m socialways_torch.cli.main simulate --agents 10000 --scene-size 16 --model-file ckpt.npz
     python -m socialways_torch.cli.main --cpu train ...   # run on the CPU
 
 Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
 (create-toy, create-dataset), :519-819 (train), :822-974 (evaluate,
-predict), :977-1036 (sweep), :1039-1101 (eth-ucy) and :1172-1191 (stats).
+predict), :977-1036 (sweep), :1039-1101 (eth-ucy), :1104-1169 (simulate)
+and :1172-1191 (stats).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
 ``create-*`` and ``stats`` are host-only.  ``train``, ``eth-ucy`` and
 ``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--bf16``,
-``--pallas``, ``--mesh`` and ``--max-scene-size`` (not ported yet);
-argparse refuses those.  The loop's outputs and rescues (dumps, metrics log,
-profiler trace, coverage, ``--auto-recover``) are ``train``'s alone:
-``eth-ucy`` and ``sweep`` refuse them rather than ignore them.  ``eth-ucy``
+``--pallas`` and ``--mesh`` (not ported yet); argparse refuses those.
+``--max-scene-size`` (a bound on rows per scene, ids sorted and
+contiguous) lets the social attention scan scene windows on every
+subcommand that runs a model.  ``simulate`` has no ``--no-pallas``: on the
+card the CUDA kernel is its only path.  The loop's outputs and rescues
+(dumps, metrics log, profiler trace, coverage, ``--auto-recover``) are
+``train``'s alone: ``eth-ucy`` and ``sweep`` refuse them rather than
+ignore them.  ``eth-ucy``
 without ``--recipe`` runs the loo recipe (``--recipe=`` opts out).  The
 model flags of evaluate/predict are the widths and switches of the served
 generator; a checkpoint's embedded config overrides them and brings the
@@ -85,6 +91,15 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
                    help="bfloat16 forward (not ported yet: raises)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-gen-samples", "--k", type=int, default=20)
+    _add_max_scene_flag(p)
+
+
+def _add_max_scene_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--max-scene-size", type=int, default=0,
+                   help="static bound on agents per scene (ids sorted + "
+                        "contiguous): the social attention scans only each "
+                        "agent's scene window, O(N*max_scene) at crowd "
+                        "scale (0 = unknown)")
 
 
 def _cfg_from_args(args):
@@ -100,6 +115,7 @@ def _cfg_from_args(args):
         compute_dtype="bfloat16" if args.bf16 else "float32",
         seed=args.seed,
         n_gen_samples=args.n_gen_samples,
+        max_scene_size=args.max_scene_size,
     )
 
 
@@ -409,6 +425,7 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
                         "full-batch gradient). Batch rows must divide by "
                         "N and (with --use-social) scene boundaries must "
                         "align to chunk boundaries")
+    _add_max_scene_flag(p)
 
 
 def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
@@ -518,6 +535,7 @@ def _train_cfg(args):
         d_update_every_switch=args.d_update_every_switch,
         grad_clip=args.grad_clip, serial_rollout=args.serial_rollout,
         remat_steps=args.remat_steps, grad_accum=args.grad_accum,
+        max_scene_size=args.max_scene_size,
         use_social=args.use_social, agent_frame=args.agent_frame,
         d_input_noise=args.d_input_noise,
         d_input_noise_steps=args.d_input_noise_steps,
@@ -782,6 +800,64 @@ def cmd_train(args, device) -> int:
     return 0
 
 
+def cmd_simulate(args, device) -> int:
+    """A crowd rolled forward on the card (socialways_tpu/cli/main.py:
+    1104-1169): ``--agents`` agents in scenes of ``--scene-size``, each
+    starting from a grid point and a random walk of n_past steps drawn from
+    numpy's ``RandomState(seed)`` as in JAX, simulated for ``--windows``
+    windows twice; the second call is timed.  A checkpoint decides the model
+    and keeps its own n_past / n_next (JAX forces 8 / 12)."""
+    from socialways_torch.engine.simulate import (initial_crowd,
+                                                  make_crowd_sim,
+                                                  throughput_agent_steps)
+    from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
+                                                load_checkpoint_config)
+    cfg = _cfg_from_args(args)
+    if args.model_file:
+        cfg = adopt_checkpoint_config(cfg, args.model_file)
+        # configless checkpoints keep the legacy social default
+        if load_checkpoint_config(args.model_file) is None \
+                and not args.use_social:
+            cfg = cfg.replace(use_social=True)
+    else:
+        cfg = cfg.replace(use_social=True)
+    cfg = cfg.replace(max_scene_size=args.scene_size)
+    gen, _, _ = _load_generator(args, cfg, device)
+
+    n = args.agents
+    obsv0, scene_ids = initial_crowd(n, args.scene_size, cfg.n_past,
+                                     cfg.seed)
+    obsv0 = torch.from_numpy(obsv0).to(device)
+    scene_ids = torch.from_numpy(scene_ids).to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sim = make_crowd_sim(cfg, args.windows)
+    rng = torch.Generator(device=device)
+    sim(gen, obsv0, scene_ids, rng.manual_seed(1))   # builds the kernels
+    sync()
+    tic = time.perf_counter()
+    out = sim(gen, obsv0, scene_ids, rng.manual_seed(2))
+    sync()
+    dt = time.perf_counter() - tic
+
+    route = (f"cuda kernel on {torch.cuda.get_device_name(device)}"
+             if device.type == "cuda" else "cpu")
+    social = ("on" if cfg.use_social
+              else "OFF — checkpoint trained without social")
+    rate = throughput_agent_steps(n, args.windows, cfg.n_next, dt)
+    print(f"simulated {n} agents x {args.windows * cfg.n_next} steps "
+          f"(scenes of {args.scene_size}, social attention {social}, "
+          f"route={route}) in {dt * 1e3:.3f} ms "
+          f"= {rate / 1e6:.2f}M agent-steps/s")
+    if args.out:
+        np.savez(args.out, trajectories=out.cpu().numpy())
+        print(f"wrote {args.out}")
+    return 0
+
+
 def cmd_stats(args) -> int:
     """1-NN accuracy and EMD of each dumped epoch against the real toy
     sample sets (socialways_tpu/cli/main.py:1172-1180), cached to
@@ -993,6 +1069,22 @@ def build_parser() -> argparse.ArgumentParser:
     # the toy recipes carry --auto-recover, a flag of train's loop
     _add_train_flags(p, ["loo"])
     p.set_defaults(fn=cmd_eth_ucy)
+
+    p = sub.add_parser("simulate",
+                       help="large-scale crowd rollout with social attention "
+                            "(the CUDA kernel on the card; no --no-pallas)")
+    p.add_argument("--agents", type=int, default=10000)
+    p.add_argument("--scene-size", type=int, default=16,
+                   help="agents per scene; also the attention's "
+                        "--max-scene-size")
+    p.add_argument("--windows", type=int, default=4)
+    p.add_argument("--model-file", default="",
+                   help="checkpoint to simulate (default: a generator drawn "
+                        "from torch.Generator().manual_seed(--seed), whose "
+                        "weights are not the JAX package's)")
+    p.add_argument("--out", default="", help="optional npz to write")
+    _add_model_flags(p)
+    p.set_defaults(fn=cmd_simulate)
     return ap
 
 

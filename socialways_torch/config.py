@@ -4,8 +4,8 @@ The fields the port reads, with the defaults of
 ``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
 ``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
 define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
-The JAX fields the port does not implement yet (bf16, a mesh, the
-windowed attention's ``max_scene_size``) are fields here too, so that
+The JAX fields the port does not implement yet (bf16, a mesh) are fields
+here too, so that
 ``check_supported`` can name them when a caller sets one instead of
 silently training another model.
 """
@@ -119,9 +119,11 @@ class TrainConfig:
     remat_steps: bool = False
     # exact gradient accumulation over this many scene-aligned micro-chunks
     grad_accum: int = 1
+    # > 0: a static bound on rows per scene (ids sorted and contiguous), so
+    # the social attention scans scene windows only (0 = unknown)
+    max_scene_size: int = 0
 
     # ---- JAX knobs not ported yet (check_supported names them)
-    max_scene_size: int = 0
     mesh_shape: Optional[int] = None
 
     def replace(self, **kw) -> "TrainConfig":
@@ -151,7 +153,6 @@ def check_supported(cfg: TrainConfig) -> None:
          cfg.latent_code_type not in ("continuous", "categorical")),
         ("noise_dist", cfg.noise_dist not in ("uniform", "gaussian")),
         ("compute_dtype", cfg.compute_dtype != "float32"),
-        ("max_scene_size", cfg.max_scene_size > 0),
         ("mesh_shape", cfg.mesh_shape is not None),
     ]
     for field, bad in unsupported:

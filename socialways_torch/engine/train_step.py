@@ -431,7 +431,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     def rollout_on(obsv_, z, sids, sx4):
         return generator_rollout(state.g, obsv_, z, cfg.n_next, sids,
                                  cfg.use_social, sx4, cfg.decoder,
-                                 cfg.remat_steps)
+                                 cfg.remat_steps, cfg.max_scene_size)
 
     # micro-chunks: the rows split into grad_accum equal scene-aligned parts
     rows = {"obsv": obsv, "obsv_4d": obsv_4d, "noise": noise,
@@ -591,7 +591,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
             z = torch.cat(noises)
             r = z.shape[0]
             prep = prepare_rollout(state.g, obsv, scene_ids, cfg.use_social,
-                                   social_x4, cfg.remat_steps)
+                                   social_x4, cfg.remat_steps,
+                                   cfg.max_scene_size)
             out = decode_rollout(state.g, tuple(t.repeat(r, 1) for t in prep),
                                  z.reshape(r * n, -1), cfg.n_next,
                                  cfg.decoder, cfg.remat_steps)

@@ -55,7 +55,8 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
     obsv_in, frame, social_x4 = canonicalize_for_rollout(
         obsv, cfg.agent_frame, cfg.use_social)
     prep = prepare_rollout(g_params, obsv_in, scene_ids, cfg.use_social,
-                           social_states=social_x4)
+                           social_states=social_x4,
+                           max_scene=cfg.max_scene_size)
     # K draws as a batch: row kk*N + i is sample kk of agent i
     prep_k = tuple(t.repeat(k, 1) for t in prep)
     out = decode_rollout(g_params, prep_k, noise.reshape(k * n, -1),

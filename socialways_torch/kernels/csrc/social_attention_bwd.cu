@@ -227,7 +227,8 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const float* __restrict__ u, const float* __restrict__ cvec,
               const float* __restrict__ w1, const float* __restrict__ b1,
               const float* __restrict__ w2, const float* __restrict__ b2,
-              float4* __restrict__ dx, const int n, const int hdim) {
+              float4* __restrict__ dx, const int n, const int hdim,
+              const int w) {
     // Static shared memory, bytes: padded W2 8,704 | a1^T 4,608 | dz2^T
     // 9,216 | dz1 4,224 | ring 4,096 | g_i 1,152 | W1, b1, b2, the batch's
     // features, columns, c_j, g_i . h_j and dx_i terms, the tile's stats
@@ -273,10 +274,10 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(row0 + t) * hdim + d] : 0.f;
         }
         float4 dxi = make_float4(0.f, 0.f, 0.f, 0.f);   // row t < kTile's sum
-        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, n, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // warp 0: features, column, slot and c_j of each pair; warp 1:
@@ -365,7 +366,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                float4* __restrict__ dx, float* __restrict__ dh,
                float* __restrict__ dwh, float* __restrict__ a_sum,
                float* __restrict__ s_sum, float* __restrict__ partial,
-               const int n, const int hdim, const int feat) {
+               const int n, const int hdim, const int feat, const int w) {
     __shared__ __align__(16) float s_w2[kH1 * kW2Stride];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -426,10 +427,10 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
         // dh elements e = t + kThreads q of [kTile][hdim]
         float A = 0.f, S = 0.f, acc_h[2] = {0.f, 0.f};
         float4 dxj = make_float4(0.f, 0.f, 0.f, 0.f);
-        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        PairRing pr = tile_ring(s_ring, s_scan, col0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, n, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // features, row, slot and the row's stats of each pair
@@ -709,13 +710,15 @@ bwd_finalize_kernel(const float* __restrict__ wh,
 // dx_i [N, 4] from the forward's u [N, 64] and c [N]: one launch of
 // `blocks` blocks, each walking row tiles blockIdx.x, blockIdx.x + blocks,
 // ...  Launches on `stream`, does not synchronise, allocates nothing;
-// returns cudaGetLastError(), or cudaErrorInvalidValue for blocks <= 0 or
-// an H the kernel does not take (a multiple of 16 up to 128).
+// returns cudaGetLastError(), or cudaErrorInvalidValue for blocks <= 0,
+// an H the kernel does not take (a multiple of 16 up to 128) or a scene
+// window max_scene < 0 (0: every tile scans all N).
 extern "C" int social_attention_bwd_dq(
         const void* x4, const void* ids, const void* h, const void* g,
         const void* stats, const void* r, const void* u, const void* c,
         const void* w1, const void* b1, const void* w2, const void* b2,
-        void* dx, int n, int hdim, int blocks, void* stream) {
+        void* dx, int n, int hdim, int blocks, int max_scene, void* stream) {
+    if (max_scene < 0) return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim <= 0 || hdim > kMaxWidth || hdim % 16)
         return (int)cudaErrorInvalidValue;
@@ -726,7 +729,7 @@ extern "C" int social_attention_bwd_dq(
         static_cast<const float*>(u), static_cast<const float*>(c),
         static_cast<const float*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<float4*>(dx), n, hdim);
+        static_cast<float4*>(dx), n, hdim, max_scene);
     return (int)cudaGetLastError();
 }
 
@@ -736,7 +739,9 @@ extern "C" int social_attention_bwd_dq(
 // dkv blocks, one partial slot each: a_sum [N, 64], s_sum [N] and
 // partial [partial_floats] are scratch.  A partial_floats other than
 // blocks x kPartial (the caller sized its slots or dmlp12 differently)
-// is refused with cudaErrorInvalidValue.  Two launches: dkv, then finalize.
+// is refused with cudaErrorInvalidValue, as is a scene window max_scene < 0
+// (0: every column tile scans all N; a column's partners lie in the same
+// window as a row's).  Two launches: dkv, then finalize.
 extern "C" int social_attention_bwd_dkv(
         const void* x4, const void* ids, const void* h, const void* wh,
         const void* g, const void* stats, const void* r, const void* u,
@@ -744,7 +749,8 @@ extern "C" int social_attention_bwd_dkv(
         const void* b2, const void* w3, const void* b3, void* a_sum,
         void* s_sum, void* partial, void* dx, void* dh, void* dwh, void* dw3,
         void* db3, void* dmlp12, int n, int hdim, int feat, int blocks,
-        int partial_floats, void* stream) {
+        int partial_floats, int max_scene, void* stream) {
+    if (max_scene < 0) return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth || feat % 16 ||
         (long long)partial_floats != (long long)blocks * kPartial)
@@ -761,7 +767,7 @@ extern "C" int social_attention_bwd_dkv(
         static_cast<float4*>(dx), static_cast<float*>(dh),
         static_cast<float*>(dwh), static_cast<float*>(a_sum),
         static_cast<float*>(s_sum), static_cast<float*>(partial), n, hdim,
-        feat);
+        feat, max_scene);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)launch_dependent(

@@ -111,7 +111,7 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                             const float* __restrict__ b2,
                             float* __restrict__ out,
                             float2* __restrict__ stats,
-                            const int n, const int hdim) {
+                            const int n, const int hdim, const int w) {
     __shared__ __align__(16) float s_w2[kH1 * kH2];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -149,10 +149,10 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
         }
         // accumulator elements e = threadIdx.x + kThreads q of [kTile][hdim]
         float acc[2] = {0.f, 0.f};
-        PairRing pr{s_ring, s_scan, 0, 0, 0};
+        PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, n, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // features, column and slot of each pair; 0 past nb
@@ -255,7 +255,9 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
 // tiles blockIdx.x, blockIdx.x + blocks, ...) on `stream`; does not
 // synchronise, allocates nothing; returns cudaGetLastError() so the caller
 // sees a refused launch.  u [N, 64] and c [N] are written for the backward;
-// `stats` [N, 2] may be null (serving: no extra stores).
+// `stats` [N, 2] may be null (serving: no extra stores).  `max_scene` is the
+// scene window w of social_attention_pairs.cuh (0: every tile scans all N);
+// w < 0 is refused with cudaErrorInvalidValue.
 extern "C" int social_attention_fwd(const void* x4, const void* ids,
                                     const void* h, const void* wh,
                                     const void* w1, const void* b1,
@@ -263,7 +265,8 @@ extern "C" int social_attention_fwd(const void* x4, const void* ids,
                                     const void* w3, const void* b3,
                                     void* out, void* stats, void* u, void* c,
                                     int n, int hdim, int feat, int blocks,
-                                    void* stream) {
+                                    int max_scene, void* stream) {
+    if (max_scene < 0) return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth)
         return (int)cudaErrorInvalidValue;
@@ -281,5 +284,5 @@ extern "C" int social_attention_fwd(const void* x4, const void* ids,
         static_cast<const float*>(c), static_cast<const float*>(w1),
         static_cast<const float*>(b1), static_cast<const float*>(w2),
         static_cast<const float*>(b2), static_cast<float*>(out),
-        static_cast<float2*>(stats), n, hdim);
+        static_cast<float2*>(stats), n, hdim, max_scene);
 }

@@ -5,11 +5,15 @@
 //
 // All three work on the same-scene pairs (i, j), both valid, i != j.  A
 // block owns a tile of kTile agents (query rows in the forward and dq,
-// columns in dkv) and finds their partners by id tests over all N agents, so
-// no order of the scene ids is assumed (unsorted ids are masked, never
-// dropped).  The
-// pairs it finds go into a ring in shared memory and leave it in batches of
-// at most kBatch; per batch all kThreads threads run the pair MLP:
+// columns in dkv) and finds their partners by id tests over a range of
+// agents (tile_ring): all N when the caller's scene window w is 0, so no
+// order of the scene ids is assumed (unsorted ids are masked, never
+// dropped); [t0 - w, t0 + kTile + w) when w > 0 and the caller promises
+// sorted, contiguous scenes of at most w rows, which puts every partner
+// there.  The scan runs in the same order either way, so both find the same
+// pairs in the same order.  The pairs go into a ring in shared memory and
+// leave it in batches of at most kBatch; per batch all kThreads threads run
+// the pair MLP:
 //   features (dist, bearing, dca)        one thread a pair
 //   a1 = relu(W1 feat + b1)   3 -> 32     one output per thread and step
 //   a2 = relu(W2 a1 + b2)     32 -> 64    register-tiled: thread (pg, og)
@@ -137,30 +141,41 @@ __device__ __forceinline__ void geo_backward(const Geo& q, const float4 xi,
 }
 
 // The ring of found pairs: entry o * kTile + t pairs tile agent t with agent
-// o.  head, count and the scan position are block-uniform.
+// o.  head, count and the scan position next (up to end) are block-uniform.
 struct PairRing {
     int* ring;      // [kRing] shared
     int* scan;      // [kWarps] shared
-    int head, count, next;
+    int head, count, next, end;
 };
+
+// An empty ring whose scan covers the agents a tile starting at agent t0
+// may pair with: [0, n) for w == 0, else [max(0, t0 - w), min(n, t0 + kTile
+// + w)) (kernels/social_attention.py:scan_range computes the same range).
+__device__ __forceinline__ PairRing tile_ring(int* ring, int* scan,
+                                              const int t0, const int n,
+                                              const int w) {
+    if (w == 0) return PairRing{ring, scan, 0, 0, 0, n};
+    return PairRing{ring, scan, 0, 0, max(0, t0 - w), min(n, t0 + kTile + w)};
+}
 
 // Scans agents next, next + 1, ... in steps of kScan * kThreads (thread t
 // tests agents next + kScan t + q) until the ring holds kBatch pairs or the
-// scan reaches n.  tile_id[t] is tile agent t's scene id (-1 for padding or
-// past n: matches nothing), tile_idx[t] its index.  Entries are appended in
-// scan order (agent, then tile agent).  Every thread of the block calls it.
-__device__ __forceinline__ void fill_ring(PairRing& pr, const int n,
+// scan reaches end.  tile_id[t] is tile agent t's scene id (-1 for padding
+// or past n: matches nothing), tile_idx[t] its index.  Entries are appended
+// in scan order (agent, then tile agent).  Every thread of the block calls
+// it.
+__device__ __forceinline__ void fill_ring(PairRing& pr,
                                           const int* __restrict__ ids,
                                           const int (&tile_id)[kTile],
                                           const int (&tile_idx)[kTile]) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    while (pr.count < kBatch && pr.next < n) {
+    while (pr.count < kBatch && pr.next < pr.end) {
         const int o0 = pr.next + kScan * threadIdx.x;
         unsigned bits = 0u;     // bit q kTile + t: agent o0 + q pairs with t
 #pragma unroll
         for (int q = 0; q < kScan; ++q) {
             const int o = o0 + q;
-            const int id_o = o < n ? ids[o] : -1;
+            const int id_o = o < pr.end ? ids[o] : -1;
 #pragma unroll
             for (int t = 0; t < kTile; ++t)
                 if (id_o >= 0 && id_o == tile_id[t] && o != tile_idx[t])

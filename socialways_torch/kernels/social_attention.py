@@ -38,8 +38,22 @@ Source notes.
   computes it outside the Pallas call (:252-254); autograd pulls dL/d(wh)
   back through it, as the epilogue at :574-579 does.
 
-Dispatch: a CPU tensor takes the plain dense form (under autograd when a
-gradient is needed); a CUDA tensor launches the kernels or raises.
+- Scene window.  Every kernel takes ``max_scene`` (w).  With w = 0 a
+  tile id-tests all N agents, O(N^2) id tests a launch.  With w > 0 the
+  caller promises JAX's windowed contract (sorted, contiguous scenes of at
+  most w rows, padding -1; socialways_tpu/ops/social.py:197-210), and a
+  tile starting at agent t0 scans only ``scan_range(n, t0, w)``: the CUDA
+  counterpart of the TPU kernel's sorted-id band (``_tile_bands``,
+  :201-216).  The scan keeps its order, so on such inputs a w > 0 launch
+  finds the same pairs in the same ring order as a w = 0 launch and gives
+  equal bits.
+
+Dispatch: ``social_attention_fwd`` takes the plain dense form for a CPU
+tensor (under autograd when a gradient is needed) and launches the kernels
+or raises for a CUDA tensor.  ``social_attention`` is the size-aware
+dispatch of socialways_tpu/kernels/social_attention.py:747-784 with
+``use_pallas`` off: on the CPU dense up to ``_DENSE_MAX_AGENTS``, then
+windowed (``max_scene > 0``) or blockwise; on CUDA always the kernels.
 """
 
 from __future__ import annotations
@@ -51,7 +65,9 @@ import torch
 
 from socialways_torch.ops.nn import MLP, Linear, linear_apply, mlp_apply
 from socialways_torch.ops.social import (_NEG_INF, attention_pool,
-                                         scene_mask, social_features)
+                                         scene_mask, social_context_blockwise,
+                                         social_context_windowed,
+                                         social_features)
 
 _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
@@ -59,6 +75,9 @@ _H2 = 64                      # second hidden width of the feature MLP
 _TILE = 2                     # rows (forward, dq) or columns (dkv) a block takes
 _DKV_MAX_BLOCKS = 4 * 132     # 4 a streaming multiprocessor of an H100
 _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
+# above this the dense form's N^2 F pair tensors stop being a good idea on
+# the CPU (>= 1 GB at F = 64): stream blocks instead (the JAX threshold)
+_DENSE_MAX_AGENTS = 4096
 
 
 # ----------------------------------------------------------- plain versions
@@ -151,6 +170,22 @@ def dkv_blocks(n: int) -> int:
     return min(fwd_blocks(n), _DKV_MAX_BLOCKS)
 
 
+def _check_window(max_scene: int) -> None:
+    if max_scene < 0:
+        raise ValueError(f"max_scene must be >= 0, got {max_scene}")
+
+
+def scan_range(n: int, t0: int, w: int) -> Tuple[int, int]:
+    """[lo, hi): the agents a tile whose first agent is ``t0`` id-tests,
+    as every kernel computes it.  ``w = 0``: all N.  ``w > 0``: sorted,
+    contiguous scenes of at most w rows put every partner of the tile's
+    ``_TILE`` agents within w rows of them."""
+    _check_window(w)
+    if w == 0:
+        return 0, n
+    return max(0, t0 - w), min(n, t0 + _TILE + w)
+
+
 def dkv_partial_floats(n: int) -> int:
     """Floats of dkv's partial scratch: one slot of dW2, db2, dW1, db1 per
     block.  The pair batches live in shared memory, fixed in size."""
@@ -220,19 +255,21 @@ def _call(name: str, f, *args) -> None:
 
 
 def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
-                with_stats: bool):
+                with_stats: bool, max_scene: int = 0):
     """(out [N, H], stats [N, 2] or None, u [N, 64], c [N]) from the two
     launches of the forward kernel; u = wh W3^T and c = wh . b3 are what
-    the backward kernels read."""
+    the backward kernels read.  ``max_scene`` > 0 scans each tile's scene
+    window only (``scan_range``)."""
+    _check_window(max_scene)
     _check_common(x4, ids, h, wh, weights)
     n, hdim = h.shape
     kw = dict(device=h.device, dtype=torch.float32)
     out = torch.empty((n, hdim), **kw)
     stats = torch.empty((n, 2), **kw) if with_stats else None
     u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    _call(_FWD, _lib(_FWD, "social_attention_fwd", 14, 4),
+    _call(_FWD, _lib(_FWD, "social_attention_fwd", 14, 5),
           x4, ids, h, wh, *weights, out, stats, u, c, n, hdim, wh.shape[1],
-          fwd_blocks(n))
+          fwd_blocks(n), max_scene)
     social_attention_fwd.launches += 1
     return out, stats, u, c
 
@@ -240,12 +277,15 @@ def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
 # -------------------------------------------------------- backward wrappers
 def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
                             weights: Sequence[torch.Tensor], u: torch.Tensor,
-                            c: torch.Tensor) -> torch.Tensor:
+                            c: torch.Tensor, max_scene: int = 0
+                            ) -> torch.Tensor:
     """dL/dx_i [N, 4] from the cotangent ``g`` [N, H], the forward's
     ``stats`` [N, 2] = (m, l), ``r`` [N] = g . out and its ``u`` [N, 64] and
     ``c`` [N].  CPU tensors take the plain version, which rebuilds the
     scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
-    (one launch of ``dq_blocks(N)`` blocks) or raise."""
+    (one launch of ``dq_blocks(N)`` blocks, each tile scanning
+    ``scan_range(N, t0, max_scene)``) or raise."""
+    _check_window(max_scene)
     if h.device.type == "cpu":
         return social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r,
                                              weights)
@@ -255,21 +295,24 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     n, hdim = h.shape
     dx = torch.empty((n, 4), device=h.device, dtype=torch.float32)
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 3),
+    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 4),
           x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim,
-          dq_blocks(n))
+          dq_blocks(n), max_scene)
     social_attention_bwd_dq.launches += 1
     return dx
 
 
 def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
                              weights: Sequence[torch.Tensor], u: torch.Tensor,
-                             c: torch.Tensor, need_dx: bool = True) -> List:
+                             c: torch.Tensor, need_dx: bool = True,
+                             max_scene: int = 0) -> List:
     """[dx_j or None, dh_j, dwh_j, dw1, db1, dw2, db2, dw3, db3]; see
     ``social_attention_bwd_dkv_plain``, which the CPU path runs (it ignores
     the forward's ``u`` and ``c``).  ``need_dx=False`` skips the feature
-    backward of the neighbour side.  On CUDA: two launches, dkv and its
-    finalize."""
+    backward of the neighbour side.  On CUDA: two launches, dkv (each
+    column tile scanning ``scan_range(N, t0, max_scene)``: a column's
+    partners lie in the same window) and its finalize."""
+    _check_window(max_scene)
     if h.device.type == "cpu":
         return list(social_attention_bwd_dkv_plain(
             x4, ids, h, wh, g, stats, r, weights, need_dx))
@@ -287,10 +330,10 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     dw3, db3 = torch.empty((_H2, feat), **kw), torch.empty((feat,), **kw)
     dmlp12 = torch.empty((_PARTIAL,), **kw)
     # the C entry refuses a partial size other than its own blocks x slot
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dkv", 24, 5),
+    _call(_BWD, _lib(_BWD, "social_attention_bwd_dkv", 24, 6),
           x4, ids, h, wh, g, stats, r, u, c, *weights, a_sum, s_sum,
           partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim, feat,
-          dkv_blocks(n), partial.numel())
+          dkv_blocks(n), partial.numel(), max_scene)
     social_attention_bwd_dkv.launches += 1
     dw2 = dmlp12[:32 * _H2].view(32, _H2)
     db2 = dmlp12[32 * _H2:32 * _H2 + _H2]
@@ -302,13 +345,14 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
 class _SocialAttention(torch.autograd.Function):
     """The CUDA forward with stats and its backward kernels (replaces the
     ``custom_vjp`` at socialways_tpu/kernels/social_attention.py:601-679).
-    Inputs: x4, ids, h, wh, w1, b1, w2, b2, w3, b3."""
+    Inputs: max_scene, x4, ids, h, wh, w1, b1, w2, b2, w3, b3."""
 
     @staticmethod
-    def forward(ctx, x4, ids, h, wh, *weights):
+    def forward(ctx, max_scene, x4, ids, h, wh, *weights):
         out, stats, u, c = _launch_fwd(x4, ids, h, wh, weights,
-                                       with_stats=True)
+                                       with_stats=True, max_scene=max_scene)
         ctx.save_for_backward(x4, ids, h, wh, out, stats, u, c, *weights)
+        ctx.max_scene = max_scene
         return out
 
     @staticmethod
@@ -316,25 +360,31 @@ class _SocialAttention(torch.autograd.Function):
         x4, ids, h, wh, out, stats, u, c, *weights = ctx.saved_tensors
         g = g.contiguous()
         r = (g * out).sum(dim=-1)
-        need_x = ctx.needs_input_grad[0]
+        need_x = ctx.needs_input_grad[1]
+        w = ctx.max_scene
         dxj, dh, dwh, *dweights = social_attention_bwd_dkv(
-            x4, ids, h, wh, g, stats, r, weights, u, c, need_dx=need_x)
+            x4, ids, h, wh, g, stats, r, weights, u, c, need_dx=need_x,
+            max_scene=w)
         dx = None
         if need_x:
             dx = social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
-                                         weights, u, c) + dxj
-        return (dx, None, dh, dwh, *dweights)
+                                         weights, u, c, max_scene=w) + dxj
+        return (None, dx, None, dh, dwh, *dweights)
 
 
 def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
                          x4_last: torch.Tensor, h: torch.Tensor,
-                         scene_ids: torch.Tensor) -> torch.Tensor:
+                         scene_ids: torch.Tensor,
+                         max_scene: int = 0) -> torch.Tensor:
     """Social context ``[N, H]`` from last-frame states ``x4_last [N, 4]``,
     hidden states ``h [N, H]`` and scene ids ``[N]`` (-1 = padding).
 
     On CUDA with a gradient to take, the forward keeps its softmax stats
     and the backward runs the dq/dkv kernels; without one, the forward
-    alone runs and writes no stats."""
+    alone runs and writes no stats.  ``max_scene`` > 0 promises sorted,
+    contiguous scenes of at most that many rows and lets every kernel scan
+    only its tile's window (the dense CPU form finds the same pairs)."""
+    _check_window(max_scene)
     if h.device.type == "cpu":
         return social_attention_plain(feat_mlp, attn_w, x4_last, h, scene_ids)
     if h.device.type != "cuda":
@@ -343,9 +393,31 @@ def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
     wh = linear_apply(attn_w, h)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in [x4_last, h, wh, *weights]):
-        return _SocialAttention.apply(x4_last, scene_ids, h, wh, *weights)
+        return _SocialAttention.apply(max_scene, x4_last, scene_ids, h, wh,
+                                      *weights)
     return _launch_fwd(x4_last, scene_ids, h, wh, weights,
-                       with_stats=False)[0]
+                       with_stats=False, max_scene=max_scene)[0]
+
+
+def social_attention(feat_mlp: MLP, attn_w: Linear, x4_last: torch.Tensor,
+                     h: torch.Tensor, scene_ids: torch.Tensor,
+                     max_scene: int = 0) -> torch.Tensor:
+    """Size-aware dispatch (socialways_tpu/kernels/social_attention.py:
+    747-784 with ``use_pallas`` off).  CPU: the dense form up to
+    ``_DENSE_MAX_AGENTS`` agents; above, the windowed form when
+    ``max_scene > 0`` (sorted, contiguous scenes of at most that many
+    rows), else the blockwise form at block 256.  CUDA: the kernels at
+    every N, scanning scene windows when ``max_scene > 0``.  Any other
+    device raises."""
+    _check_window(max_scene)
+    if h.device.type == "cpu" and h.shape[0] > _DENSE_MAX_AGENTS:
+        if max_scene > 0:
+            return social_context_windowed(feat_mlp, attn_w, x4_last, h,
+                                           scene_ids, max_scene)
+        return social_context_blockwise(feat_mlp, attn_w, x4_last, h,
+                                        scene_ids, block=256)
+    return social_attention_fwd(feat_mlp, attn_w, x4_last, h, scene_ids,
+                                max_scene)
 
 
 social_attention_fwd.launches = 0

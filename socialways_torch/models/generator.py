@@ -19,8 +19,9 @@ step and each decode step is checkpointed; the social attention is not (its
 forward kernel would run again in the backward).
 
 The rollout is differentiable on both devices: on CUDA the social context
-goes through the kernels' autograd Function, on the CPU through the dense
-plain form under autograd.
+goes through the kernels' autograd Function, on the CPU through the
+size-aware dispatch's plain forms under autograd (dense at small N;
+windowed or blockwise at crowd scale, ``max_scene``).
 
 Parameter names are the JAX ones (``embed``, ``encoder``, ``feat_mlp``,
 ``attn_w`` and ``decoder`` or ``dec_lstm`` + ``dec_fc``), so ``state_dict`` keys such as ``feat_mlp.0.w``
@@ -36,7 +37,7 @@ from torch import nn
 
 from socialways_torch.config import TrainConfig, check_supported
 from socialways_torch.device import resolve_device
-from socialways_torch.kernels.social_attention import social_attention_fwd
+from socialways_torch.kernels.social_attention import social_attention
 from socialways_torch.ops.lstm import (LSTMCell, lstm_cell, lstm_init,
                                        lstm_seq, remat_call, zero_state)
 from socialways_torch.ops.nn import (MLP, Linear, leaky_relu, linear_apply,
@@ -118,21 +119,23 @@ def encode_observation(params: Generator, obsv_4d: torch.Tensor,
 
 def social_context(params: Generator, obsv_4d: torch.Tensor, h: torch.Tensor,
                    scene_ids: torch.Tensor,
-                   x4_last: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention-pooled social context from the last observed frame.
-    ``x4_last`` overrides the geometry source: under agent_frame the
-    pairwise features come from WORLD-frame states while ``h`` stays
-    canonical."""
+                   x4_last: Optional[torch.Tensor] = None,
+                   max_scene: int = 0) -> torch.Tensor:
+    """Attention-pooled social context from the last observed frame,
+    through the size-aware dispatch (``max_scene`` > 0: sorted, contiguous
+    scenes of at most that many rows).  ``x4_last`` overrides the geometry
+    source: under agent_frame the pairwise features come from WORLD-frame
+    states while ``h`` stays canonical."""
     x4 = obsv_4d[:, -1] if x4_last is None else x4_last
-    return social_attention_fwd(params.feat_mlp, params.attn_w,
-                                x4.contiguous(), h, scene_ids)
+    return social_attention(params.feat_mlp, params.attn_w, x4.contiguous(),
+                            h, scene_ids, max_scene)
 
 
 def prepare_rollout(params: Generator, obsv_p: torch.Tensor,
                     scene_ids: Optional[torch.Tensor] = None,
                     use_social: bool = False,
                     social_states: Optional[torch.Tensor] = None,
-                    remat: bool = False) -> Prep:
+                    remat: bool = False, max_scene: int = 0) -> Prep:
     """Noise-independent half of the rollout: encode and pool once.
     Returns ``(h, c, s, last_p)``.  ``social_states`` [N, 4] are the
     world-frame last-observed states when ``obsv_p`` is canonical."""
@@ -143,7 +146,7 @@ def prepare_rollout(params: Generator, obsv_p: torch.Tensor,
             scene_ids = torch.zeros(obsv_p.shape[0], dtype=torch.int32,
                                     device=obsv_p.device)
         s = social_context(params, obsv_4d, h, scene_ids,
-                           x4_last=social_states)
+                           x4_last=social_states, max_scene=max_scene)
     else:
         s = torch.zeros_like(h)
     return h, c, s, obsv_p[:, -1]
@@ -188,9 +191,9 @@ def generator_rollout(params: Generator, obsv_p: torch.Tensor,
                       scene_ids: Optional[torch.Tensor] = None,
                       use_social: bool = False,
                       social_states: Optional[torch.Tensor] = None,
-                      decoder: str = "fc", remat: bool = False
-                      ) -> torch.Tensor:
+                      decoder: str = "fc", remat: bool = False,
+                      max_scene: int = 0) -> torch.Tensor:
     """Full prediction rollout (prepare + decode): [N, n_next, 4]."""
     prep = prepare_rollout(params, obsv_p, scene_ids, use_social,
-                           social_states, remat)
+                           social_states, remat, max_scene)
     return decode_rollout(params, prep, noise, n_next, decoder, remat)

@@ -1,10 +1,16 @@
-"""Dense social features and masked attention pooling.
+"""Social features and masked attention pooling: the dense form and the
+two memory-bounded forms of crowd scale.
 
-Counterpart of socialways_tpu/ops/social.py:29-111 (reference
-train.py:153-241).  One batched N x N computation with a scene-membership
-mask replaces the reference's per-scene loops; padded rows (scene id -1)
-are masked out.  This is the plain version of the CUDA kernel in
-``kernels/social_attention.py``: the CPU path and the kernel's oracle.
+Counterpart of socialways_tpu/ops/social.py (reference train.py:153-241).
+One batched N x N computation with a scene-membership mask replaces the
+reference's per-scene loops; padded rows (scene id -1) are masked out.
+The dense form is the plain version of the CUDA kernel in
+``kernels/social_attention.py``: the CPU path and the kernel's oracle at
+small N.  Above the dense size the CPU takes ``social_context_blockwise``
+(O(N^2) work, O(N block) memory) or, when scenes are sorted, contiguous
+and at most ``max_scene`` rows, ``social_context_windowed`` (O(N
+max_scene)); windowed is also the plain version the kernels' scene-window
+scan is held against on the card.
 
 Features per ordered pair (i, j), from last-observed states x = (p, v):
 - distance ``‖p_i − p_j‖``;
@@ -19,7 +25,8 @@ from typing import Optional
 
 import torch
 
-from socialways_torch.ops.nn import Linear, linear_apply
+from socialways_torch.ops.lstm import remat_call
+from socialways_torch.ops.nn import MLP, Linear, linear_apply, mlp_apply
 
 _NEG_INF = -1e9
 
@@ -80,3 +87,97 @@ def attention_pool(w: Linear, f_emb: torch.Tensor, h: torch.Tensor,
     pooled = attn @ h
     has_neighbor = torch.any(neighbor_mask, dim=-1, keepdim=True)
     return torch.where(has_neighbor, pooled, 0.0)
+
+
+def _pad_rows(x4: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
+              n_pad: int):
+    """Append ``n_pad`` rows of zeros with scene id -1."""
+    if not n_pad:
+        return x4, h, ids
+    return (torch.cat([x4, x4.new_zeros((n_pad, 4))]),
+            torch.cat([h, h.new_zeros((n_pad, h.shape[1]))]),
+            torch.cat([ids, ids.new_full((n_pad,), -1)]))
+
+
+def _masked_scores(feat_mlp: MLP, xi, xj, whj, idsi, idsj, i0, j0):
+    """Scores of rows ``xi`` (global index i0 + r) against columns ``xj``
+    (j0 + c), -1e9 off the same-scene, both-valid, not-self mask; and the
+    mask."""
+    scores = torch.einsum("ijf,jf->ij",
+                          mlp_apply(feat_mlp, social_features(xi, xj)), whj)
+    row_g = i0 + torch.arange(xi.shape[0], device=xi.device)[:, None]
+    col_g = j0 + torch.arange(xj.shape[0], device=xi.device)[None, :]
+    mask = ((idsi[:, None] == idsj[None, :]) & (idsi[:, None] >= 0)
+            & (idsj[None, :] >= 0) & (row_g != col_g))
+    return torch.where(mask, scores, _NEG_INF), mask
+
+
+def social_context_blockwise(feat_mlp: MLP, attn_w: Linear,
+                             x4_last: torch.Tensor, h: torch.Tensor,
+                             scene_ids: torch.Tensor,
+                             block: int = 64) -> torch.Tensor:
+    """Memory-bounded social context (socialways_tpu/ops/social.py:114-189):
+    the dense form's math streamed over column blocks with an online
+    softmax (m, l, acc), O(N block F) memory instead of O(N^2 F).  Each
+    block runs under a non-reentrant checkpoint when a graph is recorded,
+    so the backward recomputes it and keeps its memory bounded too."""
+    n, hdim = h.shape
+    x4_p, h_p, ids_p = _pad_rows(x4_last, h, scene_ids, (-n) % block)
+    n_tot = x4_p.shape[0]
+
+    def tile(m, l, acc, j0):
+        xj, hj = x4_p[j0:j0 + block], h_p[j0:j0 + block]
+        scores, mask = _masked_scores(
+            feat_mlp, x4_p, xj, linear_apply(attn_w, hj), ids_p,
+            ids_p[j0:j0 + block], 0, j0)
+        m_new = torch.maximum(m, scores.max(dim=-1, keepdim=True).values)
+        corr = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(scores - m_new), 0.0)
+        return (m_new, l * corr + p.sum(dim=-1, keepdim=True),
+                acc * corr + p @ hj)
+
+    m = h_p.new_full((n_tot, 1), _NEG_INF)
+    l = h_p.new_zeros((n_tot, 1))
+    acc = h_p.new_zeros((n_tot, hdim))
+    for j0 in range(0, n_tot, block):
+        m, l, acc = remat_call(True, tile, m, l, acc, j0)
+    out = torch.where(l > 0, acc / torch.clamp(l, min=1e-20), 0.0)
+    return out[:n]
+
+
+def social_context_windowed(feat_mlp: MLP, attn_w: Linear,
+                            x4_last: torch.Tensor, h: torch.Tensor,
+                            scene_ids: torch.Tensor, max_scene: int,
+                            block: int = 512) -> torch.Tensor:
+    """Linear-time social context (socialways_tpu/ops/social.py:192-276)
+    for sorted, contiguous scenes of at most ``max_scene`` rows (padding
+    -1): a row's partners lie within ``max_scene`` rows of it, so each row
+    block scores only a window of ``block + 2 max_scene`` columns starting
+    at ``clip(i0 - max_scene, 0, n_tot - win)``.  O(N max_scene) work and
+    memory; each block is checkpointed as in the blockwise form.  When the
+    window would cover every row it falls back to the blockwise form at
+    ``min(block, 256)``."""
+    n, hdim = h.shape
+    w = max_scene
+    n_tot = n + (-n) % block
+    win = block + 2 * w
+    if win >= n_tot:
+        return social_context_blockwise(feat_mlp, attn_w, x4_last, h,
+                                        scene_ids, block=min(block, 256))
+    x4_p, h_p, ids_p = _pad_rows(x4_last, h, scene_ids, n_tot - n)
+    wh_p = linear_apply(attn_w, h_p)
+
+    def one_block(i0):
+        j0 = min(max(i0 - w, 0), n_tot - win)
+        scores, mask = _masked_scores(
+            feat_mlp, x4_p[i0:i0 + block], x4_p[j0:j0 + win],
+            wh_p[j0:j0 + win], ids_p[i0:i0 + block], ids_p[j0:j0 + win],
+            i0, j0)
+        m = scores.max(dim=-1, keepdim=True).values
+        p = torch.where(mask, torch.exp(scores - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        pooled = p @ h_p[j0:j0 + win]
+        return torch.where(l > 0, pooled / torch.clamp(l, min=1e-20), 0.0)
+
+    outs = [remat_call(True, one_block, i0) for i0 in range(0, n_tot, block)]
+    return torch.cat(outs)[:n]

@@ -231,9 +231,9 @@ def test_torch_attention_dkv_refuses_a_partial_size_not_its_own():
     tail = [None, torch.empty(n, 64, **kw), torch.empty(n, feat, **kw),
             torch.empty(64, feat, **kw), torch.empty(feat, **kw),
             torch.empty(2240, **kw)]
-    fn = sa._lib(sa._BWD, "social_attention_bwd_dkv", 24, 5)
+    fn = sa._lib(sa._BWD, "social_attention_bwd_dkv", 24, 6)
     for floats in (blocks * 2240 - 1, (blocks - 1) * 2240):
         partial = torch.empty(blocks * 2240, **kw)
         with pytest.raises(RuntimeError, match="CUDA error"):
             sa._call(sa._BWD, fn, *ins, *weights, *outs, partial, *tail, n,
-                     64, feat, blocks, floats)
+                     64, feat, blocks, floats, 0)
