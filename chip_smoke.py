@@ -13,7 +13,8 @@ off for both, so the CUDA and CPU paths are held to f32 tolerances.
 Phases (any failure raises):
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. build every kernel from csrc/ (one nvcc per source, in parallel),
-   print ptxas's register and spill lines, and fail if dq spills;
+   print ptxas's registers and spills for each kernel's float and bf16
+   entry, and fail if any spills;
 3. the forward kernel against its plain PyTorch version on the card, f32,
    at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats):
    its two launches alone (``_launch_fwd`` with wh = h W + b computed
@@ -77,7 +78,21 @@ Phases (any failure raises):
    batch 4,608 (the CPU takes the windowed form; first step card vs CPU)
    and 16,384 (train steps/s), launches one forward and one dkv a step
    plus one forward an eval chunk;
-12. a ``kernels`` JSON line, then the device JSON as the last line.
+12. bf16 (``--bf16``, the kernels' bf16 entry points): (a) each bf16
+   kernel against its plain bf16 version at the loo training chunk (N =
+   256), at N = 10,000 in sorted scenes of 16 (w = 16 equal to w = 0 bit
+   for bit) and, the forward only, at N = 32,768, each timed alone beside
+   the float32 kernel on the same values and its bound; (b) ``cli train
+   --recipe loo --bf16`` (first step card vs CPU, a profiled step,
+   launches equal to the float32 run's counts, float32 state); (c)
+   ``evaluate --bf16`` and ``predict --bf16`` of phase 7's checkpoint, ADE/
+   FDE against its float32 evaluate, the K = 20 rollout card vs CPU and
+   its rate; (d) ``cli simulate --bf16`` at 32,768 and 1,048,576 agents,
+   trajectories card vs CPU at 10,000, a profiled 1M window; (e) ``cli
+   train --recipe loo --bf16 --grad-accum 4 --remat-steps
+   --max-scene-size 16`` at batch 16,384 on a crowd npz of scenes of 16.
+   Every bf16 run launches no float32 kernel;
+13. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -98,9 +113,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 RTOL, ATOL = 2e-4, 2e-5             # kernel vs plain (sums in another order)
 H100_F32_FLOPS = 67e12              # FP32 (non-tensor) peak, H100 SXM
+H100_BF16_TC_FLOPS = 989e12         # bf16 dense tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12          # HBM3
 K, N_PAST, N_NEXT, BATCH, HIDDEN = 20, 8, 12, 256, 64
-KERNELS = ["social_attention_fwd", "social_attention_bwd"]
+KERNELS = ["social_attention_fwd", "social_attention_bwd",
+           "social_attention_fwd_bf16", "social_attention_bwd_bf16"]
 SHAPES = [("eth-like N=256 H=F=64", 256, 64, 0),
           ("eth-like N=256 H=F=32", 256, 32, 0),
           ("scenes of 64 N=2048 H=F=64", 2048, 64, 64)]
@@ -111,17 +128,18 @@ EXTRA_SHAPES = [("eth-like shuffled ids N=256 H=F=64", 256, 64, "shuffled"),
                 ("eth-like ragged N=301 H=F=64", 301, 64, 0)]
 
 
-def make_ethucy_like_npz(path: str, n_windows: int = 8000, seed: int = 0
-                         ) -> None:
+def make_ethucy_like_npz(path: str, n_windows: int = 8000, seed: int = 0,
+                         scene: int = 0) -> None:
     """Windowed npz ({obsvs, preds, times, batches}, meters) shaped like the
-    ETH/UCY sets: scenes of 2-16 pedestrians in a 15 m square walking
-    0.8-1.6 m/s at 0.4 s a step with slight turns; 5 % stand still (zero
-    displacement, the agent-frame identity fallback)."""
+    ETH/UCY sets: scenes of 2-16 pedestrians (``scene`` > 0: all of that
+    size) in a 15 m square walking 0.8-1.6 m/s at 0.4 s a step with slight
+    turns; 5 % stand still (zero displacement, the agent-frame identity
+    fallback)."""
     rng = np.random.RandomState(seed)
     obsvs, preds, times, batches = [], [], [], []
     n = 0
     while n < n_windows:
-        s = int(rng.randint(2, 17))
+        s = scene or int(rng.randint(2, 17))
         start = rng.uniform(0.0, 15.0, (s, 1, 2))
         heading = rng.uniform(0.0, 2 * np.pi, (s, 1))
         ang = heading + np.cumsum(rng.normal(0.0, 0.05, (s, 20)), axis=1)
@@ -170,37 +188,50 @@ def _pairs(ids: np.ndarray) -> int:
     return int(np.sum(sizes * (sizes - 1)))
 
 
-def _bound(flop: float, nbytes: float) -> dict:
-    ops_ms = flop / H100_F32_FLOPS * 1e3
+def _bound(flop: float, nbytes: float, tc_flop: float = 0.0) -> dict:
+    """``flop`` at the FP32 peak plus ``tc_flop`` (products of bf16
+    operands) at the bf16 tensor-core peak, against ``nbytes`` at the HBM
+    rate."""
+    ops_ms = (flop / H100_F32_FLOPS + tc_flop / H100_BF16_TC_FLOPS) * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    return {"flop": flop, "bytes": nbytes,
+    return {"flop": flop, "tc_flop": tc_flop, "bytes": nbytes,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def attention_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
-                    n_params: int, with_wh: bool = False) -> dict:
+                    n_params: int, with_wh: bool = False,
+                    op_bytes: int = 4) -> dict:
     """Least time of the social-attention forward on this input, in the
     u-form the kernel computes: same-scene ordered pairs x (3->32 and
     32->64 layers and a2 . u_j: 96 + 2048 + 64 MAC), u = W3 wh (N 64 F)
     and, where the timed call includes it, wh = h W + b (N H F), at the f32
     peak; against the bytes of x4, ids, h, wh (or W), the weights, out, u
     and c at the HBM rate.  ``old_*``: the count of the f_ij . wh_j form
-    (64 F + 2 F MAC a pair instead of 64), for comparison."""
+    (64 F + 2 F MAC a pair instead of 64), for comparison.  ``op_bytes``:
+    the bytes of an element of h, wh and the weights (4, or 2 for bf16
+    operands).  With bf16 operands the same operations are counted, but
+    every product of two bf16 operands with float32 sums (the 3->32 and
+    32->64 layers, u = W3 wh and wh = h W) is costed at the bf16
+    tensor-core peak; a2 . u_j (u float32) stays at the FP32 peak."""
     pairs = _pairs(ids)
     wh_mac = n * hdim * feat if with_wh else 0
-    mac = pairs * (96 + 2048 + 64) + n * 64 * feat + wh_mac
-    old_mac = pairs * (96 + 2048 + 64 * feat + 2 * feat) + wh_mac
-    nbytes = 4 * (4 * n + n + 2 * n * hdim + (0 if with_wh else n * feat)
-                  + n_params + 65 * n)
-    out = _bound(2 * mac, nbytes)
+    bf16_able = pairs * (96 + 2048) + n * 64 * feat + wh_mac
+    tc_mac = bf16_able if op_bytes == 2 else 0
+    f32_mac = pairs * 64 + bf16_able - tc_mac
+    old_f32_mac = pairs * (64 * feat + 2 * feat) + bf16_able - tc_mac
+    nbytes = (4 * (4 * n + n + n * hdim + 65 * n)
+              + op_bytes * (n * hdim + (0 if with_wh else n * feat)
+                            + n_params))
+    out = _bound(2 * f32_mac, nbytes, 2 * tc_mac)
     out.update(pairs_needed=pairs, pairs_id_tested=n * n,
-               old_bound_ms=_bound(2 * old_mac, nbytes)["bound_ms"])
+               old_bound_ms=_bound(2 * old_f32_mac, nbytes,
+                                   2 * tc_mac)["bound_ms"])
     return out
 
 
 def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
-                        n_mlp: int, kernel: str) -> dict:
+                        n_mlp: int, kernel: str, op_bytes: int = 4) -> dict:
     """Least time of a backward kernel on this input.  Per same-scene pair
     both recompute the score (features, 3->32 and 32->64 layers, and
     a2 . u_j with the forward's u_j = W3 wh_j: 96 + 2048 + 64 MAC), take
@@ -210,11 +241,16 @@ def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
     (128), and per column dwh_j (N 64 F) and dW3, db3 (N 64 F + N F).
     Neither computes u or c: both read the forward's.  Bytes: x4, ids, h,
     wh, g, stats, r, u, c and the MLP weights read once, the outputs
-    written once."""
+    written once; h, wh and the weights ``op_bytes`` an element.  With
+    bf16 operands the recomputed 3->32 and 32->64 layers (2144 MAC a
+    pair, bf16 x bf16) are costed at the bf16 tensor-core peak; every
+    product with a float32 cotangent or u at the FP32 peak."""
     pairs = _pairs(ids)
-    common = 96 + 2048 + 64 + hdim + 64 + 2048
-    in_bytes = 4 * (4 * n + n + 2 * n * hdim + n * feat + 3 * n + 65 * n
-                    + n_mlp)
+    layers = 96 + 2048
+    tc_mac = pairs * layers if op_bytes == 2 else 0
+    common = (0 if tc_mac else layers) + 64 + hdim + 64 + 2048
+    in_bytes = (4 * (4 * n + n + n * hdim + 3 * n + 65 * n)
+                + op_bytes * (n * hdim + n * feat + n_mlp))
     if kernel == "dq":
         mac = pairs * (common + 96)
         out_bytes = 4 * 4 * n
@@ -222,7 +258,7 @@ def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
         mac = (pairs * (common + hdim + 2048 + 128 + 128)
                + 2 * n * 64 * feat + n * feat)
         out_bytes = 4 * (n * hdim + n * feat + n_mlp)
-    out = _bound(2 * mac, in_bytes + out_bytes)
+    out = _bound(2 * mac, in_bytes + out_bytes, 2 * tc_mac)
     out["pairs_needed"] = pairs
     return out
 
@@ -455,19 +491,36 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
             "split": {"fwd": fwd_split, "dq": dq_split, "dkv": dkv_split}}
 
 
-def ptxas_spills(log: str) -> dict:
-    """{entry function: (spill store bytes, spill load bytes)} from nvcc's
-    ``-Xptxas -v`` output."""
-    out, entry = {}, None
+#: the kernels of csrc/, each compiled for float and for bf16 operands, and
+#: their ptxas registers in the float-only build that preceded the bf16
+#: entries
+PTXAS_KERNELS = {"u_prep_kernel": 74, "social_attention_fwd_kernel": 50,
+                 "bwd_dq_kernel": 79, "bwd_dkv_kernel": 96,
+                 "bwd_finalize_kernel": 30}
+
+
+def ptxas_entries(log: str) -> dict:
+    """{"kernel[float|bf16]": (registers, spill store bytes, spill load
+    bytes)} from nvcc's ``-Xptxas -v`` output; the mangled template names
+    shortened to the kernel and its operand type."""
+    out, entry, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = m.group(1)
+            name = next((k for k in PTXAS_KERNELS if k in m.group(1)), None)
+            if name is None:
+                raise AssertionError(f"ptxas: unknown entry {m.group(1)}")
+            typ = ("bf16" if f"{name}I13__nv_bfloat16" in m.group(1)
+                   else "float")
+            entry = f"{name}[{typ}]"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            out[entry] = (int(m.group(1)), int(m.group(2)))
-            entry = None
+            out[entry] = (int(m.group(1)), *spills)
+            entry, spills = None, (0, 0)
     return out
 
 
@@ -504,15 +557,28 @@ def profile_step(torch, what: str, fn) -> None:
 
 
 def reset_launches(sa) -> None:
+    """Every kernel's count to 0, the float32 and the bf16 entries'."""
     for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
                sa.social_attention_bwd_dkv):
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
-def read_launches(sa) -> dict:
-    return {"fwd": sa.social_attention_fwd.launches,
-            "dq": sa.social_attention_bwd_dq.launches,
-            "dkv": sa.social_attention_bwd_dkv.launches}
+def read_launches(sa, bf16: bool = False) -> dict:
+    """The float32 kernels' counts, or the bf16 kernels' when ``bf16``."""
+    attr = "launches_bf16" if bf16 else "launches"
+    return {"fwd": getattr(sa.social_attention_fwd, attr),
+            "dq": getattr(sa.social_attention_bwd_dq, attr),
+            "dkv": getattr(sa.social_attention_bwd_dkv, attr)}
+
+
+def bf16_launches(sa, what: str) -> dict:
+    """The bf16 kernels' counts after a bf16 run, which must have launched
+    no float32 kernel (no fallback)."""
+    f32 = read_launches(sa)
+    if any(f32.values()):
+        raise AssertionError(f"{what}: a bf16 run launched float32 kernels "
+                             f"{f32}")
+    return read_launches(sa, bf16=True)
 
 
 def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
@@ -521,7 +587,12 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
     and ADE/FDE sums within rel 1e-4, gradients (Adam's first moments)
     within 1e-3 of their scale, new parameters within 1e-2 lr plus, for G,
     what that gradient bound allows Adam's first update (``state`` is a
-    fresh one)."""
+    fresh one).  Under ``compute_dtype="bfloat16"`` the two devices round
+    to bf16 after sums taken in other orders, and a flipped rounding
+    travels through the rollout: losses and sums within rel 1e-2,
+    gradients within 5e-2 of their scale, every state tensor float32 on
+    both; the new parameters are not compared (where |g| is under that
+    noise, the sign of Adam's first update, +-lr, may differ)."""
     from socialways_torch.engine.train_step import (StepDraws, draw_step,
                                                     gan_step)
     from socialways_torch.engine.trainer import chunk_of
@@ -538,9 +609,11 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
     s_dev, m_dev = gan_step(s_dev, chunk_of(trainer.train_dev, 0), draws_dev,
                             tcfg, nv0)
     s_cpu, m_cpu = gan_step(s_cpu, c_cpu, draws, tcfg, nv0)
+    bf16 = tcfg.compute_dtype == "bfloat16"
+    rel, g_rel = (1e-2, 5e-2) if bf16 else (1e-4, 1e-3)
     for nm in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
         a, b = float(getattr(m_dev, nm)), float(getattr(m_cpu, nm))
-        if abs(a - b) > 1e-4 * abs(b):
+        if not np.isfinite(a) or abs(a - b) > rel * abs(b):
             raise AssertionError(f"{what} {nm}: cuda {a} vs cpu {b}")
     # gradients: Adam's first moment after one G update is 0.1 g_G, after
     # the D updates a weighted sum of D's gradients -- compared leaf by leaf
@@ -549,6 +622,10 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
     f_dev, f_cpu = flatten_state(s_dev), flatten_state(s_cpu)
     if sorted(f_dev) != sorted(f_cpu):
         raise AssertionError(f"{what}: the two states' leaves differ")
+    not_f32 = [k for f in (f_dev, f_cpu) for k, v in f.items()
+               if not k.endswith(".count") and v.dtype != np.float32]
+    if not_f32:
+        raise AssertionError(f"{what}: state leaves not float32: {not_f32}")
     worst_g, worst_p, loose = (0.0, ""), {"G": 0.0, "D": 0.0}, [0, 0]
     for key, ref in f_cpu.items():
         got = f_dev[key]
@@ -558,10 +635,12 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
         elif "/.mu/" in key:
             err = float(np.abs(got - ref).max())
             scale = float(np.abs(ref).max())
-            if err > 1e-3 * scale + 1e-9:
+            if err > g_rel * scale + 1e-9:
                 raise AssertionError(f"{what} gradient {key}: max abs "
                                      f"{err:.3e} vs max ref {scale:.3e}")
-            worst_g = max(worst_g, (err / (1e-3 * scale + 1e-9), key))
+            worst_g = max(worst_g, (err / (g_rel * scale + 1e-9), key))
+        elif bf16:
+            continue
         elif key.startswith(".d_params/"):
             worst_p["D"] = max(worst_p["D"], float(np.abs(got - ref).max()))
         elif key.startswith(".g_params/"):
@@ -591,6 +670,16 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
     if worst_p["D"] > 1e-2 * tcfg.lr_d:
         raise AssertionError(f"{what}: new D params differ by "
                              f"{worst_p['D']:.3e} > 1e-2 lr ({tcfg.lr_d:g})")
+    if bf16:
+        print(f"{what} cuda vs cpu (bf16): losses and ADE/FDE sums within "
+              f"rel {rel:g} (d_loss {float(m_dev.d_loss):.6f}/"
+              f"{float(m_cpu.d_loss):.6f}, g_loss {float(m_dev.g_loss):.6f}/"
+              f"{float(m_cpu.g_loss):.6f}, ade_sum {float(m_dev.ade_sum):.4f}"
+              f"/{float(m_cpu.ade_sum):.4f}); gradients (Adam first "
+              f"moments) at most {worst_g[0]:.3f} of their bound {g_rel:g} "
+              f"max|ref| (at {worst_g[1]}); every state tensor float32 on "
+              f"both devices; counts equal")
+        return
     print(f"{what} cuda vs cpu: losses and ADE/FDE sums within rel 1e-4 "
           f"(d_loss {float(m_dev.d_loss):.6f}/{float(m_cpu.d_loss):.6f}, "
           f"g_loss {float(m_dev.g_loss):.6f}/{float(m_cpu.g_loss):.6f}); "
@@ -1108,8 +1197,9 @@ def gan_run(torch, sa, cli_main, dev, data, work, tag, run=None,
     config's first step on the card against the CPU (unless not
     ``cpu_check``) and one profiled step, then ``cli train`` with the
     launches held to the predicted counts and train steps/s over the last
-    epoch; ``card`` tags its times.  Returns (launches, rate, model
-    dir)."""
+    epoch; ``card`` tags its times.  A ``--bf16`` run is held to the bf16
+    kernels' counts, and launches no float32 kernel.  Returns (launches,
+    rate, model dir)."""
     from socialways_torch.cli.main import _train_cfg, parse_args
     from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
     from socialways_torch.engine.train_step import draw_step, gan_step
@@ -1142,7 +1232,8 @@ def gan_run(torch, sa, cli_main, dev, data, work, tag, run=None,
     run_cli(cli_main, argv + ["--model-dir", mdir, "--metrics-log", log],
             f"train {tag}", card)
     torch.cuda.synchronize()
-    launches = read_launches(sa)
+    launches = (bf16_launches(sa, tag) if "--bf16" in flags
+                else read_launches(sa))
     check_launches(tag, launches, epochs * steps_epoch,
                    (epochs // interval) * eval_chunks, *per_step)
     with open(log) as fh:
@@ -1233,19 +1324,23 @@ def crowd_inputs(rng, n: int, hdim: int, scene: int = CROWD_SCENE):
     return x4.astype(np.float32), h.astype(np.float32), ids
 
 
-def windowed_plain(torch, sa, g, x4, ids, h, wh, gout, w, block=512):
+def windowed_plain(torch, sa, g, x4, ids, h, wh, gout, w, block=512,
+                   backward=True):
     """The plain versions taken window by window, as the windowed form
     takes its row blocks: each block of rows against the ``block + 2 w``
     rows around it, which hold every partner when scenes are sorted,
-    contiguous and at most w rows.  Returns (stats [N, 2], dq [N, 4], dkv
-    list as social_attention_bwd_dkv's).  The backward zeroes the
-    cotangent of the window's rows outside the block, so every pair enters
-    the column sums and the weight gradients exactly once."""
+    contiguous and at most w rows.  Returns (out [N, H] float32, stats
+    [N, 2], dq [N, 4], dkv list as social_attention_bwd_dkv's; the last two
+    None unless ``backward``).  The backward zeroes the cotangent of the
+    window's rows outside the block, so every pair enters the column sums
+    and the weight gradients exactly once.  ``h``, ``wh`` and ``g``'s
+    weights in one operand dtype (float32 or bf16)."""
     n = h.shape[0]
     win = min(block + 2 * w, n)
     weights = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
+    out = torch.zeros((n, h.shape[1]), device=h.device)
     stats = torch.zeros((n, 2), device=h.device)
-    dq = torch.zeros((n, 4), device=h.device)
+    dq = torch.zeros((n, 4), device=h.device) if backward else None
     dkv = None
     for i0 in range(0, n, block):
         j0 = min(max(i0 - w, 0), n - win)
@@ -1254,12 +1349,15 @@ def windowed_plain(torch, sa, g, x4, ids, h, wh, gout, w, block=512):
             o, m, l = sa.social_attention_stats_plain(
                 g.feat_mlp, g.attn_w, x4[sl], h[sl], ids[sl])
         st = torch.stack([m, l], 1)
+        out[i0:i0 + block] = o[rows]
+        stats[i0:i0 + block] = st[rows]
+        if not backward:
+            continue
         keep = torch.zeros(win, dtype=torch.bool, device=h.device)
         keep[rows] = True
         gk = torch.where(keep[:, None], gout[sl], 0.0)
         rk = (gk * o).sum(-1)
         args = (x4[sl], ids[sl], h[sl], wh[sl], gk, st, rk, weights)
-        stats[i0:i0 + block] = st[rows]
         dq[i0:i0 + block] = sa.social_attention_bwd_dq_plain(*args)[rows]
         part = sa.social_attention_bwd_dkv_plain(*args)
         if dkv is None:
@@ -1271,7 +1369,7 @@ def windowed_plain(torch, sa, g, x4, ids, h, wh, gout, w, block=512):
                 dkv[k][sl] += t
             else:
                 dkv[k] += t
-    return stats, dq, dkv
+    return out, stats, dq, dkv
 
 
 def crowd_kernels(torch, sa, dev, cfg, card):
@@ -1315,8 +1413,8 @@ def crowd_kernels(torch, sa, dev, cfg, card):
                                  f"{w} launch differs from w = 0 in its bits")
     with torch.no_grad():
         p_out = social_context_windowed(g.feat_mlp, g.attn_w, x4, h, ids, w)
-    p_stats, p_dq, p_dkv = windowed_plain(torch, sa, g, x4, ids, h, wh, gout,
-                                          w)
+    _, p_stats, p_dq, p_dkv = windowed_plain(torch, sa, g, x4, ids, h, wh,
+                                             gout, w)
     err = {"fwd": check_close(win[0], p_out, "crowd forward"),
            "fwd_stats": max(check_close(win[1], p_out, "crowd forward stats"),
                             check_close(win[2][:, 0], p_stats[:, 0],
@@ -1499,6 +1597,442 @@ def crowd_phase(torch, sa, cli_main, dev, ckpt, work, card):
                             train_rates.items()}}
 
 
+#: phase 12, bf16: the bounds of the bf16 kernels against their plain bf16
+#: versions (PERF.md §6): sums in another order flip a bf16 rounding of
+#: a1 or a2 now and then, and the forward rounds p against its batch's
+#: running max: out within two bf16 ulps of |h| <= 1, m within 1e-3 (1 +
+#: |m|), l within 1e-2 l; dx row by row within 3e-2 of the row's largest,
+#: every other gradient within 1e-2 of its largest.  The float32 kernels
+#: on the same bf16 values must miss a bound: their forward stays inside
+#: the max bounds (out max about 1e-3), so out, m and l also hold their
+#: median error within BF16_MEDIAN_REL of the largest |out| (of 1 + |m|,
+#: of l), which the float32 kernel's medians exceed 40-fold or more
+#: (PERF.md §6).  The backward's float32 kernels miss the dx and
+#: gradient max bounds.
+BF16_OUT_ATOL, BF16_DX_ROW, BF16_GRAD_REL = 8e-3, 3e-2, 1e-2
+BF16_MEDIAN_REL = 1e-6
+CROWD_BF16 = 32_768                 # BASELINE.md:51's bf16 crowd
+#: phase 12's training runs, in GAN_RUNS's layout: the loo recipe at batch
+#: 256 on phase 7's npz, and JAX's crowd memory recipe (--grad-accum,
+#: --remat-steps; BASELINE.md:114-121) at batch 16,384 on a crowd npz of
+#: scenes of 16, which tile its 4,096-row micro-chunks
+BF16_RUNS = {
+    "bf16_loo": (["--recipe", "loo", "--bf16"], 2, 1, (1, 1)),
+    "bf16_crowd_train": (["--recipe", "loo", "--bf16", "--grad-accum", "4",
+                          "--remat-steps", "--max-scene-size", "16",
+                          "--batch-size", "16384"], 2, 2, (8, 4)),
+}
+
+
+def bf16_misses(got, want, kind="value"):
+    """(max abs error, median abs error, the ``BF16_*`` bounds that ``got``
+    misses against ``want``).  The forward's outputs also have a median
+    bound, relative to each element's scale for m (1 + |m|) and l (l) and
+    to the largest |out| for out."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    misses = [] if bool(got.isfinite().all()) else ["finite"]
+    if kind == "m":
+        rel = err / (1 + want.abs())
+        misses += ["m"] if bool((rel > 1e-3).any()) else []
+    elif kind == "l":
+        rel = err / want.clamp(min=1e-30)
+        misses += ["l"] if bool((rel > 1e-2).any()) else []
+    else:
+        top = float(want.abs().max())
+        rel = err / max(top, 1e-30)
+        if kind == "out":
+            bad = float(err.max()) > BF16_OUT_ATOL
+        elif kind == "dx":
+            bad = bool((err.amax(dim=1) > BF16_DX_ROW * want.abs().amax(
+                dim=1) + 1e-6).any())
+        else:
+            bad = float(err.max()) > BF16_GRAD_REL * top + 1e-6
+        misses += [kind] if bad else []
+    if kind in ("out", "m", "l") and float(rel.median()) > BF16_MEDIAN_REL:
+        misses.append(f"median {float(rel.median()):.2e}")
+    return float(err.max()), float(err.median()), misses
+
+
+def check_bf16(name, got, want, kind="value", control=None):
+    """A bf16 kernel against its plain bf16 version (``BF16_*`` bounds);
+    returns (max, median) abs error.  ``control``: the float32 kernel's
+    output on the same values, which must miss a bound (a kernel that
+    never rounded would pass unseen otherwise); returns its misses."""
+    mx, med, misses = bf16_misses(got, want, kind)
+    if misses:
+        raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
+                             f"bf16 version ({', '.join(misses)}), max abs "
+                             f"{mx:.3e}, median {med:.3e} (max ref "
+                             f"{float(want.abs().max()):.3e}, {kind})")
+    if control is None:
+        return mx, med
+    cmx, cmed, cmiss = bf16_misses(control, want, kind)
+    print(f"  {name}: bf16 kernel max/median {mx:.3e}/{med:.3e}; float32 "
+          f"kernel on the same values {cmx:.3e}/{cmed:.3e}, misses "
+          f"{cmiss or 'none'}")
+    return mx, med, cmiss
+
+
+def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
+                     timed=True):
+    """The bf16 kernels on one input (``g`` float32 masters; ``h`` holds
+    bf16 values) against their plain bf16 versions, from the same stats,
+    u and c; a w > 0 launch against the w = 0 launch's bits; the float32
+    kernels on the same values as a control that must miss a bound; each
+    launch alone timed beside the float32 kernel on the same values, with
+    its bound (bf16 bytes for h, wh and the weights, bf16 x bf16 products
+    at the tensor-core peak)."""
+    from socialways_torch.ops.nn import cast_params, linear_apply
+    bf = torch.bfloat16
+    g16 = cast_params(g, bf)
+    n, hdim = h.shape
+    h16 = h.to(bf)
+    w16 = [t.detach() for layer in g16.feat_mlp for t in (layer.w, layer.b)]
+    w32 = [t.float() for t in w16]
+    with torch.no_grad():
+        wh16 = linear_apply(g16.attn_w, h16.float()).to(bf)
+    h32, wh32 = h16.float(), wh16.float()
+    gout = torch.from_numpy(np.random.RandomState(n).randn(n, hdim).astype(
+        np.float32)).to(h.device)
+    ids_np = ids.cpu().numpy()
+    windows = sorted({0, w})
+    res, f32_before = {}, read_launches(sa)
+    for ww in windows:
+        with torch.no_grad():
+            out, stats, u, c = sa._launch_fwd(x4, ids, h16, wh16, w16, True,
+                                              ww)
+            r = (gout * out).sum(-1)
+            args = (x4, ids, h16, wh16, gout, stats, r, w16, u, c)
+            res[ww] = [out, stats, u, c]
+            if backward:
+                res[ww] += [sa.social_attention_bwd_dq(*args, max_scene=ww),
+                            *sa.social_attention_bwd_dkv(*args,
+                                                         max_scene=ww)]
+    torch.cuda.synchronize()
+    if read_launches(sa) != f32_before:
+        raise AssertionError(f"bf16 {tag}: bf16 calls launched float32 "
+                             f"kernels")
+    for k, (a, b) in enumerate(zip(res[windows[0]], res[windows[-1]])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"bf16 {tag}: output {k} of the w = {w} "
+                                 f"launch differs from w = 0 in its bits")
+    out, stats, u, c = res[windows[-1]][:4]
+    if n <= 4096:
+        with torch.no_grad():
+            p_out, p_m, p_l = sa.social_attention_stats_plain(
+                g16.feat_mlp, g16.attn_w, x4, h16, ids)
+        p_dq = sa.social_attention_bwd_dq_plain(
+            x4, ids, h16, wh16, gout, stats, r, w16) if backward else None
+        p_dkv = sa.social_attention_bwd_dkv_plain(
+            x4, ids, h16, wh16, gout, stats, r, w16) if backward else None
+    else:
+        p_out, p_st, p_dq, p_dkv = windowed_plain(
+            torch, sa, g16, x4, ids, h16, wh16, gout, w, backward=backward)
+        p_m, p_l = p_st[:, 0], p_st[:, 1]
+    # the control: the float32 kernels, forward and backward, on the same
+    # bf16 values (h, wh and the weights widened), with their own stats
+    with torch.no_grad():
+        o32, st32, u32, c32 = sa._launch_fwd(x4, ids, h32, wh32, w32, True,
+                                             w)
+        ctrl = [o32, st32]
+        if backward:
+            a32 = (x4, ids, h32, wh32, gout, st32, (gout * o32).sum(-1),
+                   w32, u32, c32)
+            ctrl += [sa.social_attention_bwd_dq(*a32, max_scene=w),
+                     *sa.social_attention_bwd_dkv(*a32, max_scene=w)]
+    err = {"fwd": [check_bf16(f"bf16 {tag} out", out, p_out, "out",
+                              ctrl[0]),
+                   check_bf16(f"bf16 {tag} m", stats[:, 0], p_m, "m",
+                              ctrl[1][:, 0]),
+                   check_bf16(f"bf16 {tag} l", stats[:, 1], p_l, "l",
+                              ctrl[1][:, 1])]}
+    if backward:
+        dq, *dkv = res[windows[-1]][4:]
+        err["dq"] = [check_bf16(f"bf16 {tag} dq dx_i", dq, p_dq, "dx",
+                                ctrl[2])]
+        names = ["dx_j", "dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3",
+                 "db3"]
+        err["dkv"] = [check_bf16(f"bf16 {tag} dkv {nm}", a, b,
+                                 "dx" if nm == "dx_j" else "grad", cf)
+                      for nm, a, b, cf in zip(names, dkv, p_dkv, ctrl[3:])]
+    blind = [k for k, v in err.items() if not any(e[2] for e in v)]
+    if blind:
+        raise AssertionError(f"bf16 {tag}: the float32 kernels on the same "
+                             f"values pass every bf16 bound of {blind}")
+    summary = {k: (max(e[0] for e in v), max(e[1] for e in v))
+               for k, v in err.items()}
+    entries = {}
+    n_mlp = sum(t.numel() for t in w16)
+    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
+    if timed:
+        r = (gout * out).sum(-1)
+        a16 = (x4, ids, h16, wh16, gout, stats, r, w16, u, c)
+        a32 = (x4, ids, h32, wh32, gout, stats, r, w32, u, c)
+        calls = {"fwd": lambda a: lambda: sa._launch_fwd(
+                     a[0], a[1], a[2], a[3], a[7], True, w)}
+        if backward:
+            calls["dq"] = lambda a: lambda: sa.social_attention_bwd_dq(
+                *a, max_scene=w)
+            calls["dkv"] = lambda a: lambda: sa.social_attention_bwd_dkv(
+                *a, need_dx=False, max_scene=w)
+        plain = {"fwd": lambda: sa.social_attention_stats_plain(
+            g16.feat_mlp, g16.attn_w, x4, h16, ids)}
+        if n <= 4096 and backward:
+            plain["dq"] = lambda: sa.social_attention_bwd_dq_plain(
+                *a16[:8])
+            plain["dkv"] = lambda: sa.social_attention_bwd_dkv_plain(
+                *a16[:8], need_dx=False)
+        elif n > 4096:
+            plain = {k: (lambda: windowed_plain(
+                torch, sa, g16, x4, ids, h16, wh16, gout, w,
+                backward=backward)) for k in calls}
+        with torch.no_grad():
+            for key, mk in calls.items():
+                t16 = median_ms(torch, mk(a16))
+                t32 = median_ms(torch, mk(a32))
+                p_ms = median_ms(torch, plain[key], repeats=3)
+                if key == "fwd":
+                    b = attention_bound(ids_np, n, hdim, hdim, n_params,
+                                        op_bytes=2)
+                else:
+                    b = attention_bwd_bound(ids_np, n, hdim, hdim, n_mlp,
+                                            key, op_bytes=2)
+                entries[key] = {"n": n, "window": w, "ms": t16,
+                                "f32_ms": t32, "plain_ms": p_ms,
+                                "bound_ms": b["bound_ms"],
+                                "bound_by": b["bound_by"],
+                                "pairs": b["pairs_needed"],
+                                "max_abs_err": summary[key][0],
+                                "median_abs_err": summary[key][1]}
+                print(f"bf16 kernel {key} [{tag}] N={n} w={w}: "
+                      f"{t16 * 1e3:.2f} us (float32 kernel on the same "
+                      f"values {t32 * 1e3:.2f} us), plain bf16 "
+                      f"{p_ms * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.3f}"
+                      f" us ({b['bound_by']}, {b['pairs_needed']} pairs), max"
+                      f" / median abs err {summary[key][0]:.3e} / "
+                      f"{summary[key][1]:.3e} [{card}]")
+    print(f"bf16 kernels [{tag}] N={n}: " + ", ".join(
+        f"{k} max/median abs err {v[0]:.3e}/{v[1]:.3e}"
+        for k, v in summary.items())
+        + (f"; w={w} bits == w=0 bits" if w else ""))
+    return entries, summary
+
+
+def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
+    """Phase 12c: ``evaluate --bf16`` and ``predict --bf16`` of phase 7's
+    float32 checkpoint (launches exact, bf16 only), its ADE/FDE against
+    the float32 ``evaluate`` of the same checkpoint, the K = 20 rollout on
+    the card against the CPU under bf16, and the bf16 rollout rate."""
+    from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.eval.metrics import (draw_noise, eval_chunk,
+                                               k_sample_rollout)
+    from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
+                                                restore_generator)
+
+    ds = load_npz_dataset(npz)
+    test_chunks = len(greedy_chunks(ds.test_batches, BATCH))
+    with np.load(npz) as d:
+        all_chunks = len(greedy_chunks(d["batches"], BATCH))
+    ade, launches = {}, {}
+    for tag, extra in (("float32", []), ("bf16", ["--bf16"])):
+        reset_launches(sa)
+        out = run_cli(cli_main, ["evaluate", "--data", npz, "--model-file",
+                                 ckpt] + extra, f"evaluate ({tag})", card)
+        got = (bf16_launches(sa, "evaluate --bf16") if extra
+               else read_launches(sa))
+        if got != {"fwd": test_chunks, "dq": 0, "dkv": 0}:
+            raise AssertionError(f"evaluate {tag}: launched {got}")
+        if extra:
+            launches["evaluate"] = got
+        m = re.search(r"Avg ADE,FDE.*?= \(([\d.]+), ([\d.]+)\).*?= "
+                      r"\(([\d.]+), ([\d.]+)\)", out)
+        ade[tag] = [float(v) for v in m.groups()]
+    rel = max(abs(a - b) / b for a, b in zip(ade["bf16"], ade["float32"]))
+    if rel > 0.05:
+        raise AssertionError(f"evaluate: bf16 ADE/FDE {ade['bf16']} vs "
+                             f"float32 {ade['float32']}: rel {rel:.3e}")
+    print(f"evaluate bf16 vs float32 of one checkpoint: avg ADE/FDE, min "
+          f"ADE/FDE {ade['bf16']} vs {ade['float32']}, largest rel "
+          f"difference {rel:.3e} (bound 5e-2)")
+    pred = os.path.join(os.path.dirname(ckpt), "bf16_predictions.npz")
+    reset_launches(sa)
+    run_cli(cli_main, ["predict", "--data", npz, "--model-file", ckpt,
+                       "--out", pred, "--bf16"], "predict (bf16)", card)
+    got = bf16_launches(sa, "predict --bf16")
+    if got != {"fwd": all_chunks, "dq": 0, "dkv": 0}:
+        raise AssertionError(f"predict --bf16: launched {got}")
+    launches["predict"] = got
+    with np.load(pred) as d:
+        if (d["preds_our"].shape[1:] != (d["obsvs"].shape[0], N_NEXT, 2)
+                or not np.isfinite(d["preds_our"]).all()):
+            raise AssertionError(f"predict wrote {d['preds_our'].shape}")
+
+    from socialways_torch.config import TrainConfig
+    cfg = adopt_checkpoint_config(TrainConfig(n_gen_samples=K), ckpt).replace(
+        compute_dtype="bfloat16")
+    t_dev, t_cpu = Trainer(cfg, ds, dev), Trainer(cfg, ds, "cpu")
+    gen, gen_cpu = (restore_generator(ckpt, cfg, d)[0] for d in (dev, "cpu"))
+    noise_rng = torch.Generator().manual_seed(5)
+    worst, worst_mean, worst_sum = 0.0, 0.0, 0.0
+    for i in range(min(2, t_dev.test_packed.n_chunks)):
+        noise = draw_noise(K, t_dev.test_packed.width, cfg, noise_rng)
+        c_dev, c_cpu = chunk_of(t_dev.test_dev, i), chunk_of(t_cpu.test_dev, i)
+        r_dev = k_sample_rollout(gen, c_dev["obsvs"], c_dev["scene_ids"], K,
+                                 cfg, noise=noise.to(dev)).cpu()
+        r_cpu = k_sample_rollout(gen_cpu, c_cpu["obsvs"], c_cpu["scene_ids"],
+                                 K, cfg, noise=noise)
+        v = c_cpu["valid"]
+        diff = (r_dev - r_cpu)[:, v].abs()
+        worst = max(worst, float(diff.max()))
+        worst_mean = max(worst_mean, float(diff.mean()))
+        s_dev = eval_chunk(gen, c_dev, K, cfg, noise=noise.to(dev))
+        s_cpu = eval_chunk(gen_cpu, c_cpu, K, cfg, noise=noise)
+        for a, b in zip(s_dev[:4], s_cpu[:4]):
+            worst_sum = max(worst_sum, abs(float(a) - float(b)) / float(b))
+    if worst > 5e-2 or worst_mean > 1e-3 or worst_sum > 1e-2:
+        raise AssertionError(f"bf16 serving cuda vs cpu: rollout max abs "
+                             f"{worst:.3e} (5e-2), mean {worst_mean:.3e} "
+                             f"(1e-3), sums rel {worst_sum:.3e} (1e-2)")
+    print(f"bf16 serving cuda vs cpu: K={K} rollout of the first chunks max "
+          f"abs {worst:.3e} (bound 5e-2), mean {worst_mean:.3e} (bound "
+          f"1e-3), ADE/FDE sums rel {worst_sum:.3e} (bound 1e-2)")
+    n_valid = int(t_dev.test_packed.n_valid.sum())
+    n_chunks = t_dev.test_packed.n_chunks
+    rng_dev = torch.Generator(device=dev).manual_seed(0)
+
+    def rollouts():
+        for i in range(n_chunks):
+            c = chunk_of(t_dev.test_dev, i)
+            k_sample_rollout(gen, c["obsvs"], c["scene_ids"], K, cfg, rng_dev)
+    rollouts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(3):
+        rollouts()
+    torch.cuda.synchronize()
+    roll_s = (time.perf_counter() - tic) / 3
+    rate = n_valid * K * N_NEXT / roll_s
+    print(f"bf16 rollout: {n_valid} windows x K={K} x {N_NEXT} steps in "
+          f"{roll_s * 1e3:.2f} ms = {rate:.4g} agent-steps/s [{card}]")
+    return {"ade_fde": ade, "rollout_rate": rate,
+            "cuda_vs_cpu_max_abs": worst, "launches": launches}
+
+
+def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
+    """Phase 12d: ``cli simulate --bf16`` at 32,768 and 1,048,576 agents
+    (8 bf16 forwards a run, no float32 kernel), the trajectories at 10,000
+    agents and 1 window on the card against the CPU under bf16, and one
+    profiled 1,048,576-agent window."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.engine.losses import sample_noise
+    from socialways_torch.engine.simulate import crowd_simulate, initial_crowd
+    from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
+                                                restore_generator)
+    rates, launches = {}, {"fwd": 0, "dq": 0, "dkv": 0}
+    for agents in (CROWD_BF16, CROWD_1M):
+        reset_launches(sa)
+        out = run_cli(cli_main, ["simulate", "--model-file", ckpt, "--agents",
+                                 str(agents), "--bf16"],
+                      f"simulate --bf16 {agents} agents", card)
+        torch.cuda.synchronize()
+        got = bf16_launches(sa, f"simulate --bf16 {agents}")
+        if got != {"fwd": 8, "dq": 0, "dkv": 0}:
+            raise AssertionError(f"simulate --bf16 {agents}: launched {got}")
+        for k in launches:
+            launches[k] += got[k]
+        m = re.search(r"x (\d+) steps .* in ([\d.]+) ms = ", out)
+        if not m or "route=cuda kernel" not in out:
+            raise AssertionError(f"simulate {agents}: printed {out!r}")
+        steps, ms = int(m.group(1)), float(m.group(2))
+        rates[agents] = agents * steps / (ms * 1e-3)
+        print(f"simulate --bf16 {agents} agents x {steps} steps: {ms} ms, "
+              f"{rates[agents]} agent-steps/s, bf16 launches {got} [{card}]")
+    cfg = adopt_checkpoint_config(TrainConfig(), ckpt).replace(
+        max_scene_size=CROWD_SCENE, compute_dtype="bfloat16")
+    obsv0, ids = initial_crowd(CROWD_N, CROWD_SCENE, cfg.n_past, 0)
+    noise = sample_noise((1, CROWD_N), cfg, torch.Generator().manual_seed(9))
+    traj = []
+    for where in (dev, torch.device("cpu")):
+        gen = restore_generator(ckpt, cfg, where)[0]
+        traj.append(crowd_simulate(
+            gen, torch.from_numpy(obsv0).to(where),
+            torch.from_numpy(ids).to(where), 1, cfg,
+            noise=noise.to(where)).cpu())
+    diff = (traj[0] - traj[1]).abs()
+    if (not bool(traj[0].isfinite().all()) or float(diff.max()) > 2e-2
+            or float(diff.mean()) > 1e-3):
+        raise AssertionError(f"simulate --bf16 cuda vs cpu: max abs "
+                             f"{float(diff.max()):.3e} (2e-2), mean "
+                             f"{float(diff.mean()):.3e} (1e-3)")
+    print(f"simulate bf16 cuda vs cpu: {CROWD_N} agents x 1 window, max abs "
+          f"{float(diff.max()):.3e} (bound 2e-2), mean "
+          f"{float(diff.mean()):.3e} (bound 1e-3), normalized units")
+    gen = restore_generator(ckpt, cfg, dev)[0]
+    obsv0, ids = (torch.from_numpy(a).to(dev) for a in initial_crowd(
+        CROWD_1M, CROWD_SCENE, cfg.n_past, 0))
+    noise = sample_noise((1, CROWD_1M), cfg, torch.Generator(
+        device=dev).manual_seed(3), dev)
+    profile_step(torch, f"one bf16 simulate window of {CROWD_1M} agents "
+                        f"[{card}]",
+                 lambda: crowd_simulate(gen, obsv0, ids, 1, cfg,
+                                        noise=noise))
+    return rates, launches
+
+
+def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
+               card):
+    """Phase 12, bf16: (a) the bf16 kernels against their plain bf16
+    versions at the loo training chunk, at N = 10,000 in sorted scenes of
+    16 (w = 16 and w = 0, equal bits) and, forward only, at N = 32,768;
+    (b) ``cli train --recipe loo --bf16``; (c) bf16 serving; (d) ``cli
+    simulate --bf16``; (e) JAX's crowd memory recipe under bf16."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.models.generator import init_generator
+    tic_phase = time.perf_counter()
+    cfg = TrainConfig(hidden_size=HIDDEN, social_feature_size=HIDDEN,
+                      noise_len=HIDDEN // 2)
+    g_path, x4_np, h_np, ids_np = train_chunk
+    t = lambda a: torch.from_numpy(a).to(dev)
+    reset_launches(sa)
+    kernels, errs = {}, {}
+    kernels["path"], errs["path"] = bf16_kernel_case(
+        torch, sa, g_path, t(x4_np), t(ids_np), t(h_np), 0,
+        "loo train chunk 0", card)
+    g = init_generator(cfg, torch.Generator().manual_seed(17), dev)
+    rng = np.random.RandomState(29)
+    for n, backward in ((CROWD_N, True), (CROWD_BF16, False)):
+        x4c, hc, idsc = crowd_inputs(rng, n, HIDDEN)
+        kernels[n], errs[n] = bf16_kernel_case(
+            torch, sa, g, t(x4c), t(idsc), t(hc), CROWD_SCENE,
+            f"crowd N={n}", card, backward=backward)
+    launches, rates = {}, {}
+    launches["bf16_loo"], rates["bf16_loo"], mdir = gan_run(
+        torch, sa, cli_main, dev, npz, work, "bf16_loo", BF16_RUNS["bf16_loo"],
+        card=card)
+    with np.load(os.path.join(mdir, "socialWays-hotel.npz")) as d:
+        bad = [k for k in d.files if k.startswith((".g_", ".d_"))
+               and not k.endswith(".count") and d[k].dtype != np.float32]
+    if bad:
+        raise AssertionError(f"bf16 checkpoint: state not float32: {bad}")
+    print("bf16 loo checkpoint: every parameter and optimizer tensor float32")
+    serving = bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card)
+    launches.update(serving["launches"])
+    sim_rates, launches["simulate"] = bf16_simulate(torch, sa, cli_main, dev,
+                                                    ckpt, card)
+    crowd = os.path.join(work, "crowd16-8-12.npz")
+    make_ethucy_like_npz(crowd, n_windows=82_000, seed=1, scene=CROWD_SCENE)
+    launches["bf16_crowd_train"], rates["bf16_crowd_train"], _ = gan_run(
+        torch, sa, cli_main, dev, crowd, work, "bf16_crowd_train",
+        BF16_RUNS["bf16_crowd_train"], cpu_check=False, card=card)
+    wall = time.perf_counter() - tic_phase
+    print(f"bf16 phase: {wall:.2f} s wall [{card}]")
+    return {"kernels": kernels, "errs": errs, "launches": launches,
+            "train_rates": rates, "serving": serving,
+            "simulate_rates": sim_rates, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1545,13 +2079,21 @@ def main() -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()[:150]}")
-    dq_spills = {k: v for k, v in ptxas_spills(
-        _build.build_logs.get("social_attention_bwd", "")).items()
-        if "bwd_dq_kernel" in k}
-    if len(dq_spills) != 1 or any(sum(v) for v in dq_spills.values()):
-        raise AssertionError(f"bwd_dq_kernel ptxas spills: {dq_spills}")
-    print(f"ptxas: bwd_dq_kernel spill stores/loads "
-          f"{list(dq_spills.values())[0]} bytes")
+    ptxas = {}
+    for name in KERNELS:
+        ptxas.update(ptxas_entries(_build.build_logs.get(name, "")))
+    if len(ptxas) != 2 * len(PTXAS_KERNELS) or any(
+            sum(v[1:]) for v in ptxas.values()):
+        raise AssertionError(f"ptxas: want every kernel for float and bf16 "
+                             f"without spills, got {ptxas}")
+    for entry, (regs, st, ld) in sorted(ptxas.items()):
+        was = PTXAS_KERNELS[entry.split("[")[0]]
+        print(f"ptxas: {entry} {regs} registers, spill stores/loads {st}/"
+              f"{ld} bytes" + (f" (float-only build: {was})"
+                               if entry.endswith("[float]") else ""))
+        if entry.endswith("[float]") and abs(regs - was) > 2:
+            raise AssertionError(f"ptxas: {entry} takes {regs} registers, "
+                                 f"the float-only build {was} (bound +-2)")
 
     dev = torch.device("cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1771,6 +2313,10 @@ def main() -> int:
         # ---- 11. crowd scale: window-scan kernels, simulate, training
         crowd = crowd_phase(torch, sa, cli_main, dev, loo_ckpt, work, smi)
 
+        # ---- 12. bf16: the kernels' bf16 mode, train, serve, simulate
+        bf16 = bf16_phase(torch, sa, cli_main, dev, npz, loo_ckpt, work,
+                          bwd_cases[-1][1:], smi)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -1779,7 +2325,7 @@ def main() -> int:
         kernels = [{
             "name": "social_attention_fwd",
             "route": "cuda",
-            "source": src + "social_attention_fwd.cu",
+            "source": src + "social_attention_fwd.cuh",
             "replaces": f"{tpu}:150 (_kernel)",
             "launches": launches_train["fwd"],
             "launches_by_path": {"serving": launches_serving,
@@ -1814,7 +2360,7 @@ def main() -> int:
             kernels.append({
                 "name": f"social_attention_bwd_{key}",
                 "route": "cuda",
-                "source": src + "social_attention_bwd.cu",
+                "source": src + "social_attention_bwd.cuh",
                 "replaces": f"{tpu}:{line} ({fn})",
                 "launches": launches_train[key],
                 "launches_by_path": {"training": launches_train[key],
@@ -1838,14 +2384,48 @@ def main() -> int:
         kernels[1]["by_launch_us"] = bwd_path["split"]["dq"]
         kernels[1]["by_input"] = dq_by_input
         kernels[2]["by_launch_us"] = bwd_path["split"]["dkv"]
+        # the bf16 entry points: launches from the bf16 loo training run,
+        # times at its first chunk (N = 256), crowd checks beside
+        for key, fn, line, f in (("fwd", "_kernel", 150, "fwd"),
+                                 ("dq", "_bwd_dq_kernel", 317, "bwd"),
+                                 ("dkv", "_bwd_dkv_kernel", 372, "bwd")):
+            e = bf16["kernels"]["path"][key]
+            name = ("social_attention_fwd" if key == "fwd"
+                    else f"social_attention_bwd_{key}")
+            kernels.append({
+                "name": name + "_bf16",
+                "route": "cuda",
+                "source": src + f"social_attention_{f}.cuh",
+                "replaces": f"{tpu}:{line} ({fn}, bf16 operands)",
+                "launches": bf16["launches"]["bf16_loo"][key],
+                "launches_by_path": {
+                    k: v[key] for k, v in bf16["launches"].items()},
+                "max_abs_err": max(v[key][0] for v in bf16["errs"].values()
+                                   if key in v),
+                "median_abs_err": max(v[key][1] for v in
+                                      bf16["errs"].values() if key in v),
+                "ms": e["ms"],
+                "plain_ms": e["plain_ms"],
+                "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"],
+                "library_ms": None,
+                "launch_floor_ms": floor_ms,
+                "f32_kernel_ms_same_values": e["f32_ms"],
+                "crowd": bf16["kernels"][CROWD_N][key],
+                **({"crowd_32k": bf16["kernels"][CROWD_BF16]["fwd"]}
+                   if key == "fwd" else {}),
+            })
         print(f"train steps/s (epoch 2, loo width, batch {BATCH}): "
               f"{steps_s:.2f}; toy train steps/s {toy_rate:.2f}; sweep "
               f"{sweep_s:.2f} s; gan variants train steps/s "
               f"{', '.join(f'{k} {v:.2f}' for k, v in gan_rates.items())}; "
               f"crowd: simulate {crowd['simulate_rates']} agent-steps/s, "
-              f"crowd train steps/s {crowd['train_rates']}; "
-              f"chip_smoke wall {time.perf_counter() - t_start:.1f} s "
-              f"[{smi}]")
+              f"crowd train steps/s {crowd['train_rates']}; bf16: train "
+              f"steps/s {bf16['train_rates']}, rollout "
+              f"{bf16['serving']['rollout_rate']:.4g} agent-steps/s, "
+              f"simulate {bf16['simulate_rates']} agent-steps/s, phase 12 "
+              f"{bf16['wall_s']:.1f} s; chip_smoke wall "
+              f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

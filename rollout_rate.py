@@ -14,9 +14,9 @@ median rate over the repeats, then where the attention's share of it goes:
 - the same rollouts with the attention call replaced by a fixed output
   tensor (no wrapper, no kernel), alternated with the real ones in this
   process, so the difference is the attention's cost in the rollout;
-- the host time of one ``social_attention_fwd`` call on test chunk 0's
-  agents (the call returns before the device runs it; synchronized
-  between calls);
+- the host time of one ``social_attention`` call (the generator's entry
+  to the kernels) on test chunk 0's agents (the call returns before the
+  device runs it; synchronized between calls);
 - one chunk's device time and untraced wall (torch.profiler, as
   ``chip_smoke.py`` takes them).
 """
@@ -88,7 +88,7 @@ def main() -> int:
         chunks = [chunk_of(trainer.test_dev, i) for i in range(n_chunks)]
 
         import socialways_torch.models.generator as gmod
-        attention = gmod.social_attention_fwd
+        attention = gmod.social_attention
         fixed = torch.zeros((cs.BATCH, cs.HIDDEN), device=dev)
 
         def rollouts():
@@ -97,12 +97,12 @@ def main() -> int:
                                  rng)
 
         def rate(fwd) -> float:
-            gmod.social_attention_fwd = fwd
+            gmod.social_attention = fwd
             torch.cuda.synchronize()
             tic = time.perf_counter()
             rollouts()
             torch.cuda.synchronize()
-            gmod.social_attention_fwd = attention
+            gmod.social_attention = attention
             return n_valid * cs.K * cs.N_NEXT / (time.perf_counter() - tic)
         for _ in range(2):
             rollouts()
@@ -130,7 +130,7 @@ def main() -> int:
                 attention(gen.feat_mlp, gen.attn_w, x4, h, c0["scene_ids"])
                 host.append((time.perf_counter() - tic) * 1e6)
         torch.cuda.synchronize()
-        print(f"social_attention_fwd host time a call: median "
+        print(f"social_attention host time a call: median "
               f"{np.median(host[20:]):.1f} us (180 calls after 20)")
         cs.profile_step(torch, "one chunk's K=20 rollout",
                         lambda: k_sample_rollout(gen, c0["obsvs"],

@@ -21,8 +21,11 @@ predict), :977-1036 (sweep), :1039-1101 (eth-ucy), :1104-1169 (simulate)
 and :1172-1191 (stats).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
 ``create-*`` and ``stats`` are host-only.  ``train``, ``eth-ucy`` and
-``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--bf16``,
-``--pallas`` and ``--mesh`` (not ported yet); argparse refuses those.
+``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--pallas`` and
+``--mesh`` (not ported yet); argparse refuses those.  ``--bf16`` runs the
+forward math of every command that takes a model in bfloat16 (the
+attention kernels' bf16 mode on the card), with float32 master weights,
+losses, gradients and optimizer state.
 ``--max-scene-size`` (a bound on rows per scene, ids sorted and
 contiguous) lets the social attention scan scene windows on every
 subcommand that runs a model.  ``simulate`` has no ``--no-pallas``: on the
@@ -87,11 +90,17 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
                         "social geometry stays world-frame)")
     p.add_argument("--g-ema-decay", type=float, default=0.0,
                    help="> 0: serve the checkpoint's EMA generator")
-    p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 forward (not ported yet: raises)")
+    _add_bf16_flag(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-gen-samples", "--k", type=int, default=20)
     _add_max_scene_flag(p)
+
+
+def _add_bf16_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--bf16", action="store_true",
+                   help="run generator/discriminator forward math in "
+                        "bfloat16 (f32 master params, f32 losses); float32 "
+                        "remains the parity default")
 
 
 def _add_max_scene_flag(p: argparse.ArgumentParser) -> None:
@@ -426,6 +435,7 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
                         "N and (with --use-social) scene boundaries must "
                         "align to chunk boundaries")
     _add_max_scene_flag(p)
+    _add_bf16_flag(p)
 
 
 def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
@@ -551,7 +561,8 @@ def _train_cfg(args):
         save_interval=getattr(args, "save_interval", 50),
         model_dir=getattr(args, "model_dir", "trained_models"),
         dump_dir=getattr(args, "dump_dir", ""),
-        lnr_model=getattr(args, "lnr_model", "cv"))
+        lnr_model=getattr(args, "lnr_model", "cv"),
+        compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
 def _log_metrics(path: str, **record) -> None:

@@ -4,8 +4,8 @@ The fields the port reads, with the defaults of
 ``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
 ``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
 define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
-The JAX fields the port does not implement yet (bf16, a mesh) are fields
-here too, so that
+The JAX fields the port does not implement yet (a mesh, compute dtypes
+other than float32 and bfloat16) are fields here too, so that
 ``check_supported`` can name them when a caller sets one instead of
 silently training another model.
 """
@@ -152,7 +152,7 @@ def check_supported(cfg: TrainConfig) -> None:
         ("latent_code_type",
          cfg.latent_code_type not in ("continuous", "categorical")),
         ("noise_dist", cfg.noise_dist not in ("uniform", "gaussian")),
-        ("compute_dtype", cfg.compute_dtype != "float32"),
+        ("compute_dtype", cfg.compute_dtype not in ("float32", "bfloat16")),
         ("mesh_shape", cfg.mesh_shape is not None),
     ]
     for field, bad in unsupported:

@@ -9,7 +9,10 @@ frozen within a window (the reference's ``predict`` semantics,
 train.py:409-413).  JAX scans the windows in one jitted program; here the
 window loop is a Python loop of device work with no host sync inside it.
 On CUDA the attention is the hand-written forward kernel, scanning scene
-windows when ``cfg.max_scene_size > 0``.
+windows when ``cfg.max_scene_size > 0``.  Under
+``compute_dtype="bfloat16"`` the weights, the observations, the noise and
+the world-frame buffer are bf16 (socialways_tpu/engine/simulate.py:41-47,
+60-83); the trajectories come back float32.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
 from socialways_torch.models.generator import Generator, generator_rollout
+from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d)
 
@@ -39,6 +43,11 @@ def crowd_simulate(g_params: Generator, obsv0: torch.Tensor,
     n, n_past, _ = obsv0.shape
     if noise is None:
         noise = sample_noise((n_windows, n), cfg, generator, obsv0.device)
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cdt != obsv0.dtype:
+        g_params = cast_params(g_params, cdt)
+        obsv0 = obsv0.to(cdt)
+    noise = noise.to(cdt)
     obsv, windows = obsv0, []
     for z in noise:
         # each window canonicalizes its own buffer, and predictions map

@@ -1,9 +1,9 @@
 """The unrolled LSGAN + InfoGAN training step.
 
 Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764 without a
-mesh, in float32: agent frame, social attention, EMA generator, D instance
-noise annealed to a floor, ``n_unrolling_steps`` lookahead D updates with a
-configurable restore, the continuous or categorical info loss and its
+mesh, in float32 or bf16 mixed precision: agent frame, social attention,
+EMA generator, D instance noise annealed to a floor, ``n_unrolling_steps``
+lookahead D updates with a configurable restore, the continuous or categorical info loss and its
 ramp, lr schedules and a global-norm gradient clip, the LSTM decoder,
 PacGAN, minibatch stddev, spectral norm, R1, the l2, variety, mode-seeking
 and diversity-hinge losses, the D/G update-ratio schedule, the serial
@@ -28,6 +28,16 @@ The step, in JAX's order:
 7. D restored by ``d_restore`` while its optimizer keeps every update
    (:712-718);
 8. the metrics; ``d_loss`` is the first D update's loss (:720-729).
+
+Mixed precision (``compute_dtype="bfloat16"``, JAX's cast points
+:198-207, 295-308, 472-503, 588-594, 664-682): the observations, targets
+and canonicalization stay float32; the rollout takes a bf16 view of G and
+bf16 observations, noise and world-frame states, and its output returns
+to float32; D takes a bf16 view (spectral norm on the float32 masters
+first) and bf16 inputs, and its labels and codes return to float32 before
+the losses.  Losses, the gradient clip, accumulation, Adam, the EMA and
+R1's penalty stay float32, and so does every state tensor.  At float32
+every cast is the identity (JAX's exact-parity path).
 
 The extra rollouts of the G phase share one encode and one social pooling
 and decode as K·N rows, as ``k_sample_rollout`` does: JAX's ``vmap`` over
@@ -70,6 +80,7 @@ from socialways_torch.models.generator import (Generator, decode_rollout,
                                                generator_rollout,
                                                init_generator,
                                                prepare_rollout)
+from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
                                        pred_to_4d, to_agent_frame)
 
@@ -428,10 +439,21 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     def mb_feat(block, valid_):
         return mb_std_feature(block, valid_) if cfg.mb_std else None
 
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def cast(t):
+        """JAX's ``cast``: a tensor or a model's weights in the compute
+        dtype; the identity at float32."""
+        if t is None or cdt == torch.float32:
+            return t
+        return t.to(cdt) if isinstance(t, torch.Tensor) else cast_params(
+            t, cdt)
+
     def rollout_on(obsv_, z, sids, sx4):
-        return generator_rollout(state.g, obsv_, z, cfg.n_next, sids,
-                                 cfg.use_social, sx4, cfg.decoder,
-                                 cfg.remat_steps, cfg.max_scene_size)
+        return generator_rollout(cast(state.g), cast(obsv_), cast(z),
+                                 cfg.n_next, sids, cfg.use_social, cast(sx4),
+                                 cfg.decoder, cfg.remat_steps,
+                                 cfg.max_scene_size).float()
 
     # micro-chunks: the rows split into grad_accum equal scene-aligned parts
     rows = {"obsv": obsv, "obsv_4d": obsv_4d, "noise": noise,
@@ -482,17 +504,18 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     def d_part_loss(c, w_label, w_rest):
         """The D loss of one part (:469-509), at the current D."""
-        dp = sn(state.d)
+        dp = cast(sn(state.d))
         nn_ = c["obsv_4d"].shape[0]
-        obsv_code = encode_obsv(dp, c["obsv_4d"], cfg.remat_steps)
+        obsv_code = encode_obsv(dp, cast(c["obsv_4d"]), cfg.remat_steps)
         extra = None
         if cfg.mb_std:
             # one statistic per provenance block, fake and real apart
             extra = torch.cat([mb_feat(c["pred_hat"], c["valid"]),
                                mb_feat(c["pred_4d"], c["valid"])])
         labels, codes = discriminator_heads(
-            dp, obsv_code, torch.cat([c["pred_hat"], c["pred_4d"]]),
+            dp, obsv_code, cast(torch.cat([c["pred_hat"], c["pred_4d"]])),
             cfg.pac, extra)
+        labels, codes = labels.float(), codes.float()
         n_packs = nn_ // cfg.pac
         gv_c = group_valid(c["valid"])
         loss = lsgan_d_loss(labels[:n_packs], labels[n_packs:], codes[:nn_],
@@ -502,9 +525,10 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         if cfg.r1_gamma > 0:
             # R1: |d D(obsv, real) / d real|^2, differentiated again below
             p4 = c["pred_4d"].detach().requires_grad_(True)
-            lbl, _ = discriminator_heads(dp, obsv_code, p4, cfg.pac,
+            lbl, _ = discriminator_heads(dp, obsv_code, cast(p4), cfg.pac,
                                          mb_feat(p4, c["valid"]))
-            (g_real,) = torch.autograd.grad((lbl * gv_c[:, None]).sum(), p4,
+            (g_real,) = torch.autograd.grad((lbl.float()
+                                             * gv_c[:, None]).sum(), p4,
                                             create_graph=True)
             per = (g_real.reshape(nn_, -1) ** 2).sum(dim=-1)
             r1 = (torch.where(c["valid"], per, 0.0).sum()
@@ -552,10 +576,10 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         """The G loss of one part against D (:583-601, 664-682)."""
         ph_in = ph if c["eps_g"] is None else ph + sigma * c["eps_g"]
         gen_label, gen_code = discriminator_apply(
-            d_g, c["obsv_4d"], ph_in, cfg.remat_steps, cfg.pac,
-            mb_feat(ph_in, c["valid"]))
-        loss = lsgan_g_loss(gen_label, gen_code, c["noise"], c["valid"],
-                            c["ones"], *info,
+            cast(d_g), cast(c["obsv_4d"]), cast(ph_in), cfg.remat_steps,
+            cfg.pac, mb_feat(ph_in, c["valid"]))
+        loss = lsgan_g_loss(gen_label.float(), gen_code.float(), c["noise"],
+                            c["valid"], c["ones"], *info,
                             label_valid=group_valid(c["valid"]),
                             w_label=w_label, w_info=w_info)
         if cfg.use_l2_loss:
@@ -590,13 +614,14 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                 noises.append(draws.extra_noise)
             z = torch.cat(noises)
             r = z.shape[0]
-            prep = prepare_rollout(state.g, obsv, scene_ids, cfg.use_social,
-                                   social_x4, cfg.remat_steps,
-                                   cfg.max_scene_size)
-            out = decode_rollout(state.g, tuple(t.repeat(r, 1) for t in prep),
-                                 z.reshape(r * n, -1), cfg.n_next,
+            g_view = cast(state.g)
+            prep = prepare_rollout(g_view, cast(obsv), scene_ids,
+                                   cfg.use_social, cast(social_x4),
+                                   cfg.remat_steps, cfg.max_scene_size)
+            out = decode_rollout(g_view, tuple(t.repeat(r, 1) for t in prep),
+                                 cast(z.reshape(r * n, -1)), cfg.n_next,
                                  cfg.decoder, cfg.remat_steps)
-            out = out.reshape(r, n, cfg.n_next, 4)
+            out = out.float().reshape(r, n, cfg.n_next, 4)
             pred_hat = out[0]
             g_loss = g_part_loss(pred_hat, parts[0], 1.0, 1.0)
             first = 1

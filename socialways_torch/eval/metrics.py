@@ -4,7 +4,9 @@ Reference ``test()`` (train.py:563-616): K stochastic rollouts per sample,
 scored as the average and the min over K of the mean (ADE) and final (FDE)
 Euclidean error, in normalized units; divide by ``Scale.sx`` for meters.
 The K draws are a batch dimension: the observation is encoded and pooled
-once, then ONE decode runs over K·N rows.
+once, then ONE decode runs over K·N rows.  Under
+``compute_dtype="bfloat16"`` the rollout runs in bf16 and the errors are
+scored in float32 (socialways_tpu/eval/metrics.py:47-61, 85-91).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
 from socialways_torch.models.generator import (Generator, decode_rollout,
                                                prepare_rollout)
+from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d)
 
@@ -46,12 +49,20 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
                      scene_ids: torch.Tensor, k: int, cfg: TrainConfig,
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K stochastic rollouts in world coordinates: [K, N, n_next, 4].
+    """K stochastic rollouts in world coordinates: [K, N, n_next, 4],
+    float32 (under bf16, the bf16 values).
 
-    ``noise`` [K, N, noise_len] overrides the draw from ``generator``."""
+    ``noise`` [K, N, noise_len] overrides the draw from ``generator``.
+    Under bf16 the weights, ``obsv`` and the noise are cast before the
+    canonicalization, as JAX casts them."""
     n = obsv.shape[0]
     if noise is None:
         noise = draw_noise(k, n, cfg, generator, obsv.device)
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cdt != obsv.dtype:
+        g_params = cast_params(g_params, cdt)
+        obsv = obsv.to(cdt)
+    noise = noise.to(cdt)
     obsv_in, frame, social_x4 = canonicalize_for_rollout(
         obsv, cfg.agent_frame, cfg.use_social)
     prep = prepare_rollout(g_params, obsv_in, scene_ids, cfg.use_social,
@@ -64,7 +75,7 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
     out = out.reshape(k, n, cfg.n_next, 4)
     if frame is not None:
         out = from_agent_frame_4d(out, frame)    # frame [N] broadcasts to K
-    return out
+    return out.float()
 
 
 def k_sample_errors(pred_hat_k: torch.Tensor, pred: torch.Tensor

@@ -1,6 +1,6 @@
 // Pair machinery shared by the three social-attention kernels: the forward
-// (social_attention_fwd.cu) and the dq and dkv backward
-// (social_attention_bwd.cu, which also holds the backward steps dq and dkv
+// (social_attention_fwd.cuh) and the dq and dkv backward
+// (social_attention_bwd.cuh, which also holds the backward steps dq and dkv
 // share).
 //
 // All three work on the same-scene pairs (i, j), both valid, i != j.  A
@@ -23,9 +23,20 @@
 //        (= f_ij . wh_j; 2,208 MAC a pair instead of 6,304 at F = 64)
 // Every sum runs in a fixed order, so the three kernels rebuild the same
 // score bits from the same u and c.
+//
+// Operand type.  Every kernel is a template on T, the type of h, wh and the
+// feature-MLP weights: float, or __nv_bfloat16 for JAX's bf16 operand mode
+// (socialways_tpu/kernels/social_attention.py:96-105, 183-185, 248-258).
+// T values are widened to float in registers and every sum runs in float;
+// rnd<T> rounds to bf16 exactly where the Pallas kernel casts: the three
+// features before W1, a1 before W2, a2 before the u contraction and p
+// before p . h.  x4, the cotangents, stats, u and c stay float.  For
+// T = float, ld, ld4 and rnd are the identity, and the kernels compile to
+// the float code they were.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sa {
@@ -49,6 +60,36 @@ static_assert(kTile * kScan <= 32, "a thread's hits fit one word");
 static_assert(kThreads == 8 * 16 && kBatch == 8 * 4,
               "layer-2 tile: 8 pair groups of 4 x 16 output groups of 4");
 static_assert(kTile * kH2 == kThreads, "one thread per (tile agent, output)");
+
+// A bf16 is the high half of a float: widening is a shift, and rounding
+// is the hardware's round-to-nearest-even (cvt.rn.bf16.f32).
+__device__ __forceinline__ float ld(const float v) { return v; }
+__device__ __forceinline__ float ld(const __nv_bfloat16 v) {
+    return __uint_as_float((unsigned)__bfloat16_as_ushort(v) << 16);
+}
+
+// Elements 4 i .. 4 i + 3 of p as a float4; p is aligned to 4 elements.
+__device__ __forceinline__ float4 ld4(const float* p, const int i) {
+    return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p, const int i) {
+    const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+    return make_float4(__uint_as_float(v.x << 16),
+                       __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16),
+                       __uint_as_float(v.y & 0xffff0000u));
+}
+
+// v rounded to T's precision, as a float.
+template <typename T> __device__ __forceinline__ float rnd(const float v);
+template <> __device__ __forceinline__ float rnd<float>(const float v) {
+    return v;
+}
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(const float v) {
+    unsigned short b;
+    asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(b) : "f"(v));
+    return __uint_as_float((unsigned)b << 16);
+}
 
 __device__ __forceinline__ float snorm(float sq) {
     return sq > 0.f ? sqrtf(sq) : 0.f;
@@ -243,7 +284,9 @@ inline cudaError_t launch_dependent(void (*kernel)(Params...), const dim3 grid,
     return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// a1^T[k][p] = relu(W1 feat_p + b1)[k] for the batch (feat [kIn][kBatch]).
+// a1^T[k][p] = relu(W1 feat_p + b1)[k] for the batch (feat [kIn][kBatch],
+// already rounded to T), rounded to T: the operand of W2.
+template <typename T>
 __device__ __forceinline__ void layer1(const float* s_feat, const float* s_w1,
                                        const float* s_b1, float* s_a1) {
     for (int e = threadIdx.x; e < kH1 * kBatch; e += kThreads) {
@@ -251,12 +294,15 @@ __device__ __forceinline__ void layer1(const float* s_feat, const float* s_w1,
         float t = s_feat[p] * s_w1[k];
         t = fmaf(s_feat[kBatch + p], s_w1[kH1 + k], t);
         t = fmaf(s_feat[2 * kBatch + p], s_w1[2 * kH1 + k], t);
-        s_a1[k * kA1Stride + p] = fmaxf(t + s_b1[k], 0.f);
+        s_a1[k * kA1Stride + p] = rnd<T>(fmaxf(t + s_b1[k], 0.f));
     }
 }
 
-// a2 of thread (pg, og) = (t >> 4, t & 15): pairs 4pg + i, outputs 4og + o.
-// W2 rows are w2_stride floats apart (a multiple of 4).
+// a2 of thread (pg, og) = (t >> 4, t & 15): pairs 4pg + i, outputs 4og + o,
+// rounded to T (the operand of the u contraction; rounding keeps the sign,
+// so a2 > 0 is still the relu mask).  W2 rows are w2_stride floats apart
+// (a multiple of 4).
+template <typename T>
 __device__ __forceinline__ void layer2_tile(const float* s_a1,
                                             const float* s_w2,
                                             const int w2_stride,
@@ -283,7 +329,7 @@ __device__ __forceinline__ void layer2_tile(const float* s_a1,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int o = 0; o < 4; ++o) a2[i][o] = fmaxf(a2[i][o] + bv[o], 0.f);
+        for (int o = 0; o < 4; ++o) a2[i][o] = rnd<T>(fmaxf(a2[i][o] + bv[o], 0.f));
 }
 
 // This thread's part of a2_i . u over its four outputs (u4 = u + 4 og).

@@ -6,7 +6,7 @@ the autograd Function that ties them together.
 scene_mask(ids))`` (ops/social.py) and, under autograd, its gradient.
 
 Source notes.
-- Forward (csrc/social_attention_fwd.cu) replaces the Pallas TPU kernel
+- Forward (csrc/social_attention_fwd.cuh) replaces the Pallas TPU kernel
   ``_kernel`` of socialways_tpu/kernels/social_attention.py:150-198, driven
   by ``_pallas_forward`` (:219-314).  The TPU kernel kept all agents
   resident in VMEM and skipped j-tiles outside a band computed from sorted
@@ -17,7 +17,7 @@ Source notes.
   columns by id tests (no sorted-id assumption, no VMEM agent caps) and runs
   the pair MLP over batches of 32 pairs with all its threads.  It returns
   u and c, and under autograd the per-row softmax stats (m, l).
-- Backward (csrc/social_attention_bwd.cu) replaces ``_bwd_dq_kernel``
+- Backward (csrc/social_attention_bwd.cuh) replaces ``_bwd_dq_kernel``
   (:317-369) and ``_bwd_dkv_kernel`` (:372-461), driven by
   ``_pallas_backward`` (:464-591); both read the forward's u and c and take
   a tile of 2 agents a block over batches of their pairs from the same
@@ -48,6 +48,16 @@ Source notes.
   finds the same pairs in the same ring order as a w = 0 launch and gives
   equal bits.
 
+- bf16 operands.  When ``h`` is bf16 the kernels run their bf16 entry
+  points (``*_bf16``, in libraries of their own built from
+  ``csrc/*_bf16.cu``): h, wh and the feature-MLP weights bf16, x4, the
+  cotangents, stats, u and c float32, with the Pallas kernel's rounding
+  (ops/social.py gives the contract; ``_pallas_forward`` :248-258 and
+  ``_pallas_backward`` :464-477 set it).  A bf16 tensor on CUDA launches a
+  bf16 kernel or raises: it is never cast up to reach the float32 ones.
+  Each entry point counts its own launches: ``launches`` for float32,
+  ``launches_bf16`` for bf16.
+
 Dispatch: ``social_attention_fwd`` takes the plain dense form for a CPU
 tensor (under autograd when a gradient is needed) and launches the kernels
 or raises for a CUDA tensor.  ``social_attention`` is the size-aware
@@ -63,11 +73,13 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from socialways_torch.ops.nn import MLP, Linear, linear_apply, mlp_apply
+from socialways_torch.ops.nn import (MLP, Linear, LinearView, linear_apply,
+                                     wide)
 from socialways_torch.ops.social import (_NEG_INF, attention_pool,
-                                         scene_mask, social_context_blockwise,
-                                         social_context_windowed,
-                                         social_features)
+                                         attention_values, pair_embed,
+                                         scene_mask,
+                                         social_context_blockwise,
+                                         social_context_windowed)
 
 _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
@@ -84,9 +96,11 @@ _DENSE_MAX_AGENTS = 4096
 def social_attention_plain(feat_mlp: MLP, attn_w: Linear,
                            x4_last: torch.Tensor, h: torch.Tensor,
                            scene_ids: torch.Tensor) -> torch.Tensor:
-    """Dense plain PyTorch version: the CPU path and the kernel's oracle."""
-    f_emb = mlp_apply(feat_mlp, social_features(x4_last))
-    return attention_pool(attn_w, f_emb, h, scene_mask(scene_ids))
+    """Dense plain PyTorch version: the CPU path and the kernel's oracle.
+    The MLP's operands and the output take ``h``'s dtype."""
+    f_emb = pair_embed(feat_mlp, x4_last, op_dtype=h.dtype)
+    return attention_pool(attn_w, f_emb, h,
+                          scene_mask(scene_ids)).to(h.dtype)
 
 
 def social_attention_stats_plain(feat_mlp: MLP, attn_w: Linear,
@@ -94,11 +108,14 @@ def social_attention_stats_plain(feat_mlp: MLP, attn_w: Linear,
                                  scene_ids: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
-    """(out [N, H], m [N], l [N]): the forward and its per-row softmax max
-    and normalizer; a row with no neighbour has (-1e9, 0)."""
-    f_emb = mlp_apply(feat_mlp, social_features(x4_last))
+    """(out [N, H], m [N], l [N]), all float32: the forward, as the kernel
+    writes it before any cast, and its per-row softmax max and normalizer;
+    a row with no neighbour has (-1e9, 0)."""
+    f_emb = pair_embed(feat_mlp, x4_last, op_dtype=h.dtype)
     mask = scene_mask(scene_ids)
-    scores = torch.einsum("ijf,jf->ij", f_emb, linear_apply(attn_w, h))
+    scores = torch.einsum("ijf,jf->ij", f_emb,
+                          attention_values(attn_w, h.to(wide(h.dtype)),
+                                           h.dtype))
     scores = torch.where(mask, scores, _NEG_INF)
     m = scores.max(dim=-1).values
     l = torch.where(mask, torch.exp(scores - m[:, None]), 0.0).sum(dim=-1)
@@ -110,22 +127,22 @@ def _bwd_plain(x4, ids, h, wh, g, stats, r, weights, need_dxi: bool,
     """Shared dense form of both backward kernels: rebuild s_ij and a_ij
     from the saved stats, form ds_ij = a_ij (g_i . h_j - r_i), and take
     d(sum ds_ij s_ij) with ds held constant, which is sum_ij ds_ij ds_ij/dv
-    for every input v of the scores."""
+    for every input v of the scores.  The scores are rebuilt with the
+    forward's operand dtype (``h``'s), and every gradient is float32 (for
+    bf16 or float32 operands; float64 stays float64)."""
+    acc = wide(h.dtype)
     with torch.enable_grad():
-        xi = x4.detach().requires_grad_(need_dxi)
-        xj = x4.detach().requires_grad_(need_dxj)
-        ws = [w.detach().requires_grad_() for w in weights]
-        whd = wh.detach().requires_grad_()
-        x = social_features(xi, xj)
-        for k in range(3):
-            x = torch.matmul(x, ws[2 * k]) + ws[2 * k + 1]
-            if k < 2:
-                x = torch.relu(x)
+        xi = x4.detach().to(acc).requires_grad_(need_dxi)
+        xj = x4.detach().to(acc).requires_grad_(need_dxj)
+        ws = [w.detach().to(acc).requires_grad_() for w in weights]
+        whd = wh.detach().to(acc).requires_grad_()
+        layers = [LinearView(ws[2 * k], ws[2 * k + 1]) for k in range(3)]
+        x = pair_embed(layers, xi, xj, h.dtype)
         s = torch.einsum("ijf,jf->ij", x, whd)
         mask = scene_mask(ids)
         p = torch.where(mask, torch.exp(s.detach() - stats[:, :1]), 0.0)
         a = p / torch.clamp(stats[:, 1:], min=1e-20)
-        ds = a * (g @ h.T - r[:, None])
+        ds = a * (g @ h.to(acc).T - r[:, None])
         leaves = ([xi] if need_dxi else []) + ([xj] if need_dxj else [])
         grads = torch.autograd.grad((ds * s).sum(), leaves + ws + [whd])
     return a, list(grads)
@@ -207,21 +224,42 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+_OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_common(x4, ids, h, wh, weights) -> None:
+    """The operand dtype is ``h``'s, float32 or bf16: ``wh`` and the six
+    MLP tensors share it; ``x4`` is float32."""
     n, hdim = h.shape
     feat = wh.shape[1]
-    dev, f32 = h.device, torch.float32
+    dev, f32, op = h.device, torch.float32, h.dtype
     if hdim % 16 or not 16 <= hdim <= 128 or feat % 16 or not 16 <= feat <= 128:
         raise ValueError(f"social attention kernels need H and F multiples "
                          f"of 16 up to 128, got H={hdim}, F={feat}")
+    if op not in _OPERAND_DTYPES:
+        raise ValueError(f"h has dtype {op}, expected float32 or bfloat16")
     _check("x4_last", x4, (n, 4), f32, dev)
     _check("scene_ids", ids, (n,), torch.int32, dev)
-    _check("h", h, (n, hdim), f32, dev)
-    _check("wh", wh, (n, feat), f32, dev)
+    _check("h", h, (n, hdim), op, dev)
+    _check("wh", wh, (n, feat), op, dev)
     shapes = [(3, 32), (32,), (32, _H2), (_H2,), (_H2, feat), (feat,)]
     for name, t, shape in zip(["w1", "b1", "w2", "b2", "w3", "b3"],
                               weights, shapes):
-        _check(f"feat_mlp {name}", t, shape, f32, dev)
+        _check(f"feat_mlp {name}", t, shape, op, dev)
+
+
+def _entry(name: str, h: torch.Tensor) -> str:
+    """The library (csrc/<name>.cu) or C entry point ``name`` for ``h``'s
+    operand dtype: bf16 takes the ``_bf16`` one."""
+    return name if h.dtype == torch.float32 else name + "_bf16"
+
+
+def _count(wrapper, h: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s float32 or bf16 kernel."""
+    if h.dtype == torch.float32:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_bf16 += 1
 
 
 def _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c) -> None:
@@ -259,7 +297,8 @@ def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
     """(out [N, H], stats [N, 2] or None, u [N, 64], c [N]) from the two
     launches of the forward kernel; u = wh W3^T and c = wh . b3 are what
     the backward kernels read.  ``max_scene`` > 0 scans each tile's scene
-    window only (``scan_range``)."""
+    window only (``scan_range``).  Every output is float32; bf16 ``h``
+    launches the bf16 kernel."""
     _check_window(max_scene)
     _check_common(x4, ids, h, wh, weights)
     n, hdim = h.shape
@@ -267,10 +306,11 @@ def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
     out = torch.empty((n, hdim), **kw)
     stats = torch.empty((n, 2), **kw) if with_stats else None
     u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    _call(_FWD, _lib(_FWD, "social_attention_fwd", 14, 5),
+    _call(_FWD, _lib(_entry(_FWD, h), _entry("social_attention_fwd", h), 14,
+                     5),
           x4, ids, h, wh, *weights, out, stats, u, c, n, hdim, wh.shape[1],
           fwd_blocks(n), max_scene)
-    social_attention_fwd.launches += 1
+    _count(social_attention_fwd, h)
     return out, stats, u, c
 
 
@@ -284,7 +324,8 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     ``c`` [N].  CPU tensors take the plain version, which rebuilds the
     scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
     (one launch of ``dq_blocks(N)`` blocks, each tile scanning
-    ``scan_range(N, t0, max_scene)``) or raise."""
+    ``scan_range(N, t0, max_scene)``) or raise.  ``h``, ``wh`` and the
+    weights are float32 or bf16 together; the rest and dx are float32."""
     _check_window(max_scene)
     if h.device.type == "cpu":
         return social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r,
@@ -295,10 +336,11 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     n, hdim = h.shape
     dx = torch.empty((n, 4), device=h.device, dtype=torch.float32)
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dq", 13, 4),
+    _call(_BWD, _lib(_entry(_BWD, h), _entry("social_attention_bwd_dq", h),
+                     13, 4),
           x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim,
           dq_blocks(n), max_scene)
-    social_attention_bwd_dq.launches += 1
+    _count(social_attention_bwd_dq, h)
     return dx
 
 
@@ -311,7 +353,8 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     the forward's ``u`` and ``c``).  ``need_dx=False`` skips the feature
     backward of the neighbour side.  On CUDA: two launches, dkv (each
     column tile scanning ``scan_range(N, t0, max_scene)``: a column's
-    partners lie in the same window) and its finalize."""
+    partners lie in the same window) and its finalize.  Operand dtypes as
+    in ``social_attention_bwd_dq``; every gradient is float32."""
     _check_window(max_scene)
     if h.device.type == "cpu":
         return list(social_attention_bwd_dkv_plain(
@@ -330,11 +373,12 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     dw3, db3 = torch.empty((_H2, feat), **kw), torch.empty((feat,), **kw)
     dmlp12 = torch.empty((_PARTIAL,), **kw)
     # the C entry refuses a partial size other than its own blocks x slot
-    _call(_BWD, _lib(_BWD, "social_attention_bwd_dkv", 24, 6),
+    _call(_BWD, _lib(_entry(_BWD, h), _entry("social_attention_bwd_dkv", h),
+                     24, 6),
           x4, ids, h, wh, g, stats, r, u, c, *weights, a_sum, s_sum,
           partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim, feat,
           dkv_blocks(n), partial.numel(), max_scene)
-    social_attention_bwd_dkv.launches += 1
+    _count(social_attention_bwd_dkv, h)
     dw2 = dmlp12[:32 * _H2].view(32, _H2)
     db2 = dmlp12[32 * _H2:32 * _H2 + _H2]
     dw1 = dmlp12[32 * _H2 + _H2:32 * _H2 + _H2 + 96].view(3, 32)
@@ -345,22 +389,30 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
 class _SocialAttention(torch.autograd.Function):
     """The CUDA forward with stats and its backward kernels (replaces the
     ``custom_vjp`` at socialways_tpu/kernels/social_attention.py:601-679).
-    Inputs: max_scene, x4, ids, h, wh, w1, b1, w2, b2, w3, b3."""
+    Inputs: max_scene, op (the operand dtype), x4, ids, h, wh, w1, b1, w2,
+    b2, w3, b3; x4, h and wh float32, the weights in ``op``.  ``h`` and
+    ``wh`` (h W + b) are rounded to ``op`` here, so their gradients leave in
+    float32 and autograd sums both of h's paths before the one rounding of
+    dh, as JAX's epilogue does (:574-591).  It keeps the forward's float32
+    output for ``r = g . out`` (JAX's ``out_pad``) and returns it in ``op``;
+    the weights' gradients return in ``op``, from the kernels' float32
+    ones."""
 
     @staticmethod
-    def forward(ctx, max_scene, x4, ids, h, wh, *weights):
+    def forward(ctx, max_scene, op, x4, ids, h, wh, *weights):
+        h, wh = h.to(op), wh.to(op)
         out, stats, u, c = _launch_fwd(x4, ids, h, wh, weights,
                                        with_stats=True, max_scene=max_scene)
         ctx.save_for_backward(x4, ids, h, wh, out, stats, u, c, *weights)
         ctx.max_scene = max_scene
-        return out
+        return out.to(op)
 
     @staticmethod
     def backward(ctx, g):
         x4, ids, h, wh, out, stats, u, c, *weights = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.float().contiguous()
         r = (g * out).sum(dim=-1)
-        need_x = ctx.needs_input_grad[1]
+        need_x = ctx.needs_input_grad[2]
         w = ctx.max_scene
         dxj, dh, dwh, *dweights = social_attention_bwd_dkv(
             x4, ids, h, wh, g, stats, r, weights, u, c, need_dx=need_x,
@@ -369,7 +421,8 @@ class _SocialAttention(torch.autograd.Function):
         if need_x:
             dx = social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
                                          weights, u, c, max_scene=w) + dxj
-        return (None, dx, None, dh, dwh, *dweights)
+        return (None, None, dx, None, dh, dwh,
+                *(d.to(t.dtype) for d, t in zip(dweights, weights)))
 
 
 def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
@@ -383,20 +436,27 @@ def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
     and the backward runs the dq/dkv kernels; without one, the forward
     alone runs and writes no stats.  ``max_scene`` > 0 promises sorted,
     contiguous scenes of at most that many rows and lets every kernel scan
-    only its tile's window (the dense CPU form finds the same pairs)."""
+    only its tile's window (the dense CPU form finds the same pairs).
+
+    The operand dtype is ``h``'s (float32 or bf16), as in JAX's kernel
+    wrapper: ``wh`` (computed in float32) and the MLP's weights are cast to
+    it, ``x4_last`` to float32, and the output has ``h``'s dtype."""
     _check_window(max_scene)
     if h.device.type == "cpu":
         return social_attention_plain(feat_mlp, attn_w, x4_last, h, scene_ids)
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_fwd: unsupported device {h.device}")
-    weights = [t for layer in feat_mlp for t in (layer.w, layer.b)]
-    wh = linear_apply(attn_w, h)
+    op = h.dtype
+    weights = [t.to(op) for layer in feat_mlp for t in (layer.w, layer.b)]
+    hf = h.float()
+    wh = linear_apply(attn_w, hf)
+    x4 = x4_last.float()
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x4_last, h, wh, *weights]):
-        return _SocialAttention.apply(max_scene, x4_last, scene_ids, h, wh,
+            t.requires_grad for t in [x4, hf, wh, *weights]):
+        return _SocialAttention.apply(max_scene, op, x4, scene_ids, hf, wh,
                                       *weights)
-    return _launch_fwd(x4_last, scene_ids, h, wh, weights,
-                       with_stats=False, max_scene=max_scene)[0]
+    return _launch_fwd(x4, scene_ids, h, wh.to(op), weights,
+                       with_stats=False, max_scene=max_scene)[0].to(op)
 
 
 def social_attention(feat_mlp: MLP, attn_w: Linear, x4_last: torch.Tensor,
@@ -420,6 +480,7 @@ def social_attention(feat_mlp: MLP, attn_w: Linear, x4_last: torch.Tensor,
                                 max_scene)
 
 
-social_attention_fwd.launches = 0
-social_attention_bwd_dq.launches = 0
-social_attention_bwd_dkv.launches = 0
+for _wrapper in (social_attention_fwd, social_attention_bwd_dq,
+                 social_attention_bwd_dkv):
+    _wrapper.launches = 0          # float32 kernel
+    _wrapper.launches_bf16 = 0     # bf16 kernel

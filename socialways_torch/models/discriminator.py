@@ -18,6 +18,12 @@ train.py:272-316):
   weights of ``obsv_fc``, ``pred_fc`` and ``classifier`` by their top
   singular value at every D evaluation.
 
+Under ``compute_dtype="bfloat16"`` the caller passes a bf16 view of the
+weights (spectral norm first, on the float32 masters, then the cast, as
+JAX's ``cast(_sn(d_params))``) and bf16 inputs; the heads return bf16
+labels and codes, and the minibatch-stddev scalar is computed in float32
+and cast to the classifier's input dtype.
+
 Parameter names are the JAX ones (``obsv_lstm``, ``obsv_fc``, ``pred_fc``,
 ``classifier``, ``latent_dec``), so ``state_dict`` keys map one to one onto
 the JAX tree paths.
@@ -26,7 +32,7 @@ the JAX tree paths.
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,7 +40,8 @@ from torch import nn
 from socialways_torch.config import TrainConfig, check_supported
 from socialways_torch.device import resolve_device
 from socialways_torch.ops.lstm import LSTMCell, lstm_init, lstm_seq, zero_state
-from socialways_torch.ops.nn import (MLP, leaky_relu, linear_apply, mlp_init,
+from socialways_torch.ops.nn import (MLP, LinearView, leaky_relu,
+                                     linear_apply, mlp_init,
                                      spectral_normalize)
 
 #: the fully connected blocks; ``restore_linear_only`` takes these
@@ -134,12 +141,6 @@ def mb_std_feature(pred_4d: torch.Tensor, valid: torch.Tensor
     return feat.reshape(1, 1).expand(n, 1)
 
 
-class _LinearView(NamedTuple):
-    """A linear layer's ``w`` and ``b`` as ``linear_apply`` reads them."""
-    w: torch.Tensor
-    b: torch.Tensor
-
-
 def spectral_normalize_d(params: Discriminator, n_iters: int = 30):
     """A view of ``params`` whose ``obsv_fc``, ``pred_fc`` and
     ``classifier`` weights are spectrally normalized
@@ -149,7 +150,7 @@ def spectral_normalize_d(params: Discriminator, n_iters: int = 30):
     reaches through the normalization."""
     view = {k: getattr(params, k) for k in ("obsv_lstm", "latent_dec")}
     for k in ("obsv_fc", "pred_fc", "classifier"):
-        view[k] = [_LinearView(spectral_normalize(layer.w, n_iters), layer.b)
+        view[k] = [LinearView(spectral_normalize(layer.w, n_iters), layer.b)
                    for layer in getattr(params, k)]
     return SimpleNamespace(**view)
 

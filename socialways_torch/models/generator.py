@@ -23,6 +23,13 @@ goes through the kernels' autograd Function, on the CPU through the
 size-aware dispatch's plain forms under autograd (dense at small N;
 windowed or blockwise at crowd scale, ``max_scene``).
 
+Activations flow in the dtype of the observation: under
+``compute_dtype="bfloat16"`` the caller passes a bf16 view of the weights
+(``ops.nn.cast_params``) and bf16 inputs, every layer takes bf16 operands
+with float32 accumulation, the social call gets bf16 ``h`` and ``x4`` (the
+kernels' bf16 mode) and the decode, with its feedback through the encoder,
+stays bf16, as in JAX's generator.
+
 Parameter names are the JAX ones (``embed``, ``encoder``, ``feat_mlp``,
 ``attn_w`` and ``decoder`` or ``dec_lstm`` + ``dec_fc``), so ``state_dict`` keys such as ``feat_mlp.0.w``
 map one to one onto the JAX tree paths.
@@ -66,10 +73,6 @@ class Generator(nn.Module):
             self.dec_lstm = dec_lstm
             self.dec_fc = dec_fc
 
-    @property
-    def hidden_size(self) -> int:
-        return self.embed.w.shape[1]
-
 
 def init_generator(cfg: TrainConfig,
                    generator: Optional[torch.Generator] = None,
@@ -111,7 +114,7 @@ def encode_observation(params: Generator, obsv_4d: torch.Tensor,
                        remat: bool = False):
     """obsv_4d [N, T, 4] -> (h, c), each [N, hidden]."""
     emb = linear_apply(params.embed, obsv_4d)
-    state = zero_state(obsv_4d.shape[0], params.hidden_size,
+    state = zero_state(obsv_4d.shape[0], params.embed.w.shape[1],
                        obsv_4d.device, obsv_4d.dtype)
     _, state = lstm_seq(params.encoder, emb, state, remat)
     return state

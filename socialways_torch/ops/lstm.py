@@ -3,10 +3,13 @@
 Counterpart of socialways_tpu/ops/lstm.py:25-85: torch-convention gate math
 (order i, f, g, o; ``c' = σ(f)c + σ(i)tanh(g)``, ``h' = σ(o)tanh(c')``)
 with the input and hidden projections fused into ONE ``[x ‖ h] @ W``
-GEMM per step, ``W [in+h, 4h]`` and one fused bias.  Gate math runs in
-float32.  Sequences here are 8 observed steps, so the time loop is a plain
-Python loop; under ``remat`` each step is a ``torch.utils.checkpoint``
-(recomputed in the backward, as ``jax.checkpoint`` of the scan step).
+GEMM per step, ``W [in+h, 4h]`` and one fused bias.  The GEMM
+accumulates in float32 and the gate math runs in float32 whatever the
+carry dtype; with bf16 carries the new (h, c) are cast back to bf16
+(socialways_tpu/ops/lstm.py:39-56).  Sequences here are 8 observed steps,
+so the time loop is a plain Python loop; under ``remat`` each step is a
+``torch.utils.checkpoint`` (recomputed in the backward, as
+``jax.checkpoint`` of the scan step).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from socialways_torch.ops.nn import wide
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]     # (h, c), each [..., hidden]
 
@@ -48,11 +53,22 @@ def lstm_init(in_dim: int, hidden: int,
 
 
 def lstm_cell(p: LSTMCell, x: torch.Tensor, state: LSTMState) -> LSTMState:
+    """One step.  The GEMM and the gate math run in ``wide(h.dtype)`` and
+    the new (h, c) are cast back to the carry dtypes; float32 (or float64)
+    operands of one dtype take no cast (a no-op cast still costs host
+    time)."""
     h, c = state
-    gates = torch.matmul(torch.cat([x, h], dim=-1), p.w) + p.b
+    xh, w, b = torch.cat([x, h], dim=-1), p.w, p.b
+    cast = not x.dtype == h.dtype == w.dtype != torch.bfloat16
+    if cast:
+        acc = wide(h.dtype)
+        xh, w, b, c = xh.to(acc), w.to(acc), b.to(acc), c.to(acc)
+    gates = torch.matmul(xh, w) + b
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    if cast:
+        return h_new.to(h.dtype), c_new.to(state[1].dtype)
     return h_new, c_new
 
 

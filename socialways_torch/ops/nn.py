@@ -5,12 +5,18 @@ Counterpart of socialways_tpu/ops/nn.py:24-96.  A linear layer keeps
 transposes) and computes ``x @ w + b``.  Initialization is torch's
 ``nn.Linear`` reset rule, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights
 and biases, drawn from an explicit ``torch.Generator``.
+
+Mixed precision (``compute_dtype="bfloat16"``): ``cast_params`` gives a
+view of a model whose weights are bf16 casts of the float32 masters, and
+``linear_apply`` takes bf16 operands with float32 accumulation, as JAX's
+``preferred_element_type`` product.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from types import SimpleNamespace
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -29,6 +35,13 @@ class Linear(nn.Module):
         return linear_apply(self, x)
 
 
+class LinearView(NamedTuple):
+    """A linear layer's ``w`` and ``b`` as ``linear_apply`` reads them, for
+    weights that are not a module's own (a normalized or detached copy)."""
+    w: torch.Tensor
+    b: torch.Tensor
+
+
 class MLP(nn.ModuleList):
     """Chain of :class:`Linear` layers, ReLU between them (not after the
     last)."""
@@ -37,11 +50,54 @@ class MLP(nn.ModuleList):
         return mlp_apply(self, x)
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype sums over ``dtype`` operands run in: float32 for bf16 and
+    float32, float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def linear_apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, p.w) + p.b
+    """``x @ w + b`` in the activation dtype (socialways_tpu/ops/nn.py:
+    35-43).  The product accumulates in float32 and the bias is added in
+    float32; the result is cast to ``x``'s dtype once.  The products of
+    bf16 values are exact in float32, so with bf16 operands this is JAX's
+    result up to the order of the float32 sum.  Float32 (or float64) ``x``
+    and weights of its dtype take ``torch.matmul(x, w) + b`` with no cast
+    (a no-op cast still costs host time on every call of a launch-bound
+    step)."""
+    if x.dtype == p.w.dtype != torch.bfloat16:
+        return torch.matmul(x, p.w) + p.b
+    acc = wide(x.dtype)
+    return (torch.matmul(x.to(acc), p.w.to(acc)) + p.b.to(acc)).to(x.dtype)
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """A view of a model (``nn.Module``, list of layers, namespace or
+    ``NamedTuple`` of tensors) whose tensors are cast to ``dtype``: JAX's
+    ``cast`` (socialways_tpu/engine/train_step.py:200-207).  A cast is
+    differentiable, so gradients taken through the view reach the float32
+    masters.  Modules become namespaces of their parameters and children,
+    which the model functions read as they read the modules."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype)
+    if isinstance(tree, (list, nn.ModuleList)):
+        return [cast_params(t, dtype) for t in tree]
+    if isinstance(tree, tuple):            # a NamedTuple view of a layer
+        return type(tree)(*(cast_params(t, dtype) for t in tree))
+    if isinstance(tree, nn.Module):
+        items = {**dict(tree.named_parameters(recurse=False)),
+                 **dict(tree.named_children())}
+    else:
+        items = vars(tree)
+    return SimpleNamespace(**{k: cast_params(v, dtype)
+                              for k, v in items.items()})
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """For bf16 ``x`` the slope is rounded to bf16 first, as JAX's weakly
+    typed scalar is (0.2 becomes 0.2002)."""
+    if wide(x.dtype) != x.dtype:
+        negative_slope = float(torch.tensor(negative_slope, dtype=x.dtype))
     return F.leaky_relu(x, negative_slope)
 
 

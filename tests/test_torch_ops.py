@@ -170,18 +170,22 @@ def test_torch_social_dense_forms_match_jax():
     ("noise_dist", "gaussian"), ("compute_dtype", "bfloat16"),
     ("pac", 2), ("mb_std", True), ("spectral_norm", True)])
 def test_torch_config_rejects_unported_models(field, value):
-    """Binary codes and bf16 are refused, naming the field.  The LSTM
-    decoder, gaussian noise, PacGAN, minibatch stddev and spectral norm
-    are ported: they pass and build JAX's parameter shapes."""
+    """Binary codes and compute dtypes other than float32 and bfloat16
+    (float16) are refused, naming the field.  bf16, the LSTM decoder,
+    gaussian noise, PacGAN, minibatch stddev and spectral norm are ported:
+    they pass and build JAX's parameter shapes."""
     from socialways_torch.engine.losses import sample_noise
     from socialways_torch.models.discriminator import init_discriminator
     from socialways_torch.models.generator import init_generator
     check_supported(TrainConfig())
     cfg = TrainConfig().replace(**{field: value})
-    if field in ("latent_code_type", "compute_dtype"):
+    if field == "latent_code_type":
         with pytest.raises(NotImplementedError, match=field):
             check_supported(cfg)
         return
+    if field == "compute_dtype":
+        with pytest.raises(NotImplementedError, match=field):
+            check_supported(cfg.replace(compute_dtype="float16"))
     check_supported(cfg)
     gen = torch.Generator().manual_seed(0)
     g = init_generator(cfg, gen, "cpu")

@@ -277,15 +277,16 @@ PORTED_FLAGS = {"--grad-clip": (["--grad-clip", "1"], "grad_clip", 1.0),
                 "--spectral-norm": (["--spectral-norm"], "spectral_norm",
                                     True),
                 "--mb-std": (["--mb-std"], "mb_std", True),
-                "--grad-accum": (["--grad-accum", "2"], "grad_accum", 2)}
+                "--grad-accum": (["--grad-accum", "2"], "grad_accum", 2),
+                "--bf16": (["--bf16"], "compute_dtype", "bfloat16")}
 
 
 @pytest.mark.parametrize("flag", ["--grad-clip", "--pallas", "--bf16",
                                   "--pac", "--spectral-norm", "--mb-std",
                                   "--grad-accum"])
 def test_torch_cli_refuses_unported_training_flags(flag, toy_npz, capsys):
-    """``--pallas`` and ``--bf16`` stay refused, naming the flag; the
-    ported ones set their field."""
+    """``--pallas`` stays refused, naming the flag; the ported ones set
+    their field."""
     if flag in PORTED_FLAGS:
         argv, field, value = PORTED_FLAGS[flag]
         args = parse_args(["--cpu", "train", "--data", toy_npz] + argv)
