@@ -92,7 +92,22 @@ Phases (any failure raises):
    train --recipe loo --bf16 --grad-accum 4 --remat-steps
    --max-scene-size 16`` at batch 16,384 on a crowd npz of scenes of 16.
    Every bf16 run launches no float32 kernel;
-13. a ``kernels`` JSON line, then the device JSON as the last line.
+13. the ensemble (``engine/ensemble.py``, the kernels' member axis): (a)
+   each kernel's member launch at M = 4 on the loo training chunk's ids,
+   float32 and bf16 (forward with and without stats, dq, dkv with and
+   without dx_j), each member bit for bit equal to a launch of its
+   operands alone (M = 1), held against the member plain versions at
+   phase 4's and phase 12's bounds and timed beside 4 solo launches and
+   the member launch's bound; the float32 forward at N = 10,000, w = 16 likewise; (b)
+   ``EnsembleTrainer`` on the loo recipe at full width, 4 seeds: the
+   first member-batched step against 4 solo steps (losses rel 1e-4,
+   state 1e-3 of its scale), one epoch and ``evaluate`` against solo runs
+   (rel 2e-4), launches forward = steps + eval chunks and dkv = steps, as
+   a solo run's, every one a member launch, dq 0; (c) member-steps/s at M
+   = 1, 4, 8 against solo train steps/s, alternated, and one profiled
+   step at M = 4; (d) the robust1 base on the big toy set, 3 seeds x 2
+   epochs: each member's coverage equals its solo run's;
+14. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -200,29 +215,35 @@ def _bound(flop: float, nbytes: float, tc_flop: float = 0.0) -> dict:
 
 
 def attention_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
-                    n_params: int, with_wh: bool = False,
-                    op_bytes: int = 4) -> dict:
+                    n_mlp: int, with_wh: bool = False,
+                    op_bytes: int = 4, members: int = 1) -> dict:
     """Least time of the social-attention forward on this input, in the
     u-form the kernel computes: same-scene ordered pairs x (3->32 and
     32->64 layers and a2 . u_j: 96 + 2048 + 64 MAC), u = W3 wh (N 64 F)
     and, where the timed call includes it, wh = h W + b (N H F), at the f32
-    peak; against the bytes of x4, ids, h, wh (or W), the weights, out, u
-    and c at the HBM rate.  ``old_*``: the count of the f_ij . wh_j form
+    peak; against the bytes of x4, ids, h, wh (or, with ``with_wh``, the
+    attention weights W, b), the ``n_mlp`` feature-MLP weights, out, u and
+    c at the HBM rate.  ``old_*``: the count of the f_ij . wh_j form
     (64 F + 2 F MAC a pair instead of 64), for comparison.  ``op_bytes``:
     the bytes of an element of h, wh and the weights (4, or 2 for bf16
     operands).  With bf16 operands the same operations are counted, but
     every product of two bf16 operands with float32 sums (the 3->32 and
     32->64 layers, u = W3 wh and wh = h W) is costed at the bf16
-    tensor-core peak; a2 . u_j (u float32) stays at the FP32 peak."""
+    tensor-core peak; a2 . u_j (u float32) stays at the FP32 peak.
+    ``members``: M stacked models in one launch on one shared x4 and ids,
+    which are read once; every other byte and every operation counts M
+    times."""
     pairs = _pairs(ids)
     wh_mac = n * hdim * feat if with_wh else 0
-    bf16_able = pairs * (96 + 2048) + n * 64 * feat + wh_mac
+    bf16_able = members * (pairs * (96 + 2048) + n * 64 * feat + wh_mac)
     tc_mac = bf16_able if op_bytes == 2 else 0
-    f32_mac = pairs * 64 + bf16_able - tc_mac
-    old_f32_mac = pairs * (64 * feat + 2 * feat) + bf16_able - tc_mac
-    nbytes = (4 * (4 * n + n + n * hdim + 65 * n)
-              + op_bytes * (n * hdim + (0 if with_wh else n * feat)
-                            + n_params))
+    f32_mac = members * pairs * 64 + bf16_able - tc_mac
+    old_f32_mac = (members * pairs * (64 * feat + 2 * feat) + bf16_able
+                   - tc_mac)
+    own = op_bytes * (n_mlp + (hdim * feat + feat if with_wh else n * feat))
+    nbytes = (4 * (4 * n + n)
+              + members * (4 * (n * hdim + 65 * n) + op_bytes * n * hdim
+                           + own))
     out = _bound(2 * f32_mac, nbytes, 2 * tc_mac)
     out.update(pairs_needed=pairs, pairs_id_tested=n * n,
                old_bound_ms=_bound(2 * old_f32_mac, nbytes,
@@ -231,7 +252,8 @@ def attention_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
 
 
 def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
-                        n_mlp: int, kernel: str, op_bytes: int = 4) -> dict:
+                        n_mlp: int, kernel: str, op_bytes: int = 4,
+                        members: int = 1) -> dict:
     """Least time of a backward kernel on this input.  Per same-scene pair
     both recompute the score (features, 3->32 and 32->64 layers, and
     a2 . u_j with the forward's u_j = W3 wh_j: 96 + 2048 + 64 MAC), take
@@ -244,20 +266,22 @@ def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
     written once; h, wh and the weights ``op_bytes`` an element.  With
     bf16 operands the recomputed 3->32 and 32->64 layers (2144 MAC a
     pair, bf16 x bf16) are costed at the bf16 tensor-core peak; every
-    product with a float32 cotangent or u at the FP32 peak."""
+    product with a float32 cotangent or u at the FP32 peak.  ``members``
+    as in ``attention_bound``: x4 and ids once, the rest M times."""
     pairs = _pairs(ids)
     layers = 96 + 2048
-    tc_mac = pairs * layers if op_bytes == 2 else 0
+    tc_mac = members * pairs * layers if op_bytes == 2 else 0
     common = (0 if tc_mac else layers) + 64 + hdim + 64 + 2048
-    in_bytes = (4 * (4 * n + n + n * hdim + 3 * n + 65 * n)
-                + op_bytes * (n * hdim + n * feat + n_mlp))
+    in_bytes = 4 * (4 * n + n) + members * (
+        4 * (n * hdim + 3 * n + 65 * n)
+        + op_bytes * (n * hdim + n * feat + n_mlp))
     if kernel == "dq":
-        mac = pairs * (common + 96)
-        out_bytes = 4 * 4 * n
+        mac = members * pairs * (common + 96)
+        out_bytes = members * 4 * 4 * n
     else:
-        mac = (pairs * (common + hdim + 2048 + 128 + 128)
-               + 2 * n * 64 * feat + n * feat)
-        out_bytes = 4 * (n * hdim + n * feat + n_mlp)
+        mac = members * (pairs * (common + hdim + 2048 + 128 + 128)
+                         + 2 * n * 64 * feat + n * feat)
+        out_bytes = members * 4 * (n * hdim + n * feat + n_mlp)
     out = _bound(2 * mac, in_bytes + out_bytes, 2 * tc_mac)
     out["pairs_needed"] = pairs
     return out
@@ -464,11 +488,10 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
     n, hdim = h.shape
     feat = wh.shape[1]
     n_mlp = sum(t_.numel() for t_ in w)
-    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
     ids_np = ids.cpu().numpy()
     bounds = {k: attention_bwd_bound(ids_np, n, hdim, feat, n_mlp, k)
               for k in ("dq", "dkv")}
-    bounds["fwd"] = attention_bound(ids_np, n, hdim, feat, n_params)
+    bounds["fwd"] = attention_bound(ids_np, n, hdim, feat, n_mlp)
     print(f"backward [{name}]: Function vs autograd of plain ok; m, l, u, c "
           f"ok; dq max abs {err_q:.3e}, dkv max abs {err_kv:.3e}, dq and dkv "
           f"equal bits on two runs | forward alone {fwd_ms * 1e3:.2f} us, with "
@@ -493,7 +516,7 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
 
 #: the kernels of csrc/, each compiled for float and for bf16 operands, and
 #: their ptxas registers in the float-only build that preceded the bf16
-#: entries
+#: entries and the member axis (the float ones held to +-2 of these)
 PTXAS_KERNELS = {"u_prep_kernel": 74, "social_attention_fwd_kernel": 50,
                  "bwd_dq_kernel": 79, "bwd_dkv_kernel": 96,
                  "bwd_finalize_kernel": 30}
@@ -527,7 +550,8 @@ def ptxas_entries(log: str) -> dict:
 def profile_step(torch, what: str, fn) -> None:
     """Device kernels/copies and device time of one ``fn()`` under
     torch.profiler, against the median untraced wall of 5 calls (the
-    profiler inflates the wall it traces); the top device ops by time."""
+    profiler inflates the wall it traces); the top device ops by time.
+    Returns the device ops, device time, wall and idle share."""
     from torch.profiler import ProfilerActivity, profile
     walls = []
     for _ in range(6):
@@ -546,6 +570,8 @@ def profile_step(torch, what: str, fn) -> None:
     print(f"profile of {what}: {len(dev_events)} device kernels/copies, "
           f"{busy_us:.1f} us device time; untraced wall {wall_us:.1f} us "
           f"(median of 5) -> device idle {1 - busy_us / wall_us:.1%}")
+    out = {"ops": len(dev_events), "device_us": busy_us, "wall_us": wall_us,
+           "idle": 1 - busy_us / wall_us}
     by_name = {}
     for e in dev_events:
         n_t = by_name.setdefault(e.name, [0, 0.0])
@@ -554,6 +580,7 @@ def profile_step(torch, what: str, fn) -> None:
     for nm, (cnt, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:8]:
         print(f"  {us:9.1f} us {cnt:4d}x {nm[:90]}")
+    return out
 
 
 def reset_launches(sa) -> None:
@@ -1385,7 +1412,6 @@ def crowd_kernels(torch, sa, dev, cfg, card):
     g = init_generator(cfg, torch.Generator().manual_seed(17), dev)
     weights = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
     n_mlp = sum(t.numel() for t in weights)
-    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
     rng = np.random.RandomState(23)
     x4_np, h_np, ids_np = crowd_inputs(rng, CROWD_N, HIDDEN)
     x4, h, ids = (torch.from_numpy(a).to(dev) for a in (x4_np, h_np, ids_np))
@@ -1447,7 +1473,7 @@ def crowd_kernels(torch, sa, dev, cfg, card):
         torch, sa, g, x4, ids, h, wh, gout, w), repeats=3)
     plain_ms["dq"] = plain_ms["dkv"] = bwd_plain_ms
     bounds = {"fwd": attention_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
-                                     n_params),
+                                     n_mlp),
               "dq": attention_bwd_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
                                         n_mlp, "dq"),
               "dkv": attention_bwd_bound(ids_np, CROWD_N, HIDDEN, HIDDEN,
@@ -1488,7 +1514,7 @@ def crowd_kernels(torch, sa, dev, cfg, card):
             x4, ids, h, wh, weights, False, w))
         p_1m = median_ms(torch, lambda: social_context_windowed(
             g.feat_mlp, g.attn_w, x4, h, ids, w), repeats=3)
-    b = attention_bound(ids_np, CROWD_1M, HIDDEN, HIDDEN, n_params)
+    b = attention_bound(ids_np, CROWD_1M, HIDDEN, HIDDEN, n_mlp)
     entries["fwd_1m"] = {"n": CROWD_1M, "scene": w,
                          "pairs": b["pairs_needed"], "window_ms": t_1m,
                          "full_scan_ms": None, "plain_windowed_ms": p_1m,
@@ -1764,7 +1790,6 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
                for k, v in err.items()}
     entries = {}
     n_mlp = sum(t.numel() for t in w16)
-    n_params = n_mlp + g.attn_w.w.numel() + g.attn_w.b.numel()
     if timed:
         r = (gout * out).sum(-1)
         a16 = (x4, ids, h16, wh16, gout, stats, r, w16, u, c)
@@ -1793,7 +1818,7 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
                 t32 = median_ms(torch, mk(a32))
                 p_ms = median_ms(torch, plain[key], repeats=3)
                 if key == "fwd":
-                    b = attention_bound(ids_np, n, hdim, hdim, n_params,
+                    b = attention_bound(ids_np, n, hdim, hdim, n_mlp,
                                         op_bytes=2)
                 else:
                     b = attention_bwd_bound(ids_np, n, hdim, hdim, n_mlp,
@@ -2033,6 +2058,398 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
             "simulate_rates": sim_rates, "wall_s": wall}
 
 
+#: phase 13: the ensemble's members (ROADMAP Queue 1 item 9), the member
+#: counts whose rates it measures, and the toy protocol's robust1 base
+#: (benchmarks/coverage_ensemble.py:88-93) for its coverage check
+ENSEMBLE_M, ENSEMBLE_RATE_MS = 4, (1, 4, 8)
+ROBUST1_BASE = dict(batch_size=256, n_unrolling_steps=1, lr_d=5e-4,
+                    latent_code_type="categorical", n_latent_codes=3,
+                    loss_info_w=1.0, d_lr_decay_rate=0.7,
+                    d_lr_decay_steps=10000)
+
+
+def member_operands(torch, gens, hs, op):
+    """M members' kernel operands: each member's feature MLP and attention
+    weights (generators ``gens``) and hidden states ``hs`` (float32),
+    wh = h W + b, stacked on a leading member axis in the operand dtype
+    ``op`` as the wrappers take them (bf16: the Pallas rounding of JAX's
+    cast)."""
+    from socialways_torch.ops.nn import cast_params, linear_apply
+    h_m, wh_m, w_m = [], [], []
+    for g, h in zip(gens, hs):
+        g = cast_params(g, op)
+        h = h.to(op)
+        with torch.no_grad():
+            wh_m.append(linear_apply(g.attn_w, h.float()).to(op))
+        h_m.append(h)
+        w_m.append([t.detach() for layer in g.feat_mlp
+                    for t in (layer.w, layer.b)])
+    stack = lambda ts: torch.stack(ts).contiguous()
+    return stack(h_m), stack(wh_m), [stack(list(t)) for t in zip(*w_m)]
+
+
+def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
+                       max_scene=0, backward=True, plain=True):
+    """Phase 13a on one input: the member launch of each kernel (forward
+    with and without stats, dq, dkv with its finalize, with and without
+    dx_j) for the members' generators ``gens`` and hidden states ``hs`` on
+    shared x4 and ids, against M = len(gens) solo launches (M = 1) on the
+    members' operands (equal bits), against the member plain version
+    (float32: ``check_close``'s bounds; bf16: ``check_bf16``'s; ``plain``
+    False: at crowd N, where the solo launches were held against the
+    windowed plain form in phase 11), and timed beside M solo launches and
+    the member launch's bound (x4 and ids read once)."""
+    m, (n,) = len(gens), ids.shape
+    hdim = HIDDEN
+    h, wh, w = member_operands(torch, gens, hs, op)
+    gout = torch.from_numpy(np.random.RandomState(60).randn(
+        m, n, hdim).astype(np.float32)).to(dev)
+    bf16 = op == torch.bfloat16
+    with torch.no_grad():
+        out, stats, u, c = sa._launch_fwd(x4, ids, h, wh, w, True, max_scene)
+        out0 = sa._launch_fwd(x4, ids, h, wh, w, False, max_scene)[0]
+        r = (gout * out).sum(-1)
+        args = (x4, ids, h, wh, gout, stats, r, w)
+        if backward:
+            dq = sa.social_attention_bwd_dq(*args, u, c, max_scene=max_scene)
+            dkv = sa.social_attention_bwd_dkv(*args, u, c, need_dx=False,
+                                              max_scene=max_scene)
+            dkv_x = sa.social_attention_bwd_dkv(*args, u, c,
+                                                max_scene=max_scene)
+        solo = lambda i: (x4, ids, h[i], wh[i], [t[i] for t in w])
+        for i in range(m):
+            o, st, ui, ci = sa._launch_fwd(*solo(i), True, max_scene)
+            same = [torch.equal(o, out[i]), torch.equal(st, stats[i]),
+                    torch.equal(ui, u[i]), torch.equal(ci, c[i]),
+                    torch.equal(sa._launch_fwd(*solo(i), False,
+                                               max_scene)[0], out0[i])]
+            if backward:
+                a_i = (x4, ids, h[i], wh[i], gout[i], st, r[i],
+                       [t[i] for t in w], ui, ci)
+                same.append(torch.equal(sa.social_attention_bwd_dq(
+                    *a_i, max_scene=max_scene), dq[i]))
+                for full, part in ((dkv, sa.social_attention_bwd_dkv(
+                        *a_i, need_dx=False, max_scene=max_scene)),
+                                   (dkv_x, sa.social_attention_bwd_dkv(
+                                       *a_i, max_scene=max_scene))):
+                    same += [torch.equal(a[i], b) for a, b in zip(full, part)
+                             if b is not None]
+            if not all(same):
+                raise AssertionError(f"member kernels [{tag}]: member {i} "
+                                     f"differs from its solo launches "
+                                     f"({same})")
+        torch.cuda.synchronize()
+    # against the member plain versions
+    errs = {}
+    with torch.no_grad():
+        p_out, p_stats = (sa.social_attention_fwd_members_plain(
+            x4, ids, h, wh, w) if plain else (None, None))
+    if plain and bf16:
+        errs["fwd"] = max(check_bf16(f"member fwd out [{tag}]", out, p_out,
+                                     "out")[0],
+                          check_bf16(f"member fwd m [{tag}]", stats[..., 0],
+                                     p_stats[..., 0], "m")[0],
+                          check_bf16(f"member fwd l [{tag}]", stats[..., 1],
+                                     p_stats[..., 1], "l")[0])
+    elif plain:
+        errs["fwd"] = max(check_close(out, p_out, f"member fwd out [{tag}]"),
+                          check_close(stats, p_stats,
+                                      f"member fwd stats [{tag}]"))
+    if backward and plain:
+        p_dq = sa.social_attention_bwd_dq_members_plain(*args)
+        p_dkv = sa.social_attention_bwd_dkv_members_plain(*args)
+        kinds = ["dx", "value", "value"] + ["weight"] * 6
+        dq_err, dkv_err = 0.0, 0.0
+        for i in range(m):
+            if bf16:
+                dq_err = max(dq_err, check_bf16(f"member dq [{tag}]", dq[i],
+                                                p_dq[i], "dx")[0])
+            else:
+                dq_err = max(dq_err, check_close(dq[i], p_dq[i],
+                                                 f"member dq [{tag}]", "dx"))
+            for kd, a, b in zip(kinds, dkv_x, p_dkv):
+                kd = ("grad" if kd == "weight" else kd) if bf16 else kd
+                chk = (check_bf16(f"member dkv [{tag}]", a[i], b[i], kd)[0]
+                       if bf16 else check_close(a[i], b[i],
+                                                f"member dkv [{tag}]", kd))
+                dkv_err = max(dkv_err, chk)
+        errs["dq"], errs["dkv"] = dq_err, dkv_err
+    # times: the member launch, M solo launches, the member plain version
+    with torch.no_grad():
+        solo_fwd = lambda st: (lambda: [sa._launch_fwd(*solo(i), st,
+                                                       max_scene)
+                                        for i in range(m)])
+        calls = {"fwd": (lambda: sa._launch_fwd(x4, ids, h, wh, w, False,
+                                                max_scene), solo_fwd(False)),
+                 "fwd_stats": (lambda: sa._launch_fwd(x4, ids, h, wh, w, True,
+                                                      max_scene),
+                               solo_fwd(True))}
+        if backward:
+            solo_args = [(x4, ids, h[i], wh[i], gout[i], stats[i], r[i],
+                          [t[i] for t in w], u[i], c[i]) for i in range(m)]
+            calls["dq"] = (lambda: sa.social_attention_bwd_dq(
+                *args, u, c, max_scene=max_scene),
+                lambda: [sa.social_attention_bwd_dq(*a, max_scene=max_scene)
+                         for a in solo_args])
+            calls["dkv"] = (lambda: sa.social_attention_bwd_dkv(
+                *args, u, c, need_dx=False, max_scene=max_scene),
+                lambda: [sa.social_attention_bwd_dkv(
+                    *a, need_dx=False, max_scene=max_scene)
+                    for a in solo_args])
+        # M solo wrapper calls take more host time than M device kernels:
+        # a short run keeps their enqueue inside median_ms's device sleep
+        ms = {k: (median_ms(torch, a), median_ms(torch, b, budget_s=0.01))
+              for k, (a, b) in calls.items()}
+        plain_ms = {"fwd_stats": median_ms(
+            torch, lambda: sa.social_attention_fwd_members_plain(
+                x4, ids, h, wh, w))} if plain else {}
+        if backward and plain:
+            plain_ms["dq"] = median_ms(
+                torch, lambda: sa.social_attention_bwd_dq_members_plain(*args))
+            plain_ms["dkv"] = median_ms(
+                torch, lambda: sa.social_attention_bwd_dkv_members_plain(
+                    *args, need_dx=False))
+    ids_np = ids.cpu().numpy()
+    op_bytes = 2 if bf16 else 4
+    n_mlp = sum(t[0].numel() for t in w)
+    # the member launch's own operands: x4 and ids once (shared), the rest
+    # and every operation once a member
+    bound = {
+        "fwd_stats": attention_bound(ids_np, n, hdim, hdim, n_mlp,
+                                     op_bytes=op_bytes, members=m),
+        "dq": attention_bwd_bound(ids_np, n, hdim, hdim, n_mlp, "dq",
+                                  op_bytes=op_bytes, members=m),
+        "dkv": attention_bwd_bound(ids_np, n, hdim, hdim, n_mlp, "dkv",
+                                   op_bytes=op_bytes, members=m)}
+    bound["fwd"] = bound["fwd_stats"]
+    res = {}
+    for k, (k_ms, s_ms) in ms.items():
+        b = bound[k]
+        res[k] = {"ms": k_ms, "solo_ms": s_ms, "plain_ms": plain_ms.get(k),
+                  "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                  "max_abs_err": errs.get("fwd" if k.startswith("fwd")
+                                          else k)}
+        print(f"member {k} [{tag}, M = {m}, {'bf16' if bf16 else 'float32'}"
+              f"]: one launch {k_ms * 1e3:.2f} us, {m} solo launches "
+              f"{s_ms * 1e3:.2f} us, member plain "
+              + (f"{plain_ms[k] * 1e3:.2f} us" if k in plain_ms else "-")
+              + f", bound {b['bound_ms'] * 1e3:.3f} us "
+              f"({b['bound_by']}) [{card}]")
+    print(f"member kernels [{tag}, {'bf16' if bf16 else 'float32'}]: every "
+          f"member equals its solo launches bit for bit; max abs error "
+          f"against the member plain versions {errs or 'not compared'}")
+    return res, errs
+
+
+def ensemble_loo(torch, sa, dev, npz, cfg, card):
+    """Phase 13b: ``EnsembleTrainer`` on the loo recipe at full width, M =
+    ENSEMBLE_M seeds: the first member step against the members' solo
+    steps under the same draws, one epoch and ``evaluate`` against solo
+    runs, and the kernels' launches over that epoch and evaluate."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import (EnsembleTrainer,
+                                                  member_state, stack_draws)
+    from socialways_torch.engine.train_step import (draw_step, eval_params,
+                                                    gan_step)
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.io.checkpoint import flatten_state
+
+    tr = Trainer(cfg, load_npz_dataset(npz), dev)
+    ens = EnsembleTrainer(tr)
+    seeds = [1 + i for i in range(ENSEMBLE_M)]
+    width, nv0 = tr.train_packed.width, int(tr.train_packed.n_valid[0])
+    # the first step: member-batched against solo, the same draws
+    draws = [draw_step(width, tr.cfg, torch.Generator(device=dev).manual_seed(
+        70 + s), dev) for s in seeds]
+    stacked, m = gan_step(ens.init_states(seeds), chunk_of(tr.train_dev, 0),
+                          stack_draws(draws), tr.cfg, nv0, members=True)
+    worst = 0.0
+    for i, s in enumerate(seeds):
+        solo, ms = gan_step(tr.init_state(s), chunk_of(tr.train_dev, 0),
+                            draws[i], tr.cfg, nv0)
+        for nm in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
+            a, b = float(getattr(m, nm)[i]), float(getattr(ms, nm))
+            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"ensemble first step member {i} {nm}: "
+                                     f"{a} vs solo {b}")
+        f_m, f_s = flatten_state(member_state(stacked, i)), flatten_state(solo)
+        for key, ref in f_s.items():
+            if key.endswith(".count"):
+                if int(f_m[key]) != int(ref):
+                    raise AssertionError(f"ensemble {key}: {f_m[key]} vs "
+                                         f"{ref}")
+                continue
+            err = float(np.abs(f_m[key] - ref).max())
+            scale = float(np.abs(ref).max())
+            if err > 1e-3 * scale + 1e-9:
+                raise AssertionError(f"ensemble first step member {i} {key}:"
+                                     f" max abs {err:.3e}, scale {scale:.3e}")
+            worst = max(worst, err / (1e-3 * scale + 1e-9))
+    print(f"ensemble first step (M = {ENSEMBLE_M}, loo width) vs {ENSEMBLE_M}"
+          f" solo steps: losses and sums within rel 1e-4, every state "
+          f"tensor at most {worst:.3f} of 1e-3 its scale")
+    # one epoch and evaluate: the main path of the slice
+    gens = lambda: [torch.Generator(device=dev).manual_seed(90 + s)
+                    for s in seeds]
+    states = ens.init_states(seeds)
+    reset_launches(sa)
+    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
+               sa.social_attention_bwd_dkv):
+        fn.member_launches = fn.member_launches_bf16 = 0
+    states, me = ens.train_epoch(states, gens())
+    epoch_launches = read_launches(sa)
+    ev = ens.evaluate(states, seeds)
+    torch.cuda.synchronize()
+    launches = read_launches(sa)
+    member_launches = {"fwd": sa.social_attention_fwd.member_launches,
+                       "dq": sa.social_attention_bwd_dq.member_launches,
+                       "dkv": sa.social_attention_bwd_dkv.member_launches}
+    n_steps, n_eval = tr.n_steps_per_epoch, tr.test_packed.n_chunks
+    want = {"fwd": n_steps + n_eval, "dq": 0, "dkv": n_steps}
+    if launches != want or member_launches != want or epoch_launches != {
+            "fwd": n_steps, "dq": 0, "dkv": n_steps}:
+        raise AssertionError(f"ensemble epoch + evaluate launched {launches} "
+                             f"(member launches {member_launches}, epoch "
+                             f"{epoch_launches}), want {want}: one launch a "
+                             f"step and an eval chunk for all members")
+    for i, s in enumerate(seeds):
+        solo, ms = tr.train_epoch(tr.init_state(s), gens()[i])
+        ev_s = tr.evaluate(eval_params(solo), s)
+        pairs = [(f"train {k}", me[k][i], ms[k]) for k in
+                 ("d_loss", "g_loss", "train_ade", "train_fde")]
+        pairs += [(f"eval {k}", ev[i][k], ev_s[k]) for k in ev_s]
+        for nm, a, b in pairs:
+            if not np.isfinite(a) or abs(a - b) > 2e-4 * abs(b):
+                raise AssertionError(f"ensemble member {i} {nm}: {a} vs solo "
+                                     f"{b} (rel 2e-4)")
+    print(f"ensemble epoch (M = {ENSEMBLE_M}, {n_steps} steps) + evaluate "
+          f"({n_eval} chunks): launches fwd {launches['fwd']} = {n_steps} + "
+          f"{n_eval}, dkv {launches['dkv']}, dq {launches['dq']}, every one "
+          f"a member launch; each member's train metrics and evaluate ADE/FDE"
+          f" within rel 2e-4 of its solo run (member 0: ade_min "
+          f"{ev[0]['ade_min']:.6f}) [{card}]")
+    return {"launches": launches, "trainer": tr}
+
+
+def ensemble_rates(torch, dev, tr, card):
+    """Phase 13c: member-steps/s of an ensemble epoch at each M of
+    ENSEMBLE_RATE_MS and the solo train steps/s, in one process, the runs
+    alternated over two rounds (medians); one ensemble step at M =
+    ENSEMBLE_M profiled."""
+    from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import chunk_of
+    ens = EnsembleTrainer(tr)
+    n_steps = tr.n_steps_per_epoch
+    runs = {m: (ens.init_states(list(range(m))),
+                [torch.Generator(device=dev).manual_seed(s)
+                 for s in range(m)]) for m in ENSEMBLE_RATE_MS}
+    solo = [tr.init_state(0), torch.Generator(device=dev).manual_seed(0)]
+    times = {m: [] for m in (*ENSEMBLE_RATE_MS, "solo")}
+    for rnd in range(3):            # round 0 warms every run up
+        for key in (*ENSEMBLE_RATE_MS, "solo"):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            if key == "solo":
+                solo[0], _ = tr.train_epoch(*solo)
+            else:
+                st, gens = runs[key]
+                runs[key] = (ens.train_epoch(st, gens)[0], gens)
+            torch.cuda.synchronize()
+            if rnd:
+                times[key].append(time.perf_counter() - tic)
+    rates = {f"M={m}": m * n_steps / float(np.median(times[m]))
+             for m in ENSEMBLE_RATE_MS}
+    rates["solo"] = n_steps / float(np.median(times["solo"]))
+    print(f"ensemble rates (loo width, batch {BATCH}, {n_steps} steps an "
+          f"epoch, 2 alternated rounds, medians): member-steps/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items() if k != "solo")
+          + f"; solo train steps/s {rates['solo']:.2f} [{card}]")
+    st, gens = runs[ENSEMBLE_M]
+    width = tr.train_packed.width
+    c1, nv1 = chunk_of(tr.train_dev, 1), int(tr.train_packed.n_valid[1])
+    prof = profile_step(torch, f"one ensemble step (M = {ENSEMBLE_M})",
+                        lambda: gan_step(st, c1, stack_draws(
+                            [draw_step(width, tr.cfg, g, dev) for g in gens]),
+                            tr.cfg, nv1, members=True))
+    return rates, prof
+
+
+def ensemble_coverage(torch, dev, work, card):
+    """Phase 13d: the robust1 base on the big toy set, seeds 0, 1, 2 for 2
+    epochs: each member's coverage equals its solo run's (the CLI's
+    ``_coverage`` with the member's seed)."""
+    from socialways_torch.cli.main import _coverage
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.data.toy import make_toy_npz_arrays
+    from socialways_torch.engine.ensemble import EnsembleTrainer
+    from socialways_torch.engine.train_step import eval_params
+    from socialways_torch.engine.trainer import Trainer
+    toy = os.path.join(work, "toy-ensemble.npz")
+    np.savez(toy, **make_toy_npz_arrays(n_conditions=8, n_samples=768,
+                                        n_per_batch=8))
+    ds = load_npz_dataset(toy)
+    tr = Trainer(TrainConfig(**ROBUST1_BASE), ds, dev)
+    ens, seeds = EnsembleTrainer(tr), [0, 1, 2]
+    gens = lambda: [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    states, _ = ens.train_epochs(ens.init_states(seeds), gens(), 2)
+    covs = ens.coverage(states, seeds)
+    solo_covs = []
+    for i, s in enumerate(seeds):
+        solo, _ = tr.train_epochs(tr.init_state(s), gens()[i], 2)
+        solo_covs.append(_coverage(eval_params(solo), ds, tr.cfg,
+                                   tr.cfg.n_gen_samples, s, dev))
+    if covs != solo_covs:
+        raise AssertionError(f"ensemble coverage {covs} != solo {solo_covs}")
+    print(f"ensemble coverage (robust1 base, big toy set, seeds {seeds}, 2 "
+          f"epochs): {covs}, equal to each member's solo run [{card}]")
+    return covs
+
+
+def ensemble_phase(torch, sa, dev, npz, work, train_cfg, card):
+    """Phase 13, the ensemble: (a) the member kernels, (b) EnsembleTrainer
+    on the loo recipe, (c) rates and a profiled step, (d) coverage."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.models.generator import (encode_observation,
+                                                   init_generator)
+    from socialways_torch.ops.traj import (canonicalize_for_rollout,
+                                           obsv_to_4d)
+    tic_phase = time.perf_counter()
+    # (a) on the operands of the ensemble's first step: the first loo
+    # training chunk, the generators of seeds 1..M (as Trainer.init_state
+    # draws them) and their encoder states
+    tr = Trainer(train_cfg, load_npz_dataset(npz), dev)
+    chunk = chunk_of(tr.train_dev, 0)
+    obsv_in, _, x4 = canonicalize_for_rollout(chunk["obsvs"], True, True)
+    gens = [init_generator(tr.cfg, torch.Generator().manual_seed(1 + i), dev)
+            for i in range(ENSEMBLE_M)]
+    with torch.no_grad():
+        hs = [encode_observation(g, obsv_to_4d(obsv_in))[0] for g in gens]
+    kernels = {}
+    for op in (torch.float32, torch.bfloat16):
+        kernels[str(op).split(".")[-1]] = member_kernel_case(
+            torch, sa, dev, x4.contiguous(), chunk["scene_ids"], gens, hs,
+            "loo train chunk 0", card, op)
+    x4c, _, idsc = crowd_inputs(np.random.RandomState(62), CROWD_N, HIDDEN)
+    rng = np.random.RandomState(63)
+    hc = [torch.from_numpy(np.tanh(rng.randn(CROWD_N, HIDDEN)).astype(
+        np.float32)).to(dev) for _ in gens]
+    kernels["crowd"] = member_kernel_case(
+        torch, sa, dev, torch.from_numpy(x4c).to(dev),
+        torch.from_numpy(idsc).to(dev), gens, hc,
+        f"crowd N={CROWD_N} w={CROWD_SCENE}", card, torch.float32,
+        max_scene=CROWD_SCENE, backward=False, plain=False)
+    loo = ensemble_loo(torch, sa, dev, npz, train_cfg, card)
+    rates, prof = ensemble_rates(torch, dev, loo["trainer"], card)
+    covs = ensemble_coverage(torch, dev, work, card)
+    wall = time.perf_counter() - tic_phase
+    print(f"ensemble phase: {wall:.2f} s wall [{card}]")
+    return {"kernels": kernels, "launches": loo["launches"], "rates": rates,
+            "profile": prof, "coverage": covs, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2155,10 +2572,9 @@ def main() -> int:
                                  lambda: sa.social_attention_plain(*args))
             n, hdim = h.shape
             feat = g.attn_w.w.shape[1]
-            n_params = sum(t.numel() for m in (g.feat_mlp, g.attn_w)
-                           for t in m.parameters())
-            bound = attention_bound(ids, n, hdim, feat, n_params)
-            bound_wr = attention_bound(ids, n, hdim, feat, n_params,
+            n_mlp = sum(t.numel() for t in g.feat_mlp.parameters())
+            bound = attention_bound(ids, n, hdim, feat, n_mlp)
+            bound_wr = attention_bound(ids, n, hdim, feat, n_mlp,
                                        with_wh=True)
             max_err = max(max_err, float(err.max()))
             print(f"forward vs plain [{name}]: max abs {float(err.max()):.3e} "
@@ -2317,6 +2733,9 @@ def main() -> int:
         bf16 = bf16_phase(torch, sa, cli_main, dev, npz, loo_ckpt, work,
                           bwd_cases[-1][1:], smi)
 
+        # ---- 13. the ensemble: member kernels, EnsembleTrainer, rates
+        ens = ensemble_phase(torch, sa, dev, npz, work, train_cfg, smi)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -2415,6 +2834,36 @@ def main() -> int:
                 **({"crowd_32k": bf16["kernels"][CROWD_BF16]["fwd"]}
                    if key == "fwd" else {}),
             })
+        # the member launches (the same entries, M > 1): launches from the
+        # ensemble's epoch and evaluate (float32; the ensemble refuses
+        # bf16), times at M = 4 on the first loo training chunk
+        for dt, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+            res = ens["kernels"][dt][0]
+            for key, fn, line, f, t_key in (
+                    ("fwd", "_kernel", 150, "fwd", "fwd_stats"),
+                    ("dq", "_bwd_dq_kernel", 317, "bwd", "dq"),
+                    ("dkv", "_bwd_dkv_kernel", 372, "bwd", "dkv")):
+                e = res[t_key]
+                name = ("social_attention_fwd" if key == "fwd"
+                        else f"social_attention_bwd_{key}")
+                kernels.append({
+                    "name": name + suffix + "_members",
+                    "route": "cuda",
+                    "source": src + f"social_attention_{f}.cuh",
+                    "replaces": f"{tpu}:{line} ({fn}, a member axis)",
+                    "launches": (ens["launches"][key] if not suffix
+                                 else 0),
+                    "max_abs_err": e["max_abs_err"],
+                    "ms": e["ms"],
+                    "plain_ms": e["plain_ms"],
+                    "bound_ms": e["bound_ms"],
+                    "bound_by": e["bound_by"],
+                    "library_ms": None,
+                    "members": ENSEMBLE_M,
+                    "solo_launches_ms": e["solo_ms"],
+                    **({"crowd": ens["kernels"]["crowd"][0]["fwd_stats"]}
+                       if key == "fwd" and not suffix else {}),
+                })
         print(f"train steps/s (epoch 2, loo width, batch {BATCH}): "
               f"{steps_s:.2f}; toy train steps/s {toy_rate:.2f}; sweep "
               f"{sweep_s:.2f} s; gan variants train steps/s "
@@ -2424,7 +2873,12 @@ def main() -> int:
               f"steps/s {bf16['train_rates']}, rollout "
               f"{bf16['serving']['rollout_rate']:.4g} agent-steps/s, "
               f"simulate {bf16['simulate_rates']} agent-steps/s, phase 12 "
-              f"{bf16['wall_s']:.1f} s; chip_smoke wall "
+              f"{bf16['wall_s']:.1f} s; ensemble: member-steps/s "
+              f"{ens['rates']}, a step at M = {ENSEMBLE_M} "
+              f"{ens['profile']['ops']} device ops, "
+              f"{ens['profile']['device_us']:.1f} us, "
+              f"{ens['profile']['idle']:.1%} idle, phase 13 "
+              f"{ens['wall_s']:.1f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -51,6 +51,21 @@ feed JAX's draws in).  The schedules (info weight, instance noise, D/G
 ratio) read the G optimizer's count on the host.  A chunk with no valid
 row leaves the state as it is (:732-763), decided on the host from its
 valid count.
+
+Member mode (``members=True``, engine/ensemble.py): the state holds M
+models stacked on a leading member axis (every parameter, moment and EMA
+leaf [M, ...]; the optimizer counts shared host integers) and the draws
+carry a leading M; the data is shared.  The same loss code runs under
+``torch.func.vmap`` over the members (``models/stacked.py``: each stacked
+module enters as its parameters, seen inside as one member's namespace),
+the kernels launching once for all members (``_SocialAttention``'s vmap
+rule); each gradient is one ``torch.autograd.grad`` of the sum of the
+members' losses, outside ``vmap`` (members are independent, so the
+gradient of the sum with respect to member m's slice is member m's
+gradient); Adam, the clip (one norm per member) and the EMA run on the
+stacked leaves.  The variants it does not batch yet (R1's gradient inside
+the loss, the G phase's recomputed rollouts, accumulation, remat, bf16)
+are refused there (``check_members_supported``).
 """
 
 from __future__ import annotations
@@ -80,6 +95,7 @@ from socialways_torch.models.generator import (Generator, decode_rollout,
                                                generator_rollout,
                                                init_generator,
                                                prepare_rollout)
+from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
                                        pred_to_4d, to_agent_frame)
@@ -122,9 +138,11 @@ class Adam:
 
     @torch.no_grad()
     def step(self, opt: AdamState, params: nn.Module,
-             grads: Sequence[torch.Tensor]) -> None:
+             grads: Sequence[torch.Tensor], members: bool = False) -> None:
         """One update of ``params`` in place from ``grads`` (in
-        ``parameters()`` order)."""
+        ``parameters()`` order).  ``members``: every leaf is stacked on a
+        leading member axis, and the clip takes one norm per member (the
+        rest is elementwise)."""
         lr = self.lr
         if callable(lr):
             lr = lr(opt.schedule_count)
@@ -133,7 +151,7 @@ class Adam:
         mu, nu = list(opt.mu.values()), list(opt.nu.values())
         grads = list(grads)
         if self.clip > 0:
-            grads = clip_by_global_norm(grads, self.clip)
+            grads = clip_by_global_norm(grads, self.clip, members)
         opt.count += 1
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
@@ -147,14 +165,23 @@ class Adam:
         torch._foreach_add_(ps, m_hat, alpha=-lr)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
-                        ) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        members: bool = False) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: every leaf times ``max_norm / g``
     when the norm ``g`` of all leaves together reaches ``max_norm``.  The
-    test stays on the device."""
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    keep = g_norm < max_norm
-    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+    test stays on the device.  ``members``: the leaves are stacked on a
+    leading member axis, and each member's leaves take their own norm."""
+    if not members:
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < max_norm
+        return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+    g_norm = torch.sqrt(sum(torch.sum(g * g, dim=tuple(range(1, g.dim())))
+                            for g in grads))
+    out = []
+    for g in grads:
+        n = g_norm.reshape((-1,) + (1,) * (g.dim() - 1))
+        out.append(torch.where(n < max_norm, g, (g / n) * max_norm))
+    return out
 
 
 @dataclasses.dataclass
@@ -365,8 +392,11 @@ def instance_noise_sigma(cfg: TrainConfig, step0: int) -> Optional[float]:
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]
            ) -> List[torch.Tensor]:
     """d loss / d params; a parameter the loss does not reach gets zeros
-    (JAX's value for it)."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    (JAX's value for it).  Member losses [M] are summed first: the members
+    are independent, so each stacked parameter's slice m gets member m's
+    gradient."""
+    grads = torch.autograd.grad(loss if loss.dim() == 0 else loss.sum(),
+                                params, allow_unused=True)
     return [torch.zeros_like(p) if gr is None else gr
             for p, gr in zip(params, grads)]
 
@@ -377,6 +407,32 @@ def _copy_params(dst: nn.Module, src: nn.Module) -> None:
         a.copy_(b)
 
 
+#: the members' own entries of a step's per-part tensors (the draws and what
+#: is made from them); the rest is data every member shares
+_MEMBER_KEYS = ("noise", "zeros", "ones", "pred_hat", "eps_g", "ph")
+
+#: the variants member mode does not batch: a gradient inside the loss (R1),
+#: a rollout recomputed under grad in the G phase (variety, mode seeking,
+#: diversity, serial rollout), micro-chunk accumulation, checkpointed steps
+#: (torch.utils.checkpoint under vmap) and bf16 compute
+_MEMBERS_REFUSE = (("r1_gamma", lambda c: c.r1_gamma > 0),
+                   ("use_variety_loss", lambda c: c.use_variety_loss),
+                   ("ms_weight", lambda c: c.ms_weight > 0),
+                   ("ds_weight", lambda c: c.ds_weight > 0),
+                   ("serial_rollout", lambda c: c.serial_rollout),
+                   ("grad_accum", lambda c: c.grad_accum > 1),
+                   ("remat_steps", lambda c: c.remat_steps),
+                   ("compute_dtype", lambda c: c.compute_dtype != "float32"))
+
+
+def check_members_supported(cfg: TrainConfig) -> None:
+    """Raise, naming the field, for a configuration member mode does not
+    batch (ROADMAP Queue 1 lists each)."""
+    for field, bad in _MEMBERS_REFUSE:
+        if bad(cfg):
+            raise ValueError(f"{field}={getattr(cfg, field)!r} is not "
+                             "supported by the ensemble (member mode of "
+                             "gan_step) yet")
 
 
 def _pair_mean(t: torch.Tensor) -> torch.Tensor:
@@ -396,21 +452,26 @@ def _masked_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws, cfg: TrainConfig,
-             n_valid: Optional[int] = None
+             n_valid: Optional[int] = None, members: bool = False
              ) -> Tuple[TrainState, StepMetrics]:
     """One GAN update on a padded scene chunk, in place on ``state``.
 
     batch: obsvs [N, n_past, 2], preds [N, n_next, 2], scene_ids [N] int32,
     valid [N] bool.  ``n_valid`` (the chunk's valid count, known on the
-    host from packing) saves a device round trip."""
+    host from packing) saves a device round trip.  ``members``: ``state``
+    and ``draws`` hold M stacked members (``stack_states``, draws with a
+    leading M), the batch is shared, and every metric is [M]."""
     valid = batch["valid"]
     dev = valid.device
+    if members:
+        check_members_supported(cfg)
+    vm = Members(draws.noise.shape[0] if members else None)
     if n_valid is None:
         n_valid = int(valid.sum())
     if n_valid == 0:
-        zero = torch.zeros((), device=dev)
+        zero = torch.zeros(vm.lead, device=dev)
         return state, StepMetrics(zero, zero, zero, zero,
-                                  torch.zeros((), dtype=torch.int64,
+                                  torch.zeros(vm.lead, dtype=torch.int64,
                                               device=dev))
     g_tx, d_tx = make_optimizers(cfg)
     obsv, frame, social_x4 = canonicalize_for_rollout(
@@ -421,8 +482,9 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     n = obsv.shape[0]
     check_rows(cfg, n)
     scene_ids, noise = batch["scene_ids"], draws.noise
-    zeros_t = torch.zeros((n, 1), device=dev) + draws.zero_label
-    ones_t = torch.ones((n, 1), device=dev) * draws.one_label
+    rows = lambda label: label[..., None, None]    # [1, 1] or [M, 1, 1]
+    zeros_t = torch.zeros((n, 1), device=dev) + rows(draws.zero_label)
+    ones_t = torch.ones((n, 1), device=dev) * rows(draws.one_label)
     obsv_4d, pred_4d = obsv_to_4d(obsv), pred_to_4d(obsv, pred)
     step0 = state.g_opt.count
     info = (cfg.use_info_loss, info_weight(cfg, step0), cfg.n_latent_codes,
@@ -449,8 +511,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         return t.to(cdt) if isinstance(t, torch.Tensor) else cast_params(
             t, cdt)
 
-    def rollout_on(obsv_, z, sids, sx4):
-        return generator_rollout(cast(state.g), cast(obsv_), cast(z),
+    def rollout_on(g, obsv_, z, sids, sx4):
+        return generator_rollout(cast(g), cast(obsv_), cast(z),
                                  cfg.n_next, sids, cfg.use_social, cast(sx4),
                                  cfg.decoder, cfg.remat_steps,
                                  cfg.max_scene_size).float()
@@ -469,11 +531,13 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if accum or separate:
         with torch.no_grad():
             pred_hat_fwd = torch.cat([
-                rollout_on(c["obsv"], c["noise"], c["scene_ids"],
+                rollout_on(state.g, c["obsv"], c["noise"], c["scene_ids"],
                            c["social_x4"]) for c in parts])
     else:
         with torch.enable_grad():
-            pred_hat = rollout_on(obsv, noise, scene_ids, social_x4)
+            pred_hat = vm(lambda g, z: rollout_on(g, obsv, z, scene_ids,
+                                                  social_x4),
+                          (state.g,), noise)
         pred_hat_fwd = pred_hat.detach()
 
     # D instance noise on the prediction inputs (observations stay clean);
@@ -501,10 +565,17 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         w_sample = w_pack = (1.0,)
 
     sn = spectral_normalize_d if cfg.spectral_norm else (lambda p: p)
+    member_keys = _MEMBER_KEYS + (() if sigma is None else ("pred_4d",))
 
-    def d_part_loss(c, w_label, w_rest):
-        """The D loss of one part (:469-509), at the current D."""
-        dp = cast(sn(state.d))
+    def on_members(fn, modules, c, *args):
+        """``fn(*modules, c, *args)`` through ``vm``: the part's member
+        entries per member, its data shared."""
+        cm = {k: v for k, v in c.items() if k in member_keys and v is not None}
+        return vm(lambda *a: fn(*a[:-1], {**c, **a[-1]}, *args), modules, cm)
+
+    def d_part_loss(d, c, w_label, w_rest):
+        """The D loss of one part (:469-509), at the current D ``d``."""
+        dp = cast(sn(d))
         nn_ = c["obsv_4d"].shape[0]
         obsv_code = encode_obsv(dp, cast(c["obsv_4d"]), cfg.remat_steps)
         extra = None
@@ -545,7 +616,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         graph = with_grads or cfg.r1_gamma > 0
         with torch.enable_grad() if graph else torch.no_grad():
             for c, wp, ws in zip(parts, w_pack, w_sample):
-                loss = d_part_loss(c, wp, ws)
+                loss = on_members(d_part_loss, (state.d,), c, wp, ws)
                 total = loss.detach() if total is None else (
                     total + loss.detach())
                 if with_grads:
@@ -560,7 +631,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if d_phase_due(cfg, step0):
         for u in range(cfg.n_unrolling_steps + 1):
             d_loss, d_grads = d_value_and_grad()
-            d_tx.step(state.d_opt, state.d, d_grads)
+            d_tx.step(state.d_opt, state.d, d_grads, members)
             if u == 0:
                 d_loss_first = d_loss
                 if cfg.n_unrolling_steps > 0:
@@ -568,12 +639,16 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     else:
         d_loss_first, _ = d_value_and_grad(with_grads=False)
 
-    # G phase against the unrolled D, normalized once
-    with torch.no_grad():
-        d_g = sn(state.d)
+    # G phase against the unrolled D, normalized once (per member)
+    def sn_const(d):
+        with torch.no_grad():
+            return sn(d)
+    d_g = vm.defer(sn_const, state.d)
 
-    def g_part_loss(ph, c, w_label, w_info):
-        """The G loss of one part against D (:583-601, 664-682)."""
+    def g_part_loss(d_g, c, w_label, w_info):
+        """The G loss of one part against D (:583-601, 664-682), of the
+        part's rollout ``c["ph"]`` under grad."""
+        ph = c["ph"]
         ph_in = ph if c["eps_g"] is None else ph + sigma * c["eps_g"]
         gen_label, gen_code = discriminator_apply(
             cast(d_g), cast(c["obsv_4d"]), cast(ph_in), cfg.remat_steps,
@@ -592,9 +667,9 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         if accum:
             g_loss, g_grads = None, None
             for c, wp, ws in zip(parts, w_pack, w_sample):
-                ph = rollout_on(c["obsv"], c["noise"], c["scene_ids"],
-                                c["social_x4"])
-                loss = g_part_loss(ph, c, wp, ws)
+                ph = rollout_on(state.g, c["obsv"], c["noise"],
+                                c["scene_ids"], c["social_x4"])
+                loss = g_part_loss(d_g, {**c, "ph": ph}, wp, ws)
                 g_loss = loss.detach() if g_loss is None else (
                     g_loss + loss.detach())
                 g = _grads(loss, g_params)
@@ -602,7 +677,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     a + b for a, b in zip(g_grads, g)]
             pred_hat = pred_hat_fwd
         elif not separate:
-            g_loss = g_part_loss(pred_hat, parts[0], 1.0, 1.0)
+            g_loss = on_members(g_part_loss, (d_g,),
+                                {**parts[0], "ph": pred_hat}, 1.0, 1.0)
             g_grads = _grads(g_loss, g_params)
         else:
             # recompute under grad: encode and pool once, decode the step's
@@ -623,7 +699,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                  cfg.decoder, cfg.remat_steps)
             out = out.float().reshape(r, n, cfg.n_next, 4)
             pred_hat = out[0]
-            g_loss = g_part_loss(pred_hat, parts[0], 1.0, 1.0)
+            g_loss = g_part_loss(d_g, {**parts[0], "ph": pred_hat}, 1.0, 1.0)
             first = 1
             if cfg.use_variety_loss:
                 first += cfg.variety_k
@@ -644,7 +720,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     g_loss = g_loss + cfg.ds_weight * _masked_mean(hinge,
                                                                    valid)
             g_grads = _grads(g_loss, g_params)
-    g_tx.step(state.g_opt, state.g, g_grads)
+    g_tx.step(state.g_opt, state.g, g_grads, members)
 
     if cfg.g_ema_decay > 0:
         with torch.no_grad():
@@ -659,11 +735,14 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         elif cfg.d_restore == "reference":
             restore_linear_only(d_backup, state.d)
 
-    with torch.no_grad():
-        err = traj_errors(pred_hat.detach()[..., :2], pred)
+    def errors(ph):
+        err = traj_errors(ph[..., :2], pred)
         err = torch.where(valid[:, None], err, 0.0)
+        return err.sum() / cfg.n_next, err[:, -1].sum(), valid.sum()
+
+    with torch.no_grad():
+        ade_sum, fde_sum, n_samples = vm(errors, (), pred_hat.detach())
         metrics = StepMetrics(d_loss=d_loss_first, g_loss=g_loss.detach(),
-                              ade_sum=err.sum() / cfg.n_next,
-                              fde_sum=err[:, -1].sum(),
-                              n_samples=valid.sum())
+                              ade_sum=ade_sum, fde_sum=fde_sum,
+                              n_samples=n_samples)
     return state, metrics

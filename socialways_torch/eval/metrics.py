@@ -7,6 +7,10 @@ The K draws are a batch dimension: the observation is encoded and pooled
 once, then ONE decode runs over K·N rows.  Under
 ``compute_dtype="bfloat16"`` the rollout runs in bf16 and the errors are
 scored in float32 (socialways_tpu/eval/metrics.py:47-61, 85-91).
+The ``*_members`` forms run the same functions for M stacked generators
+(an ensemble, models/stacked.py) under ``torch.func.vmap``, each member
+with its own noise, as JAX's ``EnsembleTrainer`` vmaps them
+(socialways_tpu/engine/ensemble.py:135-196).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
 from socialways_torch.models.generator import (Generator, decode_rollout,
                                                prepare_rollout)
+from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d)
@@ -78,6 +83,18 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
     return out.float()
 
 
+def k_sample_rollout_members(g_params: Generator, obsv: torch.Tensor,
+                             scene_ids: torch.Tensor, k: int,
+                             cfg: TrainConfig, noise: torch.Tensor
+                             ) -> torch.Tensor:
+    """``k_sample_rollout`` of each member of the stacked generator
+    ``g_params`` under its own noise ``noise[m]`` [K, N, noise_len], on
+    shared observations: [M, K, N, n_next, 4]."""
+    return Members(noise.shape[0])(
+        lambda g, z: k_sample_rollout(g, obsv, scene_ids, k, cfg, noise=z),
+        (g_params,), noise)
+
+
 def k_sample_errors(pred_hat_k: torch.Tensor, pred: torch.Tensor
                     ) -> torch.Tensor:
     """[K, N, T, {2,4}] predictions vs [N, T, 2] truth -> [K, N, T]."""
@@ -108,6 +125,16 @@ def eval_chunk(g_params: Generator, batch: Dict[str, torch.Tensor], k: int,
         fde_min=msum(fde_per_k.min(dim=0).values),
         n_samples=valid.sum(),
     )
+
+
+def eval_chunk_members(g_params: Generator, batch: Dict[str, torch.Tensor],
+                       k: int, cfg: TrainConfig, noise: torch.Tensor
+                       ) -> EvalSums:
+    """``eval_chunk`` of each member of the stacked generator ``g_params``
+    under its own noise ``noise[m]`` [K, N, noise_len]: every sum [M]."""
+    return Members(noise.shape[0])(
+        lambda g, z: eval_chunk(g, batch, k, cfg, noise=z), (g_params,),
+        noise)
 
 
 def finalize_eval(sums: EvalSums, ss: float, n_test_samples: int

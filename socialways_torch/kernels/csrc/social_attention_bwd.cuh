@@ -242,7 +242,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const T* __restrict__ w1, const T* __restrict__ b1,
               const T* __restrict__ w2, const T* __restrict__ b2,
               float4* __restrict__ dx, const int n, const int hdim,
-              const int w) {
+              const int w, const Members ms) {
     // Static shared memory, bytes: padded W2 8,704 | a1^T 4,608 | dz2^T
     // 9,216 | dz1 4,224 | ring 4,096 | g_i 1,152 | W1, b1, b2, the batch's
     // features, columns, c_j, g_i . h_j and dx_i terms, the tile's stats
@@ -263,7 +263,12 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float s_m[kTile], s_l[kTile], s_r[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    stage_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
+    // member m's rows: h, g, stats, r, u, c, dx at m N; x4 and ids at m
+    // ms.x4, m ms.ids (0 when shared); its weights at m ms.w*
+    const int m = member(), mrow = m * n, xrow = m * ms.x4,
+              irow = m * ms.ids;
+    stage_mlp12(w1 + m * ms.w1, b1 + m * ms.b1, w2 + m * ms.w2,
+                b2 + m * ms.b2, s_w1, s_b1, s_w2, s_b2);
     const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
     const int n_tiles = (n + kTile - 1) / kTile;
 
@@ -273,25 +278,25 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
 #pragma unroll
         for (int t = 0; t < kTile; ++t) {
             tile_idx[t] = row0 + t;
-            tile_id[t] = row0 + t < n ? ids[row0 + t] : -1;
+            tile_id[t] = row0 + t < n ? ids[irow + row0 + t] : -1;
         }
         if (threadIdx.x < kTile) {
             const int i = row0 + threadIdx.x;
-            const float2 st = i < n ? stats[i] : make_float2(0.f, 0.f);
-            s_xt[threadIdx.x] = i < n ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float2 st = i < n ? stats[mrow + i] : make_float2(0.f, 0.f);
+            s_xt[threadIdx.x] = i < n ? x4[xrow + i] : make_float4(0.f, 0.f, 0.f, 0.f);
             s_m[threadIdx.x] = st.x;
             s_l[threadIdx.x] = st.y;
-            s_r[threadIdx.x] = i < n ? r[i] : 0.f;
+            s_r[threadIdx.x] = i < n ? r[mrow + i] : 0.f;
         }
         for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
             const int t = e / hdim, d = e - t * hdim;
-            s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(row0 + t) * hdim + d] : 0.f;
+            s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(mrow + row0 + t) * hdim + d] : 0.f;
         }
         float4 dxi = make_float4(0.f, 0.f, 0.f, 0.f);   // row t < kTile's sum
         PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, irow, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // warp 0: features, column, slot and c_j of each pair; warp 1:
@@ -306,9 +311,9 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     col = e / kTile;
                     slot = e - col * kTile;
                     const float4 xi = s_xt[slot];
-                    const Geo q = pair_geo(xi, speed(xi), x4[col]);
+                    const Geo q = pair_geo(xi, speed(xi), x4[xrow + col]);
                     f[0] = q.feat[0]; f[1] = q.feat[1]; f[2] = q.feat[2];
-                    cj = cvec[col];
+                    cj = cvec[mrow + col];
                 }
 #pragma unroll
                 for (int c = 0; c < kIn; ++c) s_feat[c * kBatch + p] = rnd<T>(f[c]);
@@ -322,7 +327,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     const int e = s_ring[(pr.head + p) & (kRing - 1)];
                     const int col = e / kTile;
                     gh = gh_serial(s_g + (e - col * kTile) * kGStride,
-                                   h + (size_t)col * hdim, hdim);
+                                   h + (size_t)(mrow + col) * hdim, hdim);
                 }
                 s_gh[p] = gh;
             }
@@ -335,7 +340,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, col = s_col[p], slot = s_slot[p];
-                    const float4 u4 = reinterpret_cast<const float4*>(u + (size_t)col * kH2)[og];
+                    const float4 u4 = reinterpret_cast<const float4*>(u + (size_t)(mrow + col) * kH2)[og];
                     const PairDs d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
                                              s_m[slot], s_l[slot], s_r[slot]);
                     dz2_of(a2[i], u4, d.ds);
@@ -350,7 +355,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                 float4 gi = make_float4(0.f, 0.f, 0.f, 0.f), gj;
                 if (p < nb)
                     pair_dx(s_w1, s_dz1 + p * kDz1Stride, s_xt[s_slot[p]],
-                            x4[s_col[p]], gi, gj);
+                            x4[xrow + s_col[p]], gi, gj);
                 s_gi[p] = gi;
                 __syncwarp();
                 if (p < kTile)
@@ -364,7 +369,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             pr.count -= nb;
             __syncthreads();     // the batch's shared arrays are free
         }
-        if (threadIdx.x < kTile && row0 + (int)threadIdx.x < n) dx[row0 + threadIdx.x] = dxi;
+        if (threadIdx.x < kTile && row0 + (int)threadIdx.x < n) dx[mrow + row0 + threadIdx.x] = dxi;
         __syncthreads();         // s_xt, s_m, s_l, s_r, s_g are the next tile's
     }
 }
@@ -381,7 +386,8 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                float4* __restrict__ dx, float* __restrict__ dh,
                float* __restrict__ dwh, float* __restrict__ a_sum,
                float* __restrict__ s_sum, float* __restrict__ partial,
-               const int n, const int hdim, const int feat, const int w) {
+               const int n, const int hdim, const int feat, const int w,
+               const Members ms) {
     __shared__ __align__(16) float s_w2[kH1 * kW2Stride];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -402,7 +408,13 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float s_ct[kTile], s_S[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
 
-    stage_mlp12(w1, b1, w2, b2, s_w1, s_b1, s_w2, s_b2);
+    // member m's rows: h, g, stats, r, u, c and every output at m N; x4 and
+    // ids at m ms.x4, m ms.ids (0 when shared); its weights at m ms.w*; its
+    // partial slots after the (m gridDim.x) slots of the members before it
+    const int m = member(), mrow = m * n, xrow = m * ms.x4,
+              irow = m * ms.ids;
+    stage_mlp12(w1 + m * ms.w1, b1 + m * ms.b1, w2 + m * ms.w2,
+                b2 + m * ms.b2, s_w1, s_b1, s_w2, s_b2);
     pdl_launch_dependents();     // the finalize may start, and waits for us
     const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
     // the block's weight-gradient partials: dW2[4 pg + i][og + 16 q],
@@ -422,21 +434,21 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
 #pragma unroll
         for (int t = 0; t < kTile; ++t) {
             tile_idx[t] = col0 + t;
-            tile_id[t] = col0 + t < n ? ids[col0 + t] : -1;
+            tile_id[t] = col0 + t < n ? ids[irow + col0 + t] : -1;
         }
         if (threadIdx.x < kTile) {
             const int j = col0 + threadIdx.x;
-            s_xt[threadIdx.x] = j < n ? x4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-            s_ct[threadIdx.x] = j < n ? cvec[j] : 0.f;
+            s_xt[threadIdx.x] = j < n ? x4[xrow + j] : make_float4(0.f, 0.f, 0.f, 0.f);
+            s_ct[threadIdx.x] = j < n ? cvec[mrow + j] : 0.f;
         }
         {
             const int c = threadIdx.x >> 6, k = threadIdx.x & (kH2 - 1);
-            s_u[threadIdx.x] = col0 + c < n ? u[(size_t)(col0 + c) * kH2 + k] : 0.f;
+            s_u[threadIdx.x] = col0 + c < n ? u[(size_t)(mrow + col0 + c) * kH2 + k] : 0.f;
         }
         for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
             const int c = e / hdim, d = e - c * hdim;
             s_h[c * kMaxWidth + d] =
-                col0 + c < n ? ld(h[(size_t)(col0 + c) * hdim + d]) : 0.f;
+                col0 + c < n ? ld(h[(size_t)(mrow + col0 + c) * hdim + d]) : 0.f;
         }
         // per-column sums: A[t >> 6][t & 63], S and dx_j of column t < kTile,
         // dh elements e = t + kThreads q of [kTile][hdim]
@@ -445,7 +457,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
         PairRing pr = tile_ring(s_ring, s_scan, col0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, irow, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // features, row, slot and the row's stats of each pair
@@ -459,11 +471,11 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     const int e = s_ring[(pr.head + p) & (kRing - 1)];
                     row = e / kTile;
                     slot = e - row * kTile;
-                    const float4 xi = x4[row];
+                    const float4 xi = x4[xrow + row];
                     const Geo q = pair_geo(xi, speed(xi), s_xt[slot]);
                     f[0] = q.feat[0]; f[1] = q.feat[1]; f[2] = q.feat[2];
-                    st = stats[row];
-                    r_i = r[row];
+                    st = stats[mrow + row];
+                    r_i = r[mrow + row];
                 }
 #pragma unroll
                 for (int c = 0; c < kIn; ++c) s_feat[c * kBatch + p] = rnd<T>(f[c]);
@@ -487,7 +499,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(s_u + slot * kH2)[og];
-                    const float gh = gh_half_warp(g + (size_t)s_row[p] * hdim + og,
+                    const float gh = gh_half_warp(g + (size_t)(mrow + s_row[p]) * hdim + og,
                                                   s_h + slot * kMaxWidth + og, chunk,
                                                   p < nb);
                     const PairDs d = pair_ds(a2[i], u4, s_ct[slot], gh, p < nb,
@@ -531,7 +543,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     float a = acc_h[q];
                     for (int p = 0; p < nb; ++p)
                         if (s_slot[p] == c)
-                            a = fmaf(s_a[p], g[(size_t)s_row[p] * hdim + d], a);
+                            a = fmaf(s_a[p], g[(size_t)(mrow + s_row[p]) * hdim + d], a);
                     acc_h[q] = a;
                 }
             }
@@ -575,7 +587,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     const int p = threadIdx.x;
                     float4 gi, gj = make_float4(0.f, 0.f, 0.f, 0.f);
                     if (p < nb)
-                        pair_dx(s_w1, s_dz1 + p * kDz1Stride, x4[s_row[p]],
+                        pair_dx(s_w1, s_dz1 + p * kDz1Stride, x4[xrow + s_row[p]],
                                 s_xt[s_slot[p]], gi, gj);
                     s_gj[p] = gj;
                 }
@@ -595,14 +607,14 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
         {
             const int c = threadIdx.x >> 6, o = threadIdx.x & (kH2 - 1);
             s_A[threadIdx.x] = A;
-            if (col0 + c < n) a_sum[(size_t)(col0 + c) * kH2 + o] = A;
+            if (col0 + c < n) a_sum[(size_t)(mrow + col0 + c) * kH2 + o] = A;
         }
         if (threadIdx.x < kTile) {
             const int j = col0 + threadIdx.x;
             s_S[threadIdx.x] = S;
             if (j < n) {
-                s_sum[j] = S;
-                if (dx != nullptr) dx[j] = dxj;
+                s_sum[mrow + j] = S;
+                if (dx != nullptr) dx[mrow + j] = dxj;
             }
         }
 #pragma unroll
@@ -610,22 +622,22 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             const int e = threadIdx.x + q * kThreads;
             if (e < kTile * hdim) {
                 const int c = e / hdim, d = e - c * hdim;
-                if (col0 + c < n) dh[(size_t)(col0 + c) * hdim + d] = acc_h[q];
+                if (col0 + c < n) dh[(size_t)(mrow + col0 + c) * hdim + d] = acc_h[q];
             }
         }
         __syncthreads();
         for (int e = threadIdx.x; e < kTile * feat; e += kThreads) {
             const int c = e / feat, f = e - c * feat;
             if (col0 + c >= n) continue;
-            float t = s_S[c] * ld(b3[f]);
+            float t = s_S[c] * ld(b3[m * ms.b3 + f]);
 #pragma unroll 16
             for (int k = 0; k < kH2; ++k)
-                t = fmaf(s_A[c * kH2 + k], ld(w3[k * feat + f]), t);
-            dwh[(size_t)(col0 + c) * feat + f] = t;
+                t = fmaf(s_A[c * kH2 + k], ld(w3[m * ms.w3 + k * feat + f]), t);
+            dwh[(size_t)(mrow + col0 + c) * feat + f] = t;
         }
         __syncthreads();         // s_A, s_S, s_xt, s_u, s_h are the next tile's
     }
-    float* part = partial + (size_t)blockIdx.x * kPartial;
+    float* part = partial + ((size_t)m * gridDim.x + blockIdx.x) * kPartial;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -652,10 +664,13 @@ bwd_finalize_kernel(const T* __restrict__ wh,
                     const float* __restrict__ partial,
                     float* __restrict__ dw3, float* __restrict__ db3,
                     float* __restrict__ dmlp12, const int n, const int feat,
-                    const int n_slots) {
+                    const int n_slots, const Members ms) {
     __shared__ float red[kFinThreads * kW3Rows];
     __shared__ float red2[kFinThreads * kW3Rows / kGroup];
     const int t = threadIdx.x;
+    // member m: wh at m ms.wh rows, a_sum and s_sum at m N, its n_slots
+    // partial slots and its outputs after the members before it
+    const int m = member(), mrow = m * n, whrow = m * ms.wh;
     pdl_wait();                  // the dkv kernel's sums are complete
     const int f_tiles = feat / 16, w3_blocks = kW3Tiles * f_tiles;
     if ((int)blockIdx.x < w3_blocks) {
@@ -666,12 +681,12 @@ bwd_finalize_kernel(const T* __restrict__ wh,
         for (int q = 0; q < kW3Rows; ++q) acc[q] = 0.f;
 #pragma unroll 4
         for (int j = slice; j < n; j += kW3Slices) {
-            const float w = ld(wh[(size_t)j * feat + f]);
+            const float w = ld(wh[(size_t)(whrow + j) * feat + f]);
 #pragma unroll
             for (int q = 0; q < kW3Rows; ++q) {
                 const int k = kt * kW3Rows + q;
-                if (k < kH2) acc[q] = fmaf(a_sum[(size_t)j * kH2 + k], w, acc[q]);
-                else if (k == kH2) acc[q] = fmaf(s_sum[j], w, acc[q]);
+                if (k < kH2) acc[q] = fmaf(a_sum[(size_t)(mrow + j) * kH2 + k], w, acc[q]);
+                else if (k == kH2) acc[q] = fmaf(s_sum[mrow + j], w, acc[q]);
             }
         }
         // red [kW3Rows][kW3Slices][16], red2 [kW3Rows][kW3Slices / kGroup][16]
@@ -691,8 +706,8 @@ bwd_finalize_kernel(const T* __restrict__ wh,
             const int q = t >> 4, k = kt * kW3Rows + q, fo = fc * 16 + fl;
             float s = 0.f;
             for (int gr = 0; gr < groups; ++gr) s += red2[(q * groups + gr) * 16 + fl];
-            if (k < kH2) dw3[k * feat + fo] = s;
-            else if (k == kH2) db3[fo] = s;
+            if (k < kH2) (dw3 + (size_t)m * kH2 * feat)[k * feat + fo] = s;
+            else if (k == kH2) (db3 + (size_t)m * feat)[fo] = s;
         }
         return;
     }
@@ -702,7 +717,7 @@ bwd_finalize_kernel(const T* __restrict__ wh,
     if (e < kPartial)
 #pragma unroll 4
         for (int b = slice; b < n_slots; b += kPartSlices)
-            acc += partial[(size_t)b * kPartial + e];
+            acc += partial[((size_t)m * n_slots + b) * kPartial + e];
     red[slice * kPartCols + col] = acc;      // [kPartSlices][kPartCols]
     __syncthreads();
     constexpr int groups = kPartSlices / kGroup;
@@ -717,47 +732,58 @@ bwd_finalize_kernel(const T* __restrict__ wh,
     if (t < kPartCols && e < kPartial) {
         float s = 0.f;
         for (int gr = 0; gr < groups; ++gr) s += red2[gr * kPartCols + t];
-        dmlp12[e] = s;
+        (dmlp12 + (size_t)m * kPartial)[e] = s;
     }
 }
 
-// dx_i [N, 4] from the forward's u [N, 64] and c [N]: one launch of
-// `blocks` blocks, each walking row tiles blockIdx.x, blockIdx.x + blocks,
-// ...  Launches on `stream`, does not synchronise, allocates nothing;
-// returns cudaGetLastError(), or cudaErrorInvalidValue for blocks <= 0,
-// an H the kernel does not take (a multiple of 16 up to 128) or a scene
-// window max_scene < 0 (0: every tile scans all N).  h and w1..b2 are T.
+// dx_i [M, N, 4] from the forward's u [M, N, 64] and c [M, N]: one launch
+// of `blocks` x `members` blocks, each walking row tiles blockIdx.x,
+// blockIdx.x + blocks, ... of member blockIdx.y; g, stats and r are [M, N,
+// ...] too; `strides` are the member strides of x4, ids, h and w1..b2
+// (MemberStrides, checked by members_of; null for a single model, M = 1).
+// Launches on `stream`, does not synchronise,
+// allocates nothing; returns cudaGetLastError(), or cudaErrorInvalidValue
+// for blocks <= 0, an H the kernel does not take (a multiple of 16 up to
+// 128), bad member strides or a scene window max_scene < 0 (0: every tile
+// scans all N).  h and w1..b2 are T.
 template <typename T>
 int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
               const void* stats, const void* r, const void* u, const void* c,
               const void* w1, const void* b1, const void* w2, const void* b2,
               void* dx, int n, int hdim, int blocks, int max_scene,
-              void* stream) {
-    if (max_scene < 0) return (int)cudaErrorInvalidValue;
+              int members, const void* strides, void* stream) {
+    Members ms{};
+    if (max_scene < 0 || !members_of(strides, members, n, hdim, 0, ms))
+        return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim <= 0 || hdim > kMaxWidth || hdim % 16)
         return (int)cudaErrorInvalidValue;
-    bwd_dq_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    bwd_dq_kernel<T><<<dim3(blocks, members), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const T*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),
         static_cast<const float*>(u), static_cast<const float*>(c),
         static_cast<const T*>(w1), static_cast<const T*>(b1),
         static_cast<const T*>(w2), static_cast<const T*>(b2),
-        static_cast<float4*>(dx), n, hdim, max_scene);
+        static_cast<float4*>(dx), n, hdim, max_scene, ms);
     return (int)cudaGetLastError();
 }
 
-// dx_j [N, 4] (skipped when dx is null), dh_j [N, H], dwh_j [N, F],
-// dw3 [64, F], db3 [F] and dmlp12 [2240] = dW2 [32, 64] | db2 [64] |
-// dW1 [3, 32] | db1 [32], from the forward's u [N, 64] and c [N].  `blocks`
-// dkv blocks, one partial slot each: a_sum [N, 64], s_sum [N] and
-// partial [partial_floats] are scratch.  A partial_floats other than
-// blocks x kPartial (the caller sized its slots or dmlp12 differently)
-// is refused with cudaErrorInvalidValue, as is a scene window max_scene < 0
-// (0: every column tile scans all N; a column's partners lie in the same
-// window as a row's).  Two launches: dkv, then finalize.  h, wh and
-// w1..b3 are T; every output is float.
+// dx_j [M, N, 4] (skipped when dx is null), dh_j [M, N, H], dwh_j [M, N,
+// F], dw3 [M, 64, F], db3 [M, F] and dmlp12 [M, 2240] = dW2 [32, 64] | db2
+// [64] | dW1 [3, 32] | db1 [32] a member, from the forward's u [M, N, 64]
+// and c [M, N]; g, stats and r are [M, N, ...]; `strides` are the member
+// strides of x4, ids, h, wh and w1..b3 (MemberStrides, checked by
+// members_of; null for a single model, M = 1).
+// `blocks` x `members` dkv blocks, one partial slot each: a_sum [M, N, 64],
+// s_sum [M, N] and partial [partial_floats] are scratch.  A partial_floats
+// other than members x blocks x kPartial (the caller sized its slots or
+// dmlp12 differently) is refused with cudaErrorInvalidValue, as are bad
+// member strides and a scene window max_scene < 0 (0: every column tile
+// scans all N; a column's partners lie in the same window as a row's).
+// Two launches: dkv, then finalize.  h, wh and w1..b3 are T; every output
+// is float.
 template <typename T>
 int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
                const void* g, const void* stats, const void* r, const void* u,
@@ -765,14 +791,18 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
                const void* b2, const void* w3, const void* b3, void* a_sum,
                void* s_sum, void* partial, void* dx, void* dh, void* dwh,
                void* dw3, void* db3, void* dmlp12, int n, int hdim, int feat,
-               int blocks, int partial_floats, int max_scene, void* stream) {
-    if (max_scene < 0) return (int)cudaErrorInvalidValue;
+               int blocks, int partial_floats, int max_scene, int members,
+               const void* strides, void* stream) {
+    Members ms{};
+    if (max_scene < 0 || !members_of(strides, members, n, hdim, feat, ms))
+        return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth || feat % 16 ||
-        (long long)partial_floats != (long long)blocks * kPartial)
+        (long long)partial_floats !=
+            (long long)members * blocks * kPartial)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    bwd_dkv_kernel<T><<<blocks, kThreads, 0, st>>>(
+    bwd_dkv_kernel<T><<<dim3(blocks, members), kThreads, 0, st>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const T*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),
@@ -783,29 +813,32 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
         static_cast<float4*>(dx), static_cast<float*>(dh),
         static_cast<float*>(dwh), static_cast<float*>(a_sum),
         static_cast<float*>(s_sum), static_cast<float*>(partial), n, hdim,
-        feat, max_scene);
+        feat, max_scene, ms);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)launch_dependent(
-        bwd_finalize_kernel<T>, dim3(kW3Tiles * (feat / 16) + kPartBlocks),
+        bwd_finalize_kernel<T>,
+        dim3(kW3Tiles * (feat / 16) + kPartBlocks, members),
         dim3(kFinThreads), 0, st, static_cast<const T*>(wh),
         static_cast<const float*>(a_sum), static_cast<const float*>(s_sum),
         static_cast<const float*>(partial), static_cast<float*>(dw3),
         static_cast<float*>(db3), static_cast<float*>(dmlp12), n, feat,
-        blocks);
+        blocks, ms);
 }
 
 }  // namespace
 
 // The C entries: float operands, and bf16 (h, wh and the weights bf16;
-// x4, g, stats, r, u, c and every output float).
+// x4, g, stats, r, u, c and every output float); `members` stacked
+// models, their strides as in the forward's entries.
 #define SA_DQ_ARGS                                                         \
     const void *x4, const void *ids, const void *h, const void *g,         \
         const void *stats, const void *r, const void *u, const void *c,    \
         const void *w1, const void *b1, const void *w2, const void *b2,    \
-        void *dx, int n, int hdim, int blocks, int max_scene, void *stream
+        void *dx, int n, int hdim, int blocks, int max_scene, int members, \
+        const void *strides, void *stream
 #define SA_DQ_PASS x4, ids, h, g, stats, r, u, c, w1, b1, w2, b2, dx, n, \
-    hdim, blocks, max_scene, stream
+    hdim, blocks, max_scene, members, strides, stream
 #define SA_DKV_ARGS                                                        \
     const void *x4, const void *ids, const void *h, const void *wh,        \
         const void *g, const void *stats, const void *r, const void *u,    \
@@ -813,7 +846,8 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
         const void *b2, const void *w3, const void *b3, void *a_sum,       \
         void *s_sum, void *partial, void *dx, void *dh, void *dwh,         \
         void *dw3, void *db3, void *dmlp12, int n, int hdim, int feat,     \
-        int blocks, int partial_floats, int max_scene, void *stream
+        int blocks, int partial_floats, int max_scene, int members,        \
+        const void *strides, void *stream
 #define SA_DKV_PASS x4, ids, h, wh, g, stats, r, u, c, w1, b1, w2, b2, w3, \
     b3, a_sum, s_sum, partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim,      \
-    feat, blocks, partial_floats, max_scene, stream
+    feat, blocks, partial_floats, max_scene, members, strides, stream

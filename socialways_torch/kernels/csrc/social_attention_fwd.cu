@@ -7,17 +7,11 @@
 
 #include "social_attention_fwd.cuh"
 
-// float operands: x4 [N, 4], h [N, H], wh [N, F] and the weights float.
-extern "C" int social_attention_fwd(const void* x4, const void* ids,
-                                    const void* h, const void* wh,
-                                    const void* w1, const void* b1,
-                                    const void* w2, const void* b2,
-                                    const void* w3, const void* b3,
-                                    void* out, void* stats, void* u, void* c,
-                                    int n, int hdim, int feat, int blocks,
-                                    int max_scene, void* stream) {
-    return launch_fwd<float>(x4, ids, h, wh, w1, b1, w2, b2, w3, b3, out,
-                             stats, u, c, n, hdim, feat, blocks, max_scene,
-                             stream);
+// x4 [N, 4], h [N, H], wh [N, F] and the weights float, `members` stacked
+// models (social_attention_pairs.cuh, "Member axis"): `strides` [10] long
+// long, the member strides of x4, ids, h, wh, w1, b1, w2, b2, w3, b3 (0:
+// shared, else the dense size; null for a single model); out, stats, u and
+// c are [members, N, ...].
+extern "C" int social_attention_fwd(SA_FWD_ARGS) {
+    return launch_fwd<float>(SA_FWD_PASS);
 }
-

@@ -65,15 +65,19 @@ using namespace sa;
 constexpr int kPrepRows = 8;        // agents a u_prep block
 constexpr int kMaxWidth = 128;      // H and F at most
 
-// u = wh W3^T [N, 64], c = wh . b3 [N].
+// u = wh W3^T [N, 64], c = wh . b3 [N] of member blockIdx.y.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
               const T* __restrict__ b3, float* __restrict__ u,
-              float* __restrict__ c, const int n, const int feat) {
+              float* __restrict__ c, const int n, const int feat,
+              const Members ms) {
     __shared__ float s_w3t[kMaxWidth * (kH2 + 1)];    // W3^T [F][64 + 1]
     __shared__ float s_wh[kPrepRows][kMaxWidth];
     pdl_launch_dependents();     // the main kernel may start its prefix now
+    const int m = member(), mrow = m * n, whrow = m * ms.wh;
+    w3 += m * ms.w3;
+    b3 += m * ms.b3;
     const int row0 = blockIdx.x * kPrepRows, f4 = feat / 4;
 #pragma unroll 4
     for (int e = threadIdx.x; e < kH2 * f4; e += kThreads) {
@@ -87,7 +91,7 @@ u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
     for (int e = threadIdx.x; e < kPrepRows * f4; e += kThreads) {
         const int r = e / f4, f = 4 * (e - r * f4);
         const float4 v = row0 + r < n
-            ? ld4(wh + (size_t)(row0 + r) * feat, f / 4)
+            ? ld4(wh + (size_t)(whrow + row0 + r) * feat, f / 4)
             : make_float4(0.f, 0.f, 0.f, 0.f);
         s_wh[r][f] = v.x; s_wh[r][f + 1] = v.y;
         s_wh[r][f + 2] = v.z; s_wh[r][f + 3] = v.w;
@@ -102,12 +106,13 @@ u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-        if (row0 + r0 + q < n) u[(size_t)(row0 + r0 + q) * kH2 + k] = acc[q];
+        if (row0 + r0 + q < n)
+            u[(size_t)(mrow + row0 + r0 + q) * kH2 + k] = acc[q];
     if (threadIdx.x < kPrepRows && row0 + threadIdx.x < n) {
         float s = 0.f;
         for (int f = 0; f < feat; ++f)
             s = fmaf(ld(b3[f]), s_wh[threadIdx.x][f], s);
-        c[row0 + threadIdx.x] = s;
+        c[mrow + row0 + threadIdx.x] = s;
     }
 }
 
@@ -124,7 +129,8 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                             const T* __restrict__ b2,
                             float* __restrict__ out,
                             float2* __restrict__ stats,
-                            const int n, const int hdim, const int w) {
+                            const int n, const int hdim, const int w,
+                            const Members ms) {
     __shared__ __align__(16) float s_w2[kH1 * kH2];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -137,6 +143,16 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
     __shared__ float s_m[kTile], s_l[kTile], s_corr[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
 
+    // member m's slices: h, u, c, out, stats at m N rows; x4 and ids at
+    // m ms.x4, m ms.ids rows (0 when shared); its weights at m ms.w*.  The
+    // pointers move once, here: in this kernel that keeps fewer registers
+    // than a row offset at every index (the backward kernels' way)
+    const int m = member();
+    const size_t mrow = (size_t)m * n;
+    x4 += (size_t)m * ms.x4; ids += (size_t)m * ms.ids; h += mrow * hdim;
+    u += mrow * kH2; cvec += mrow; out += mrow * hdim;
+    if (stats != nullptr) stats += mrow;
+    w1 += m * ms.w1; b1 += m * ms.b1; w2 += m * ms.w2; b2 += m * ms.b2;
     for (int t = threadIdx.x; t < kH1 * kH2 / 4; t += kThreads)
         reinterpret_cast<float4*>(s_w2)[t] = ld4(w2, t);
     for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = ld(b2[t]);
@@ -165,7 +181,7 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
         PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
         while (true) {
-            fill_ring(pr, ids, tile_id, tile_idx);
+            fill_ring(pr, ids, 0, tile_id, tile_idx);
             if (pr.count == 0) break;
             const int nb = pr.count < kBatch ? pr.count : kBatch;
             // features, column and slot of each pair; 0 past nb
@@ -262,38 +278,57 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
     }
 }
 
-// Launches u_prep_kernel and the main kernel (`blocks` blocks, each walking
-// tiles blockIdx.x, blockIdx.x + blocks, ...) on `stream`; does not
-// synchronise, allocates nothing; returns cudaGetLastError() so the caller
-// sees a refused launch.  u [N, 64] and c [N] are written for the backward;
-// `stats` [N, 2] may be null (serving: no extra stores).  `max_scene` is the
+// Launches u_prep_kernel and the main kernel (`blocks` x `members` blocks,
+// each walking tiles blockIdx.x, blockIdx.x + blocks, ... of member
+// blockIdx.y) on `stream`; does not synchronise, allocates nothing;
+// returns cudaGetLastError() so the caller sees a refused launch.  u [M, N,
+// 64] and c [M, N] are written for the backward; `stats` [M, N, 2] may be
+// null (serving: no extra stores); out is [M, N, H].  `strides` are the
+// member strides (MemberStrides, checked by members_of; null for a single
+// model, M = 1).  `max_scene` is the
 // scene window w of social_attention_pairs.cuh (0: every tile scans all N);
-// w < 0 is refused with cudaErrorInvalidValue.  h, wh, w1..b3 are T.
+// w < 0 and bad strides are refused with cudaErrorInvalidValue.  h, wh,
+// w1..b3 are T.
 template <typename T>
 int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* w3, const void* b3, void* out, void* stats,
                void* u, void* c, int n, int hdim, int feat, int blocks,
-               int max_scene, void* stream) {
-    if (max_scene < 0) return (int)cudaErrorInvalidValue;
+               int max_scene, int members, const void* strides,
+               void* stream) {
+    Members ms{};
+    if (max_scene < 0 || !members_of(strides, members, n, hdim, feat, ms))
+        return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
     if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    u_prep_kernel<T><<<(n + kPrepRows - 1) / kPrepRows, kThreads, 0, st>>>(
+    u_prep_kernel<T><<<dim3((n + kPrepRows - 1) / kPrepRows, members),
+                       kThreads, 0, st>>>(
         static_cast<const T*>(wh), static_cast<const T*>(w3),
         static_cast<const T*>(b3), static_cast<float*>(u),
-        static_cast<float*>(c), n, feat);
+        static_cast<float*>(c), n, feat, ms);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)launch_dependent(
-        social_attention_fwd_kernel<T>, dim3(blocks), dim3(kThreads), 0, st,
-        static_cast<const float4*>(x4), static_cast<const int*>(ids),
-        static_cast<const T*>(h), static_cast<const float*>(u),
-        static_cast<const float*>(c), static_cast<const T*>(w1),
-        static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<float*>(out),
-        static_cast<float2*>(stats), n, hdim, max_scene);
+        social_attention_fwd_kernel<T>, dim3(blocks, members),
+        dim3(kThreads), 0, st, static_cast<const float4*>(x4),
+        static_cast<const int*>(ids), static_cast<const T*>(h),
+        static_cast<const float*>(u), static_cast<const float*>(c),
+        static_cast<const T*>(w1), static_cast<const T*>(b1),
+        static_cast<const T*>(w2), static_cast<const T*>(b2),
+        static_cast<float*>(out), static_cast<float2*>(stats), n, hdim,
+        max_scene, ms);
 }
 
 }  // namespace
+
+// The C entries' arguments (social_attention_fwd*.cu).
+#define SA_FWD_ARGS                                                         \
+    const void *x4, const void *ids, const void *h, const void *wh,         \
+        const void *w1, const void *b1, const void *w2, const void *b2,     \
+        const void *w3, const void *b3, void *out, void *stats, void *u,    \
+        void *c, int n, int hdim, int feat, int blocks, int max_scene,      \
+        int members, const void *strides, void *stream
+#define SA_FWD_PASS x4, ids, h, wh, w1, b1, w2, b2, w3, b3, out, stats, u, c, \
+    n, hdim, feat, blocks, max_scene, members, strides, stream

@@ -7,17 +7,8 @@
 
 #include "social_attention_fwd.cuh"
 
-// bf16 operands: h, wh and the weights bf16; x4, out, stats, u, c float.
-extern "C" int social_attention_fwd_bf16(const void* x4, const void* ids,
-                                         const void* h, const void* wh,
-                                         const void* w1, const void* b1,
-                                         const void* w2, const void* b2,
-                                         const void* w3, const void* b3,
-                                         void* out, void* stats, void* u,
-                                         void* c, int n, int hdim, int feat,
-                                         int blocks, int max_scene,
-                                         void* stream) {
-    return launch_fwd<__nv_bfloat16>(x4, ids, h, wh, w1, b1, w2, b2, w3, b3,
-                                     out, stats, u, c, n, hdim, feat, blocks,
-                                     max_scene, stream);
+// h, wh and the weights bf16; x4, out, stats, u, c float; the members as
+// in social_attention_fwd.cu.
+extern "C" int social_attention_fwd_bf16(SA_FWD_ARGS) {
+    return launch_fwd<__nv_bfloat16>(SA_FWD_PASS);
 }

@@ -33,13 +33,73 @@
 // before p . h.  x4, the cotangents, stats, u and c stay float.  For
 // T = float, ld, ld4 and rnd are the identity, and the kernels compile to
 // the float code they were.
+//
+// Member axis.  An ensemble trains M models on the same data at once, and
+// every kernel takes their operands stacked on a leading member axis:
+// blockIdx.y is the member.  A block adds its member's offset to every row
+// index (m N rows) and weight offset, so member m's block runs the solo
+// arithmetic on member m's operands and writes member m's bits.  A single
+// model is the launch at M = 1 (a null stride array).  The operands a
+// caller may share between members (x4 and the ids, which are data; wh and
+// the six MLP tensors) have a member stride each, 0 for one shared copy or
+// their dense size; h, every output, cotangent and scratch array is per
+// member and dense.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace sa {
+
+// The member strides of the shareable operands, as the C entries take them
+// (an array of 10 long long: x4, ids, h, wh, w1, b1, w2, b2, w3, b3, in
+// elements; a null array is all 0).
+struct MemberStrides {
+    long long x4, ids, h, wh, w1, b1, w2, b2, w3, b3;
+};
+
+// What member m adds to its indices, per unit of m: rows for x4, ids and wh
+// (0 or N), elements for the weights (0 or their size).  h and every
+// per-member array add m N rows.
+struct Members {
+    int x4, ids, wh, w1, b1, w2, b2, w3, b3;
+};
+
+// `strides` (MemberStrides or null) checked and turned into Members for
+// `members` stacked models of N rows, H = hdim, F = feat: each stride is 0
+// (shared) or its operand's dense size, h's is N H, and every index fits
+// an int.  False for anything else.  feat = 0 (dq, which reads no wh, W3,
+// b3) leaves those three strides unread.
+inline bool members_of(const void* strides, const int members, const int n,
+                       const int hdim, const int feat, Members& ms) {
+    MemberStrides st;
+    std::memset(&st, 0, sizeof(st));
+    if (strides != nullptr) std::memcpy(&st, strides, sizeof(st));
+    if (feat == 0) st.wh = st.w3 = st.b3 = 0;
+    const long long nn = n;
+    const long long dense[10] = {4 * nn, nn, nn * hdim, nn * feat, 3 * 32,
+                                 32, 32 * 64, 64, 64LL * feat, feat};
+    const long long got[10] = {st.x4, st.ids, st.h, st.wh, st.w1, st.b1,
+                               st.w2, st.b2, st.w3, st.b3};
+    const long long width = hdim > feat ? (hdim > 64 ? hdim : 64)
+                                        : (feat > 64 ? feat : 64);
+    if (members < 1 || members > 65535 ||
+        (long long)members * nn * width >= (1LL << 31))
+        return false;
+    for (int i = 0; i < 10; ++i)
+        if (got[i] != 0 && got[i] != dense[i]) return false;
+    if (members > 1 && st.h != dense[2]) return false;
+    ms = Members{st.x4 ? n : 0, st.ids ? n : 0, st.wh ? n : 0,
+                 (int)st.w1, (int)st.b1, (int)st.w2, (int)st.b2, (int)st.w3,
+                 (int)st.b3};
+    return true;
+}
+
+// This block's member.
+__device__ __forceinline__ int member() { return (int)blockIdx.y; }
 
 constexpr int kIn = 3;          // social features: dist, bearing, dca
 constexpr int kH1 = 32;         // feature-MLP hidden widths (fixed by the model)
@@ -203,10 +263,11 @@ __device__ __forceinline__ PairRing tile_ring(int* ring, int* scan,
 // tests agents next + kScan t + q) until the ring holds kBatch pairs or the
 // scan reaches end.  tile_id[t] is tile agent t's scene id (-1 for padding
 // or past n: matches nothing), tile_idx[t] its index.  Entries are appended
-// in scan order (agent, then tile agent).  Every thread of the block calls
-// it.
+// in scan order (agent, then tile agent).  Agent o's id is ids[id0 + o]
+// (id0: the member's rows).  Every thread of the block calls it.
 __device__ __forceinline__ void fill_ring(PairRing& pr,
                                           const int* __restrict__ ids,
+                                          const int id0,
                                           const int (&tile_id)[kTile],
                                           const int (&tile_idx)[kTile]) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -216,7 +277,7 @@ __device__ __forceinline__ void fill_ring(PairRing& pr,
 #pragma unroll
         for (int q = 0; q < kScan; ++q) {
             const int o = o0 + q;
-            const int id_o = o < pr.end ? ids[o] : -1;
+            const int id_o = o < pr.end ? ids[id0 + o] : -1;
 #pragma unroll
             for (int t = 0; t < kTile; ++t)
                 if (id_o >= 0 && id_o == tile_id[t] && o != tile_idx[t])

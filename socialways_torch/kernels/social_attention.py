@@ -58,6 +58,23 @@ Source notes.
   Each entry point counts its own launches: ``launches`` for float32,
   ``launches_bf16`` for bf16.
 
+- Member axis.  An ensemble (engine/ensemble.py) trains M models on the
+  same data as one batched step under ``torch.func.vmap``.  Every launch
+  wrapper also takes member-stacked operands (``h`` [M, N, H]; ``wh`` and
+  the six MLP tensors with a leading M; ``x4`` and ``ids`` shared or
+  stacked) and launches each kernel once for all members: the grid's y
+  axis is the member and every operand has a member stride (0: shared).
+  A single model is the launch at M = 1, and member m's slice of every
+  output has the bits of the launch on member m's operands alone.
+  ``_SocialAttention``'s ``vmap`` rule hands the stacked operands to the
+  same Function outside ``vmap``, so the regular autograd backward reaches
+  the member-batched dq and dkv launches.  A member launch counts once in
+  ``launches`` (``launches_bf16``) and once in ``member_launches``
+  (``member_launches_bf16``).  The member plain versions
+  (``*_members_plain``) loop the solo plain versions over the members: the
+  CPU wrappers take them for stacked CPU tensors, and the tests and
+  ``chip_smoke.py`` hold the kernels against them.
+
 Dispatch: ``social_attention_fwd`` takes the plain dense form for a CPU
 tensor (under autograd when a gradient is needed) and launches the kernels
 or raises for a CUDA tensor.  ``social_attention`` is the size-aware
@@ -69,14 +86,15 @@ windowed (``max_scene > 0``) or blockwise; on CUDA always the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
 from socialways_torch.ops.nn import (MLP, Linear, LinearView, linear_apply,
                                      wide)
 from socialways_torch.ops.social import (_NEG_INF, attention_pool,
-                                         attention_values, pair_embed,
+                                         attention_values, pair_embed, pool,
                                          scene_mask,
                                          social_context_blockwise,
                                          social_context_windowed)
@@ -167,6 +185,76 @@ def social_attention_bwd_dkv_plain(x4, ids, h, wh, g, stats, r, weights,
     return (dxj, a.T @ g, dwh, *grads)
 
 
+def social_attention_fwd_kernel_plain(x4, ids, h, wh, weights
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [N, H], stats [N, 2]) from the forward kernel's own operands
+    (``wh`` and the six MLP tensors in ``h``'s dtype), all float32: what
+    ``_launch_fwd`` writes, computed as ``social_attention_stats_plain``
+    computes it from the modules."""
+    acc = wide(h.dtype)
+    layers = [LinearView(weights[2 * k], weights[2 * k + 1]) for k in range(3)]
+    mask = scene_mask(ids)
+    s = torch.einsum("ijf,jf->ij", pair_embed(layers, x4, op_dtype=h.dtype),
+                     wh.to(acc))
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.max(dim=-1).values
+    p = torch.where(mask, torch.exp(s - m[:, None]), 0.0)
+    l = p.sum(dim=-1)
+    if acc == h.dtype:
+        out = (p / torch.clamp(l[:, None], min=1e-20)) @ h
+    else:
+        out = pool(p, h.to(acc), h.dtype) / torch.clamp(l[:, None], min=1e-20)
+    out = torch.where(mask.any(dim=-1, keepdim=True), out, 0.0)
+    return out, torch.stack([m, l], dim=-1)
+
+
+def _member_of(t: Optional[torch.Tensor], i: int, solo_dim: int):
+    """Member ``i``'s operand: ``t`` itself when it is shared (``solo_dim``
+    dimensions), else its slice ``i``."""
+    return t if t is None or t.dim() == solo_dim else t[i]
+
+
+def _members_loop(fn, h: torch.Tensor, operands, solo_dims):
+    """``fn`` on each member's operands (``h`` is [M, N, H]), its outputs
+    stacked on a leading member axis (None stays None)."""
+    outs = [fn(*(_member_of(t, i, d) for t, d in zip(operands, solo_dims)))
+            for i in range(h.shape[0])]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return [None if o[0] is None else torch.stack(o) for o in zip(*outs)]
+
+
+_SOLO_DIMS = (2, 1, 2, 2, 2, 2, 1)         # x4, ids, h, wh, g, stats, r
+_WEIGHT_DIMS = (2, 1, 2, 1, 2, 1)          # w1, b1, w2, b2, w3, b3
+
+
+def social_attention_fwd_members_plain(x4, ids, h, wh, weights):
+    """The member version of ``social_attention_fwd_kernel_plain``: ``h``
+    [M, N, H], the other operands stacked or shared; (out [M, N, H], stats
+    [M, N, 2]).  A loop of the solo plain version over the members."""
+    return _members_loop(
+        lambda a, b, c, d, *w: social_attention_fwd_kernel_plain(a, b, c, d, w),
+        h, (x4, ids, h, wh, *weights), _SOLO_DIMS[:4] + _WEIGHT_DIMS)
+
+
+def social_attention_bwd_dq_members_plain(x4, ids, h, wh, g, stats, r,
+                                          weights) -> torch.Tensor:
+    """dL/dx_i [M, N, 4]: ``social_attention_bwd_dq_plain`` of each
+    member."""
+    return _members_loop(
+        lambda *a: social_attention_bwd_dq_plain(*a[:7], a[7:]), h,
+        (x4, ids, h, wh, g, stats, r, *weights), _SOLO_DIMS + _WEIGHT_DIMS)
+
+
+def social_attention_bwd_dkv_members_plain(x4, ids, h, wh, g, stats, r,
+                                           weights, need_dx: bool = True):
+    """``social_attention_bwd_dkv_plain`` of each member, every output
+    stacked on a leading member axis (dx_j None when not asked for)."""
+    return _members_loop(
+        lambda *a: social_attention_bwd_dkv_plain(*a[:7], a[7:], need_dx), h,
+        (x4, ids, h, wh, g, stats, r, *weights), _SOLO_DIMS + _WEIGHT_DIMS)
+
+
 # ------------------------------------------------------------- launch sizes
 def fwd_blocks(n: int) -> int:
     """Blocks of the forward's main kernel: one per tile of ``_TILE`` rows
@@ -203,10 +291,11 @@ def scan_range(n: int, t0: int, w: int) -> Tuple[int, int]:
     return max(0, t0 - w), min(n, t0 + _TILE + w)
 
 
-def dkv_partial_floats(n: int) -> int:
+def dkv_partial_floats(n: int, members: int = 1) -> int:
     """Floats of dkv's partial scratch: one slot of dW2, db2, dW1, db1 per
-    block.  The pair batches live in shared memory, fixed in size."""
-    return dkv_blocks(n) * _PARTIAL
+    block and member.  The pair batches live in shared memory, fixed in
+    size."""
+    return members * dkv_blocks(n) * _PARTIAL
 
 
 # ------------------------------------------------------------------ launches
@@ -227,25 +316,46 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 _OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_common(x4, ids, h, wh, weights) -> None:
+def _lead(h: torch.Tensor) -> Tuple[int, ...]:
+    """``(M,)`` for member-stacked operands (``h`` [M, N, H]), else ``()``."""
+    return tuple(h.shape[:-2])
+
+
+def _check_common(x4, ids, h, wh, weights) -> Optional[List[int]]:
     """The operand dtype is ``h``'s, float32 or bf16: ``wh`` and the six
-    MLP tensors share it; ``x4`` is float32."""
-    n, hdim = h.shape
-    feat = wh.shape[1]
+    MLP tensors share it; ``x4`` is float32.  Solo: ``h`` [N, H]; returns
+    None.  Members: ``h`` [M, N, H], each other operand [M, ...] or shared
+    without the member axis; returns the ten member strides of x4, ids, h,
+    wh, w1, b1, w2, b2, w3, b3 (elements, 0 for a shared operand)."""
+    if h.dim() not in (2, 3):
+        raise ValueError(f"h has shape {tuple(h.shape)}, expected [N, H] or "
+                         f"[M, N, H]")
+    lead = _lead(h)
+    n, hdim = h.shape[-2:]
+    feat = wh.shape[-1]
     dev, f32, op = h.device, torch.float32, h.dtype
     if hdim % 16 or not 16 <= hdim <= 128 or feat % 16 or not 16 <= feat <= 128:
         raise ValueError(f"social attention kernels need H and F multiples "
                          f"of 16 up to 128, got H={hdim}, F={feat}")
     if op not in _OPERAND_DTYPES:
         raise ValueError(f"h has dtype {op}, expected float32 or bfloat16")
-    _check("x4_last", x4, (n, 4), f32, dev)
-    _check("scene_ids", ids, (n,), torch.int32, dev)
-    _check("h", h, (n, hdim), op, dev)
-    _check("wh", wh, (n, feat), op, dev)
+
+    def operand(name, t, shape, dtype, shared_ok=True) -> int:
+        if lead and shared_ok and t.dim() == len(shape):
+            _check(name, t, shape, dtype, dev)      # one copy for all
+            return 0
+        _check(name, t, lead + shape, dtype, dev)
+        return t[0].numel() if lead else 0
+
+    strides = [operand("x4_last", x4, (n, 4), f32),
+               operand("scene_ids", ids, (n,), torch.int32),
+               operand("h", h, (n, hdim), op, shared_ok=False),
+               operand("wh", wh, (n, feat), op)]
     shapes = [(3, 32), (32,), (32, _H2), (_H2,), (_H2, feat), (feat,)]
     for name, t, shape in zip(["w1", "b1", "w2", "b2", "w3", "b3"],
                               weights, shapes):
-        _check(f"feat_mlp {name}", t, shape, op, dev)
+        strides.append(operand(f"feat_mlp {name}", t, shape, op))
+    return strides if lead else None
 
 
 def _entry(name: str, h: torch.Tensor) -> str:
@@ -255,28 +365,35 @@ def _entry(name: str, h: torch.Tensor) -> str:
 
 
 def _count(wrapper, h: torch.Tensor) -> None:
-    """One launch of ``wrapper``'s float32 or bf16 kernel."""
-    if h.dtype == torch.float32:
-        wrapper.launches += 1
-    else:
-        wrapper.launches_bf16 += 1
+    """One launch of ``wrapper``'s float32 or bf16 kernel; a member launch
+    (``h`` [M, N, H]) also counts in ``member_launches`` (``_bf16``)."""
+    suffix = "" if h.dtype == torch.float32 else "_bf16"
+    setattr(wrapper, "launches" + suffix,
+            getattr(wrapper, "launches" + suffix) + 1)
+    if h.dim() == 3:
+        setattr(wrapper, "member_launches" + suffix,
+                getattr(wrapper, "member_launches" + suffix) + 1)
 
 
-def _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c) -> None:
-    _check_common(x4, ids, h, wh, weights)
-    n, dev = h.shape[0], h.device
+def _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c
+               ) -> Optional[List[int]]:
+    strides = _check_common(x4, ids, h, wh, weights)
+    lead, n, dev = _lead(h), h.shape[-2], h.device
     _check("g", g, tuple(h.shape), torch.float32, dev)
-    _check("stats", stats, (n, 2), torch.float32, dev)
-    _check("r", r, (n,), torch.float32, dev)
-    _check("u", u, (n, _H2), torch.float32, dev)
-    _check("c", c, (n,), torch.float32, dev)
+    _check("stats", stats, lead + (n, 2), torch.float32, dev)
+    _check("r", r, lead + (n,), torch.float32, dev)
+    _check("u", u, lead + (n, _H2), torch.float32, dev)
+    _check("c", c, lead + (n,), torch.float32, dev)
+    return strides
 
 
 def _lib(name: str, fn: str, n_ptr: int, n_int: int):
+    """C entry ``fn`` of library ``name``: ``n_ptr`` pointers, ``n_int``
+    ints, the member count, the strides' pointer and the stream."""
     from socialways_torch.kernels._build import load
     f = getattr(load(name), fn)
-    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                  + [ctypes.c_void_p])
+    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (n_int + 1)
+                  + [ctypes.c_void_p, ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 
@@ -292,24 +409,37 @@ def _call(name: str, f, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _launch(lib: str, entry: str, h: torch.Tensor, n_ptr: int, n_int: int,
+            strides: Optional[List[int]], *args) -> None:
+    """C entry ``entry`` for ``h``'s operand dtype with ``args``, the
+    member count and the member strides: a single model (``strides`` None)
+    is M = 1 with a null stride array."""
+    f = _lib(_entry(lib, h), _entry(entry, h), n_ptr, n_int)
+    if strides is None:
+        _call(lib, f, *args, 1, None)
+    else:
+        _call(lib, f, *args, h.shape[0], (ctypes.c_longlong * 10)(*strides))
+
+
 def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
                 with_stats: bool, max_scene: int = 0):
     """(out [N, H], stats [N, 2] or None, u [N, 64], c [N]) from the two
     launches of the forward kernel; u = wh W3^T and c = wh . b3 are what
     the backward kernels read.  ``max_scene`` > 0 scans each tile's scene
     window only (``scan_range``).  Every output is float32; bf16 ``h``
-    launches the bf16 kernel."""
+    launches the bf16 kernel.  Member-stacked operands (``h`` [M, N, H],
+    ``_check_common``) launch once for all members and give [M, ...]
+    outputs."""
     _check_window(max_scene)
-    _check_common(x4, ids, h, wh, weights)
-    n, hdim = h.shape
+    strides = _check_common(x4, ids, h, wh, weights)
+    lead, (n, hdim) = _lead(h), h.shape[-2:]
     kw = dict(device=h.device, dtype=torch.float32)
-    out = torch.empty((n, hdim), **kw)
-    stats = torch.empty((n, 2), **kw) if with_stats else None
-    u, c = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    _call(_FWD, _lib(_entry(_FWD, h), _entry("social_attention_fwd", h), 14,
-                     5),
-          x4, ids, h, wh, *weights, out, stats, u, c, n, hdim, wh.shape[1],
-          fwd_blocks(n), max_scene)
+    out = torch.empty(lead + (n, hdim), **kw)
+    stats = torch.empty(lead + (n, 2), **kw) if with_stats else None
+    u, c = torch.empty(lead + (n, _H2), **kw), torch.empty(lead + (n,), **kw)
+    _launch(_FWD, "social_attention_fwd", h, 14, 5, strides, x4, ids, h, wh,
+            *weights, out, stats, u, c, n, hdim, wh.shape[-1], fwd_blocks(n),
+            max_scene)
     _count(social_attention_fwd, h)
     return out, stats, u, c
 
@@ -325,21 +455,24 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
     (one launch of ``dq_blocks(N)`` blocks, each tile scanning
     ``scan_range(N, t0, max_scene)``) or raise.  ``h``, ``wh`` and the
-    weights are float32 or bf16 together; the rest and dx are float32."""
+    weights are float32 or bf16 together; the rest and dx are float32.
+    Member-stacked operands (``h`` [M, N, H], ``_check_common``; g, stats,
+    r, u, c with a leading M) give dx [M, N, 4] from one launch, or on the
+    CPU from ``social_attention_bwd_dq_members_plain``."""
     _check_window(max_scene)
     if h.device.type == "cpu":
-        return social_attention_bwd_dq_plain(x4, ids, h, wh, g, stats, r,
-                                             weights)
+        plain = (social_attention_bwd_dq_members_plain if h.dim() == 3
+                 else social_attention_bwd_dq_plain)
+        return plain(x4, ids, h, wh, g, stats, r, weights)
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dq: unsupported device "
                          f"{h.device}")
-    _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
-    n, hdim = h.shape
-    dx = torch.empty((n, 4), device=h.device, dtype=torch.float32)
-    _call(_BWD, _lib(_entry(_BWD, h), _entry("social_attention_bwd_dq", h),
-                     13, 4),
-          x4, ids, h, g, stats, r, u, c, *weights[:4], dx, n, hdim,
-          dq_blocks(n), max_scene)
+    strides = _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
+    lead, (n, hdim) = _lead(h), h.shape[-2:]
+    dx = torch.empty(lead + (n, 4), device=h.device, dtype=torch.float32)
+    _launch(_BWD, "social_attention_bwd_dq", h, 13, 4, strides, x4, ids, h,
+            g, stats, r, u, c, *weights[:4], dx, n, hdim, dq_blocks(n),
+            max_scene)
     _count(social_attention_bwd_dq, h)
     return dx
 
@@ -354,65 +487,97 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     backward of the neighbour side.  On CUDA: two launches, dkv (each
     column tile scanning ``scan_range(N, t0, max_scene)``: a column's
     partners lie in the same window) and its finalize.  Operand dtypes as
-    in ``social_attention_bwd_dq``; every gradient is float32."""
+    in ``social_attention_bwd_dq``; every gradient is float32.  Member-
+    stacked operands give every output with a leading M, from one launch
+    of each kernel, or on the CPU from
+    ``social_attention_bwd_dkv_members_plain``."""
     _check_window(max_scene)
     if h.device.type == "cpu":
-        return list(social_attention_bwd_dkv_plain(
-            x4, ids, h, wh, g, stats, r, weights, need_dx))
+        plain = (social_attention_bwd_dkv_members_plain if h.dim() == 3
+                 else social_attention_bwd_dkv_plain)
+        return list(plain(x4, ids, h, wh, g, stats, r, weights, need_dx))
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dkv: unsupported device "
                          f"{h.device}")
-    _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
-    n, hdim = h.shape
-    feat = wh.shape[1]
+    strides = _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
+    lead, (n, hdim) = _lead(h), h.shape[-2:]
+    feat = wh.shape[-1]
     kw = dict(device=h.device, dtype=torch.float32)
-    a_sum, s_sum = torch.empty((n, _H2), **kw), torch.empty((n,), **kw)
-    partial = torch.empty((dkv_partial_floats(n),), **kw)
-    dx = torch.empty((n, 4), **kw) if need_dx else None
-    dh, dwh = torch.empty((n, hdim), **kw), torch.empty((n, feat), **kw)
-    dw3, db3 = torch.empty((_H2, feat), **kw), torch.empty((feat,), **kw)
-    dmlp12 = torch.empty((_PARTIAL,), **kw)
-    # the C entry refuses a partial size other than its own blocks x slot
-    _call(_BWD, _lib(_entry(_BWD, h), _entry("social_attention_bwd_dkv", h),
-                     24, 6),
-          x4, ids, h, wh, g, stats, r, u, c, *weights, a_sum, s_sum,
-          partial, dx, dh, dwh, dw3, db3, dmlp12, n, hdim, feat,
-          dkv_blocks(n), partial.numel(), max_scene)
+    a_sum = torch.empty(lead + (n, _H2), **kw)
+    s_sum = torch.empty(lead + (n,), **kw)
+    partial = torch.empty((dkv_partial_floats(n, h.shape[0] if lead else 1),),
+                          **kw)
+    dx = torch.empty(lead + (n, 4), **kw) if need_dx else None
+    dh = torch.empty(lead + (n, hdim), **kw)
+    dwh = torch.empty(lead + (n, feat), **kw)
+    dw3 = torch.empty(lead + (_H2, feat), **kw)
+    db3 = torch.empty(lead + (feat,), **kw)
+    dmlp12 = torch.empty(lead + (_PARTIAL,), **kw)
+    # the C entry refuses a partial size other than its own M x blocks x slot
+    _launch(_BWD, "social_attention_bwd_dkv", h, 24, 6, strides, x4, ids, h,
+            wh, g, stats, r, u, c, *weights, a_sum, s_sum, partial, dx, dh,
+            dwh, dw3, db3, dmlp12, n, hdim, feat, dkv_blocks(n),
+            partial.numel(), max_scene)
     _count(social_attention_bwd_dkv, h)
-    dw2 = dmlp12[:32 * _H2].view(32, _H2)
-    db2 = dmlp12[32 * _H2:32 * _H2 + _H2]
-    dw1 = dmlp12[32 * _H2 + _H2:32 * _H2 + _H2 + 96].view(3, 32)
-    db1 = dmlp12[32 * _H2 + _H2 + 96:]
+    dw2 = dmlp12[..., :32 * _H2].view(lead + (32, _H2))
+    db2 = dmlp12[..., 32 * _H2:32 * _H2 + _H2]
+    dw1 = dmlp12[..., 32 * _H2 + _H2:32 * _H2 + _H2 + 96].view(lead + (3, 32))
+    db1 = dmlp12[..., 32 * _H2 + _H2 + 96:]
     return [dx, dh, dwh, dw1, db1, dw2, db2, dw3, db3]
 
 
 class _SocialAttention(torch.autograd.Function):
     """The CUDA forward with stats and its backward kernels (replaces the
     ``custom_vjp`` at socialways_tpu/kernels/social_attention.py:601-679).
-    Inputs: max_scene, op (the operand dtype), x4, ids, h, wh, w1, b1, w2,
-    b2, w3, b3; x4, h and wh float32, the weights in ``op``.  ``h`` and
-    ``wh`` (h W + b) are rounded to ``op`` here, so their gradients leave in
-    float32 and autograd sums both of h's paths before the one rounding of
-    dh, as JAX's epilogue does (:574-591).  It keeps the forward's float32
-    output for ``r = g . out`` (JAX's ``out_pad``) and returns it in ``op``;
-    the weights' gradients return in ``op``, from the kernels' float32
-    ones."""
+    Inputs: max_scene, op (the operand dtype), with_stats, x4, ids, h, wh,
+    w1, b1, w2, b2, w3, b3; x4, h and wh float32, the weights in ``op``.
+    ``h`` and ``wh`` (h W + b) are rounded to ``op`` here, so their
+    gradients leave in float32 and autograd sums both of h's paths before
+    the one rounding of dh, as JAX's epilogue does (:574-591).  It keeps
+    the forward's float32 output for ``r = g . out`` (JAX's ``out_pad``)
+    and returns it in ``op``; the weights' gradients return in ``op``, from
+    the kernels' float32 ones.
+
+    Outputs: (out in ``op``; the float32 out when ``op`` is narrower, else
+    None; stats or None; u; c; h and wh in ``op`` when it is narrower, else
+    None: the one rounding, launched and saved), all but the first
+    non-differentiable.
+    ``with_stats`` False (no gradient will be taken) launches the forward
+    without stats.  Solo operands or member-stacked ones (``h`` [M, N, H],
+    see ``_check_common``); a shared ``x4``'s gradient is summed over the
+    members.  Under ``torch.func.vmap`` the ``vmap`` rule stacks the
+    operands on a leading member axis and applies this Function to them
+    outside ``vmap``: one member launch of each kernel for all members,
+    and a node of the regular autograd graph whose backward launches the
+    member dq and dkv kernels."""
 
     @staticmethod
-    def forward(ctx, max_scene, op, x4, ids, h, wh, *weights):
-        h, wh = h.to(op), wh.to(op)
-        out, stats, u, c = _launch_fwd(x4, ids, h, wh, weights,
-                                       with_stats=True, max_scene=max_scene)
-        ctx.save_for_backward(x4, ids, h, wh, out, stats, u, c, *weights)
+    def forward(max_scene, op, with_stats, x4, ids, h, wh, *weights):
+        h_op, wh_op = h.to(op), wh.to(op)
+        out, stats, u, c = _launch_fwd(x4, ids, h_op, wh_op, weights,
+                                       with_stats=with_stats,
+                                       max_scene=max_scene)
+        if op == torch.float32:
+            return out, None, stats, u, c, None, None
+        return out.to(op), out, stats, u, c, h_op, wh_op
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        max_scene, op, _, x4, ids, h, wh, *weights = inputs
+        out_op, out_f32, stats, u, c, h_op, wh_op = output
+        ctx.mark_non_differentiable(*(t for t in output[1:] if t is not None))
+        ctx.save_for_backward(x4, ids, h if h_op is None else h_op,
+                              wh if wh_op is None else wh_op,
+                              out_op if out_f32 is None else out_f32, stats,
+                              u, c, *weights)
         ctx.max_scene = max_scene
-        return out.to(op)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         x4, ids, h, wh, out, stats, u, c, *weights = ctx.saved_tensors
         g = g.float().contiguous()
         r = (g * out).sum(dim=-1)
-        need_x = ctx.needs_input_grad[2]
+        need_x = ctx.needs_input_grad[3]
         w = ctx.max_scene
         dxj, dh, dwh, *dweights = social_attention_bwd_dkv(
             x4, ids, h, wh, g, stats, r, weights, u, c, need_dx=need_x,
@@ -421,8 +586,32 @@ class _SocialAttention(torch.autograd.Function):
         if need_x:
             dx = social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
                                          weights, u, c, max_scene=w) + dxj
-        return (None, None, dx, None, dh, dwh,
+            if x4.dim() < h.dim():          # x4 shared by the members
+                dx = dx.sum(dim=0)
+        return (None, None, None, dx, None, dh, dwh,
                 *(d.to(t.dtype) for d, t in zip(dweights, weights)))
+
+    @staticmethod
+    def vmap(info, in_dims, max_scene, op, with_stats, x4, ids, h, wh,
+             *weights):
+        """Member-stack the operands (the member axis first; x4 and ids
+        stay shared when they are not batched, h, wh and the weights are
+        expanded to every member) and apply the Function to them."""
+        m = info.batch_size
+
+        def stacked(t, d):
+            t = t.expand(m, *t.shape) if d is None else t.movedim(d, 0)
+            return t.contiguous()
+
+        x4d, idsd, *rest_d = in_dims[3:]
+        x4 = x4 if x4d is None else x4.movedim(x4d, 0).contiguous()
+        ids = ids if idsd is None else ids.movedim(idsd, 0).contiguous()
+        rest = [stacked(t, d) for t, d in zip((h, wh, *weights), rest_d)]
+        with_stats = with_stats and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x4, *rest))
+        outs = _SocialAttention.apply(max_scene, op, with_stats, x4, ids,
+                                      *rest)
+        return outs, tuple(None if t is None else 0 for t in outs)
 
 
 def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
@@ -437,6 +626,9 @@ def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
     alone runs and writes no stats.  ``max_scene`` > 0 promises sorted,
     contiguous scenes of at most that many rows and lets every kernel scan
     only its tile's window (the dense CPU form finds the same pairs).
+    Under ``torch.func.vmap`` over ensemble members (any operand batched)
+    the call goes through ``_SocialAttention``'s ``vmap`` rule: one member
+    launch for all members, with stats when grad mode is on.
 
     The operand dtype is ``h``'s (float32 or bf16), as in JAX's kernel
     wrapper: ``wh`` (computed in float32) and the MLP's weights are cast to
@@ -451,10 +643,11 @@ def social_attention_fwd(feat_mlp: MLP, attn_w: Linear,
     hf = h.float()
     wh = linear_apply(attn_w, hf)
     x4 = x4_last.float()
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x4, hf, wh, *weights]):
-        return _SocialAttention.apply(max_scene, op, x4, scene_ids, hf, wh,
-                                      *weights)
+    operands = [x4, scene_ids, hf, wh, *weights]
+    grad = torch.is_grad_enabled()
+    if any(is_batchedtensor(t) for t in operands) or (grad and any(
+            t.requires_grad for t in operands)):
+        return _SocialAttention.apply(max_scene, op, grad, *operands)[0]
     return _launch_fwd(x4, scene_ids, h, wh.to(op), weights,
                        with_stats=False, max_scene=max_scene)[0].to(op)
 
@@ -484,3 +677,5 @@ for _wrapper in (social_attention_fwd, social_attention_bwd_dq,
                  social_attention_bwd_dkv):
     _wrapper.launches = 0          # float32 kernel
     _wrapper.launches_bf16 = 0     # bf16 kernel
+    _wrapper.member_launches = 0        # of which member launches
+    _wrapper.member_launches_bf16 = 0

@@ -1,1 +1,1 @@
-"""Host-side helpers: profiling."""
+"""Host-side helpers: profiling, geometry, lr schedules."""

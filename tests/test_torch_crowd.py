@@ -366,20 +366,20 @@ def test_torch_c_entries_refuse_a_negative_window():
     ptr = lambda *ts: [t.data_ptr() for t in ts]
     fwd = sa._lib(sa._FWD, "social_attention_fwd", 14, 5)
     assert fwd(*ptr(x4, ids, h, wh, *weights, out, stats, u, c), n, 64, 64,
-               sa.fwd_blocks(n), -1, stream) == 1
+               sa.fwd_blocks(n), -1, 1, None, stream) == 1
     sa._launch_fwd(x4, ids, h, wh, weights, True, 0)
     g, r = torch.zeros((n, 64), **kw), torch.zeros((n,), **kw)
     dq = sa._lib(sa._BWD, "social_attention_bwd_dq", 13, 4)
     dx = torch.empty((n, 4), **kw)
     assert dq(*ptr(x4, ids, h, g, stats, r, u, c, *weights[:4], dx), n, 64,
-              sa.dq_blocks(n), -1, stream) == 1
+              sa.dq_blocks(n), -1, 1, None, stream) == 1
     dkv = sa._lib(sa._BWD, "social_attention_bwd_dkv", 24, 6)
     scratch = [torch.empty(s, **kw) for s in [
         (n, 64), (n,), (sa.dkv_partial_floats(n),), (n, 4), (n, 64), (n, 64),
         (64, 64), (64,), (sa._PARTIAL,)]]
     assert dkv(*ptr(x4, ids, h, wh, g, stats, r, u, c, *weights, *scratch),
                n, 64, 64, sa.dkv_blocks(n), sa.dkv_partial_floats(n), -1,
-               stream) == 1
+               1, None, stream) == 1
     torch.cuda.synchronize()
     for call in (lambda: sa._launch_fwd(x4, ids, h, wh, weights, True, -1),
                  lambda: sa.social_attention_bwd_dq(

@@ -172,10 +172,10 @@ def test_torch_dq_kernel_bits_do_not_depend_on_the_grid_on_cuda():
     for blocks in (sa.dq_blocks(256), 7):
         dx[blocks] = torch.empty(256, 4, device="cuda")
         sa._call(sa._BWD, fn, x4, ids, h, g, stats, r, *uc, *w[:4],
-                 dx[blocks], 256, 64, blocks, 0)
+                 dx[blocks], 256, 64, blocks, 0, 1, None)
     torch.cuda.synchronize()
     assert torch.equal(dx[7], dx[sa.dq_blocks(256)])
     for hdim, blocks in ((64, 0), (136, 128), (40, 128)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             sa._call(sa._BWD, fn, x4, ids, h, g, stats, r, *uc, *w[:4],
-                     dx[7], 256, hdim, blocks, 0)
+                     dx[7], 256, hdim, blocks, 0, 1, None)

@@ -7,7 +7,11 @@ u-form is built here, in the test, from seeded numpy inputs (ETH-like
 sorted scenes, unsorted ids, a singleton scene, a padded tail; H = F = 32
 and 64), and held against JAX's ``_pair_scores`` and the port's dense
 plain form at f32 rtol 1e-4 / atol 1e-5 (the same sums in another order).
-JAX is imported inside the tests that use it."""
+The scores' test holds each of the three float32 computations (the
+u-form, the plain form, JAX's ``_pair_scores``) against a float64 numpy
+oracle of the same scores at that tolerance, one check a side, so that a
+failure names the side that moved.  JAX is imported inside the tests that
+use it."""
 
 import numpy as np
 import pytest
@@ -57,28 +61,58 @@ def _uform_scores(gen, x4, h):
     return torch.einsum("ijk,jk->ij", a2, u) + c[None, :]
 
 
+def _scores_f64(gen, x4, wh) -> np.ndarray:
+    """The pair scores ``f_ij . wh_j`` in float64 numpy from the float32
+    inputs: the oracle each float32 computation is held against."""
+    x = x4.numpy().astype(np.float64)
+    p, v = x[:, :2], x[:, 2:]
+    dp, dv = p[:, None] - p[None], v[:, None] - v[None]
+    norm = lambda a: np.sqrt((a * a).sum(-1))
+    dist = norm(dp)
+    bearing = (np.einsum("ijk,ik->ij", dp, v)
+               / (dist * norm(v)[:, None] + 1e-6))
+    ttca = -(dp * dv).sum(-1) / ((dv * dv).sum(-1) + 1e-6)
+    f = np.stack([dist, bearing, norm(dp + ttca[..., None] * dv)], -1)
+    for k, layer in enumerate(gen.feat_mlp):
+        w, b = (t.detach().numpy().astype(np.float64)
+                for t in (layer.w, layer.b))
+        f = (np.maximum(f, 0.0) if k else f) @ w + b
+    return np.einsum("ijf,jf->ij", f, wh.numpy().astype(np.float64))
+
+
 @pytest.mark.parametrize("hidden", [32, 64])
 @pytest.mark.parametrize("kind", ["sorted", "unsorted"])
-def test_torch_uform_scores_match_jax_pair_scores_and_plain(kind, hidden):
-    jnp = pytest.importorskip("jax.numpy")
-    from socialways_tpu.kernels.social_attention import _pair_scores
+@pytest.mark.parametrize("side", ["uform", "plain", "jax"])
+def test_torch_uform_scores_match_jax_pair_scores_and_plain(side, kind,
+                                                            hidden):
+    """The u-form, the plain form and JAX's ``_pair_scores``, each against
+    the float64 oracle at f32 rtol 1e-4 / atol 1e-5 (every pair of the
+    three then agrees within twice that).  One test a side, so that a
+    failure names the side that moved and the port's own sides do not
+    depend on JAX's."""
     gen, x4, h, ids = _setup(kind, hidden, seed=hidden + len(kind))
     mask = scene_mask(ids)
     assert int(mask.sum()) > 0 and int((ids < 0).sum()) > 0
     with torch.no_grad():
-        got = _uform_scores(gen, x4, h)
         wh = linear_apply(gen.attn_w, h)
-        plain = torch.einsum("ijf,jf->ij",
-                             mlp_apply(gen.feat_mlp, social_features(x4)), wh)
-    weights = [jnp.asarray(t.detach().numpy()) for m in gen.feat_mlp
-               for t in (m.w, m.b)]
-    want = np.asarray(_pair_scores(jnp.asarray(x4.numpy()),
-                                   jnp.asarray(x4.numpy()),
-                                   jnp.asarray(wh.numpy()), *weights))
+        if side == "uform":
+            scores = _uform_scores(gen, x4, h).numpy()
+        elif side == "plain":
+            scores = torch.einsum(
+                "ijf,jf->ij", mlp_apply(gen.feat_mlp, social_features(x4)),
+                wh).numpy()
+    if side == "jax":
+        jnp = pytest.importorskip("jax.numpy")
+        from socialways_tpu.kernels.social_attention import _pair_scores
+        weights = [jnp.asarray(t.detach().numpy()) for m in gen.feat_mlp
+                   for t in (m.w, m.b)]
+        scores = np.asarray(_pair_scores(jnp.asarray(x4.numpy()),
+                                         jnp.asarray(x4.numpy()),
+                                         jnp.asarray(wh.numpy()), *weights))
     m = mask.numpy()
-    np.testing.assert_allclose(got.numpy()[m], want[m], rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got.numpy()[m], plain.numpy()[m], rtol=RTOL,
-                               atol=ATOL)
+    np.testing.assert_allclose(scores[m], _scores_f64(gen, x4, wh)[m],
+                               rtol=RTOL, atol=ATOL,
+                               err_msg=f"{side} against float64")
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
@@ -236,4 +270,4 @@ def test_torch_attention_dkv_refuses_a_partial_size_not_its_own():
         partial = torch.empty(blocks * 2240, **kw)
         with pytest.raises(RuntimeError, match="CUDA error"):
             sa._call(sa._BWD, fn, *ins, *weights, *outs, partial, *tail, n,
-                     64, feat, blocks, floats, 0)
+                     64, feat, blocks, floats, 0, 1, None)
