@@ -14,7 +14,9 @@ Phases (any failure raises):
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. build every kernel from csrc/ (one nvcc per source, in parallel),
    print ptxas's registers and spills for each kernel's float and bf16
-   entry, and fail if any spills;
+   entry, narrow (H and F up to 128) and wide, and fail if any spills or
+   a narrow float32 kernel's registers move more than 2 from
+   ``PTXAS_KERNELS``;
 3. the forward kernel against its plain PyTorch version on the card, f32,
    at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats):
    its two launches alone (``_launch_fwd`` with wh = h W + b computed
@@ -107,7 +109,20 @@ Phases (any failure raises):
    = 1, 4, 8 against solo train steps/s, alternated, and one profiled
    step at M = 4; (d) the robust1 base on the big toy set, 3 seeds x 2
    epochs: each member's coverage equals its solo run's;
-14. a ``kernels`` JSON line, then the device JSON as the last line.
+14. every width JAX runs (the kernels took H and F in multiples of 16 up
+   to 128): (a) at H = F = 64, 24, 100, 256 and 512 on the first loo
+   training chunk (generators of that width, their encoder states), the
+   forward with stats, dq and dkv in float32 (phase 4's checks, dx held
+   by the f64 witness) and bf16 (phase 12's), and at M = 4 for 24 and 256
+   (phase 13's), each timed, the kernel launch counters going up in each;
+   (b) ``cli train --recipe loo --hidden-size`` 256 and 24 for an epoch:
+   the first step on the card against the CPU, launches exact;
+15. JAX's loop flags: ``cli train --recipe loo --fused-epochs --block-size
+   2 --epochs 4 --test-interval 2 --save-interval 2 --pallas --host-loop
+   --latent-dim 10`` on phase 7's npz (launches exact, one print and one
+   metrics row a block, a checkpoint and an eval at each block's end) and
+   ``cli simulate --pallas`` at 10,000 agents (8 launches exactly);
+16. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -132,7 +147,9 @@ H100_BF16_TC_FLOPS = 989e12         # bf16 dense tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12          # HBM3
 K, N_PAST, N_NEXT, BATCH, HIDDEN = 20, 8, 12, 256, 64
 KERNELS = ["social_attention_fwd", "social_attention_bwd",
-           "social_attention_fwd_bf16", "social_attention_bwd_bf16"]
+           "social_attention_fwd_bf16", "social_attention_bwd_bf16",
+           "social_attention_fwd_wide", "social_attention_bwd_wide",
+           "social_attention_fwd_wide_bf16", "social_attention_bwd_wide_bf16"]
 SHAPES = [("eth-like N=256 H=F=64", 256, 64, 0),
           ("eth-like N=256 H=F=32", 256, 32, 0),
           ("scenes of 64 N=2048 H=F=64", 2048, 64, 64)]
@@ -359,7 +376,8 @@ def check_close(got, want, name: str, kind: str = "value") -> float:
     return float(err.max())
 
 
-def dx_witness(torch, sa, name, g, x4, h, ids, gout, pairs) -> None:
+def dx_witness(torch, sa, name, g, x4, h, ids, gout, pairs,
+               inputs=None) -> None:
     """Why dx has a per-row bound: the f64 plain version of the same
     function on the same f32 inputs.  Prints, for the kernel and for the
     f32 plain version, the worst row's error against f64 in units of the
@@ -367,46 +385,111 @@ def dx_witness(torch, sa, name, g, x4, h, ids, gout, pairs) -> None:
     forward's elementwise rtol 2e-4 / atol 2e-5.  Correct f32 arithmetic
     reaches past the row bound on some draws (the plain version too), so
     the kernel is held relative to the plain version: its worst row within
-    2x the plain version's + 0.1 of the bound."""
+    2x the plain version's + 0.1 of the bound.  The f64 version rebuilds
+    wh, the stats and r from the generator ``g`` in f64, unless
+    ``inputs`` (the backward kernels' own x4, ids, h, wh, g, stats, r and
+    weights) are given: then it takes exactly those, widened, so that a
+    rounding of r or the stats (inputs of dq and dkv) is no kernel's
+    error."""
     import copy
     from socialways_torch.ops.nn import linear_apply
-    fm = copy.deepcopy(g.feat_mlp).double()
-    aw = copy.deepcopy(g.attn_w).double()
-    x64, h64, g64 = x4.double(), h.double(), gout.double()
-    w64 = [t.detach() for layer in fm for t in (layer.w, layer.b)]
-    with torch.no_grad():
-        wh64 = linear_apply(aw, h64)
-        out64, m64, l64 = sa.social_attention_stats_plain(fm, aw, x64, h64,
-                                                          ids)
-    args = (x64, ids, h64, wh64, g64, torch.stack([m64, l64], 1),
-            (g64 * out64).sum(-1), w64)
+    if inputs is not None:
+        args = tuple(t if t.dtype == torch.int32 else t.double()
+                     for t in inputs[:7]) + ([t.double()
+                                              for t in inputs[7]],)
+    else:
+        fm = copy.deepcopy(g.feat_mlp).double()
+        aw = copy.deepcopy(g.attn_w).double()
+        x64, h64, g64 = x4.double(), h.double(), gout.double()
+        w64 = [t.detach() for layer in fm for t in (layer.w, layer.b)]
+        with torch.no_grad():
+            wh64 = linear_apply(aw, h64)
+            out64, m64, l64 = sa.social_attention_stats_plain(fm, aw, x64,
+                                                              h64, ids)
+        args = (x64, ids, h64, wh64, g64, torch.stack([m64, l64], 1),
+                (g64 * out64).sum(-1), w64)
     refs = {"dq dx_i": sa.social_attention_bwd_dq_plain(*args),
             "dkv dx_j": sa.social_attention_bwd_dkv_plain(*args)[0]}
     parts, over = [], []
     for key, (kern, plain) in pairs.items():
-        ref = refs[key]
-        used = {}
-        for who, got in (("kernel", kern), ("plain f32", plain)):
-            err = (got.double() - ref).abs()
-            used[who] = float((err.amax(dim=1)
-                               / (1e-3 * ref.abs().amax(dim=1) + 2e-5)).max())
-            n_out = int((err > ATOL + RTOL * ref.abs()).sum())
-            parts.append(f"{key} {who} {used[who]:.3f} of the row bound, "
-                         f"{n_out}/{err.numel()} outside rtol/atol")
-        if used["kernel"] > 2.0 * used["plain f32"] + 0.1:
+        used, part = dx_rows_used(kern, plain, refs[key])
+        parts.append(f"{key} {part}")
+        if used["kernel"] > 2.0 * used["plain"] + 0.1:
             over.append(f"{key} kernel {used['kernel']:.2f} against plain "
-                        f"f32 {used['plain f32']:.2f}")
-    print(f"dx vs f64 plain [{name}]: " + "; ".join(parts))
+                        f"f32 {used['plain']:.2f}")
+    print(f"dx vs f64 plain{' (same inputs)' if inputs else ''} [{name}]: "
+          + "; ".join(parts))
     if over:
         raise AssertionError(f"{name}: dx further from f64 than 2x the f32 "
                              f"plain version + 0.1: {', '.join(over)}")
 
 
-def backward_case(torch, sa, name, g, x4, h, ids, seed):
+def dx_same_inputs(torch, sa, tag, inputs, pairs) -> float:
+    """dx held as ``dx_witness`` holds it, on the kernels' own inputs:
+    ``inputs`` (x4, ids, h, wh, g, stats, r, weights; solo or member-
+    stacked, float32 or bf16 operands) widened to f64 give the reference,
+    the f64 plain version of the same function (for bf16 operands the
+    float function of the bf16 values, whose distance from the bf16
+    contract the kernel and its plain version share).  ``pairs``: {name:
+    (kernel dx, plain dx)}; each member's kernel within 2x its plain
+    version's error + 0.1 of the row bound.  Returns the kernels' max abs
+    difference from their plain versions."""
+    a64 = tuple(t if t.dtype == torch.int32 else t.double()
+                for t in inputs[:7]) + ([t.double() for t in inputs[7]],)
+    members = inputs[2].dim() == 3
+    refs = {"dq dx_i": (sa.social_attention_bwd_dq_members_plain if members
+                        else sa.social_attention_bwd_dq_plain)(*a64),
+            "dkv dx_j": (sa.social_attention_bwd_dkv_members_plain
+                         if members else sa.social_attention_bwd_dkv_plain)(
+                             *a64)[0]}
+    worst = 0.0
+    for key, (kern, plain) in pairs.items():
+        for i in range(kern.shape[0] if members else 1):
+            k, p_, ref = ((kern[i], plain[i], refs[key][i]) if members
+                          else (kern, plain, refs[key]))
+            if not bool(k.isfinite().all()):
+                raise AssertionError(f"{tag} {key}: non-finite values")
+            used, part = dx_rows_used(k, p_, ref)
+            print(f"  {key}{f' member {i}' if members else ''} vs f64 "
+                  f"plain (same inputs) [{tag}]: {part}")
+            if used["kernel"] > 2.0 * used["plain"] + 0.1:
+                raise AssertionError(f"{tag} {key}: dx further from f64 "
+                                     f"than 2x the plain version + 0.1: "
+                                     f"{part}")
+            worst = max(worst, float((k - p_).abs().max()))
+    return worst
+
+
+def dx_rows_used(kern, plain, ref):
+    """({"kernel", "plain"}: worst row's error against the f64 ``ref``
+    in units of the row bound, 1e-3 max|ref row| + 2e-5), and a printable
+    summary with the elements outside rtol 2e-4 / atol 2e-5."""
+    used, parts = {}, []
+    for who, got in (("kernel", kern), ("plain", plain)):
+        err = (got.double() - ref).abs()
+        used[who] = float((err.amax(dim=-1)
+                           / (1e-3 * ref.abs().amax(dim=-1) + 2e-5)).max())
+        n_out = int((err > ATOL + RTOL * ref.abs()).sum())
+        parts.append(f"{who} {used[who]:.3f} of the row bound, "
+                     f"{n_out}/{err.numel()} outside rtol/atol")
+    return used, "; ".join(parts)
+
+
+def backward_case(torch, sa, name, g, x4, h, ids, seed, dx_rows=True):
     """Phase 4 on one input: the Function and each backward kernel against
-    the plain versions, and their times and bounds."""
+    the plain versions, and their times and bounds.  ``dx_rows`` False
+    holds dx (the Function's, dq's and dkv's) by ``dx_witness`` on the
+    kernels' own inputs alone, not by ``check_close``'s per-row bound."""
     from socialways_torch.ops.nn import linear_apply
     dev = torch.device("cuda")
+
+    def dx_close(a, b, what):
+        if dx_rows:
+            return check_close(a, b, what, "dx")
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{what}: non-finite values")
+        return float((a - b).abs().max())
+
     x4, h, ids = (torch.from_numpy(a).to(dev) for a in (x4, h, ids))
     gout = torch.from_numpy(np.random.RandomState(seed).randn(
         *h.shape).astype(np.float32)).to(dev)
@@ -424,8 +507,11 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
     torch.cuda.synchronize()
     check_close(out, ref_out, f"{name} out")
     for i, (nm, a, b) in enumerate(zip(names, got, want)):
-        check_close(a, b, f"{name} autograd {nm}",
-                    "dx" if nm == "dx" else "weight" if i >= 2 else "value")
+        if nm == "dx":
+            dx_close(a, b, f"{name} autograd dx")
+        else:
+            check_close(a, b, f"{name} autograd {nm}",
+                        "weight" if i >= 2 else "value")
 
     # each kernel against its plain version on the same inputs
     w = [t.detach() for t in weights]
@@ -444,7 +530,7 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
     uc = (u, c)
     dq = sa.social_attention_bwd_dq(*args, *uc)
     dq_ref = sa.social_attention_bwd_dq_plain(*args)
-    err_q = check_close(dq, dq_ref, f"{name} dq dx_i", "dx")
+    err_q = dx_close(dq, dq_ref, f"{name} dq dx_i")
     if not torch.equal(dq, sa.social_attention_bwd_dq(*args, *uc)):
         raise AssertionError(f"{name} dq: two runs differ in their bits")
     dkv = sa.social_attention_bwd_dkv(*args, *uc, need_dx=False)
@@ -456,13 +542,14 @@ def backward_case(torch, sa, name, g, x4, h, ids, seed):
                                                     dkv_ref[1:])))
     dkv_x = sa.social_attention_bwd_dkv(*args, *uc)
     dkv_x_ref = sa.social_attention_bwd_dkv_plain(*args)
-    err_kv = max(err_kv, check_close(dkv_x[0], dkv_x_ref[0],
-                                     f"{name} dkv dx_j", "dx"))
+    err_kv = max(err_kv, dx_close(dkv_x[0], dkv_x_ref[0],
+                                  f"{name} dkv dx_j"))
     for a, b in zip(dkv[1:], dkv_x[1:]):
         if not torch.equal(a, b):
             raise AssertionError(f"{name} dkv: two runs differ in their bits")
     dx_witness(torch, sa, name, g, x4, h, ids, gout,
-               {"dq dx_i": (dq, dq_ref), "dkv dx_j": (dkv_x[0], dkv_x_ref[0])})
+               {"dq dx_i": (dq, dq_ref), "dkv dx_j": (dkv_x[0], dkv_x_ref[0])},
+               inputs=None if dx_rows else args)
 
     with torch.no_grad():
         fwd_ms = median_ms(torch, lambda: sa._launch_fwd(
@@ -522,10 +609,11 @@ PTXAS_KERNELS = {"u_prep_kernel": 74, "social_attention_fwd_kernel": 50,
                  "bwd_finalize_kernel": 30}
 
 
-def ptxas_entries(log: str) -> dict:
+def ptxas_entries(log: str, wide: bool = False) -> dict:
     """{"kernel[float|bf16]": (registers, spill store bytes, spill load
     bytes)} from nvcc's ``-Xptxas -v`` output; the mangled template names
-    shortened to the kernel and its operand type."""
+    shortened to the kernel and its operand type (``wide``: a wide
+    library's, "kernel[float|bf16,wide]")."""
     out, entry, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -535,7 +623,7 @@ def ptxas_entries(log: str) -> dict:
                 raise AssertionError(f"ptxas: unknown entry {m.group(1)}")
             typ = ("bf16" if f"{name}I13__nv_bfloat16" in m.group(1)
                    else "float")
-            entry = f"{name}[{typ}]"
+            entry = f"{name}[{typ}{',wide' if wide else ''}]"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -545,6 +633,37 @@ def ptxas_entries(log: str) -> dict:
             out[entry] = (int(m.group(1)), *spills)
             entry, spills = None, (0, 0)
     return out
+
+
+def build_kernels(_build) -> None:
+    """Phase 2: build every kernel (one nvcc a source, in parallel), print
+    ptxas's lines, and fail if a kernel spills or a narrow float32
+    kernel's registers move more than 2 from ``PTXAS_KERNELS`` (the wide
+    kernels, H or F above 128, have no earlier build to hold them to)."""
+    tic = time.perf_counter()
+    _build.build(KERNELS)
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - tic:.2f} s"
+          f" (parallel nvcc)")
+    for name in KERNELS:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print(f"  ptxas {name}: {line.strip()[:150]}")
+    ptxas = {}
+    for name in KERNELS:
+        ptxas.update(ptxas_entries(_build.build_logs.get(name, ""),
+                                   wide="_wide" in name))
+    if len(ptxas) != 4 * len(PTXAS_KERNELS) or any(
+            sum(v[1:]) for v in ptxas.values()):
+        raise AssertionError(f"ptxas: want every kernel for float and bf16, "
+                             f"narrow and wide, without spills, got {ptxas}")
+    for entry, (regs, st, ld) in sorted(ptxas.items()):
+        was = PTXAS_KERNELS[entry.split("[")[0]]
+        print(f"ptxas: {entry} {regs} registers, spill stores/loads {st}/"
+              f"{ld} bytes" + (f" (float-only build: {was})"
+                               if entry.endswith("[float]") else ""))
+        if entry.endswith("[float]") and abs(regs - was) > 2:
+            raise AssertionError(f"ptxas: {entry} takes {regs} registers, "
+                                 f"the float-only build {was} (bound +-2)")
 
 
 def profile_step(torch, what: str, fn) -> None:
@@ -1701,9 +1820,10 @@ def check_bf16(name, got, want, kind="value", control=None):
 
 
 def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
-                     timed=True):
+                     timed=True, dx_rows=True):
     """The bf16 kernels on one input (``g`` float32 masters; ``h`` holds
-    bf16 values) against their plain bf16 versions, from the same stats,
+    bf16 values) against their plain bf16 versions (``dx_rows`` False: dx
+    by ``dx_same_inputs`` instead of the per-row bound), from the same stats,
     u and c; a w > 0 launch against the w = 0 launch's bits; the float32
     kernels on the same values as a control that must miss a bound; each
     launch alone timed beside the float32 kernel on the same values, with
@@ -1767,6 +1887,18 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
                    w32, u32, c32)
             ctrl += [sa.social_attention_bwd_dq(*a32, max_scene=w),
                      *sa.social_attention_bwd_dkv(*a32, max_scene=w)]
+    if backward and not dx_rows:     # dx by dx_same_inputs, not per row
+        dx_same_inputs(torch, sa, f"bf16 {tag}",
+                       (x4, ids, h16, wh16, gout, stats, r, w16),
+                       {"dq dx_i": (res[windows[-1]][4], p_dq),
+                        "dkv dx_j": (res[windows[-1]][5], p_dkv[0])})
+
+    def check_dx(name, got, want, control):
+        if dx_rows:
+            return check_bf16(name, got, want, "dx", control)
+        mx, med, _ = bf16_misses(got, want, "dx")
+        return mx, med, bf16_misses(control, want, "dx")[2]
+
     err = {"fwd": [check_bf16(f"bf16 {tag} out", out, p_out, "out",
                               ctrl[0]),
                    check_bf16(f"bf16 {tag} m", stats[:, 0], p_m, "m",
@@ -1775,12 +1907,12 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
                               ctrl[1][:, 1])]}
     if backward:
         dq, *dkv = res[windows[-1]][4:]
-        err["dq"] = [check_bf16(f"bf16 {tag} dq dx_i", dq, p_dq, "dx",
-                                ctrl[2])]
+        err["dq"] = [check_dx(f"bf16 {tag} dq dx_i", dq, p_dq, ctrl[2])]
         names = ["dx_j", "dh_j", "dwh_j", "dw1", "db1", "dw2", "db2", "dw3",
                  "db3"]
-        err["dkv"] = [check_bf16(f"bf16 {tag} dkv {nm}", a, b,
-                                 "dx" if nm == "dx_j" else "grad", cf)
+        err["dkv"] = [check_dx(f"bf16 {tag} dkv {nm}", a, b, cf)
+                      if nm == "dx_j" else
+                      check_bf16(f"bf16 {tag} dkv {nm}", a, b, "grad", cf)
                       for nm, a, b, cf in zip(names, dkv, p_dkv, ctrl[3:])]
     blind = [k for k, v in err.items() if not any(e[2] for e in v)]
     if blind:
@@ -2089,7 +2221,7 @@ def member_operands(torch, gens, hs, op):
 
 
 def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
-                       max_scene=0, backward=True, plain=True):
+                       max_scene=0, backward=True, plain=True, dx_rows=True):
     """Phase 13a on one input: the member launch of each kernel (forward
     with and without stats, dq, dkv with its finalize, with and without
     dx_j) for the members' generators ``gens`` and hidden states ``hs`` on
@@ -2098,9 +2230,11 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
     (float32: ``check_close``'s bounds; bf16: ``check_bf16``'s; ``plain``
     False: at crowd N, where the solo launches were held against the
     windowed plain form in phase 11), and timed beside M solo launches and
-    the member launch's bound (x4 and ids read once)."""
+    the member launch's bound (x4 and ids read once).  ``dx_rows`` False
+    holds dx (dq's, dkv's dx_j) by ``dx_same_inputs``, not at the per-row
+    bound against the plain version."""
     m, (n,) = len(gens), ids.shape
-    hdim = HIDDEN
+    hdim = hs[0].shape[-1]
     h, wh, w = member_operands(torch, gens, hs, op)
     gout = torch.from_numpy(np.random.RandomState(60).randn(
         m, n, hdim).astype(np.float32)).to(dev)
@@ -2160,8 +2294,15 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
         p_dkv = sa.social_attention_bwd_dkv_members_plain(*args)
         kinds = ["dx", "value", "value"] + ["weight"] * 6
         dq_err, dkv_err = 0.0, 0.0
+        if not dx_rows:
+            dq_err = dx_same_inputs(torch, sa, f"member {tag}", args,
+                                    {"dq dx_i": (dq, p_dq)})
+            dkv_err = dx_same_inputs(torch, sa, f"member {tag}", args,
+                                     {"dkv dx_j": (dkv_x[0], p_dkv[0])})
         for i in range(m):
-            if bf16:
+            if not dx_rows:
+                pass                                    # held above
+            elif bf16:
                 dq_err = max(dq_err, check_bf16(f"member dq [{tag}]", dq[i],
                                                 p_dq[i], "dx")[0])
             else:
@@ -2169,9 +2310,14 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
                                                  f"member dq [{tag}]", "dx"))
             for kd, a, b in zip(kinds, dkv_x, p_dkv):
                 kd = ("grad" if kd == "weight" else kd) if bf16 else kd
-                chk = (check_bf16(f"member dkv [{tag}]", a[i], b[i], kd)[0]
-                       if bf16 else check_close(a[i], b[i],
-                                                f"member dkv [{tag}]", kd))
+                if kd == "dx" and not dx_rows:
+                    continue                            # held above
+                else:
+                    chk = (check_bf16(f"member dkv [{tag}]", a[i], b[i],
+                                      kd)[0]
+                           if bf16 else check_close(a[i], b[i],
+                                                    f"member dkv [{tag}]",
+                                                    kd))
                 dkv_err = max(dkv_err, chk)
         errs["dq"], errs["dkv"] = dq_err, dkv_err
     # times: the member launch, M solo launches, the member plain version
@@ -2239,6 +2385,171 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
           f"member equals its solo launches bit for bit; max abs error "
           f"against the member plain versions {errs or 'not compared'}")
     return res, errs
+
+
+#: phase 14: hidden sizes JAX runs that are not the kernels' native
+#: multiples of 16 up to 128 (padded: 24, 100; looped over: 256, 512), the
+#: ones also checked at M = 4, and the CLI runs at two of them
+WIDTHS, WIDTH_MEMBERS = (24, 100, 256, 512), (24, 256)
+WIDTH_RUNS = {
+    "loo_h256": (["--recipe", "loo", "--hidden-size", "256"], 1, 1, (1, 1)),
+    "loo_h24": (["--recipe", "loo", "--hidden-size", "24"], 1, 1, (1, 1)),
+}
+
+
+def width_kernels(torch, sa, dev, obsv_in, x4, ids, card):
+    """Phase 14a: at H = F = 64 and each of ``WIDTHS`` on the first loo
+    training chunk (its canonicalized observations ``obsv_in``, x4 and
+    ids; generators of that width drawn from seeds, their encoder states
+    h): the forward with stats, dq and dkv in float32
+    (``backward_case``: the Function and each kernel against the plain
+    versions at phase 4's bounds, timed) and in bf16 (``bf16_kernel_case``,
+    phase 12's bounds), and at M = 4 for ``WIDTH_MEMBERS``
+    (``member_kernel_case``, phase 13's checks), each kernel's float32
+    (bf16) launch counter going up in its float32 (bf16) case.  Returns
+    {width: {"fwd_stats" | "dq" | "dkv": times and bounds}}."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.models.generator import (encode_observation,
+                                                   init_generator)
+    from socialways_torch.ops.traj import obsv_to_4d
+    x4_np, ids_np = x4.cpu().numpy(), ids.cpu().numpy()
+    res = {}
+
+    def encoded(g):
+        with torch.no_grad():
+            return encode_observation(g, obsv_to_4d(obsv_in))[0].contiguous()
+
+    for width in (HIDDEN,) + WIDTHS:
+        cfg = TrainConfig(hidden_size=width, social_feature_size=width,
+                          noise_len=width // 2)
+        g = init_generator(cfg, torch.Generator().manual_seed(140 + width),
+                           dev)
+        h_np = encoded(g).cpu().numpy()
+        tag = f"loo train chunk 0 H=F={width}"
+        reset_launches(sa)
+        f32 = backward_case(torch, sa, tag, g, x4_np, h_np, ids_np,
+                            seed=140 + width, dx_rows=False)
+        counts = read_launches(sa)
+        if not all(counts.values()) or any(read_launches(sa, True).values()):
+            raise AssertionError(f"{tag}: float32 launches {counts}, bf16 "
+                                 f"{read_launches(sa, True)}")
+        reset_launches(sa)
+        entries, _ = bf16_kernel_case(
+            torch, sa, g, x4, ids, torch.from_numpy(h_np).to(dev), 0, tag,
+            card, dx_rows=False)
+        counts16 = read_launches(sa, True)
+        if not all(counts16.values()):
+            raise AssertionError(f"{tag}: bf16 launches {counts16}")
+        res[width] = {
+            "fwd_stats": {"ms": f32["stats_ms"],
+                          "plain_ms": f32["stats_plain_ms"],
+                          "bound_ms": f32["bounds"]["fwd"]["bound_ms"]},
+            **{k: {"ms": f32["ms"][k][0], "plain_ms": f32["ms"][k][1],
+                   "bound_ms": f32["bounds"][k]["bound_ms"]}
+               for k in ("dq", "dkv")},
+            "bf16": {k: {"ms": e["ms"], "bound_ms": e["bound_ms"]}
+                     for k, e in entries.items()},
+            "launches": counts, "launches_bf16": counts16}
+        if width in WIDTH_MEMBERS:
+            gens = [init_generator(cfg, torch.Generator().manual_seed(
+                150 + width + i), dev) for i in range(ENSEMBLE_M)]
+            hs = [encoded(gi) for gi in gens]
+            for op in (torch.float32, torch.bfloat16):
+                reset_launches(sa)
+                member, _ = member_kernel_case(torch, sa, dev, x4, ids, gens,
+                                               hs, tag, card, op,
+                                               dx_rows=False)
+                got = read_launches(sa, op == torch.bfloat16)
+                if not all(got.values()):
+                    raise AssertionError(f"{tag} M = {ENSEMBLE_M} {op}: "
+                                         f"launches {got}")
+                res[width][f"members_{str(op).split('.')[-1]}"] = {
+                    k: {"ms": e["ms"], "bound_ms": e["bound_ms"]}
+                    for k, e in member.items()}
+    print("widths: " + "; ".join(
+        f"H=F={w}: fwd+stats {r['fwd_stats']['ms'] * 1e3:.2f} us, dq "
+        f"{r['dq']['ms'] * 1e3:.2f}, dkv {r['dkv']['ms'] * 1e3:.2f} (bf16 "
+        f"{r['bf16']['fwd']['ms'] * 1e3:.2f} / {r['bf16']['dq']['ms'] * 1e3:.2f}"
+        f" / {r['bf16']['dkv']['ms'] * 1e3:.2f})" for w, r in res.items())
+        + f" [{card}]")
+    return res
+
+
+def widths_phase(torch, sa, cli_main, dev, npz, train_chunk, work, card):
+    """Phase 14, every width JAX runs: (a) ``width_kernels`` on the first
+    loo training chunk (``train_chunk``: its canonicalized observations,
+    x4 and ids); (b) ``cli train --recipe loo --hidden-size`` 256 and 24
+    for an epoch (``WIDTH_RUNS`` through ``gan_run``: the first step on
+    the card against the CPU, a profiled step, launches one forward and
+    one dkv a step plus one forward an eval chunk, no dq)."""
+    tic_phase = time.perf_counter()
+    kernels = width_kernels(torch, sa, dev, *train_chunk, card)
+    launches, rates = {}, {}
+    for tag, run in WIDTH_RUNS.items():
+        launches[tag], rates[tag], _ = gan_run(torch, sa, cli_main, dev, npz,
+                                               work, tag, run, card=card)
+    wall = time.perf_counter() - tic_phase
+    print(f"widths phase: {wall:.2f} s wall; train steps/s {rates} "
+          f"[{card}]")
+    return {"kernels": kernels, "launches": launches, "train_rates": rates,
+            "wall_s": wall}
+
+
+#: phase 15: JAX's loop flags on train (a block of 2 epochs, a save and an
+#: eval at each block's end) and simulate
+LOOP_FLAGS = ["--recipe", "loo", "--fused-epochs", "--block-size", "2",
+              "--epochs", "4", "--test-interval", "2", "--save-interval", "2",
+              "--pallas", "--host-loop", "--latent-dim", "10"]
+
+
+def loop_flags_phase(torch, sa, cli_main, npz, ckpt, work, card):
+    """Phase 15: ``cli train`` with JAX's loop flags (``LOOP_FLAGS``) on
+    phase 7's npz: forward launches = steps + eval chunks and dkv = steps
+    exactly, no dq; one print (" (2 fused epochs)") and one metrics row
+    (``n_block`` 2) a block, a checkpoint and an eval at each block's end;
+    then ``cli simulate --pallas`` at 10,000 agents from phase 7's
+    checkpoint, 8 forward launches exactly."""
+    from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
+    ds = load_npz_dataset(npz)
+    steps = 4 * len(greedy_chunks(ds.train_batches, BATCH))
+    evals = 2 * len(greedy_chunks(ds.test_batches, BATCH))
+    mdir, log = (os.path.join(work, f"loop_flags_{n}") for n in ("m", "log"))
+    reset_launches(sa)
+    out = run_cli(cli_main, ["train", "--data", npz, "--model-dir", mdir,
+                             "--metrics-log", log] + LOOP_FLAGS,
+                  "train " + " ".join(LOOP_FLAGS), card)
+    torch.cuda.synchronize()
+    launches = {"train": read_launches(sa)}
+    check_launches("train with the loop flags", launches["train"], steps,
+                   evals)
+    lines = out.splitlines()
+    epc = [line for line in lines if "Epc=" in line]
+    with open(log) as fh:
+        recs = [json.loads(line) for line in fh]
+    rows = [(r["kind"], r["epoch"], r.get("n_block")) for r in recs]
+    saved = [line for line in lines if line.startswith("saved checkpoint")]
+    with np.load(os.path.join(mdir, "socialWays-hotel.npz")) as d:
+        last = int(d["__epoch__"])
+    if (len(epc) != 2 or not all(line.endswith("(2 fused epochs)")
+                                 for line in epc)
+            or rows != [("train", 2, 2), ("eval", 2, None), ("train", 4, 2),
+                        ("eval", 4, None)]
+            or len(saved) != 2 or last != 4):
+        raise AssertionError(f"loop flags: prints {epc}, log {rows}, saves "
+                             f"{saved}, checkpoint epoch {last}")
+    print(f"loop flags: 2 blocks of 2 epochs, one print and one metrics row "
+          f"(n_block 2) a block, a checkpoint and an eval at epochs 2 and 4 "
+          f"[{card}]")
+    reset_launches(sa)
+    run_cli(cli_main, ["simulate", "--model-file", ckpt, "--agents",
+                       str(CROWD_N), "--pallas"], "simulate --pallas", card)
+    torch.cuda.synchronize()
+    launches["simulate"] = read_launches(sa)
+    if launches["simulate"] != {"fwd": 8, "dq": 0, "dkv": 0}:
+        raise AssertionError(f"simulate --pallas launched "
+                             f"{launches['simulate']}, not 2 calls x 4 "
+                             f"windows forwards")
+    return launches
 
 
 def ensemble_loo(torch, sa, dev, npz, cfg, card):
@@ -2488,29 +2799,7 @@ def main() -> int:
     print(smi)
 
     # ---- 2. build
-    tic = time.perf_counter()
-    _build.build(KERNELS)
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - tic:.2f} s"
-          f" (parallel nvcc)")
-    for name in KERNELS:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                print(f"  ptxas {name}: {line.strip()[:150]}")
-    ptxas = {}
-    for name in KERNELS:
-        ptxas.update(ptxas_entries(_build.build_logs.get(name, "")))
-    if len(ptxas) != 2 * len(PTXAS_KERNELS) or any(
-            sum(v[1:]) for v in ptxas.values()):
-        raise AssertionError(f"ptxas: want every kernel for float and bf16 "
-                             f"without spills, got {ptxas}")
-    for entry, (regs, st, ld) in sorted(ptxas.items()):
-        was = PTXAS_KERNELS[entry.split("[")[0]]
-        print(f"ptxas: {entry} {regs} registers, spill stores/loads {st}/"
-              f"{ld} bytes" + (f" (float-only build: {was})"
-                               if entry.endswith("[float]") else ""))
-        if entry.endswith("[float]") and abs(regs - was) > 2:
-            raise AssertionError(f"ptxas: {entry} takes {regs} registers, "
-                                 f"the float-only build {was} (bound +-2)")
+    build_kernels(_build)
 
     dev = torch.device("cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2736,6 +3025,15 @@ def main() -> int:
         # ---- 13. the ensemble: member kernels, EnsembleTrainer, rates
         ens = ensemble_phase(torch, sa, dev, npz, work, train_cfg, smi)
 
+        # ---- 14. every width JAX runs: the kernels, train at 256 and 24
+        widths = widths_phase(torch, sa, cli_main, dev, npz,
+                              (t_in, t_sx4.contiguous(), tc["scene_ids"]),
+                              work, smi)
+
+        # ---- 15. JAX's loop flags: train --fused-epochs, simulate --pallas
+        loops = loop_flags_phase(torch, sa, cli_main, npz, loo_ckpt, work,
+                                 smi)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -2756,7 +3054,11 @@ def main() -> int:
                                  **{f"gan_{k}": v["fwd"]
                                     for k, v in launches_gan.items()},
                                  **{k: v["fwd"] for k, v in
-                                    crowd["launches"].items()}},
+                                    crowd["launches"].items()},
+                                 **{k: v["fwd"] for k, v in
+                                    widths["launches"].items()},
+                                 **{f"loop_flags_{k}": v["fwd"]
+                                    for k, v in loops.items()}},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -2773,6 +3075,8 @@ def main() -> int:
             "crowd": crowd["kernels"]["fwd"],
             "crowd_stats": crowd["kernels"]["fwd_stats"],
             "crowd_1m": crowd["kernels"]["fwd_1m"],
+            "widths": {w: r["fwd_stats"] for w, r in
+                       widths["kernels"].items()},
         }]
         for key, fn, line in (("dq", "_bwd_dq_kernel", 317),
                               ("dkv", "_bwd_dkv_kernel", 372)):
@@ -2789,7 +3093,11 @@ def main() -> int:
                                      **{f"gan_{k}": v[key]
                                         for k, v in launches_gan.items()},
                                      **{k: v[key] for k, v in
-                                        crowd["launches"].items()}},
+                                        crowd["launches"].items()},
+                                     **{k: v[key] for k, v in
+                                        widths["launches"].items()},
+                                     **{f"loop_flags_{k}": v[key]
+                                        for k, v in loops.items()}},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],
@@ -2799,6 +3107,7 @@ def main() -> int:
                 "library_ms": None,
                 "launch_floor_ms": floor_ms,
                 "crowd": crowd["kernels"][key],
+                "widths": {w: r[key] for w, r in widths["kernels"].items()},
             })
         kernels[1]["by_launch_us"] = bwd_path["split"]["dq"]
         kernels[1]["by_input"] = dq_by_input
@@ -2831,6 +3140,8 @@ def main() -> int:
                 "launch_floor_ms": floor_ms,
                 "f32_kernel_ms_same_values": e["f32_ms"],
                 "crowd": bf16["kernels"][CROWD_N][key],
+                "widths": {w: r["bf16"][key] for w, r in
+                           widths["kernels"].items()},
                 **({"crowd_32k": bf16["kernels"][CROWD_BF16]["fwd"]}
                    if key == "fwd" else {}),
             })
@@ -2878,7 +3189,9 @@ def main() -> int:
               f"{ens['profile']['ops']} device ops, "
               f"{ens['profile']['device_us']:.1f} us, "
               f"{ens['profile']['idle']:.1%} idle, phase 13 "
-              f"{ens['wall_s']:.1f} s; chip_smoke wall "
+              f"{ens['wall_s']:.1f} s; widths: train steps/s "
+              f"{widths['train_rates']}, phase 14 {widths['wall_s']:.1f} s; "
+              f"chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)

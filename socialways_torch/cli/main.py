@@ -5,7 +5,10 @@ real-data pipeline and the toy protocol.
     python -m socialways_torch.cli.main create-toy --npz toy.npz
     python -m socialways_torch.cli.main train --recipe loo --data hotel-8-12.npz --epochs 100
     python -m socialways_torch.cli.main train --recipe toy-flagship --data toy.npz --dump-dir dumps --track-coverage
-    python -m socialways_torch.cli.main stats --preds-dir dumps/hotel/socialWays --real-npz toy.npz
+    python -m socialways_torch.cli.main stats --preds-dir dumps/hotel/socialWays --real-npz toy.npz --plot curves.png
+    python -m socialways_torch.cli.main visualize --preds-dir dumps/hotel/socialWays --out figs
+    python -m socialways_torch.cli.main animate --npz toy.npz --out toy.gif
+    python -m socialways_torch.cli.main plot-tracks annotations.txt --parser sdd --out tracks.png
     python -m socialways_torch.cli.main sweep --data toy.npz --unrolls 0,1,5 --info-weights 0.0,1.0
     python -m socialways_torch.cli.main eth-ucy --data-dir ethucy/ --epochs 30000
     python -m socialways_torch.cli.main evaluate --data hotel-8-12.npz --model-file ckpt.npz
@@ -18,14 +21,21 @@ real-data pipeline and the toy protocol.
 Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
 (create-toy, create-dataset), :519-819 (train), :822-974 (evaluate,
 predict), :977-1036 (sweep), :1039-1101 (eth-ucy), :1104-1169 (simulate)
-and :1172-1191 (stats).
+and :1172-1225 (stats, animate, plot-tracks, visualize).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
-``create-*`` and ``stats`` are host-only.  ``train``, ``eth-ucy`` and
-``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--pallas`` and
-``--mesh`` (not ported yet); argparse refuses those.  ``--bf16`` runs the
-forward math of every command that takes a model in bfloat16 (the
-attention kernels' bf16 mode on the card), with float32 master weights,
-losses, gradients and optimizer state.
+``create-*``, ``stats``, ``visualize``, ``animate`` and ``plot-tracks``
+are host-only (numpy in, files out; viz/ imports matplotlib and cv2 where
+it uses them).  ``train``, ``eth-ucy`` and
+``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--mesh`` (not
+ported yet), which argparse refuses.  Every command that takes a model
+takes JAX's loop flags (``--fused-epochs``, ``--block-size``,
+``--host-loop``, ``--latent-dim``, ``--pallas``): ``train
+--fused-epochs`` prints, logs, checkpoints and evaluates once a block of
+epochs as JAX does; the port's epoch loop runs on the host and its
+kernels on the card whatever ``--host-loop`` and ``--pallas`` say.
+``--bf16`` runs the forward math of every command that takes a model in
+bfloat16 (the attention kernels' bf16 mode on the card), with float32
+master weights, losses, gradients and optimizer state.
 ``--max-scene-size`` (a bound on rows per scene, ids sorted and
 contiguous) lets the social attention scan scene windows on every
 subcommand that runs a model.  ``simulate`` has no ``--no-pallas``: on the
@@ -94,6 +104,27 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-gen-samples", "--k", type=int, default=20)
     _add_max_scene_flag(p)
+    _add_loop_mode_flags(p)
+
+
+def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
+    """JAX's loop flags, on every command that takes a model
+    (socialways_tpu/cli/main.py:134, 181, 187, 381, 386)."""
+    p.add_argument("--latent-dim", "--ld", type=int, default=10,
+                   help="the reference's --latent-dim (read by nothing)")
+    p.add_argument("--host-loop", action="store_true",
+                   help="per-chunk host loop instead of epoch-on-device "
+                        "(the port's loop always runs on the host)")
+    p.add_argument("--pallas", action="store_true",
+                   help="use the fused social-attention kernels (the port "
+                        "runs its CUDA kernels on the card anyway)")
+    p.add_argument("--block-size", type=int, default=0,
+                   help="fused-epoch block size (0 = gcd of the test and "
+                        "save intervals)")
+    p.add_argument("--fused-epochs", action="store_true",
+                   help="train blocks of epochs: one print, one metrics "
+                        "row and one divergence check a block; save and "
+                        "eval at block ends (train only)")
 
 
 def _add_bf16_flag(p: argparse.ArgumentParser) -> None:
@@ -125,6 +156,9 @@ def _cfg_from_args(args):
         seed=args.seed,
         n_gen_samples=args.n_gen_samples,
         max_scene_size=args.max_scene_size,
+        latent_dim=args.latent_dim,
+        use_pallas=args.pallas,
+        epoch_on_device=not args.host_loop,
     )
 
 
@@ -436,6 +470,7 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
                         "align to chunk boundaries")
     _add_max_scene_flag(p)
     _add_bf16_flag(p)
+    _add_loop_mode_flags(p)
 
 
 def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
@@ -531,7 +566,8 @@ def _train_cfg(args):
         loss_info_w_steps=args.info_weight_steps,
         d_restore=args.d_restore,
         hidden_size=h, social_feature_size=h, noise_len=h // 2,
-        decoder=args.decoder, noise_dist=args.noise_dist,
+        latent_dim=args.latent_dim, use_pallas=args.pallas,
+        epoch_on_device=not args.host_loop, decoder=args.decoder, noise_dist=args.noise_dist,
         n_latent_codes=args.n_latent_codes,
         latent_code_type=args.latent_code,
         use_l2_loss=args.use_l2_loss,
@@ -707,22 +743,30 @@ def cmd_train(args, device) -> int:
     print(f"hidden dim = {cfg.hidden_size} | lr(G) = {cfg.lr_g:.5f} | "
           f"lr(D) = {cfg.lr_d:.5f} | devices: [{device}]")
 
+    # --fused-epochs: blocks of --block-size epochs (or gcd of the save
+    # and test intervals), each one print, metrics row and divergence
+    # check; save and eval only where a block ends on their interval
+    block = ((args.block_size or math.gcd(cfg.save_interval,
+                                          cfg.test_interval))
+             if args.fused_epochs else 1)
     epoch = start_epoch - 1
     while epoch < cfg.n_epochs:
-        if args.profile_dir and epoch == start_epoch:
-            # the run's second epoch: the first holds the kernels' build
+        n_block = min(block, cfg.n_epochs - epoch) if block > 1 else 1
+        if args.profile_dir and epoch == start_epoch + n_block - 1:
+            # the run's second block: the first holds the kernels' build
             from socialways_torch.utils.profiling import trace
             with trace(args.profile_dir):
-                state, m = trainer.train_epoch(state, rng)
+                state, m = trainer.train_epochs(state, rng, n_block)
             print(f"wrote profiler trace to {args.profile_dir}")
         else:
-            state, m = trainer.train_epoch(state, rng)
-        epoch += 1
+            state, m = trainer.train_epochs(state, rng, n_block)
+        epoch += n_block
         print(f" Epc={epoch:4d}, Train ADE,FDE = ({m['train_ade']:.3f}, "
-              f"{m['train_fde']:.3f}) | time = {m['epoch_time_s']:.2f}s")
+              f"{m['train_fde']:.3f}) | time = {m['epoch_time_s']:.2f}s"
+              + (f" ({n_block} fused epochs)" if n_block > 1 else ""))
         _log_metrics(args.metrics_log, kind="train", epoch=epoch,
                      train_ade=m["train_ade"], train_fde=m["train_fde"],
-                     epoch_time_s=m["epoch_time_s"], n_block=1)
+                     epoch_time_s=m["epoch_time_s"], n_block=n_block)
 
         # divergence: a non-finite train ADE or a jump past 5x the best
         diverged = (not math.isfinite(m["train_ade"])
@@ -883,6 +927,52 @@ def cmd_stats(args) -> int:
         print(f"epoch = {epoch}, EMD = {emd:.5f}, 1nn = {one_nn:.5f}")
     print(f"cached to "
           f"{os.path.join(args.preds_dir, f'stats{args.num_samples}.npz')}")
+    if args.plot:
+        from socialways_torch.viz.stats_plots import plot_stats_curves
+        for d in args.extra_dirs:     # the overlays need their caches too
+            calc_and_store_stats(d, real, num_samples=args.num_samples)
+        out = plot_stats_curves([args.preds_dir] + list(args.extra_dirs),
+                                args.plot, labels=args.labels or None,
+                                num_samples=args.num_samples,
+                                iters_per_epoch=args.iters_per_epoch)
+        print(f"wrote {out}")
+    return 0
+
+
+def cmd_animate(args) -> int:
+    """The toy set's trajectories as a gif (socialways_tpu/cli/main.py:
+    1194-1201)."""
+    from socialways_torch.viz.animation import ToyAnimation
+    with np.load(args.npz) as d:
+        samples = np.concatenate([d["obsvs"], d["preds"]], axis=1)
+    ToyAnimation(samples, duration_s=args.duration, seed=args.seed).save(
+        args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_plot_tracks(args) -> int:
+    """Every parsed track of a raw annotation file in one PNG
+    (socialways_tpu/cli/main.py:1204-1216)."""
+    from socialways_torch.data.parsers import PARSERS
+    from socialways_torch.viz.tracks import plot_tracks
+    p = PARSERS[args.parser]()
+    p.load(args.input, down_sample=args.down_sample)
+    n = plot_tracks(p.p_data, args.out, min_len=args.min_len,
+                    title=os.path.basename(args.input))
+    print(f"wrote {args.out}: {n}/{len(p.p_data)} tracks "
+          f"(min_len {args.min_len})")
+    return 0
+
+
+def cmd_visualize(args) -> int:
+    """Prediction heatmaps of a dump tree, one PNG a dump
+    (socialways_tpu/cli/main.py:1219-1225)."""
+    from socialways_torch.viz.heatmap import render_preds_dir
+    out = render_preds_dir(args.preds_dir, args.out,
+                           bg_image=args.bg_image,
+                           homography=args.homography)
+    print(f"wrote {out}")
     return 0
 
 
@@ -1008,7 +1098,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-samples", type=int, default=20)
     p.add_argument("--group", type=int, default=6,
                    help="pedestrians per real sample set")
+    p.add_argument("--plot", default="",
+                   help="also render the EMD & 1-NN vs-iteration curve "
+                        "figure (calc_statistics.py:122-144) to this PNG")
+    p.add_argument("--extra-dirs", nargs="*", default=[],
+                   help="additional dump dirs to overlay in --plot "
+                        "(multi-variant comparison)")
+    p.add_argument("--labels", nargs="*", default=[],
+                   help="curve labels for --plot (default: dir names)")
+    p.add_argument("--iters-per-epoch", type=int, default=1,
+                   help="x-axis scale: training steps per epoch")
     p.set_defaults(fn=cmd_stats, host_only=True)
+
+    p = sub.add_parser("visualize", help="render prediction heatmaps")
+    p.add_argument("--preds-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--bg-image", default="")
+    p.add_argument("--homography", default="")
+    p.set_defaults(fn=cmd_visualize, host_only=True)
+
+    p = sub.add_parser("plot-tracks",
+                       help="eyeball raw parsed tracks (reference "
+                            "pick_subset.py as a real subcommand)")
+    p.add_argument("input")
+    p.add_argument("--out", required=True)
+    p.add_argument("--parser", default="sdd",
+                   choices=["biwi", "trajnet", "sdd", "seyfried"])
+    p.add_argument("--down-sample", type=int, default=None,
+                   help="frame subsampling; default = the parser's own "
+                        "(SDD: 12, others: 1)")
+    p.add_argument("--min-len", type=int, default=0)
+    p.set_defaults(fn=cmd_plot_tracks, host_only=True)
+
+    p = sub.add_parser("animate", help="toy-dataset gif animation")
+    p.add_argument("--npz", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--duration", type=int, default=5)
+    p.set_defaults(fn=cmd_animate, host_only=True)
 
     p = sub.add_parser("sweep",
                        help="unrolled-GAN x info-weight sweep on the toy "

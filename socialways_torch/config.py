@@ -64,6 +64,8 @@ class TrainConfig:
     num_social_features: int = 3
     social_feature_size: int = 64
     noise_len: int = 32
+    latent_dim: int = 10             # --latent-dim (read by nothing, as in
+                                     # JAX and the reference)
     decoder: str = "fc"
     n_latent_codes: int = 2
     latent_code_type: str = "continuous"
@@ -96,6 +98,11 @@ class TrainConfig:
     model_dir: str = "trained_models"
     dump_dir: str = ""               # prediction dumps each test interval
     lnr_model: str = "cv"            # the dumps' linear baseline: cv | kalman
+    # JAX's loop knobs (socialways_tpu/config.py:236, 279): the port runs
+    # the CUDA kernels on the card whatever use_pallas says, and its epoch
+    # loop runs on the host whatever epoch_on_device says
+    use_pallas: bool = False
+    epoch_on_device: bool = True
 
     # ---- the other GAN-step variants (socialways_tpu/config.py:36-198)
     grad_clip: float = 0.0           # global-norm clip before Adam (0 = off)

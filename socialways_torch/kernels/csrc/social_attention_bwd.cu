@@ -8,8 +8,8 @@
 #include "social_attention_bwd.cuh"
 
 extern "C" int social_attention_bwd_dq(SA_DQ_ARGS) {
-    return launch_dq<float>(SA_DQ_PASS);
+    return launch_dq<float, false>(SA_DQ_PASS);
 }
 extern "C" int social_attention_bwd_dkv(SA_DKV_ARGS) {
-    return launch_dkv<float>(SA_DKV_PASS);
+    return launch_dkv<float, false>(SA_DKV_PASS);
 }

@@ -62,6 +62,14 @@
 // and each tile's weight-gradient terms); these kernels keep them float,
 // the more exact of the two.
 //
+// Widths.  The narrow kernels (kWide false) take H and F in multiples of
+// 16 up to kNarrowWidth = 128 and are the code they were; the wide ones
+// (kWide, entries social_attention_bwd_wide*.cu, translation units of
+// their own) take up to kMaxWidth = 512: dq reads g_i from device memory
+// instead of staging it and forms g_i . h_j exactly (gh_exact), dkv
+// stages h_j at a stride of 512 and keeps dh past the first 2 kThreads
+// elements of a tile in the tile's own rows of dh (dh_wide).
+//
 // Bound on this card: operations.  Per same-scene pair dq does ~4.4k FMA
 // (features, 3->32->64 recompute, score, g_i . h_j, the 64->32 and 32->3
 // cotangents), dkv ~6.5k (the same plus the dW2 outer product); both are
@@ -76,9 +84,8 @@ namespace {
 
 using namespace sa;
 
-constexpr int kMaxWidth = 128;             // H and F at most
-constexpr int kGStride = kMaxWidth + 16;   // dq's two g_i rows, padded so
-                                           // they start in other banks
+constexpr int kGStride = kNarrowWidth + 16;   // dq's two g_i rows, padded
+                                              // so they start in other banks
 constexpr int kPartial = kH1 * kH2 + kH2 + kIn * kH1 + kH1;   // 2240
 constexpr int kW2Stride = kH2 + 4;         // padded W2 rows
 constexpr int kDz2Stride = kBatch + 4;     // dz2^T [kH2][kBatch], padded
@@ -142,6 +149,28 @@ __device__ __forceinline__ float gh_serial(const float* gi, const T* hj,
         gh = fmaf(a.w, b.w, gh);
     }
     return gh;
+}
+
+// g_i . h_j of the wide dq (H above kNarrowWidth): exact float products
+// summed in double, one rounding at the end.  Past 128 a serial float sum
+// no longer follows the plain version's cuBLAS order, and on rows where
+// dx_i cancels it strayed further from the f64 oracle than the plain
+// version does (chip_smoke's dx witness at H = 256); the double sum is the
+// correctly rounded dot product up to its last rounding.
+template <typename T>
+__device__ __forceinline__ float gh_exact(const float* gi, const T* hj,
+                                          const int hdim) {
+    const float4* g4 = reinterpret_cast<const float4*>(gi);
+    double gh = 0.0;
+#pragma unroll 4
+    for (int q = 0; q < hdim / 4; ++q) {
+        const float4 a = g4[q], b = ld4(hj, q);
+        gh = fma((double)a.x, (double)b.x, gh);
+        gh = fma((double)a.y, (double)b.y, gh);
+        gh = fma((double)a.z, (double)b.z, gh);
+        gh = fma((double)a.w, (double)b.w, gh);
+    }
+    return (float)gh;
 }
 
 // a_ij and ds_ij of one pair from g_i . h_j, computed by the 16 lanes of a
@@ -233,7 +262,7 @@ __device__ __forceinline__ void pair_dx(const float* s_w1, const float* dz1,
     geo_backward(q, xi, vn, gf, gi, gj);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const T* __restrict__ h, const float* __restrict__ g,
@@ -288,10 +317,13 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             s_l[threadIdx.x] = st.y;
             s_r[threadIdx.x] = i < n ? r[mrow + i] : 0.f;
         }
-        for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
-            const int t = e / hdim, d = e - t * hdim;
-            s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(mrow + row0 + t) * hdim + d] : 0.f;
-        }
+        // kWide reads the g_i rows from device memory instead (rows past N
+        // have no pairs)
+        if constexpr (!kWide)
+            for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
+                const int t = e / hdim, d = e - t * hdim;
+                s_g[t * kGStride + d] = row0 + t < n ? g[(size_t)(mrow + row0 + t) * hdim + d] : 0.f;
+            }
         float4 dxi = make_float4(0.f, 0.f, 0.f, 0.f);   // row t < kTile's sum
         PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
@@ -326,8 +358,13 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                 if (p < nb) {
                     const int e = s_ring[(pr.head + p) & (kRing - 1)];
                     const int col = e / kTile;
-                    gh = gh_serial(s_g + (e - col * kTile) * kGStride,
-                                   h + (size_t)(mrow + col) * hdim, hdim);
+                    const int slot = e - col * kTile;
+                    if constexpr (kWide)
+                        gh = gh_exact(g + (size_t)(mrow + row0 + slot) * hdim,
+                                      h + (size_t)(mrow + col) * hdim, hdim);
+                    else
+                        gh = gh_serial(s_g + slot * kGStride,
+                                       h + (size_t)(mrow + col) * hdim, hdim);
                 }
                 s_gh[p] = gh;
             }
@@ -374,7 +411,35 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     }
 }
 
-template <typename T>
+// The wide dh (H above kNarrowWidth): element e >= 2 kThreads of the
+// column tile's [kTile][hdim] accumulates in the tile's own row of dh,
+// which only this thread touches: zeroed (step 0), then a_ij g_i of one
+// batch's pairs added the way the registers add theirs (step 1; g = the
+// member's cotangent rows).
+__device__ __forceinline__ void dh_wide(const int step, float* __restrict__ dh,
+                                        const int n, const int col0,
+                                        const int hdim, const int nb,
+                                        const int* s_slot, const int* s_row,
+                                        const float* s_a,
+                                        const float* __restrict__ g) {
+#pragma unroll 1
+    for (int e = threadIdx.x + 2 * kThreads; e < tile_elems(n, col0, hdim);
+         e += kThreads) {
+        float* const o = dh + (size_t)col0 * hdim + e;
+        if (step == 0) {
+            *o = 0.f;
+            continue;
+        }
+        const int c = e / hdim, d = e - c * hdim;
+        float a = *o;
+        for (int p = 0; p < nb; ++p)
+            if (s_slot[p] == c)
+                a = fmaf(s_a[p], g[(size_t)s_row[p] * hdim + d], a);
+        *o = a;
+    }
+}
+
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                const T* __restrict__ h, const float* __restrict__ g,
@@ -397,7 +462,8 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float s_dz1[kBatch * kDz1Stride];
     __shared__ float s_apart[kPairGroups * kTile * kH2];   // ds a2 by group
     __shared__ __align__(16) float s_u[kTile * kH2];
-    __shared__ float s_h[kTile * kMaxWidth];
+    constexpr int kHStride = kWide ? kMaxWidth : kNarrowWidth;
+    __shared__ float s_h[kTile * kHStride];
     __shared__ float s_A[kTile * kH2];
     __shared__ float s_feat[kIn * kBatch];
     __shared__ float s_m[kBatch], s_l[kBatch], s_r[kBatch], s_a[kBatch],
@@ -447,12 +513,16 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
         }
         for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
             const int c = e / hdim, d = e - c * hdim;
-            s_h[c * kMaxWidth + d] =
+            s_h[c * kHStride + d] =
                 col0 + c < n ? ld(h[(size_t)(mrow + col0 + c) * hdim + d]) : 0.f;
         }
         // per-column sums: A[t >> 6][t & 63], S and dx_j of column t < kTile,
-        // dh elements e = t + kThreads q of [kTile][hdim]
+        // dh elements e = t + kThreads q of [kTile][hdim] (kWide: the first
+        // 2 kThreads; dh_wide keeps the rest)
         float A = 0.f, S = 0.f, acc_h[2] = {0.f, 0.f};
+        if constexpr (kWide)
+            dh_wide(0, dh + (size_t)mrow * hdim, n, col0, hdim, 0, s_slot,
+                    s_row, s_a, g);
         float4 dxj = make_float4(0.f, 0.f, 0.f, 0.f);
         PairRing pr = tile_ring(s_ring, s_scan, col0, n, w);
         __syncthreads();
@@ -500,7 +570,7 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     const int p = 4 * pg + i, slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(s_u + slot * kH2)[og];
                     const float gh = gh_half_warp(g + (size_t)(mrow + s_row[p]) * hdim + og,
-                                                  s_h + slot * kMaxWidth + og, chunk,
+                                                  s_h + slot * kHStride + og, chunk,
                                                   p < nb);
                     const PairDs d = pair_ds(a2[i], u4, s_ct[slot], gh, p < nb,
                                              s_m[p], s_l[p], s_r[p]);
@@ -547,6 +617,9 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                     acc_h[q] = a;
                 }
             }
+            if constexpr (kWide)
+                dh_wide(1, dh + (size_t)mrow * hdim, n, col0, hdim, nb, s_slot,
+                        s_row, s_a, g + (size_t)mrow * hdim);
             // dW2 += a1^T dz2 and db2 += sum dz2, four pairs a step (the
             // pairs past nb have dz2 = 0)
             for (int p4 = 0; p4 < (nb + 3) >> 2; ++p4) {
@@ -743,10 +816,11 @@ bwd_finalize_kernel(const T* __restrict__ wh,
 // (MemberStrides, checked by members_of; null for a single model, M = 1).
 // Launches on `stream`, does not synchronise,
 // allocates nothing; returns cudaGetLastError(), or cudaErrorInvalidValue
-// for blocks <= 0, an H the kernel does not take (a multiple of 16 up to
-// 128), bad member strides or a scene window max_scene < 0 (0: every tile
-// scans all N).  h and w1..b2 are T.
-template <typename T>
+// for blocks <= 0, an H the kernel does not take (width_ok: a multiple of
+// 16 up to kNarrowWidth, kWide up to kMaxWidth), bad member strides or a
+// scene window max_scene < 0 (0: every tile scans all N).  h and w1..b2
+// are T.
+template <typename T, bool kWide>
 int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
               const void* stats, const void* r, const void* u, const void* c,
               const void* w1, const void* b1, const void* w2, const void* b2,
@@ -756,9 +830,9 @@ int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
     if (max_scene < 0 || !members_of(strides, members, n, hdim, 0, ms))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
-    if (blocks <= 0 || hdim <= 0 || hdim > kMaxWidth || hdim % 16)
+    if (blocks <= 0 || !width_ok(hdim, kWide))
         return (int)cudaErrorInvalidValue;
-    bwd_dq_kernel<T><<<dim3(blocks, members), kThreads, 0,
+    bwd_dq_kernel<T, kWide><<<dim3(blocks, members), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const T*>(h), static_cast<const float*>(g),
@@ -783,8 +857,9 @@ int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
 // member strides and a scene window max_scene < 0 (0: every column tile
 // scans all N; a column's partners lie in the same window as a row's).
 // Two launches: dkv, then finalize.  h, wh and w1..b3 are T; every output
-// is float.
-template <typename T>
+// is float.  kWide takes H and F up to kMaxWidth, the narrow kernel up to
+// kNarrowWidth (width_ok).
+template <typename T, bool kWide>
 int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
                const void* g, const void* stats, const void* r, const void* u,
                const void* c, const void* w1, const void* b1, const void* w2,
@@ -797,12 +872,12 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
     if (max_scene < 0 || !members_of(strides, members, n, hdim, feat, ms))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
-    if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth || feat % 16 ||
+    if (blocks <= 0 || !width_ok(hdim, kWide) || !width_ok(feat, kWide) ||
         (long long)partial_floats !=
             (long long)members * blocks * kPartial)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    bwd_dkv_kernel<T><<<dim3(blocks, members), kThreads, 0, st>>>(
+    bwd_dkv_kernel<T, kWide><<<dim3(blocks, members), kThreads, 0, st>>>(
         static_cast<const float4*>(x4), static_cast<const int*>(ids),
         static_cast<const T*>(h), static_cast<const float*>(g),
         static_cast<const float2*>(stats), static_cast<const float*>(r),

@@ -8,8 +8,8 @@
 #include "social_attention_bwd.cuh"
 
 extern "C" int social_attention_bwd_dq_bf16(SA_DQ_ARGS) {
-    return launch_dq<__nv_bfloat16>(SA_DQ_PASS);
+    return launch_dq<__nv_bfloat16, false>(SA_DQ_PASS);
 }
 extern "C" int social_attention_bwd_dkv_bf16(SA_DKV_ARGS) {
-    return launch_dkv<__nv_bfloat16>(SA_DKV_PASS);
+    return launch_dkv<__nv_bfloat16, false>(SA_DKV_PASS);
 }

@@ -13,5 +13,5 @@
 // shared, else the dense size; null for a single model); out, stats, u and
 // c are [members, N, ...].
 extern "C" int social_attention_fwd(SA_FWD_ARGS) {
-    return launch_fwd<float>(SA_FWD_PASS);
+    return launch_fwd<float, false>(SA_FWD_PASS);
 }

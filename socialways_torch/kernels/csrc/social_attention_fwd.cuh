@@ -47,6 +47,15 @@
 //   H-wide accumulator from batch to batch, so shared memory is fixed
 //   (~19 KB) whatever the scene size.
 //
+// Widths.  The narrow kernels (kWide false) take H and F in multiples of
+// 16 up to kNarrowWidth = 128 and are the code they were; the wide ones
+// (kWide, entries social_attention_fwd_wide*.cu, translation units of
+// their own) take up to kMaxWidth = 512: u_prep stages W3 and wh in chunks
+// of 128 columns of F (u_prep_wide), and the pooled sum keeps its
+// elements past the first 2 kThreads of a tile in the tile's own rows of
+// out (pool_wide) instead of registers, so neither shared memory nor
+// registers grow with the width.  The wrappers pad other widths with zeros.
+//
 // Bound on this card: operations, at the shapes the model runs (N = 256
 // rows in scenes of 2-16 agents, H = F = 64): the same-scene pairs times
 // 2.2k MAC of f32 FMA, plus N x 64 x F for u, against ~0.2 MB of bytes.  At
@@ -63,22 +72,79 @@ namespace {
 using namespace sa;
 
 constexpr int kPrepRows = 8;        // agents a u_prep block
-constexpr int kMaxWidth = 128;      // H and F at most
 
-// u = wh W3^T [N, 64], c = wh . b3 [N] of member blockIdx.y.
+// The wide u = wh W3^T and c = wh . b3 (F up to kMaxWidth): F in chunks of
+// kNarrowWidth columns staged as the narrow kernel stages all of F, each
+// sum carried on from chunk to chunk in the order f = 0 .. F - 1.
 template <typename T>
+__device__ __forceinline__ void u_prep_wide(
+        const T* __restrict__ wh, const T* __restrict__ w3,
+        const T* __restrict__ b3, float* __restrict__ u,
+        float* __restrict__ c, const int n, const int feat, const int mrow,
+        const int whrow, const int row0, float* s_w3t,
+        float (*s_wh)[kNarrowWidth]) {
+    const int k = threadIdx.x & (kH2 - 1), r0 = (threadIdx.x >> 6) * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, cs = 0.f;
+#pragma unroll 1
+    for (int f0 = 0; f0 < feat; f0 += kNarrowWidth) {
+        const int fw = feat - f0 < kNarrowWidth ? feat - f0 : kNarrowWidth;
+        const int f4 = fw / 4;
+        if (f0 > 0) __syncthreads();     // the chunk before is read
+        for (int e = threadIdx.x; e < kH2 * f4; e += kThreads) {
+            const int kk = e / f4, f = 4 * (e - kk * f4);
+            const float4 v = ld4(w3, (kk * feat + f0 + f) / 4);
+            s_w3t[f * (kH2 + 1) + kk] = v.x;
+            s_w3t[(f + 1) * (kH2 + 1) + kk] = v.y;
+            s_w3t[(f + 2) * (kH2 + 1) + kk] = v.z;
+            s_w3t[(f + 3) * (kH2 + 1) + kk] = v.w;
+        }
+        for (int e = threadIdx.x; e < kPrepRows * f4; e += kThreads) {
+            const int r = e / f4, f = 4 * (e - r * f4);
+            const float4 v = row0 + r < n
+                ? ld4(wh + (size_t)(whrow + row0 + r) * feat, (f0 + f) / 4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+            s_wh[r][f] = v.x; s_wh[r][f + 1] = v.y;
+            s_wh[r][f + 2] = v.z; s_wh[r][f + 3] = v.w;
+        }
+        __syncthreads();
+        for (int f = 0; f < fw; ++f) {
+            const float w = s_w3t[f * (kH2 + 1) + k];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[q] = fmaf(w, s_wh[r0 + q][f], acc[q]);
+        }
+        if (threadIdx.x < kPrepRows)
+            for (int f = 0; f < fw; ++f)
+                cs = fmaf(ld(b3[f0 + f]), s_wh[threadIdx.x][f], cs);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        if (row0 + r0 + q < n)
+            u[(size_t)(mrow + row0 + r0 + q) * kH2 + k] = acc[q];
+    if (threadIdx.x < kPrepRows && row0 + threadIdx.x < n)
+        c[mrow + row0 + threadIdx.x] = cs;
+}
+
+// u = wh W3^T [N, 64], c = wh . b3 [N] of member blockIdx.y; kWide takes
+// F above kNarrowWidth (u_prep_wide), the narrow kernel all of F at once.
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
               const T* __restrict__ b3, float* __restrict__ u,
               float* __restrict__ c, const int n, const int feat,
               const Members ms) {
-    __shared__ float s_w3t[kMaxWidth * (kH2 + 1)];    // W3^T [F][64 + 1]
-    __shared__ float s_wh[kPrepRows][kMaxWidth];
+    __shared__ float s_w3t[kNarrowWidth * (kH2 + 1)];    // W3^T [F][64 + 1]
+    __shared__ float s_wh[kPrepRows][kNarrowWidth];
     pdl_launch_dependents();     // the main kernel may start its prefix now
     const int m = member(), mrow = m * n, whrow = m * ms.wh;
     w3 += m * ms.w3;
     b3 += m * ms.b3;
     const int row0 = blockIdx.x * kPrepRows, f4 = feat / 4;
+    if constexpr (kWide) {
+        u_prep_wide(wh, w3, b3, u, c, n, feat, mrow, whrow, row0, s_w3t,
+                    s_wh);
+        return;
+    }
+    // the narrow kernel: all of F (at most kNarrowWidth) staged at once
 #pragma unroll 4
     for (int e = threadIdx.x; e < kH2 * f4; e += kThreads) {
         const int k = e / f4, f = 4 * (e - k * f4);
@@ -116,7 +182,37 @@ u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
     }
 }
 
+// The wide pooled sum (H above kNarrowWidth): element e >= 2 kThreads of
+// the tile's [kTile][hdim] accumulates in the tile's own row of out, which
+// only this thread touches: zeroed (step 0), one batch's pairs added the
+// way the registers add theirs (step 1), normalized (step 2).
 template <typename T>
+__device__ __forceinline__ void pool_wide(
+        const int step, float* __restrict__ out, const int n, const int row0,
+        const int hdim, const int nb, const float* s_corr, const int* s_slot,
+        const int* s_col, const float* s_p, const float* s_l,
+        const T* __restrict__ h) {
+#pragma unroll 1
+    for (int e = threadIdx.x + 2 * kThreads; e < tile_elems(n, row0, hdim);
+         e += kThreads) {
+        float* const o = out + (size_t)row0 * hdim + e;
+        const int t = e / hdim, d = e - t * hdim;
+        if (step == 0) {
+            *o = 0.f;
+        } else if (step == 1) {
+            float a = *o * s_corr[t];
+            for (int p = 0; p < nb; ++p)
+                if (s_slot[p] == t)
+                    a = fmaf(s_p[p], ld(h[(size_t)s_col[p] * hdim + d]), a);
+            *o = a;
+        } else {
+            const float l = s_l[t];
+            *o = l > 0.f ? *o / fmaxf(l, 1e-20f) : 0.f;
+        }
+    }
+}
+
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 social_attention_fwd_kernel(const float4* __restrict__ x4,
                             const int* __restrict__ ids,
@@ -177,7 +273,11 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
             s_l[threadIdx.x] = 0.f;
         }
         // accumulator elements e = threadIdx.x + kThreads q of [kTile][hdim]
+        // (kWide: the first 2 kThreads; pool_wide keeps the rest)
         float acc[2] = {0.f, 0.f};
+        if constexpr (kWide)
+            pool_wide(0, out, n, row0, hdim, 0, s_corr, s_slot, s_col, s_p,
+                      s_l, h);
         PairRing pr = tile_ring(s_ring, s_scan, row0, n, w);
         __syncthreads();
         while (true) {
@@ -256,6 +356,9 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                     acc[q] = a;
                 }
             }
+            if constexpr (kWide)
+                pool_wide(1, out, n, row0, hdim, nb, s_corr, s_slot, s_col,
+                          s_p, s_l, h);
             pr.head = (pr.head + nb) & (kRing - 1);
             pr.count -= nb;
             __syncthreads();     // the batch's shared arrays are free
@@ -271,6 +374,9 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                         l > 0.f ? acc[q] / fmaxf(l, 1e-20f) : 0.f;
             }
         }
+        if constexpr (kWide)
+            pool_wide(2, out, n, row0, hdim, 0, s_corr, s_slot, s_col, s_p,
+                      s_l, h);
         if (stats != nullptr && threadIdx.x < kTile && row0 + threadIdx.x < n)
             stats[row0 + threadIdx.x] = make_float2(s_m[threadIdx.x],
                                                     s_l[threadIdx.x]);
@@ -288,8 +394,9 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
 // model, M = 1).  `max_scene` is the
 // scene window w of social_attention_pairs.cuh (0: every tile scans all N);
 // w < 0 and bad strides are refused with cudaErrorInvalidValue.  h, wh,
-// w1..b3 are T.
-template <typename T>
+// w1..b3 are T.  kWide takes H and F up to kMaxWidth, the narrow kernels
+// up to kNarrowWidth (width_ok).
+template <typename T, bool kWide>
 int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* w3, const void* b3, void* out, void* stats,
@@ -300,10 +407,10 @@ int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,
     if (max_scene < 0 || !members_of(strides, members, n, hdim, feat, ms))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
-    if (blocks <= 0 || hdim > kMaxWidth || feat > kMaxWidth)
+    if (blocks <= 0 || !width_ok(hdim, kWide) || !width_ok(feat, kWide))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    u_prep_kernel<T><<<dim3((n + kPrepRows - 1) / kPrepRows, members),
+    u_prep_kernel<T, kWide><<<dim3((n + kPrepRows - 1) / kPrepRows, members),
                        kThreads, 0, st>>>(
         static_cast<const T*>(wh), static_cast<const T*>(w3),
         static_cast<const T*>(b3), static_cast<float*>(u),
@@ -311,7 +418,7 @@ int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)launch_dependent(
-        social_attention_fwd_kernel<T>, dim3(blocks, members),
+        social_attention_fwd_kernel<T, kWide>, dim3(blocks, members),
         dim3(kThreads), 0, st, static_cast<const float4*>(x4),
         static_cast<const int*>(ids), static_cast<const T*>(h),
         static_cast<const float*>(u), static_cast<const float*>(c),

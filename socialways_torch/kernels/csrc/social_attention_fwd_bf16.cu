@@ -10,5 +10,5 @@
 // h, wh and the weights bf16; x4, out, stats, u, c float; the members as
 // in social_attention_fwd.cu.
 extern "C" int social_attention_fwd_bf16(SA_FWD_ARGS) {
-    return launch_fwd<__nv_bfloat16>(SA_FWD_PASS);
+    return launch_fwd<__nv_bfloat16, false>(SA_FWD_PASS);
 }

@@ -108,11 +108,27 @@ constexpr int kThreads = 128;   // threads a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 2;        // agents a tile owns: 128 blocks at N = 256
 constexpr int kBatch = 32;      // pairs a batch
+constexpr int kNarrowWidth = 128;   // H and F at most of the narrow kernels
+constexpr int kMaxWidth = 512;      // of the wide ones (kWide)
 constexpr int kScan = 2;        // agents a thread id-tests per scan step
 constexpr int kRing = 1024;     // pair ring (entries), a power of two
 constexpr int kA1Stride = kBatch + 4;   // a1^T [kH1][kBatch], padded rows
 constexpr float kNeg = -1e9f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// A width H or F that a launch of the narrow (wide) kernels takes: a
+// multiple of 16 up to kNarrowWidth (kMaxWidth).  The wrappers pad other
+// widths with zeros and pick the wide kernels above kNarrowWidth
+// (kernels/social_attention.py).
+inline bool width_ok(const int w, const bool wide) {
+    return w > 0 && w % 16 == 0 && w <= (wide ? kMaxWidth : kNarrowWidth);
+}
+
+// Elements of a tile's rows [t0, min(t0 + kTile, n)) of an [n][width] array.
+__device__ __forceinline__ int tile_elems(const int n, const int t0,
+                                          const int width) {
+    return (n - t0 < kTile ? n - t0 : kTile) * width;
+}
 
 // A scan step adds at most kTile * kScan * kThreads pairs to fewer than kBatch.
 static_assert(kRing >= kBatch - 1 + kTile * kScan * kThreads, "pair ring too small");

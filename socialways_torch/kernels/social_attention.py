@@ -75,6 +75,22 @@ Source notes.
   CPU wrappers take them for stacked CPU tensors, and the tests and
   ``chip_smoke.py`` hold the kernels against them.
 
+- Widths.  The kernels take H and F in multiples of 16 up to
+  ``MAX_WIDTH`` = 512, which covers every hidden size JAX's dispatch runs
+  in practice (socialways_tpu/kernels/social_attention.py:747-784 takes
+  any).  Every launch wrapper pads other widths with zeros to the next
+  multiple of 16 (``pad_widths``: exact, the zeros add nothing to the
+  scores or the pooled sum) and slices out, dh, dwh, dW3 and db3 back.
+  Above 128 the wrappers launch the wide kernels (``*_wide`` entries,
+  libraries of their own, the ``kWide`` instantiation of the same
+  templates): ``u_prep_kernel`` stages W3 and wh in chunks of 128
+  columns of F, dq reads g_i from device memory and forms g_i . h_j in
+  double (exact products, one rounding), dkv stages h_j at up to 512, and
+  the pooled sum (forward) and dh (dkv) keep the elements past the first
+  256 of a tile in the output rows themselves instead of registers.
+  The narrow kernels compile as they did (registers, bits).  A width
+  above 512 raises.
+
 Dispatch: ``social_attention_fwd`` takes the plain dense form for a CPU
 tensor (under autograd when a gradient is needed) and launches the kernels
 or raises for a CUDA tensor.  ``social_attention`` is the size-aware
@@ -108,6 +124,10 @@ _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
 # above this the dense form's N^2 F pair tensors stop being a good idea on
 # the CPU (>= 1 GB at F = 64): stream blocks instead (the JAX threshold)
 _DENSE_MAX_AGENTS = 4096
+_WIDTH_STEP = 16              # the kernels take H and F in multiples of this
+_NARROW_WIDTH = 128           # above this H or F, the wide kernels launch
+#: the widest H and F the kernels take (csrc kMaxWidth); a wider one raises
+MAX_WIDTH = 512
 
 
 # ----------------------------------------------------------- plain versions
@@ -298,6 +318,39 @@ def dkv_partial_floats(n: int, members: int = 1) -> int:
     return members * dkv_blocks(n) * _PARTIAL
 
 
+# ------------------------------------------------------------------ widths
+def padded_width(w: int) -> int:
+    """``w`` rounded up to the kernels' width step (16)."""
+    return -(-w // _WIDTH_STEP) * _WIDTH_STEP
+
+
+def pad_widths(h, wh, weights: Sequence[torch.Tensor],
+               g: Optional[torch.Tensor] = None):
+    """The kernels' operands with H and F padded by zeros to multiples of 16:
+    zero columns of ``h`` (and of the cotangent ``g``), zero entries of
+    ``wh``, of W3's columns and of b3 on the padded F.  Exact: a zero column
+    of wh adds nothing to u = W3 wh or c = b3 . wh, so the scores are
+    unchanged, and a zero column of h pools to a zero column of out, which
+    the caller slices away with the padded parts of dh, dwh, dW3 and db3.
+    Returns (h, wh, weights) or, with ``g``, (h, wh, weights, g); operands
+    already at multiples of 16 come back as they are.  H or F above
+    ``MAX_WIDTH`` raises."""
+    hdim, feat = h.shape[-1], wh.shape[-1]
+    if max(hdim, feat) > MAX_WIDTH:
+        raise ValueError(f"social attention kernels take H and F up to "
+                         f"{MAX_WIDTH}, got H={hdim}, F={feat}")
+    hp, fp = padded_width(hdim), padded_width(feat)
+
+    def pad(t, width):
+        if t.shape[-1] == width:
+            return t
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+    weights = [*weights[:4], pad(weights[4], fp), pad(weights[5], fp)]
+    padded = (pad(h, hp), pad(wh, fp), weights)
+    return padded if g is None else padded + (pad(g, hp),)
+
+
 # ------------------------------------------------------------------ launches
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     if t.device != device:
@@ -334,9 +387,10 @@ def _check_common(x4, ids, h, wh, weights) -> Optional[List[int]]:
     n, hdim = h.shape[-2:]
     feat = wh.shape[-1]
     dev, f32, op = h.device, torch.float32, h.dtype
-    if hdim % 16 or not 16 <= hdim <= 128 or feat % 16 or not 16 <= feat <= 128:
+    if any(w % _WIDTH_STEP or not 0 < w <= MAX_WIDTH for w in (hdim, feat)):
         raise ValueError(f"social attention kernels need H and F multiples "
-                         f"of 16 up to 128, got H={hdim}, F={feat}")
+                         f"of {_WIDTH_STEP} up to {MAX_WIDTH} (pad_widths), "
+                         f"got H={hdim}, F={feat}")
     if op not in _OPERAND_DTYPES:
         raise ValueError(f"h has dtype {op}, expected float32 or bfloat16")
 
@@ -358,10 +412,12 @@ def _check_common(x4, ids, h, wh, weights) -> Optional[List[int]]:
     return strides if lead else None
 
 
-def _entry(name: str, h: torch.Tensor) -> str:
+def _entry(name: str, h: torch.Tensor, width: int) -> str:
     """The library (csrc/<name>.cu) or C entry point ``name`` for ``h``'s
-    operand dtype: bf16 takes the ``_bf16`` one."""
-    return name if h.dtype == torch.float32 else name + "_bf16"
+    operand dtype and the widest of H and F, ``width``: above 128 the
+    ``_wide`` one, and bf16 takes the ``_bf16`` one."""
+    return (name + ("_wide" if width > _NARROW_WIDTH else "")
+            + ("" if h.dtype == torch.float32 else "_bf16"))
 
 
 def _count(wrapper, h: torch.Tensor) -> None:
@@ -409,12 +465,13 @@ def _call(name: str, f, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _launch(lib: str, entry: str, h: torch.Tensor, n_ptr: int, n_int: int,
-            strides: Optional[List[int]], *args) -> None:
-    """C entry ``entry`` for ``h``'s operand dtype with ``args``, the
-    member count and the member strides: a single model (``strides`` None)
-    is M = 1 with a null stride array."""
-    f = _lib(_entry(lib, h), _entry(entry, h), n_ptr, n_int)
+def _launch(lib: str, entry: str, h: torch.Tensor, width: int, n_ptr: int,
+            n_int: int, strides: Optional[List[int]], *args) -> None:
+    """C entry ``entry`` for ``h``'s operand dtype and the widest of H and
+    F, ``width`` (``_entry``), with ``args``, the member count and the
+    member strides: a single model (``strides`` None) is M = 1 with a null
+    stride array."""
+    f = _lib(_entry(lib, h, width), _entry(entry, h, width), n_ptr, n_int)
     if strides is None:
         _call(lib, f, *args, 1, None)
     else:
@@ -429,19 +486,23 @@ def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
     window only (``scan_range``).  Every output is float32; bf16 ``h``
     launches the bf16 kernel.  Member-stacked operands (``h`` [M, N, H],
     ``_check_common``) launch once for all members and give [M, ...]
-    outputs."""
+    outputs.  H and F that are not multiples of 16 launch zero-padded
+    (``pad_widths``); out comes back at the true H."""
     _check_window(max_scene)
+    width = h.shape[-1]
+    h, wh, weights = pad_widths(h, wh, weights)
     strides = _check_common(x4, ids, h, wh, weights)
     lead, (n, hdim) = _lead(h), h.shape[-2:]
     kw = dict(device=h.device, dtype=torch.float32)
     out = torch.empty(lead + (n, hdim), **kw)
     stats = torch.empty(lead + (n, 2), **kw) if with_stats else None
     u, c = torch.empty(lead + (n, _H2), **kw), torch.empty(lead + (n,), **kw)
-    _launch(_FWD, "social_attention_fwd", h, 14, 5, strides, x4, ids, h, wh,
+    _launch(_FWD, "social_attention_fwd", h, max(hdim, wh.shape[-1]), 14, 5,
+            strides, x4, ids, h, wh,
             *weights, out, stats, u, c, n, hdim, wh.shape[-1], fwd_blocks(n),
             max_scene)
     _count(social_attention_fwd, h)
-    return out, stats, u, c
+    return out[..., :width], stats, u, c
 
 
 # -------------------------------------------------------- backward wrappers
@@ -458,7 +519,8 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     weights are float32 or bf16 together; the rest and dx are float32.
     Member-stacked operands (``h`` [M, N, H], ``_check_common``; g, stats,
     r, u, c with a leading M) give dx [M, N, 4] from one launch, or on the
-    CPU from ``social_attention_bwd_dq_members_plain``."""
+    CPU from ``social_attention_bwd_dq_members_plain``.  On CUDA, H and F
+    that are not multiples of 16 launch zero-padded (``pad_widths``)."""
     _check_window(max_scene)
     if h.device.type == "cpu":
         plain = (social_attention_bwd_dq_members_plain if h.dim() == 3
@@ -467,10 +529,12 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dq: unsupported device "
                          f"{h.device}")
+    h, wh, weights, g = pad_widths(h, wh, weights, g)
     strides = _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     lead, (n, hdim) = _lead(h), h.shape[-2:]
     dx = torch.empty(lead + (n, 4), device=h.device, dtype=torch.float32)
-    _launch(_BWD, "social_attention_bwd_dq", h, 13, 4, strides, x4, ids, h,
+    _launch(_BWD, "social_attention_bwd_dq", h, hdim, 13, 4, strides, x4,
+            ids, h,
             g, stats, r, u, c, *weights[:4], dx, n, hdim, dq_blocks(n),
             max_scene)
     _count(social_attention_bwd_dq, h)
@@ -490,7 +554,9 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     in ``social_attention_bwd_dq``; every gradient is float32.  Member-
     stacked operands give every output with a leading M, from one launch
     of each kernel, or on the CPU from
-    ``social_attention_bwd_dkv_members_plain``."""
+    ``social_attention_bwd_dkv_members_plain``.  On CUDA, H and F that are
+    not multiples of 16 launch zero-padded (``pad_widths``); dh, dwh, dw3
+    and db3 come back at the true widths."""
     _check_window(max_scene)
     if h.device.type == "cpu":
         plain = (social_attention_bwd_dkv_members_plain if h.dim() == 3
@@ -499,6 +565,8 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     if h.device.type != "cuda":
         raise ValueError(f"social_attention_bwd_dkv: unsupported device "
                          f"{h.device}")
+    width, feat_width = h.shape[-1], wh.shape[-1]
+    h, wh, weights, g = pad_widths(h, wh, weights, g)
     strides = _check_bwd(x4, ids, h, wh, g, stats, r, weights, u, c)
     lead, (n, hdim) = _lead(h), h.shape[-2:]
     feat = wh.shape[-1]
@@ -514,7 +582,8 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     db3 = torch.empty(lead + (feat,), **kw)
     dmlp12 = torch.empty(lead + (_PARTIAL,), **kw)
     # the C entry refuses a partial size other than its own M x blocks x slot
-    _launch(_BWD, "social_attention_bwd_dkv", h, 24, 6, strides, x4, ids, h,
+    _launch(_BWD, "social_attention_bwd_dkv", h, max(hdim, feat), 24, 6,
+            strides, x4, ids, h,
             wh, g, stats, r, u, c, *weights, a_sum, s_sum, partial, dx, dh,
             dwh, dw3, db3, dmlp12, n, hdim, feat, dkv_blocks(n),
             partial.numel(), max_scene)
@@ -523,7 +592,8 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     db2 = dmlp12[..., 32 * _H2:32 * _H2 + _H2]
     dw1 = dmlp12[..., 32 * _H2 + _H2:32 * _H2 + _H2 + 96].view(lead + (3, 32))
     db1 = dmlp12[..., 32 * _H2 + _H2 + 96:]
-    return [dx, dh, dwh, dw1, db1, dw2, db2, dw3, db3]
+    return [dx, dh[..., :width], dwh[..., :feat_width], dw1, db1, dw2, db2,
+            dw3[..., :feat_width], db3[..., :feat_width]]
 
 
 class _SocialAttention(torch.autograd.Function):

@@ -5,6 +5,7 @@ the ``create-dataset`` / ``create-toy`` CLI files.  Everything here is
 numpy on both sides, so equality is bit for bit."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from socialways_tpu.data import forecast as jforecast
 from socialways_tpu.data import parsers as jparsers
 from socialways_tpu.data import toy as jtoy
 from socialways_tpu.data import windowing as jwindowing
+from native_lib import load_native
 from socialways_tpu.native.loader import get_lib
 from socialways_torch.cli.main import main as torch_cli
 from socialways_torch.data import forecast, parsers, toy, windowing
@@ -82,9 +84,17 @@ def assert_same_parse(a, b):
     assert a.scale.to_dict() == b.scale.to_dict()
 
 
+@pytest.fixture(autouse=True)
+def _native_parser(monkeypatch):
+    """JAX's default ``load()`` with its native parser in every test here,
+    the library built once across workers (``native_lib``)."""
+    load_native(monkeypatch)
+
+
 def _need_native():
-    if get_lib() is None:
-        pytest.skip("the JAX package's native table parser did not build")
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the JAX package's native table parser")
+    assert get_lib() is not None, "the native table parser did not load"
 
 
 def _biwi_tab_zara(tmp_path):

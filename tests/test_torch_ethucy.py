@@ -26,6 +26,7 @@ from socialways_torch.config import TrainConfig
 from socialways_torch.engine import ethucy
 from socialways_torch.engine.trainer import Trainer
 from socialways_torch.io.checkpoint import save_checkpoint
+from native_lib import load_native
 from test_torch_data_pipeline import ETHUCY_LAYOUT as LAYOUT
 from test_torch_data_pipeline import write_ethucy_layout
 from test_torch_serving import _feed, _jax_noises
@@ -36,6 +37,13 @@ TINY = dict(hidden_size=H, social_feature_size=H, noise_len=H // 2,
 LOO = dict(TINY, agent_frame=True, use_social=True, g_ema_decay=0.999,
            d_input_noise=0.05, d_input_noise_steps=-1,
            d_input_noise_floor=0.02)
+
+
+@pytest.fixture(autouse=True)
+def _native_parser(monkeypatch):
+    """JAX's default ``load()`` with its native parser in every test here,
+    the library built once across workers (``native_lib``)."""
+    load_native(monkeypatch)
 
 
 @pytest.fixture(scope="module")

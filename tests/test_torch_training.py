@@ -278,15 +278,17 @@ PORTED_FLAGS = {"--grad-clip": (["--grad-clip", "1"], "grad_clip", 1.0),
                                     True),
                 "--mb-std": (["--mb-std"], "mb_std", True),
                 "--grad-accum": (["--grad-accum", "2"], "grad_accum", 2),
-                "--bf16": (["--bf16"], "compute_dtype", "bfloat16")}
+                "--bf16": (["--bf16"], "compute_dtype", "bfloat16"),
+                "--pallas": (["--pallas"], "use_pallas", True)}
 
 
 @pytest.mark.parametrize("flag", ["--grad-clip", "--pallas", "--bf16",
                                   "--pac", "--spectral-norm", "--mb-std",
                                   "--grad-accum"])
 def test_torch_cli_refuses_unported_training_flags(flag, toy_npz, capsys):
-    """``--pallas`` stays refused, naming the flag; the ported ones set
-    their field."""
+    """Every flag here is ported now and sets its field (``--pallas``,
+    JAX's loop flag, since the loop flags were ported); an unported one
+    would be refused, naming the flag."""
     if flag in PORTED_FLAGS:
         argv, field, value = PORTED_FLAGS[flag]
         args = parse_args(["--cpu", "train", "--data", toy_npz] + argv)
