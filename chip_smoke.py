@@ -102,27 +102,43 @@ Phases (any failure raises):
    phase 4's and phase 12's bounds and timed beside 4 solo launches and
    the member launch's bound; the float32 forward at N = 10,000, w = 16 likewise; (b)
    ``EnsembleTrainer`` on the loo recipe at full width, 4 seeds: the
-   first member-batched step against 4 solo steps (losses rel 1e-4,
-   state 1e-3 of its scale), one epoch and ``evaluate`` against solo runs
+   first member-batched step against 4 solo steps (``hold_member_step``:
+   losses rel 1e-4, every state leaf 1e-3 of its scale but the G
+   parameters whose gradient is rounding noise, counted), one epoch and ``evaluate`` against solo runs
    (rel 2e-4), launches forward = steps + eval chunks and dkv = steps, as
    a solo run's, every one a member launch, dq 0; (c) member-steps/s at M
    = 1, 4, 8 against solo train steps/s, alternated, and one profiled
    step at M = 4; (d) the robust1 base on the big toy set, 3 seeds x 2
    epochs: each member's coverage equals its solo run's;
 14. every width JAX runs (the kernels took H and F in multiples of 16 up
-   to 128): (a) at H = F = 64, 24, 100, 256 and 512 on the first loo
-   training chunk (generators of that width, their encoder states), the
-   forward with stats, dq and dkv in float32 (phase 4's checks, dx held
-   by the f64 witness) and bf16 (phase 12's), and at M = 4 for 24 and 256
-   (phase 13's), each timed, the kernel launch counters going up in each;
-   (b) ``cli train --recipe loo --hidden-size`` 256 and 24 for an epoch:
-   the first step on the card against the CPU, launches exact;
+   to 128): (a) at H = F = 64, 24, 100, 256, 512, 640 and 1024 on the
+   first loo training chunk (generators of that width, their encoder
+   states), the forward with stats, dq and dkv in float32 (phase 4's
+   checks, dx held on the kernels' own inputs) and bf16 (phase 12's), and
+   at M = 4 for 24, 256 and 640 (phase 13's), each timed, the kernel
+   launch counters going up in each; (b) ``cli train --recipe loo
+   --hidden-size`` 256, 24 and 640 for an epoch: the first step on the
+   card against the CPU, launches exact;
 15. JAX's loop flags: ``cli train --recipe loo --fused-epochs --block-size
    2 --epochs 4 --test-interval 2 --save-interval 2 --pallas --host-loop
    --latent-dim 10`` on phase 7's npz (launches exact, one print and one
    metrics row a block, a checkpoint and an eval at each block's end) and
    ``cli simulate --pallas`` at 10,000 agents (8 launches exactly);
-16. a ``kernels`` JSON line, then the device JSON as the last line.
+16. the ensemble on every configuration (``gan_step(..., members=True)``
+   with the fields it once refused), seeds 1-4 at M = 4 and full loo
+   width: (a) one member step for each of R1, the variety loss (K = 20),
+   mode seeking, the diversity hinge (ds_k 4), the serial rollout,
+   ``grad_accum`` 4 (on an npz of scenes of 16, which tile its
+   micro-chunks), ``remat_steps`` and bf16, each against the members' four
+   solo steps under the same draws (float32 at phase 13b's bounds, bf16 at
+   phase 12's first-step bounds), its forward and dkv launches exactly
+   what phase 10 predicts for one solo step, every one a member launch,
+   and member-steps/s beside solo steps/s in the same process over 26
+   warm steps each (a loo epoch), alternated over two rounds; (b) peak
+   device memory of one member step at batch 4,608 (phase 11's crowd npz)
+   with ``remat_steps`` off and on, lower with it on; (c) a bf16
+   ``EnsembleTrainer`` epoch and ``evaluate``, launches exact;
+17. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -703,10 +719,12 @@ def profile_step(torch, what: str, fn) -> None:
 
 
 def reset_launches(sa) -> None:
-    """Every kernel's count to 0, the float32 and the bf16 entries'."""
+    """Every kernel's counts to 0, the float32 and the bf16 entries', and
+    their member launches."""
     for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
                sa.social_attention_bwd_dkv):
         fn.launches = fn.launches_bf16 = 0
+        fn.member_launches = fn.member_launches_bf16 = 0
 
 
 def read_launches(sa, bf16: bool = False) -> dict:
@@ -727,54 +745,39 @@ def bf16_launches(sa, what: str) -> dict:
     return read_launches(sa, bf16=True)
 
 
-def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
-    """One ``gan_step`` of ``trainer``'s first training chunk on the card
-    and on the CPU, from copies of ``state`` under the same draws: losses
-    and ADE/FDE sums within rel 1e-4, gradients (Adam's first moments)
-    within 1e-3 of their scale, new parameters within 1e-2 lr plus, for G,
-    what that gradient bound allows Adam's first update (``state`` is a
-    fresh one).  Under ``compute_dtype="bfloat16"`` the two devices round
-    to bf16 after sums taken in other orders, and a flipped rounding
-    travels through the rollout: losses and sums within rel 1e-2,
-    gradients within 5e-2 of their scale, every state tensor float32 on
-    both; the new parameters are not compared (where |g| is under that
-    noise, the sign of Adam's first update, +-lr, may differ)."""
-    from socialways_torch.engine.train_step import (StepDraws, draw_step,
-                                                    gan_step)
-    from socialways_torch.engine.trainer import chunk_of
-    from socialways_torch.io.checkpoint import flatten_state, state_from_flat
-
-    tcfg, packed = trainer.cfg, trainer.train_packed
-    s_dev = state_from_flat(flatten_state(state), tcfg, dev)
-    s_cpu = state_from_flat(flatten_state(state), tcfg, "cpu")
-    draws = draw_step(packed.width, tcfg, torch.Generator().manual_seed(7))
-    draws_dev = StepDraws(*(None if t is None else t.to(dev) for t in draws))
-    c_cpu = {k: torch.from_numpy(getattr(packed, k)[0])
-             for k in ("obsvs", "preds", "scene_ids", "valid")}
-    nv0 = int(packed.n_valid[0])
-    s_dev, m_dev = gan_step(s_dev, chunk_of(trainer.train_dev, 0), draws_dev,
-                            tcfg, nv0)
-    s_cpu, m_cpu = gan_step(s_cpu, c_cpu, draws, tcfg, nv0)
+def hold_step(what, f_got, f_ref, m_got, m_ref, tcfg) -> dict:
+    """One ``gan_step`` computed twice from one fresh state under the same
+    draws (on the card and the CPU, or as an ensemble member and solo),
+    the sums taken in other orders: ``f_*`` the flattened new states,
+    ``m_*`` the (d_loss, g_loss, ade_sum, fde_sum) floats.  Losses and
+    ADE/FDE sums within rel 1e-4, gradients (Adam's first moments) within
+    1e-3 of their scale, new parameters within 1e-2 lr plus, for G, what
+    that gradient bound allows Adam's first update.  Under
+    ``compute_dtype="bfloat16"`` the two round to bf16 after sums taken in
+    other orders, and a flipped rounding travels through the rollout:
+    losses and sums within rel 1e-2, gradients within 5e-2 of their scale,
+    every state tensor float32 on both; the new parameters are not
+    compared (where |g| is under that noise, the sign of Adam's first
+    update, +-lr, may differ).  Counts equal.  Returns the worst ratios."""
     bf16 = tcfg.compute_dtype == "bfloat16"
     rel, g_rel = (1e-2, 5e-2) if bf16 else (1e-4, 1e-3)
-    for nm in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
-        a, b = float(getattr(m_dev, nm)), float(getattr(m_cpu, nm))
+    for nm, a, b in zip(("d_loss", "g_loss", "ade_sum", "fde_sum"), m_got,
+                        m_ref):
         if not np.isfinite(a) or abs(a - b) > rel * abs(b):
-            raise AssertionError(f"{what} {nm}: cuda {a} vs cpu {b}")
+            raise AssertionError(f"{what} {nm}: {a} vs {b}")
     # gradients: Adam's first moment after one G update is 0.1 g_G, after
     # the D updates a weighted sum of D's gradients -- compared leaf by leaf
-    # at max|err| <= 1e-3 max|ref| + 1e-9 (sums over the rows through the
+    # at max|err| <= g_rel max|ref| + 1e-9 (sums over the rows through the
     # rollout and the attention, in another order)
-    f_dev, f_cpu = flatten_state(s_dev), flatten_state(s_cpu)
-    if sorted(f_dev) != sorted(f_cpu):
+    if sorted(f_got) != sorted(f_ref):
         raise AssertionError(f"{what}: the two states' leaves differ")
-    not_f32 = [k for f in (f_dev, f_cpu) for k, v in f.items()
+    not_f32 = [k for f in (f_got, f_ref) for k, v in f.items()
                if not k.endswith(".count") and v.dtype != np.float32]
     if not_f32:
         raise AssertionError(f"{what}: state leaves not float32: {not_f32}")
     worst_g, worst_p, loose = (0.0, ""), {"G": 0.0, "D": 0.0}, [0, 0]
-    for key, ref in f_cpu.items():
-        got = f_dev[key]
+    for key, ref in f_ref.items():
+        got = f_got[key]
         if key.endswith(".count"):
             if int(got) != int(ref):
                 raise AssertionError(f"{what} {key}: {got} vs {ref}")
@@ -792,10 +795,10 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
         elif key.startswith(".g_params/"):
             # G's first Adam update is lr g / (|g| + eps): an element whose
             # |g| nears the gradient bound d moves by up to
-            # lr eps d / (|g| - d + eps)^2 (at most 2 lr) across devices
-            (mu_key,) = [k for k in f_cpu if k.startswith(".g_opt/")
+            # lr eps d / (|g| - d + eps)^2 (at most 2 lr) between the two
+            (mu_key,) = [k for k in f_ref if k.startswith(".g_opt/")
                          and k.endswith("/.mu/" + key[len(".g_params/"):])]
-            mu = f_cpu[mu_key].astype(np.float64)
+            mu = f_ref[mu_key].astype(np.float64)
             b1, eps, lr = tcfg.adam_b1, 1e-8, tcfg.lr_g
             g = np.abs(mu) / (1.0 - b1)
             d = (1e-3 * np.abs(mu).max() + 1e-9) / (1.0 - b1)
@@ -811,20 +814,48 @@ def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
             worst_p["G"] = max(worst_p["G"], float(ratio.max()))
             loose[0] += int((bound > 1.01e-2 * lr).sum())
             loose[1] += bound.size
-    # both devices start from one state, so the new D parameters differ by
-    # the difference of their updates, each about +-lr: held at 1e-2 lr
+    # both start from one state, so the new D parameters differ by the
+    # difference of their updates, each about +-lr: held at 1e-2 lr
     if worst_p["D"] > 1e-2 * tcfg.lr_d:
         raise AssertionError(f"{what}: new D params differ by "
                              f"{worst_p['D']:.3e} > 1e-2 lr ({tcfg.lr_d:g})")
-    if bf16:
+    return {"gradient": worst_g, "params": worst_p, "loose": loose,
+            "rel": rel, "g_rel": g_rel}
+
+
+def first_step_cuda_vs_cpu(torch, trainer, state, dev, what: str) -> None:
+    """One ``gan_step`` of ``trainer``'s first training chunk on the card
+    and on the CPU, from copies of ``state`` (a fresh one) under the same
+    draws, held by ``hold_step``."""
+    from socialways_torch.engine.train_step import (StepDraws, draw_step,
+                                                    gan_step)
+    from socialways_torch.engine.trainer import chunk_of
+    from socialways_torch.io.checkpoint import flatten_state, state_from_flat
+
+    tcfg, packed = trainer.cfg, trainer.train_packed
+    s_dev = state_from_flat(flatten_state(state), tcfg, dev)
+    s_cpu = state_from_flat(flatten_state(state), tcfg, "cpu")
+    draws = draw_step(packed.width, tcfg, torch.Generator().manual_seed(7))
+    draws_dev = StepDraws(*(None if t is None else t.to(dev) for t in draws))
+    c_cpu = {k: torch.from_numpy(getattr(packed, k)[0])
+             for k in ("obsvs", "preds", "scene_ids", "valid")}
+    nv0 = int(packed.n_valid[0])
+    s_dev, m_dev = gan_step(s_dev, chunk_of(trainer.train_dev, 0), draws_dev,
+                            tcfg, nv0)
+    s_cpu, m_cpu = gan_step(s_cpu, c_cpu, draws, tcfg, nv0)
+    got = hold_step(what, flatten_state(s_dev), flatten_state(s_cpu),
+                    [float(v) for v in m_dev[:4]],
+                    [float(v) for v in m_cpu[:4]], tcfg)
+    worst_g, worst_p, loose = got["gradient"], got["params"], got["loose"]
+    if tcfg.compute_dtype == "bfloat16":
         print(f"{what} cuda vs cpu (bf16): losses and ADE/FDE sums within "
-              f"rel {rel:g} (d_loss {float(m_dev.d_loss):.6f}/"
+              f"rel {got['rel']:g} (d_loss {float(m_dev.d_loss):.6f}/"
               f"{float(m_cpu.d_loss):.6f}, g_loss {float(m_dev.g_loss):.6f}/"
               f"{float(m_cpu.g_loss):.6f}, ade_sum {float(m_dev.ade_sum):.4f}"
               f"/{float(m_cpu.ade_sum):.4f}); gradients (Adam first "
-              f"moments) at most {worst_g[0]:.3f} of their bound {g_rel:g} "
-              f"max|ref| (at {worst_g[1]}); every state tensor float32 on "
-              f"both devices; counts equal")
+              f"moments) at most {worst_g[0]:.3f} of their bound "
+              f"{got['g_rel']:g} max|ref| (at {worst_g[1]}); every state "
+              f"tensor float32 on both devices; counts equal")
         return
     print(f"{what} cuda vs cpu: losses and ADE/FDE sums within rel 1e-4 "
           f"(d_loss {float(m_dev.d_loss):.6f}/{float(m_cpu.d_loss):.6f}, "
@@ -2190,7 +2221,7 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
             "simulate_rates": sim_rates, "wall_s": wall}
 
 
-#: phase 13: the ensemble's members (ROADMAP Queue 1 item 9), the member
+#: phase 13: the ensemble's members (ROADMAP Queue 1 item 3), the member
 #: counts whose rates it measures, and the toy protocol's robust1 base
 #: (benchmarks/coverage_ensemble.py:88-93) for its coverage check
 ENSEMBLE_M, ENSEMBLE_RATE_MS = 4, (1, 4, 8)
@@ -2388,12 +2419,14 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
 
 
 #: phase 14: hidden sizes JAX runs that are not the kernels' native
-#: multiples of 16 up to 128 (padded: 24, 100; looped over: 256, 512), the
-#: ones also checked at M = 4, and the CLI runs at two of them
-WIDTHS, WIDTH_MEMBERS = (24, 100, 256, 512), (24, 256)
+#: multiples of 16 up to 128 (padded: 24, 100; looped over: 256, 512, and
+#: past dkv's whole h_j stage: 640, 1024), the ones also checked at M = 4,
+#: and the CLI runs at three of them
+WIDTHS, WIDTH_MEMBERS = (24, 100, 256, 512, 640, 1024), (24, 256, 640)
 WIDTH_RUNS = {
     "loo_h256": (["--recipe", "loo", "--hidden-size", "256"], 1, 1, (1, 1)),
     "loo_h24": (["--recipe", "loo", "--hidden-size", "24"], 1, 1, (1, 1)),
+    "loo_h640": (["--recipe", "loo", "--hidden-size", "640"], 1, 1, (1, 1)),
 }
 
 
@@ -2478,8 +2511,8 @@ def width_kernels(torch, sa, dev, obsv_in, x4, ids, card):
 def widths_phase(torch, sa, cli_main, dev, npz, train_chunk, work, card):
     """Phase 14, every width JAX runs: (a) ``width_kernels`` on the first
     loo training chunk (``train_chunk``: its canonicalized observations,
-    x4 and ids); (b) ``cli train --recipe loo --hidden-size`` 256 and 24
-    for an epoch (``WIDTH_RUNS`` through ``gan_run``: the first step on
+    x4 and ids); (b) ``cli train --recipe loo --hidden-size`` 256, 24 and
+    640 for an epoch (``WIDTH_RUNS`` through ``gan_run``: the first step on
     the card against the CPU, a profiled step, launches one forward and
     one dkv a step plus one forward an eval chunk, no dq)."""
     tic_phase = time.perf_counter()
@@ -2552,18 +2585,79 @@ def loop_flags_phase(torch, sa, cli_main, npz, ckpt, work, card):
     return launches
 
 
+def member_launches(sa, bf16: bool) -> dict:
+    """The member launches of the float32 (bf16) kernels."""
+    attr = "member_launches_bf16" if bf16 else "member_launches"
+    return {"fwd": getattr(sa.social_attention_fwd, attr),
+            "dq": getattr(sa.social_attention_bwd_dq, attr),
+            "dkv": getattr(sa.social_attention_bwd_dkv, attr)}
+
+
+def path_launches(sa, what: str, bf16: bool, want: dict) -> dict:
+    """The launches of a member path, held to ``want`` exactly: every one a
+    member launch of the path's operand type, none of the other type."""
+    got = bf16_launches(sa, what) if bf16 else read_launches(sa)
+    other = read_launches(sa, bf16=not bf16)
+    if got != want or member_launches(sa, bf16) != want or any(
+            other.values()):
+        raise AssertionError(f"{what}: launched {got} (member launches "
+                             f"{member_launches(sa, bf16)}, other type "
+                             f"{other}), want {want}")
+    return got
+
+
+def hold_member_step(what, stacked, m, solos, tcfg) -> dict:
+    """A member step from fresh states (``stacked``, metrics ``m``)
+    against each member's solo step (``solos``: (state, metrics) a member,
+    from the same state and draws), member by member: ``hold_step``, and
+    in float32 also every state leaf within 1e-3 of its scale.  A new G
+    parameter whose gradient is within the gradient check's noise (|mu| at
+    most 1e-3 max|mu| of its leaf + 1e-9) moves by Adam's first update,
+    about +-lr, whichever way its rounding fell: past the 1e-3 rule such an
+    element keeps ``hold_step``'s bound (at most 2 lr).  Returns the worst
+    gradient ratio, the G elements within the noise, and those of them
+    that needed the allowance."""
+    from socialways_torch.engine.ensemble import member_state
+    from socialways_torch.io.checkpoint import flatten_state
+    worst, noisy, used = 0.0, 0, 0
+    for i, (solo, ms) in enumerate(solos):
+        f_m, f_s = flatten_state(member_state(stacked, i)), flatten_state(solo)
+        got = hold_step(f"{what} member {i}", f_m, f_s,
+                        [float(v[i]) for v in m[:4]],
+                        [float(v) for v in ms[:4]], tcfg)
+        worst = max(worst, got["gradient"][0])
+        if tcfg.compute_dtype == "bfloat16":
+            continue
+        for key, ref in f_s.items():
+            if key.endswith(".count"):
+                continue
+            err = np.abs(f_m[key] - ref)
+            bad = err > 1e-3 * float(np.abs(ref).max()) + 1e-9
+            if key.startswith(".g_params/"):
+                (mu_key,) = [k for k in f_s if k.startswith(".g_opt/") and
+                             k.endswith("/.mu/" + key[len(".g_params/"):])]
+                mu = np.abs(f_s[mu_key])
+                noise = mu <= 1e-3 * float(mu.max()) + 1e-9
+                noisy += int(noise.sum())
+                used += int((bad & noise).sum())
+                bad &= ~noise
+            if bad.any():
+                raise AssertionError(
+                    f"{what} member {i} {key}: max abs {float(err.max()):.3e}"
+                    f", scale {float(np.abs(ref).max()):.3e}")
+    return {"gradient": worst, "noise": noisy, "allowance": used}
+
+
 def ensemble_loo(torch, sa, dev, npz, cfg, card):
     """Phase 13b: ``EnsembleTrainer`` on the loo recipe at full width, M =
     ENSEMBLE_M seeds: the first member step against the members' solo
     steps under the same draws, one epoch and ``evaluate`` against solo
     runs, and the kernels' launches over that epoch and evaluate."""
     from socialways_torch.data.dataset import load_npz_dataset
-    from socialways_torch.engine.ensemble import (EnsembleTrainer,
-                                                  member_state, stack_draws)
+    from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
     from socialways_torch.engine.train_step import (draw_step, eval_params,
                                                     gan_step)
     from socialways_torch.engine.trainer import Trainer, chunk_of
-    from socialways_torch.io.checkpoint import flatten_state
 
     tr = Trainer(cfg, load_npz_dataset(npz), dev)
     ens = EnsembleTrainer(tr)
@@ -2574,55 +2668,31 @@ def ensemble_loo(torch, sa, dev, npz, cfg, card):
         70 + s), dev) for s in seeds]
     stacked, m = gan_step(ens.init_states(seeds), chunk_of(tr.train_dev, 0),
                           stack_draws(draws), tr.cfg, nv0, members=True)
-    worst = 0.0
-    for i, s in enumerate(seeds):
-        solo, ms = gan_step(tr.init_state(s), chunk_of(tr.train_dev, 0),
-                            draws[i], tr.cfg, nv0)
-        for nm in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
-            a, b = float(getattr(m, nm)[i]), float(getattr(ms, nm))
-            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
-                raise AssertionError(f"ensemble first step member {i} {nm}: "
-                                     f"{a} vs solo {b}")
-        f_m, f_s = flatten_state(member_state(stacked, i)), flatten_state(solo)
-        for key, ref in f_s.items():
-            if key.endswith(".count"):
-                if int(f_m[key]) != int(ref):
-                    raise AssertionError(f"ensemble {key}: {f_m[key]} vs "
-                                         f"{ref}")
-                continue
-            err = float(np.abs(f_m[key] - ref).max())
-            scale = float(np.abs(ref).max())
-            if err > 1e-3 * scale + 1e-9:
-                raise AssertionError(f"ensemble first step member {i} {key}:"
-                                     f" max abs {err:.3e}, scale {scale:.3e}")
-            worst = max(worst, err / (1e-3 * scale + 1e-9))
+    held = hold_member_step("ensemble first step", stacked, m, [
+        gan_step(tr.init_state(s), chunk_of(tr.train_dev, 0), draws[i],
+                 tr.cfg, nv0) for i, s in enumerate(seeds)], tr.cfg)
     print(f"ensemble first step (M = {ENSEMBLE_M}, loo width) vs {ENSEMBLE_M}"
-          f" solo steps: losses and sums within rel 1e-4, every state "
-          f"tensor at most {worst:.3f} of 1e-3 its scale")
+          f" solo steps (hold_member_step): losses and sums within rel "
+          f"1e-4, gradients at most {held['gradient']:.3f} of 1e-3 their "
+          f"scale, every state leaf within 1e-3 of its scale but "
+          f"{held['allowance']} of the {held['noise']} G parameters whose "
+          f"gradient is rounding noise (within their first-update bound)")
     # one epoch and evaluate: the main path of the slice
     gens = lambda: [torch.Generator(device=dev).manual_seed(90 + s)
                     for s in seeds]
     states = ens.init_states(seeds)
     reset_launches(sa)
-    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
-               sa.social_attention_bwd_dkv):
-        fn.member_launches = fn.member_launches_bf16 = 0
     states, me = ens.train_epoch(states, gens())
     epoch_launches = read_launches(sa)
     ev = ens.evaluate(states, seeds)
     torch.cuda.synchronize()
-    launches = read_launches(sa)
-    member_launches = {"fwd": sa.social_attention_fwd.member_launches,
-                       "dq": sa.social_attention_bwd_dq.member_launches,
-                       "dkv": sa.social_attention_bwd_dkv.member_launches}
     n_steps, n_eval = tr.n_steps_per_epoch, tr.test_packed.n_chunks
-    want = {"fwd": n_steps + n_eval, "dq": 0, "dkv": n_steps}
-    if launches != want or member_launches != want or epoch_launches != {
-            "fwd": n_steps, "dq": 0, "dkv": n_steps}:
-        raise AssertionError(f"ensemble epoch + evaluate launched {launches} "
-                             f"(member launches {member_launches}, epoch "
-                             f"{epoch_launches}), want {want}: one launch a "
-                             f"step and an eval chunk for all members")
+    if epoch_launches != {"fwd": n_steps, "dq": 0, "dkv": n_steps}:
+        raise AssertionError(f"ensemble epoch launched {epoch_launches}: "
+                             f"one launch a step for all members")
+    launches = path_launches(sa, "ensemble epoch + evaluate", False,
+                             {"fwd": n_steps + n_eval, "dq": 0,
+                              "dkv": n_steps})
     for i, s in enumerate(seeds):
         solo, ms = tr.train_epoch(tr.init_state(s), gens()[i])
         ev_s = tr.evaluate(eval_params(solo), s)
@@ -2759,6 +2829,186 @@ def ensemble_phase(torch, sa, dev, npz, work, train_cfg, card):
     print(f"ensemble phase: {wall:.2f} s wall [{card}]")
     return {"kernels": kernels, "launches": loo["launches"], "rates": rates,
             "profile": prof, "coverage": covs, "wall_s": wall}
+
+
+#: phase 16: one member step for each field the ensemble once refused, at
+#: phase 10's values (variety_k at JAX's default, 20), with the forward and
+#: dkv launches of one solo step as phase 10 predicts them: a member step
+#: launches once for all members.  grad_accum runs on an npz of scenes of
+#: 16, which tile its four 64-row micro-chunks at batch 256.
+MEMBER_FIELDS = {
+    "r1_gamma": (dict(r1_gamma=1.0), (1, 1)),
+    "use_variety_loss": (dict(use_variety_loss=True, variety_k=20), (2, 1)),
+    "ms_weight": (dict(ms_weight=0.1), (2, 1)),
+    "ds_weight": (dict(ds_weight=0.1, ds_k=4), (2, 1)),
+    "serial_rollout": (dict(serial_rollout=True), (2, 1)),
+    "grad_accum": (dict(grad_accum=4), (8, 4)),
+    "remat_steps": (dict(remat_steps=True), (1, 1)),
+    "bf16": (dict(compute_dtype="bfloat16"), (1, 1)),
+}
+MEMBER_SEEDS, MEMBER_RATE_STEPS, REMAT_BATCH = (1, 2, 3, 4), 26, 4608
+
+
+def member_field(torch, sa, dev, tr, tag, per_step, card):
+    """Phase 16a for one field: ``tr``'s first chunk, one member step of
+    MEMBER_SEEDS against their solo steps under the same draws
+    (``hold_member_step``), launches exact; then member-steps/s and solo
+    steps/s over MEMBER_RATE_STEPS warm steps each (a loo epoch's count),
+    alternated over two rounds (means)."""
+    from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import chunk_of
+    cfg, width = tr.cfg, tr.train_packed.width
+    bf16 = cfg.compute_dtype == "bfloat16"
+    ens, m_ = EnsembleTrainer(tr), len(MEMBER_SEEDS)
+    draws = [draw_step(width, cfg, torch.Generator(device=dev).manual_seed(
+        70 + s), dev) for s in MEMBER_SEEDS]
+    chunk, nv = chunk_of(tr.train_dev, 0), int(tr.train_packed.n_valid[0])
+    stacked = ens.init_states(MEMBER_SEEDS)
+    reset_launches(sa)
+    stacked, m = gan_step(stacked, chunk, stack_draws(draws), cfg, nv,
+                          members=True)
+    torch.cuda.synchronize()
+    launches = path_launches(sa, f"member step {tag}", bf16,
+                             {"fwd": per_step[0], "dq": 0,
+                              "dkv": per_step[1]})
+    held = hold_member_step(f"member step {tag}", stacked, m, [
+        gan_step(tr.init_state(s), chunk, draws[i], cfg, nv)
+        for i, s in enumerate(MEMBER_SEEDS)], cfg)
+    solo = tr.init_state(MEMBER_SEEDS[0])
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in MEMBER_SEEDS]
+    n_chunks = len(tr.train_packed.n_valid)
+    times = {"members": [], "solo": []}
+    for _ in range(2):
+        for key in times:
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for i in range(1, 1 + MEMBER_RATE_STEPS):
+                c, nv_i = chunk_of(tr.train_dev, i % n_chunks), int(
+                    tr.train_packed.n_valid[i % n_chunks])
+                if key == "solo":
+                    solo, _ = gan_step(solo, c, draw_step(
+                        width, cfg, gens[0], dev), cfg, nv_i)
+                else:
+                    stacked, _ = gan_step(stacked, c, stack_draws(
+                        [draw_step(width, cfg, g, dev) for g in gens]), cfg,
+                        nv_i, members=True)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - tic)
+    rate = m_ * MEMBER_RATE_STEPS / float(np.mean(times["members"]))
+    solo_rate = MEMBER_RATE_STEPS / float(np.mean(times["solo"]))
+    rule = ("hold_step, bf16" if bf16 else
+            f"hold_step and every leaf within 1e-3 of its scale but "
+            f"{held['allowance']} of {held['noise']} noise-gradient G "
+            f"parameters")
+    print(f"member step {tag} (M = {m_}, batch {width}): each member equals "
+          f"its solo step ({rule}; gradients at most "
+          f"{held['gradient']:.3f} of their bound); launches {launches}, "
+          f"every one a member launch; {rate:.2f} member-steps/s, solo "
+          f"{solo_rate:.2f} steps/s ({rate / solo_rate:.2f}x; "
+          f"{MEMBER_RATE_STEPS} steps, 2 alternated rounds, means) [{card}]")
+    return {"launches": launches, "member_steps_s": rate,
+            "solo_steps_s": solo_rate, "held": held}
+
+
+def remat_memory(torch, dev, crowd_npz, cfg, card):
+    """Phase 16b: peak device memory of one member step of MEMBER_SEEDS at
+    batch REMAT_BATCH on ``crowd_npz`` (--max-scene-size 16) with
+    ``remat_steps`` off and on; with it on the step keeps only each LSTM
+    and decode step's inputs, so its peak must be lower."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    ds, peaks = load_npz_dataset(crowd_npz), {}
+    for remat in (False, True):
+        tr = Trainer(cfg.replace(batch_size=REMAT_BATCH, max_scene_size=16,
+                                 remat_steps=remat), ds, dev)
+        stacked = EnsembleTrainer(tr).init_states(MEMBER_SEEDS)
+        draws = stack_draws([draw_step(
+            tr.train_packed.width, tr.cfg, torch.Generator(
+                device=dev).manual_seed(80 + s), dev) for s in MEMBER_SEEDS])
+        chunk = chunk_of(tr.train_dev, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, m = gan_step(stacked, chunk, draws, tr.cfg,
+                        int(tr.train_packed.n_valid[0]), members=True)
+        torch.cuda.synchronize()
+        if not all(np.isfinite(float(v)) for t in m for v in t.flatten()):
+            raise AssertionError(f"remat {remat}: metrics {m}")
+        peaks[remat] = (torch.cuda.max_memory_allocated(),
+                        torch.cuda.max_memory_allocated() - before)
+        del tr, stacked, draws, chunk
+    print(f"member step at batch {REMAT_BATCH} (M = {len(MEMBER_SEEDS)}, "
+          f"--max-scene-size 16): torch.cuda.max_memory_allocated "
+          f"{peaks[False][0] / 2**20:.1f} MiB without remat_steps, "
+          f"{peaks[True][0] / 2**20:.1f} MiB with it (the step's own: "
+          f"{peaks[False][1] / 2**20:.1f} / {peaks[True][1] / 2**20:.1f} MiB)"
+          f" [{card}]")
+    if peaks[True][1] >= peaks[False][1]:
+        raise AssertionError(f"remat_steps did not lower a member step's "
+                             f"peak memory: {peaks}")
+    return {"off_bytes": peaks[False][0], "on_bytes": peaks[True][0],
+            "off_step_bytes": peaks[False][1],
+            "on_step_bytes": peaks[True][1]}
+
+
+def bf16_ensemble(torch, sa, dev, npz, cfg, card):
+    """Phase 16c: a bf16 ``EnsembleTrainer`` epoch and ``evaluate`` of
+    MEMBER_SEEDS on the loo recipe: one bf16 member launch a step and an
+    eval chunk, no float32 launch, finite metrics."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import EnsembleTrainer
+    from socialways_torch.engine.trainer import Trainer
+    tr = Trainer(cfg.replace(compute_dtype="bfloat16"),
+                 load_npz_dataset(npz), dev)
+    ens = EnsembleTrainer(tr)
+    states = ens.init_states(MEMBER_SEEDS)
+    gens = [torch.Generator(device=dev).manual_seed(90 + s)
+            for s in MEMBER_SEEDS]
+    n_steps, n_eval = tr.n_steps_per_epoch, tr.test_packed.n_chunks
+    reset_launches(sa)
+    states, me = ens.train_epoch(states, gens)
+    ev = ens.evaluate(states, MEMBER_SEEDS)
+    torch.cuda.synchronize()
+    launches = path_launches(sa, "bf16 ensemble epoch + evaluate", True,
+                             {"fwd": n_steps + n_eval, "dq": 0,
+                              "dkv": n_steps})
+    vals = [me[k] for k in ("d_loss", "g_loss", "train_ade", "train_fde")]
+    if not np.isfinite(vals).all() or not all(
+            np.isfinite(v) for e in ev for v in e.values()):
+        raise AssertionError(f"bf16 ensemble: epoch {me}, evaluate {ev}")
+    print(f"bf16 ensemble epoch (M = {len(MEMBER_SEEDS)}, {n_steps} steps, "
+          f"{me['epoch_time_s']:.2f} s) + evaluate ({n_eval} chunks): bf16 "
+          f"launches {launches}, every one a member launch, no float32 "
+          f"launch; member ade_min {[round(e['ade_min'], 4) for e in ev]} "
+          f"[{card}]")
+    return launches
+
+
+def member_variants_phase(torch, sa, dev, npz, crowd_npz, crowd16_npz,
+                          train_cfg, card):
+    """Phase 16, the ensemble on every configuration: (a) ``member_field``
+    for each of MEMBER_FIELDS on the loo recipe (grad_accum on
+    ``crowd16_npz``, scenes of 16), (b) ``remat_memory`` on
+    ``crowd_npz``, (c) ``bf16_ensemble``."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer
+    tic_phase = time.perf_counter()
+    data = {p: load_npz_dataset(p) for p in (npz, crowd16_npz)}
+    fields = {}
+    for tag, (flags, per_step) in MEMBER_FIELDS.items():
+        ds = data[crowd16_npz if "grad_accum" in flags else npz]
+        fields[tag] = member_field(torch, sa, dev,
+                                   Trainer(train_cfg.replace(**flags), ds,
+                                           dev), tag, per_step, card)
+    memory = remat_memory(torch, dev, crowd_npz, train_cfg, card)
+    ens16 = bf16_ensemble(torch, sa, dev, npz, train_cfg, card)
+    wall = time.perf_counter() - tic_phase
+    print(f"member variants phase: {wall:.2f} s wall [{card}]")
+    return {"fields": fields, "remat_memory": memory,
+            "bf16_ensemble": ens16, "wall_s": wall}
 
 
 def main() -> int:
@@ -3034,6 +3284,11 @@ def main() -> int:
         loops = loop_flags_phase(torch, sa, cli_main, npz, loo_ckpt, work,
                                  smi)
 
+        # ---- 16. the ensemble on every configuration
+        variants = member_variants_phase(
+            torch, sa, dev, npz, os.path.join(work, "crowd-8-12.npz"),
+            os.path.join(work, "crowd16-8-12.npz"), train_cfg, smi)
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -3146,10 +3401,16 @@ def main() -> int:
                    if key == "fwd" else {}),
             })
         # the member launches (the same entries, M > 1): launches from the
-        # ensemble's epoch and evaluate (float32; the ensemble refuses
-        # bf16), times at M = 4 on the first loo training chunk
+        # ensemble's epoch and evaluate (float32, phase 13; bf16, phase
+        # 16c) and from phase 16a's member steps, times at M = 4 on the
+        # first loo training chunk
         for dt, suffix in (("float32", ""), ("bfloat16", "_bf16")):
             res = ens["kernels"][dt][0]
+            by_path = ({"ensemble_loo": ens["launches"]} if not suffix else
+                       {"ensemble_loo_bf16": variants["bf16_ensemble"]})
+            by_path.update({f"member_{k}": v["launches"] for k, v in
+                            variants["fields"].items()
+                            if (k == "bf16") == bool(suffix)})
             for key, fn, line, f, t_key in (
                     ("fwd", "_kernel", 150, "fwd", "fwd_stats"),
                     ("dq", "_bwd_dq_kernel", 317, "bwd", "dq"),
@@ -3162,8 +3423,9 @@ def main() -> int:
                     "route": "cuda",
                     "source": src + f"social_attention_{f}.cuh",
                     "replaces": f"{tpu}:{line} ({fn}, a member axis)",
-                    "launches": (ens["launches"][key] if not suffix
-                                 else 0),
+                    "launches": next(iter(by_path.values()))[key],
+                    "launches_by_path": {k: v[key]
+                                         for k, v in by_path.items()},
                     "max_abs_err": e["max_abs_err"],
                     "ms": e["ms"],
                     "plain_ms": e["plain_ms"],
@@ -3191,7 +3453,11 @@ def main() -> int:
               f"{ens['profile']['idle']:.1%} idle, phase 13 "
               f"{ens['wall_s']:.1f} s; widths: train steps/s "
               f"{widths['train_rates']}, phase 14 {widths['wall_s']:.1f} s; "
-              f"chip_smoke wall "
+              f"member variants: member-steps/s (solo steps/s) "
+              + ", ".join(f"{k} {v['member_steps_s']:.2f} "
+                          f"({v['solo_steps_s']:.2f})"
+                          for k, v in variants["fields"].items())
+              + f", phase 16 {variants['wall_s']:.1f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)

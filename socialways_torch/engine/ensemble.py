@@ -26,7 +26,7 @@ One deliberate limit: the optimizer counts are host integers shared by
 the members (the schedules read them on the host), where JAX keeps one
 device count a member; ``stack_states`` refuses members whose counts
 differ.  ``mesh`` (JAX's member sharding) waits for the port's
-``parallel/`` (ROADMAP Queue 1, item 10).
+``parallel/`` (ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ import torch
 
 from socialways_torch.engine.train_step import (AdamState, StepDraws,
                                                 StepMetrics, TrainState,
-                                                check_members_supported,
                                                 draw_step, eval_params,
                                                 gan_step)
 from socialways_torch.engine.trainer import Trainer, chunk_of
@@ -103,17 +102,14 @@ def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
 class EnsembleTrainer:
     """Wraps a :class:`Trainer` (its packed data, config and device) and
     trains M members jointly, one member-batched ``gan_step`` a chunk.
-
-    The configurations ``gan_step``'s member mode does not batch are
-    refused here, naming the field (``check_members_supported``), and so
-    is ``mesh``."""
+    It takes every configuration the solo ``Trainer`` takes (bf16,
+    accumulation, remat and every loss); ``mesh`` is refused."""
 
     def __init__(self, trainer: Trainer, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: sharding the ensemble's members over devices waits "
-                "for the port's parallel/ (ROADMAP Queue 1, item 10)")
-        check_members_supported(trainer.cfg)
+                "for the port's parallel/ (ROADMAP Queue 1, item 4)")
         self.trainer = trainer
         self.cfg = trainer.cfg
 

@@ -63,9 +63,14 @@ rule); each gradient is one ``torch.autograd.grad`` of the sum of the
 members' losses, outside ``vmap`` (members are independent, so the
 gradient of the sum with respect to member m's slice is member m's
 gradient); Adam, the clip (one norm per member) and the EMA run on the
-stacked leaves.  The variants it does not batch yet (R1's gradient inside
-the loss, the G phase's recomputed rollouts, accumulation, remat, bf16)
-are refused there (``check_members_supported``).
+stacked leaves.  Every configuration of the solo step runs so: R1's
+input gradient is a ``torch.func.grad`` inside the mapped loss (the
+penalty's gradient then reaches the stacked parameters outside, as every
+loss does); the G phase's recomputed rollouts, the micro-chunks of
+``grad_accum`` and the D phase's no-grad rollouts map over the members
+like the shared rollout (the micro-chunks split each member's draws along
+their rows); ``remat_steps`` recomputes each mapped step once for all
+members (``ops.lstm.remat_call``); bf16 casts each member's view.
 """
 
 from __future__ import annotations
@@ -409,30 +414,8 @@ def _copy_params(dst: nn.Module, src: nn.Module) -> None:
 
 #: the members' own entries of a step's per-part tensors (the draws and what
 #: is made from them); the rest is data every member shares
-_MEMBER_KEYS = ("noise", "zeros", "ones", "pred_hat", "eps_g", "ph")
-
-#: the variants member mode does not batch: a gradient inside the loss (R1),
-#: a rollout recomputed under grad in the G phase (variety, mode seeking,
-#: diversity, serial rollout), micro-chunk accumulation, checkpointed steps
-#: (torch.utils.checkpoint under vmap) and bf16 compute
-_MEMBERS_REFUSE = (("r1_gamma", lambda c: c.r1_gamma > 0),
-                   ("use_variety_loss", lambda c: c.use_variety_loss),
-                   ("ms_weight", lambda c: c.ms_weight > 0),
-                   ("ds_weight", lambda c: c.ds_weight > 0),
-                   ("serial_rollout", lambda c: c.serial_rollout),
-                   ("grad_accum", lambda c: c.grad_accum > 1),
-                   ("remat_steps", lambda c: c.remat_steps),
-                   ("compute_dtype", lambda c: c.compute_dtype != "float32"))
-
-
-def check_members_supported(cfg: TrainConfig) -> None:
-    """Raise, naming the field, for a configuration member mode does not
-    batch (ROADMAP Queue 1 lists each)."""
-    for field, bad in _MEMBERS_REFUSE:
-        if bad(cfg):
-            raise ValueError(f"{field}={getattr(cfg, field)!r} is not "
-                             "supported by the ensemble (member mode of "
-                             "gan_step) yet")
+_MEMBER_KEYS = ("noise", "zeros", "ones", "pred_hat", "eps_g", "ph",
+                "variety", "extra")
 
 
 def _pair_mean(t: torch.Tensor) -> torch.Tensor:
@@ -463,8 +446,6 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     leading M), the batch is shared, and every metric is [M]."""
     valid = batch["valid"]
     dev = valid.device
-    if members:
-        check_members_supported(cfg)
     vm = Members(draws.noise.shape[0] if members else None)
     if n_valid is None:
         n_valid = int(valid.sum())
@@ -511,38 +492,53 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         return t.to(cdt) if isinstance(t, torch.Tensor) else cast_params(
             t, cdt)
 
-    def rollout_on(g, obsv_, z, sids, sx4):
-        return generator_rollout(cast(g), cast(obsv_), cast(z),
-                                 cfg.n_next, sids, cfg.use_social, cast(sx4),
-                                 cfg.decoder, cfg.remat_steps,
-                                 cfg.max_scene_size).float()
+    def rollout_on(g, c):
+        """The part ``c``'s rollout by G ``g`` under its noise."""
+        return generator_rollout(cast(g), cast(c["obsv"]), cast(c["noise"]),
+                                 cfg.n_next, c["scene_ids"], cfg.use_social,
+                                 cast(c["social_x4"]), cfg.decoder,
+                                 cfg.remat_steps, cfg.max_scene_size).float()
+
+    # D instance noise on the prediction inputs (observations stay clean);
+    # sigma from the G step count before this step's update
+    sigma = instance_noise_sigma(cfg, step0)
+    member_keys = _MEMBER_KEYS + (() if sigma is None else ("pred_4d",))
+    n_parts = cfg.grad_accum if accum else 1
+
+    def split(key, v):
+        """``v`` in ``n_parts`` row chunks (a member entry's rows follow
+        its member axis)."""
+        if v is None:
+            return [None] * n_parts
+        return v.chunk(n_parts, dim=len(vm.lead) if key in member_keys else 0)
 
     # micro-chunks: the rows split into grad_accum equal scene-aligned parts
     rows = {"obsv": obsv, "obsv_4d": obsv_4d, "noise": noise,
             "scene_ids": scene_ids, "valid": valid, "zeros": zeros_t,
             "ones": ones_t, "pred": pred, "social_x4": social_x4}
-    n_parts = cfg.grad_accum if accum else 1
-    parts = [{k: None if v is None else v.chunk(n_parts)[a]
-              for k, v in rows.items()} for a in range(n_parts)]
+    parts = [{} for _ in range(n_parts)]
+    for k, v in rows.items():
+        for c, part in zip(parts, split(k, v)):
+            c[k] = part
+
+    def on_members(fn, modules, c, *args):
+        """``fn(*modules, c, *args)`` through ``vm``: the part's member
+        entries per member, its data shared."""
+        cm = {k: v for k, v in c.items() if k in member_keys and v is not None}
+        return vm(lambda *a: fn(*a[:-1], {**c, **a[-1]}, *args), modules, cm)
 
     # the fake rollout: with its graph (shared by both phases), or
     # forward-only for the D phase when the G phase recomputes it
     pred_hat = None
     if accum or separate:
         with torch.no_grad():
-            pred_hat_fwd = torch.cat([
-                rollout_on(state.g, c["obsv"], c["noise"], c["scene_ids"],
-                           c["social_x4"]) for c in parts])
+            pred_hat_fwd = torch.cat([on_members(rollout_on, (state.g,), c)
+                                      for c in parts], dim=len(vm.lead))
     else:
         with torch.enable_grad():
-            pred_hat = vm(lambda g, z: rollout_on(g, obsv, z, scene_ids,
-                                                  social_x4),
-                          (state.g,), noise)
+            pred_hat = on_members(rollout_on, (state.g,), parts[0])
         pred_hat_fwd = pred_hat.detach()
 
-    # D instance noise on the prediction inputs (observations stay clean);
-    # sigma from the G step count before this step's update
-    sigma = instance_noise_sigma(cfg, step0)
     pred_hat_d, pred_4d_d, eps_g = pred_hat_fwd, pred_4d, None
     if sigma is not None:
         pred_hat_d = pred_hat_d + sigma * draws.eps_fake
@@ -550,8 +546,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         eps_g = draws.eps_g
     for k, v in (("pred_hat", pred_hat_d), ("pred_4d", pred_4d_d),
                  ("eps_g", eps_g)):
-        for a, c in enumerate(parts):
-            c[k] = None if v is None else v.chunk(n_parts)[a]
+        for c, part in zip(parts, split(k, v)):
+            c[k] = part
     # each part's loss is weighted by its share of the valid samples (info,
     # r1, l2) and of the valid packs (labels): their sums are the
     # full-batch masked means (:347-357)
@@ -565,13 +561,6 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         w_sample = w_pack = (1.0,)
 
     sn = spectral_normalize_d if cfg.spectral_norm else (lambda p: p)
-    member_keys = _MEMBER_KEYS + (() if sigma is None else ("pred_4d",))
-
-    def on_members(fn, modules, c, *args):
-        """``fn(*modules, c, *args)`` through ``vm``: the part's member
-        entries per member, its data shared."""
-        cm = {k: v for k, v in c.items() if k in member_keys and v is not None}
-        return vm(lambda *a: fn(*a[:-1], {**c, **a[-1]}, *args), modules, cm)
 
     def d_part_loss(d, c, w_label, w_rest):
         """The D loss of one part (:469-509), at the current D ``d``."""
@@ -594,13 +583,14 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                             *info, label_valid=gv_c, w_label=w_label,
                             w_info=w_rest)
         if cfg.r1_gamma > 0:
-            # R1: |d D(obsv, real) / d real|^2, differentiated again below
-            p4 = c["pred_4d"].detach().requires_grad_(True)
-            lbl, _ = discriminator_heads(dp, obsv_code, cast(p4), cfg.pac,
-                                         mb_feat(p4, c["valid"]))
-            (g_real,) = torch.autograd.grad((lbl.float()
-                                             * gv_c[:, None]).sum(), p4,
-                                            create_graph=True)
+            # R1: |d D(obsv, real) / d real|^2, a function of D that the
+            # step's gradient differentiates again; torch.func.grad, so
+            # that it also runs per member under vmap
+            def real_labels(p4):
+                lbl, _ = discriminator_heads(dp, obsv_code, cast(p4),
+                                             cfg.pac, mb_feat(p4, c["valid"]))
+                return (lbl.float() * gv_c[:, None]).sum()
+            g_real = torch.func.grad(real_labels)(c["pred_4d"].detach())
             per = (g_real.reshape(nn_, -1) ** 2).sum(dim=-1)
             r1 = (torch.where(c["valid"], per, 0.0).sum()
                   / torch.clamp(c["valid"].sum(), min=1))
@@ -662,14 +652,56 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                 ph[..., :2], c["pred"], c["valid"])
         return loss
 
+    def g_rollout_loss(g, d_g, c, w_label, w_info):
+        """The G loss of one part with its rollout by ``g`` under grad."""
+        return g_part_loss(d_g, {**c, "ph": rollout_on(g, c)}, w_label,
+                           w_info)
+
+    def g_separate_loss(g, d_g, c):
+        """(G loss, rollout) with the extra terms: encode and pool once,
+        decode the step's noise and every extra draw as rows of one
+        batch."""
+        noises = [c["noise"][None]]
+        if cfg.use_variety_loss:
+            noises.append(c["variety"])
+        if diverse:
+            noises.append(c["extra"])
+        z = torch.cat(noises)
+        r = z.shape[0]
+        g_view = cast(g)
+        prep = prepare_rollout(g_view, cast(obsv), scene_ids,
+                               cfg.use_social, cast(social_x4),
+                               cfg.remat_steps, cfg.max_scene_size)
+        out = decode_rollout(g_view, tuple(t.repeat(r, 1) for t in prep),
+                             cast(z.reshape(r * n, -1)), cfg.n_next,
+                             cfg.decoder, cfg.remat_steps)
+        out = out.float().reshape(r, n, cfg.n_next, 4)
+        loss = g_part_loss(d_g, {**c, "ph": out[0]}, 1.0, 1.0)
+        first = 1
+        if cfg.use_variety_loss:
+            first += cfg.variety_k
+            loss = loss + cfg.loss_l2_w * variety_loss(
+                out[1:first, ..., :2], pred, valid)
+        if diverse:
+            # pairs of the step's draw and the extra ones (:609-661)
+            d_row = _pair_mean(out[[0] + list(range(first, r)), ..., :2])
+            dz_row = _pair_mean(torch.cat([c["noise"][None], c["extra"]]))
+            if cfg.ms_weight > 0:
+                ratio = (_masked_mean(d_row, valid)
+                         / (_masked_mean(dz_row, valid) + 1e-8))
+                loss = loss + cfg.ms_weight / (ratio + 1e-5)
+            if cfg.ds_weight > 0:
+                hinge = torch.clamp(cfg.ds_tau - d_row / (dz_row + 1e-8),
+                                    min=0.0)
+                loss = loss + cfg.ds_weight * _masked_mean(hinge, valid)
+        return loss, out[0]
+
     g_params = list(state.g.parameters())
     with torch.enable_grad():
         if accum:
             g_loss, g_grads = None, None
             for c, wp, ws in zip(parts, w_pack, w_sample):
-                ph = rollout_on(state.g, c["obsv"], c["noise"],
-                                c["scene_ids"], c["social_x4"])
-                loss = g_part_loss(d_g, {**c, "ph": ph}, wp, ws)
+                loss = on_members(g_rollout_loss, (state.g, d_g), c, wp, ws)
                 g_loss = loss.detach() if g_loss is None else (
                     g_loss + loss.detach())
                 g = _grads(loss, g_params)
@@ -681,44 +713,10 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                 {**parts[0], "ph": pred_hat}, 1.0, 1.0)
             g_grads = _grads(g_loss, g_params)
         else:
-            # recompute under grad: encode and pool once, decode the step's
-            # noise and every extra draw as rows of one batch
-            noises = [noise[None]]
-            if cfg.use_variety_loss:
-                noises.append(draws.variety_noise)
-            if diverse:
-                noises.append(draws.extra_noise)
-            z = torch.cat(noises)
-            r = z.shape[0]
-            g_view = cast(state.g)
-            prep = prepare_rollout(g_view, cast(obsv), scene_ids,
-                                   cfg.use_social, cast(social_x4),
-                                   cfg.remat_steps, cfg.max_scene_size)
-            out = decode_rollout(g_view, tuple(t.repeat(r, 1) for t in prep),
-                                 cast(z.reshape(r * n, -1)), cfg.n_next,
-                                 cfg.decoder, cfg.remat_steps)
-            out = out.float().reshape(r, n, cfg.n_next, 4)
-            pred_hat = out[0]
-            g_loss = g_part_loss(d_g, {**parts[0], "ph": pred_hat}, 1.0, 1.0)
-            first = 1
-            if cfg.use_variety_loss:
-                first += cfg.variety_k
-                g_loss = g_loss + cfg.loss_l2_w * variety_loss(
-                    out[1:first, ..., :2], pred, valid)
-            if diverse:
-                # pairs of the step's draw and the extra ones (:609-661)
-                d_row = _pair_mean(out[[0] + list(range(first, r)), ..., :2])
-                dz_row = _pair_mean(torch.cat([noise[None],
-                                               draws.extra_noise]))
-                if cfg.ms_weight > 0:
-                    ratio = (_masked_mean(d_row, valid)
-                             / (_masked_mean(dz_row, valid) + 1e-8))
-                    g_loss = g_loss + cfg.ms_weight / (ratio + 1e-5)
-                if cfg.ds_weight > 0:
-                    hinge = torch.clamp(cfg.ds_tau - d_row / (dz_row + 1e-8),
-                                        min=0.0)
-                    g_loss = g_loss + cfg.ds_weight * _masked_mean(hinge,
-                                                                   valid)
+            g_loss, pred_hat = on_members(
+                g_separate_loss, (state.g, d_g),
+                {**parts[0], "variety": draws.variety_noise,
+                 "extra": draws.extra_noise})
             g_grads = _grads(g_loss, g_params)
     g_tx.step(state.g_opt, state.g, g_grads, members)
 

@@ -65,10 +65,11 @@
 // Widths.  The narrow kernels (kWide false) take H and F in multiples of
 // 16 up to kNarrowWidth = 128 and are the code they were; the wide ones
 // (kWide, entries social_attention_bwd_wide*.cu, translation units of
-// their own) take up to kMaxWidth = 512: dq reads g_i from device memory
+// their own) take any multiple of 16: dq reads g_i from device memory
 // instead of staging it and forms g_i . h_j exactly (gh_exact), dkv
-// stages h_j at a stride of 512 and keeps dh past the first 2 kThreads
-// elements of a tile in the tile's own rows of dh (dh_wide).
+// stages h_j whole up to kStageWidth = 512 columns and above that
+// kStageWidth columns at a time (gh_chunked), and keeps dh past the first
+// 2 kThreads elements of a tile in the tile's own rows of dh (dh_wide).
 //
 // Bound on this card: operations.  Per same-scene pair dq does ~4.4k FMA
 // (features, 3->32->64 recompute, score, g_i . h_j, the 64->32 and 32->3
@@ -128,6 +129,44 @@ __device__ __forceinline__ float gh_half_warp(const float* gi, const float* hj,
     if (act)
         for (int q = 0; q < chunk; ++q) gh = fmaf(gi[16 * q], hj[16 * q], gh);
     return half_warp_sum(gh);
+}
+
+// g_i . h_j of this half warp's four pairs (4 pg + i) in the wide dkv when
+// H is above kStageWidth: the tile's h_j columns staged kStageWidth at a
+// time into s_h (block-wide, every thread calls it), each lane's partial
+// carried from chunk to chunk in gh_half_warp's order (d = og + 16 q) and
+// then summed in its tree, so the bits are those of one whole stage.
+template <typename T>
+__device__ __forceinline__ void gh_chunked(
+        float (&gh)[4], const T* __restrict__ h, const float* __restrict__ g,
+        const int mrow, const int col0, const int n, const int hdim,
+        const int nb, const int* s_row, const int* s_slot, float* s_h) {
+    const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int d0 = 0; d0 < hdim; d0 += kStageWidth) {
+        const int wd = hdim - d0 < kStageWidth ? hdim - d0 : kStageWidth;
+        __syncthreads();         // the chunk before is read
+        for (int e = threadIdx.x; e < kTile * wd; e += kThreads) {
+            const int c = e / wd, d = e - c * wd;
+            s_h[c * kStageWidth + d] =
+                col0 + c < n ? ld(h[(size_t)(mrow + col0 + c) * hdim + d0 + d])
+                             : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int p = 4 * pg + i;
+            if (p < nb) {
+                const float* gi = g + (size_t)(mrow + s_row[p]) * hdim + d0 + og;
+                const float* hj = s_h + s_slot[p] * kStageWidth + og;
+                for (int q = 0; q < wd / 16; ++q)
+                    part[i] = fmaf(gi[16 * q], hj[16 * q], part[i]);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gh[i] = half_warp_sum(part[i]);
 }
 
 // g_i . h_j by one thread (dq), one FMA after another over d = 0 .. H - 1:
@@ -462,8 +501,10 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float s_dz1[kBatch * kDz1Stride];
     __shared__ float s_apart[kPairGroups * kTile * kH2];   // ds a2 by group
     __shared__ __align__(16) float s_u[kTile * kH2];
-    constexpr int kHStride = kWide ? kMaxWidth : kNarrowWidth;
+    constexpr int kHStride = kWide ? kStageWidth : kNarrowWidth;
     __shared__ float s_h[kTile * kHStride];
+    // kWide above kStageWidth: h_j staged a chunk at a time (gh_chunked)
+    const bool staged = !kWide || hdim <= kHStride;
     __shared__ float s_A[kTile * kH2];
     __shared__ float s_feat[kIn * kBatch];
     __shared__ float s_m[kBatch], s_l[kBatch], s_r[kBatch], s_a[kBatch],
@@ -511,11 +552,12 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             const int c = threadIdx.x >> 6, k = threadIdx.x & (kH2 - 1);
             s_u[threadIdx.x] = col0 + c < n ? u[(size_t)(mrow + col0 + c) * kH2 + k] : 0.f;
         }
-        for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
-            const int c = e / hdim, d = e - c * hdim;
-            s_h[c * kHStride + d] =
-                col0 + c < n ? ld(h[(size_t)(mrow + col0 + c) * hdim + d]) : 0.f;
-        }
+        if (staged)
+            for (int e = threadIdx.x; e < kTile * hdim; e += kThreads) {
+                const int c = e / hdim, d = e - c * hdim;
+                s_h[c * kHStride + d] =
+                    col0 + c < n ? ld(h[(size_t)(mrow + col0 + c) * hdim + d]) : 0.f;
+            }
         // per-column sums: A[t >> 6][t & 63], S and dx_j of column t < kTile,
         // dh elements e = t + kThreads q of [kTile][hdim] (kWide: the first
         // 2 kThreads; dh_wide keeps the rest)
@@ -558,6 +600,11 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             __syncthreads();
             layer1<T>(s_feat, s_w1, s_b1, s_a1);
             __syncthreads();
+            float gh4[4];
+            if constexpr (kWide)
+                if (!staged)
+                    gh_chunked(gh4, h, g, mrow, col0, n, hdim, nb, s_row,
+                               s_slot, s_h);
             {
                 float a2[4][4], ap[kTile][4];
                 layer2_tile<T>(s_a1, s_w2, kW2Stride, s_b2, a2);
@@ -569,9 +616,10 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(s_u + slot * kH2)[og];
-                    const float gh = gh_half_warp(g + (size_t)(mrow + s_row[p]) * hdim + og,
-                                                  s_h + slot * kHStride + og, chunk,
-                                                  p < nb);
+                    const float gh = staged
+                        ? gh_half_warp(g + (size_t)(mrow + s_row[p]) * hdim + og,
+                                       s_h + slot * kHStride + og, chunk, p < nb)
+                        : gh4[i];
                     const PairDs d = pair_ds(a2[i], u4, s_ct[slot], gh, p < nb,
                                              s_m[p], s_l[p], s_r[p]);
                     if (og == 0) {
@@ -817,7 +865,7 @@ bwd_finalize_kernel(const T* __restrict__ wh,
 // Launches on `stream`, does not synchronise,
 // allocates nothing; returns cudaGetLastError(), or cudaErrorInvalidValue
 // for blocks <= 0, an H the kernel does not take (width_ok: a multiple of
-// 16 up to kNarrowWidth, kWide up to kMaxWidth), bad member strides or a
+// 16, up to kNarrowWidth for the narrow kernel), bad member strides or a
 // scene window max_scene < 0 (0: every tile scans all N).  h and w1..b2
 // are T.
 template <typename T, bool kWide>
@@ -857,8 +905,8 @@ int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
 // member strides and a scene window max_scene < 0 (0: every column tile
 // scans all N; a column's partners lie in the same window as a row's).
 // Two launches: dkv, then finalize.  h, wh and w1..b3 are T; every output
-// is float.  kWide takes H and F up to kMaxWidth, the narrow kernel up to
-// kNarrowWidth (width_ok).
+// is float.  kWide takes any H and F in multiples of 16, the narrow kernel
+// up to kNarrowWidth (width_ok).
 template <typename T, bool kWide>
 int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
                const void* g, const void* stats, const void* r, const void* u,

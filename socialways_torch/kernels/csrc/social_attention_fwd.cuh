@@ -50,7 +50,7 @@
 // Widths.  The narrow kernels (kWide false) take H and F in multiples of
 // 16 up to kNarrowWidth = 128 and are the code they were; the wide ones
 // (kWide, entries social_attention_fwd_wide*.cu, translation units of
-// their own) take up to kMaxWidth = 512: u_prep stages W3 and wh in chunks
+// their own) take any multiple of 16: u_prep stages W3 and wh in chunks
 // of 128 columns of F (u_prep_wide), and the pooled sum keeps its
 // elements past the first 2 kThreads of a tile in the tile's own rows of
 // out (pool_wide) instead of registers, so neither shared memory nor
@@ -73,7 +73,7 @@ using namespace sa;
 
 constexpr int kPrepRows = 8;        // agents a u_prep block
 
-// The wide u = wh W3^T and c = wh . b3 (F up to kMaxWidth): F in chunks of
+// The wide u = wh W3^T and c = wh . b3 (F above kNarrowWidth): F in chunks of
 // kNarrowWidth columns staged as the narrow kernel stages all of F, each
 // sum carried on from chunk to chunk in the order f = 0 .. F - 1.
 template <typename T>
@@ -394,7 +394,7 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
 // model, M = 1).  `max_scene` is the
 // scene window w of social_attention_pairs.cuh (0: every tile scans all N);
 // w < 0 and bad strides are refused with cudaErrorInvalidValue.  h, wh,
-// w1..b3 are T.  kWide takes H and F up to kMaxWidth, the narrow kernels
+// w1..b3 are T.  kWide takes any H and F in multiples of 16, the narrow kernels
 // up to kNarrowWidth (width_ok).
 template <typename T, bool kWide>
 int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,

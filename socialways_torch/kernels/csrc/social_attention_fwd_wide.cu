@@ -1,5 +1,5 @@
 // The social-attention forward C entry for float operands at H or F above
-// 128 (up to 512): the kWide instantiation of the kernels in
+// 128 (any multiple of 16): the kWide instantiation of the kernels in
 // social_attention_fwd.cuh, a translation unit of its own so that the
 // narrow kernels of social_attention_fwd.cu compile as they did.
 

@@ -1,5 +1,5 @@
 // The social-attention forward C entry for bf16 operands at H or F above
-// 128 (up to 512): the kWide instantiation of the kernels in
+// 128 (any multiple of 16): the kWide instantiation of the kernels in
 // social_attention_fwd.cuh, a translation unit of its own.
 
 #include "social_attention_fwd.cuh"

@@ -75,21 +75,21 @@ Source notes.
   CPU wrappers take them for stacked CPU tensors, and the tests and
   ``chip_smoke.py`` hold the kernels against them.
 
-- Widths.  The kernels take H and F in multiples of 16 up to
-  ``MAX_WIDTH`` = 512, which covers every hidden size JAX's dispatch runs
-  in practice (socialways_tpu/kernels/social_attention.py:747-784 takes
-  any).  Every launch wrapper pads other widths with zeros to the next
-  multiple of 16 (``pad_widths``: exact, the zeros add nothing to the
-  scores or the pooled sum) and slices out, dh, dwh, dW3 and db3 back.
-  Above 128 the wrappers launch the wide kernels (``*_wide`` entries,
-  libraries of their own, the ``kWide`` instantiation of the same
-  templates): ``u_prep_kernel`` stages W3 and wh in chunks of 128
-  columns of F, dq reads g_i from device memory and forms g_i . h_j in
-  double (exact products, one rounding), dkv stages h_j at up to 512, and
-  the pooled sum (forward) and dh (dkv) keep the elements past the first
-  256 of a tile in the output rows themselves instead of registers.
-  The narrow kernels compile as they did (registers, bits).  A width
-  above 512 raises.
+- Widths.  The kernels take any H and F, as JAX's dispatch does
+  (socialways_tpu/kernels/social_attention.py:747-784): every launch
+  wrapper pads them with zeros to the next multiple of 16 (``pad_widths``:
+  exact, the zeros add nothing to the scores or the pooled sum) and slices
+  out, dh, dwh, dW3 and db3 back.  Above 128 the wrappers launch the wide
+  kernels (``*_wide`` entries, libraries of their own, the ``kWide``
+  instantiation of the same templates), in which no shared array or
+  register grows with the width: ``u_prep_kernel`` stages W3 and wh in
+  chunks of 128 columns of F, dq reads g_i from device memory and forms
+  g_i . h_j in double (exact products, one rounding), dkv stages h_j
+  whole up to 512 columns and above that 512 at a time, and the pooled
+  sum (forward) and dh (dkv) keep the elements past the first 256 of a
+  tile in the output rows themselves.  The narrow kernels compile as they
+  did (registers, bits).  The one limit is the C entries' int indices:
+  M N max(H, F, 64) below 2^31 (past any width a card holds at N = 256).
 
 Dispatch: ``social_attention_fwd`` takes the plain dense form for a CPU
 tensor (under autograd when a gradient is needed) and launches the kernels
@@ -126,8 +126,6 @@ _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
 _DENSE_MAX_AGENTS = 4096
 _WIDTH_STEP = 16              # the kernels take H and F in multiples of this
 _NARROW_WIDTH = 128           # above this H or F, the wide kernels launch
-#: the widest H and F the kernels take (csrc kMaxWidth); a wider one raises
-MAX_WIDTH = 512
 
 
 # ----------------------------------------------------------- plain versions
@@ -333,12 +331,8 @@ def pad_widths(h, wh, weights: Sequence[torch.Tensor],
     unchanged, and a zero column of h pools to a zero column of out, which
     the caller slices away with the padded parts of dh, dwh, dW3 and db3.
     Returns (h, wh, weights) or, with ``g``, (h, wh, weights, g); operands
-    already at multiples of 16 come back as they are.  H or F above
-    ``MAX_WIDTH`` raises."""
+    already at multiples of 16 come back as they are."""
     hdim, feat = h.shape[-1], wh.shape[-1]
-    if max(hdim, feat) > MAX_WIDTH:
-        raise ValueError(f"social attention kernels take H and F up to "
-                         f"{MAX_WIDTH}, got H={hdim}, F={feat}")
     hp, fp = padded_width(hdim), padded_width(feat)
 
     def pad(t, width):
@@ -387,10 +381,14 @@ def _check_common(x4, ids, h, wh, weights) -> Optional[List[int]]:
     n, hdim = h.shape[-2:]
     feat = wh.shape[-1]
     dev, f32, op = h.device, torch.float32, h.dtype
-    if any(w % _WIDTH_STEP or not 0 < w <= MAX_WIDTH for w in (hdim, feat)):
-        raise ValueError(f"social attention kernels need H and F multiples "
-                         f"of {_WIDTH_STEP} up to {MAX_WIDTH} (pad_widths), "
-                         f"got H={hdim}, F={feat}")
+    if any(w % _WIDTH_STEP or w <= 0 for w in (hdim, feat)):
+        raise ValueError(f"social attention kernels need H and F positive "
+                         f"multiples of {_WIDTH_STEP} (pad_widths), got "
+                         f"H={hdim}, F={feat}")
+    if (h.shape[0] if lead else 1) * n * max(hdim, feat, _H2) >= 2 ** 31:
+        raise ValueError(f"social attention kernels index in int: M N "
+                         f"max(H, F, 64) must stay below 2^31, got N={n}, "
+                         f"H={hdim}, F={feat}")
     if op not in _OPERAND_DTYPES:
         raise ValueError(f"h has dtype {op}, expected float32 or bfloat16")
 

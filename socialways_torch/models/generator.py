@@ -164,7 +164,7 @@ def decode_rollout(params: Generator, prep: Prep, noise: torch.Tensor,
     h, c, s, last_p = prep
     lstm_dec = decoder == "lstm"
 
-    def step(h, c, last_p, *dec):
+    def step(params, s, noise, h, c, last_p, *dec):
         inp = torch.cat([h, s, noise], dim=-1)
         if lstm_dec:
             dec = lstm_cell(params.dec_lstm, inp, dec)
@@ -184,7 +184,7 @@ def decode_rollout(params: Generator, prep: Prep, noise: torch.Tensor,
                             h.device, h.dtype)
     steps = []
     for _ in range(n_next):
-        step_4d, *carry = remat_call(remat, step, *carry)
+        step_4d, *carry = remat_call(remat, step, params, s, noise, *carry)
         steps.append(step_4d)
     return torch.stack(steps, dim=1)
 

@@ -7,21 +7,20 @@ GEMM per step, ``W [in+h, 4h]`` and one fused bias.  The GEMM
 accumulates in float32 and the gate math runs in float32 whatever the
 carry dtype; with bf16 carries the new (h, c) are cast back to bf16
 (socialways_tpu/ops/lstm.py:39-56).  Sequences here are 8 observed steps,
-so the time loop is a plain Python loop; under ``remat`` each step is a
-``torch.utils.checkpoint`` (recomputed in the backward, as
-``jax.checkpoint`` of the scan step).
+so the time loop is a plain Python loop; under ``remat`` each step is
+recomputed in the backward, as ``jax.checkpoint`` of the scan step
+(``remat_call``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from socialways_torch.ops.nn import wide
+from socialways_torch.ops.nn import flatten_tree, wide
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]     # (h, c), each [..., hidden]
 
@@ -72,13 +71,75 @@ def lstm_cell(p: LSTMCell, x: torch.Tensor, state: LSTMState) -> LSTMState:
     return h_new, c_new
 
 
-def remat_call(remat: bool, fn, *args):
-    """``fn(*args)``, checkpointed when ``remat`` and a graph is being
+class _Remat(torch.autograd.Function):
+    """``fn(*leaves)`` (a tuple of tensors) with no intermediate kept: the
+    forward runs it without a graph and saves only its inputs, the
+    backward runs it again under grad and pulls the cotangents through.
+    Under ``torch.func.vmap`` over ensemble members the ``vmap`` rule
+    applies this Function, outside ``vmap``, to ``vmap(fn)`` of the
+    stacked inputs, so the recomputation is one mapped call over every
+    member.  (``torch.utils.checkpoint`` runs under ``vmap`` but its
+    recomputation cannot: the backward meets tensors of a ``vmap`` level
+    that has ended.)"""
+
+    @staticmethod
+    def forward(fn, *leaves):
+        return fn(*leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            outs = ctx.fn(*xs)
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            wrt = [x for x, n in zip(xs, need) if n]
+            got = [None] * len(wrt)
+            if pairs and wrt:
+                got = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                          [g for _, g in pairs],
+                                          allow_unused=True)
+        got = iter(got)
+        return (None,) + tuple(next(got) if n else None for n in need)
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *leaves):
+        outs = _Remat.apply(torch.func.vmap(fn, in_dims=in_dims[1:]),
+                            *leaves)
+        return outs, (0,) * len(outs)
+
+
+def remat_call(remat: bool, fn: Callable, *args):
+    """``fn(*args)``, rematerialized when ``remat`` and a graph is being
     recorded: its intermediates are dropped and recomputed in the
-    backward."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    backward (``_Remat``, for one model and for members alike).  ``args``
+    are tensors or models (modules, namespaces, lists of layers), and
+    ``fn`` must read no tensor but theirs and draw no random number."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    leaves: list = []
+    rebuild = flatten_tree(args, leaves)
+    single = []
+
+    def flat(*ts):
+        out = fn(*rebuild(iter(ts)))
+        if not single:
+            single.append(isinstance(out, torch.Tensor))
+        return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    outs = _Remat.apply(flat, *leaves)
+    return outs[0] if single[0] else outs
+
+
+def _cell(p: LSTMCell, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+          ) -> LSTMState:
+    return lstm_cell(p, x, (h, c))
 
 
 def lstm_seq(p: LSTMCell, xs: torch.Tensor, state: LSTMState,
@@ -86,8 +147,7 @@ def lstm_seq(p: LSTMCell, xs: torch.Tensor, state: LSTMState,
     """xs [B, T, in_dim] -> (ys [B, T, hidden], final state)."""
     ys = []
     for t in range(xs.shape[-2]):
-        state = remat_call(remat, lambda x, h, c: lstm_cell(p, x, (h, c)),
-                           xs[..., t, :], *state)
+        state = remat_call(remat, _cell, p, xs[..., t, :], *state)
         ys.append(state[0])
     return torch.stack(ys, dim=-2), state
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import math
 from types import SimpleNamespace
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -78,19 +78,35 @@ def cast_params(tree, dtype: torch.dtype):
     differentiable, so gradients taken through the view reach the float32
     masters.  Modules become namespaces of their parameters and children,
     which the model functions read as they read the modules."""
+    leaves: List[torch.Tensor] = []
+    rebuild = flatten_tree(tree, leaves)
+    return rebuild(iter([t.to(dtype) for t in leaves]))
+
+
+def flatten_tree(tree, leaves: List[torch.Tensor]) -> Callable:
+    """Append the tensors of ``tree`` (a tensor, or a model: modules,
+    lists of layers, namespaces, ``NamedTuple`` views, tuples) to
+    ``leaves``; returns ``rebuild(it)``, which takes the next tensors of
+    the iterator ``it`` in the same order and gives ``tree``'s structure
+    back (a module as a namespace of its parameters and children).
+    Anything else is a constant kept as it is."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(dtype)
-    if isinstance(tree, (list, nn.ModuleList)):
-        return [cast_params(t, dtype) for t in tree]
-    if isinstance(tree, tuple):            # a NamedTuple view of a layer
-        return type(tree)(*(cast_params(t, dtype) for t in tree))
-    if isinstance(tree, nn.Module):
-        items = {**dict(tree.named_parameters(recurse=False)),
-                 **dict(tree.named_children())}
-    else:
-        items = vars(tree)
-    return SimpleNamespace(**{k: cast_params(v, dtype)
-                              for k, v in items.items()})
+        leaves.append(tree)
+        return next
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        parts = [flatten_tree(t, leaves) for t in tree]
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return lambda it: type(tree)(*(f(it) for f in parts))
+        kind = tuple if isinstance(tree, tuple) else list
+        return lambda it: kind(f(it) for f in parts)
+    if isinstance(tree, (nn.Module, SimpleNamespace)):
+        items = ({**dict(tree.named_parameters(recurse=False)),
+                  **dict(tree.named_children())}
+                 if isinstance(tree, nn.Module) else vars(tree))
+        parts = {k: flatten_tree(v, leaves) for k, v in items.items()}
+        return lambda it: SimpleNamespace(**{k: f(it)
+                                             for k, f in parts.items()})
+    return lambda it: tree
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -190,8 +190,8 @@ def social_context_blockwise(feat_mlp: MLP, attn_w: Linear,
     """Memory-bounded social context (socialways_tpu/ops/social.py:114-189):
     the dense form's math streamed over column blocks with an online
     softmax (m, l, acc), O(N block F) memory instead of O(N^2 F).  Each
-    block runs under a non-reentrant checkpoint when a graph is recorded,
-    so the backward recomputes it and keeps its memory bounded too.  The
+    block is rematerialized (``remat_call``) when a graph is recorded, so
+    the backward recomputes it and keeps its memory bounded too.  The
     output has ``h``'s dtype."""
     n, hdim = h.shape
     op = h.dtype
@@ -199,7 +199,7 @@ def social_context_blockwise(feat_mlp: MLP, attn_w: Linear,
                                  (-n) % block)
     n_tot = x4_p.shape[0]
 
-    def tile(m, l, acc, j0):
+    def tile(feat_mlp, attn_w, x4_p, h_p, ids_p, m, l, acc, j0):
         xj, hj = x4_p[j0:j0 + block], h_p[j0:j0 + block]
         scores, mask = _masked_scores(
             feat_mlp, x4_p, xj, attention_values(attn_w, hj, op), ids_p,
@@ -214,7 +214,8 @@ def social_context_blockwise(feat_mlp: MLP, attn_w: Linear,
     l = h_p.new_zeros((n_tot, 1))
     acc = h_p.new_zeros((n_tot, hdim))
     for j0 in range(0, n_tot, block):
-        m, l, acc = remat_call(True, tile, m, l, acc, j0)
+        m, l, acc = remat_call(True, tile, feat_mlp, attn_w, x4_p, h_p,
+                               ids_p, m, l, acc, j0)
     out = torch.where(l > 0, acc / torch.clamp(l, min=1e-20), 0.0)
     return out[:n].to(op)
 
@@ -243,7 +244,7 @@ def social_context_windowed(feat_mlp: MLP, attn_w: Linear,
                                  n_tot - n)
     wh_p = attention_values(attn_w, h_p, op)
 
-    def one_block(i0):
+    def one_block(feat_mlp, x4_p, h_p, wh_p, ids_p, i0):
         j0 = min(max(i0 - w, 0), n_tot - win)
         scores, mask = _masked_scores(
             feat_mlp, x4_p[i0:i0 + block], x4_p[j0:j0 + win],
@@ -255,5 +256,6 @@ def social_context_windowed(feat_mlp: MLP, attn_w: Linear,
         pooled = pool(p, h_p[j0:j0 + win], op)
         return torch.where(l > 0, pooled / torch.clamp(l, min=1e-20), 0.0)
 
-    outs = [remat_call(True, one_block, i0) for i0 in range(0, n_tot, block)]
+    outs = [remat_call(True, one_block, feat_mlp, x4_p, h_p, wh_p, ids_p, i0)
+            for i0 in range(0, n_tot, block)]
     return torch.cat(outs)[:n].to(op)

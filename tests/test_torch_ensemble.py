@@ -1,9 +1,10 @@
 """The port's multi-seed ensemble (socialways_torch/engine/ensemble.py,
 ``gan_step(..., members=True)``) against solo runs of the port and against
 socialways_tpu's ``EnsembleTrainer`` and ``jax.vmap`` of its ``gan_step``;
-the refusals; the host helpers of ``utils``.  The member axis of the
+the mesh refusal; the host helpers of ``utils``.  The member axis of the
 social-attention wrappers, and the card, are in test_torch_members.py
-(no JAX).
+(no JAX); R1, the extra G losses, the serial rollout, accumulation, remat
+and bf16 in member mode are in test_torch_member_variants.py.
 
 Tolerances.  A member equals its solo run up to float reassociation of the
 batched products: metrics, eval and parameters at rel 2e-4 over epochs
@@ -41,8 +42,7 @@ from socialways_torch.data.toy import make_toy_npz_arrays
 from socialways_torch.engine import (EnsembleTrainer, Trainer, gan_step,
                                      member_state, stack_states)
 from socialways_torch.engine.ensemble import stack_draws
-from socialways_torch.engine.train_step import (_MEMBERS_REFUSE, draw_step,
-                                                init_train_state)
+from socialways_torch.engine.train_step import draw_step, init_train_state
 from socialways_torch.io.checkpoint import (flatten_state, save_checkpoint,
                                             train_state_from_jax)
 from socialways_torch.utils import learning_utils as tlearn
@@ -115,10 +115,10 @@ def test_torch_ensemble_members_match_solo_runs(toy_npz):
     assert m["g_loss"][0] != m["g_loss"][1]       # genuinely different models
 
 
-#: one member-batched step against the members' solo steps, for every
-#: configuration the ensemble takes: the loo recipe, the robust1 base with
-#: its documented overrides and spectral norm, a scene window, and the
-#: variants that need no extra machinery under vmap
+#: one member-batched step against the members' solo steps, for the loo
+#: recipe, the robust1 base with its documented overrides and
+#: spectral norm, a scene window, and the variants that need no extra
+#: machinery under vmap (the others: test_torch_member_variants.py)
 MEMBER_VARIANTS = {
     "loo": LOO,
     "robust1_sn": ROBUST1,
@@ -301,27 +301,9 @@ def test_torch_member_checkpoint_restores_in_jax(toy_npz, tmp_path):
 
 
 # ---------------------------------------------------------------- refusals
-@pytest.mark.parametrize("field", [f for f, _ in _MEMBERS_REFUSE])
-def test_torch_ensemble_refuses_unbatched_fields_by_name(field, toy_npz):
-    value = {"r1_gamma": 1.0, "use_variety_loss": True, "ms_weight": 1.0,
-             "ds_weight": 1.0, "serial_rollout": True, "grad_accum": 2,
-             "remat_steps": True, "compute_dtype": "bfloat16"}[field]
-    cfg = TrainConfig(**dict(JAX_TEST, **{field: value}))
-    tr = Trainer(cfg, load_npz_dataset(toy_npz), "cpu")
-    with pytest.raises(ValueError, match=field):
-        EnsembleTrainer(tr)
-    states = stack_states([init_train_state(
-        cfg, torch.Generator().manual_seed(s), "cpu") for s in (0, 1)])
-    batch = to_torch(make_chunk(1, n=16))
-    draws = stack_draws([draw_step(16, cfg, torch.Generator()
-                                   .manual_seed(s)) for s in (0, 1)])
-    with pytest.raises(ValueError, match=field):
-        gan_step(states, batch, draws, cfg, members=True)
-
-
 def test_torch_ensemble_refuses_a_mesh_and_differing_counts(toy_npz):
     tr = Trainer(TrainConfig(**JAX_TEST), load_npz_dataset(toy_npz), "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         EnsembleTrainer(tr, mesh=object())
     a, b = tr.init_state(0), tr.init_state(1)
     b.g_opt = dataclasses.replace(b.g_opt, count=3)
