@@ -138,7 +138,22 @@ Phases (any failure raises):
    device memory of one member step at batch 4,608 (phase 11's crowd npz)
    with ``remat_steps`` off and on, lower with it on; (c) a bf16
    ``EnsembleTrainer`` epoch and ``evaluate``, launches exact;
-17. a ``kernels`` JSON line, then the device JSON as the last line.
+17. data parallelism (parallel/, ``train --mesh``): (a) ``cli train
+   --recipe loo --mesh 1`` (NCCL at world size 1: NCCL takes one card a
+   rank and the machine has one) for 2 epochs equal bit for bit to the
+   run without ``--mesh``, checkpoints and launches, and train steps/s of
+   both in alternated processes; on 2 gloo ranks sharing the card: (b) a
+   full-width loo DP step on a group of 2 chunks against the
+   single-process step on the concatenated group (losses rel 1e-5, the
+   state by ``hold_step``), an epoch (one forward and one dkv launch a
+   group step on each rank) and the DP ``evaluate`` against the
+   single-process one (rel 1e-4); (c) ``crowd_simulate_sharded`` (gather)
+   at 4,096 agents in scenes of 16, 2 windows, against ``crowd_simulate``
+   on the card (atol 1e-4), timed (the ring form is held on the CPU only:
+   gloo aborts on CUDA point to point); (d) ``EnsembleTrainer(mesh=)``, 2
+   ranks x 2 members, against the 4-member ensemble in one process (rel
+   2e-4);
+18. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -3011,6 +3026,368 @@ def member_variants_phase(torch, sa, dev, npz, crowd_npz, crowd16_npz,
             "bf16_ensemble": ens16, "wall_s": wall}
 
 
+#: phase 17: data parallelism (parallel/, ``train --mesh``).  The card is
+#: one H100 and NCCL takes one card a rank, so the CLI runs ``--mesh 1``
+#: (NCCL at world size 1); the 2-rank checks put both gloo ranks on it.
+#: ``crowd_simulate_sharded``'s crowd is cut from simulate's 10,000 agents
+#: to DP_CROWD_N so that two ranks' dense [N/2, N, 64] float32 pair
+#: tensors fit the one card.
+DP_CROWD_N, DP_CROWD_WINDOWS, DP_SEEDS = 4096, 2, (1, 2, 3, 4)
+
+
+def dp_mesh1_cli(torch, sa, cli_main, npz, work, card):
+    """Phase 17a: ``cli train --recipe loo --mesh 1`` for 2 epochs against
+    the same run without ``--mesh``, in this process: the checkpoints equal
+    bit for bit (the count weight is exactly 1 at D = 1 and a one-rank
+    all-reduce is the identity), so do the kernels' launches.  Then
+    train steps/s of both in alternated processes (without, with, with,
+    without)."""
+    base = ["train", "--recipe", "loo", "--data", npz, "--epochs", "2",
+            "--test-interval", "1", "--save-interval", "1"]
+    runs = {}
+    for tag, extra in (("plain", []), ("mesh1", ["--mesh", "1"])):
+        mdir = os.path.join(work, f"dp_{tag}")
+        buf = io.StringIO()
+        reset_launches(sa)
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(base + ["--model-dir", mdir] + extra)
+        launches = read_launches(sa)
+        if rc != 0:
+            raise AssertionError(f"cli train {extra}: rc {rc}\n"
+                                 f"{buf.getvalue()}")
+        runs[tag] = (mdir, launches, buf.getvalue())
+    if runs["plain"][1] != runs["mesh1"][1]:
+        raise AssertionError(f"--mesh 1 launched {runs['mesh1'][1]}, "
+                             f"without {runs['plain'][1]}")
+    files = sorted(os.listdir(runs["plain"][0]))
+    if files != sorted(os.listdir(runs["mesh1"][0])) or not files:
+        raise AssertionError(f"checkpoints differ: {files}")
+    n_leaves = 0
+    for f in files:
+        with np.load(os.path.join(runs["plain"][0], f)) as a, \
+                np.load(os.path.join(runs["mesh1"][0], f)) as b:
+            if sorted(a.files) != sorted(b.files):
+                raise AssertionError(f"{f}: keys differ")
+            for k in a.files:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"--mesh 1 {f} {k} differs from "
+                                         "the run without --mesh")
+            n_leaves += len(a.files)
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if f"mesh 1: 1 ranks, {backend}" not in runs["mesh1"][2]:
+        raise AssertionError(f"--mesh 1 did not run {backend} at world "
+                             "size 1")
+    print(f"cli train --recipe loo --mesh 1 ({backend}, world size 1) vs "
+          f"without"
+          f", 2 epochs: {len(files)} checkpoints ({n_leaves} leaves) equal "
+          f"bit for bit; launches {runs['mesh1'][1]} equal")
+    rates = {"plain": [], "mesh1": []}
+    for tag in ("plain", "mesh1", "mesh1", "plain"):
+        mdir = tempfile.mkdtemp(prefix=f"dp_rate_{tag}_", dir=work)
+        out = subprocess.run(
+            [sys.executable, "-m", "socialways_torch.cli.main"] + base[:7]
+            + ["--test-interval", "10", "--save-interval", "10",
+               "--model-dir", mdir] + (["--mesh", "1"] if tag == "mesh1"
+                                       else []),
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"{tag} process: rc {out.returncode}\n"
+                                 f"{out.stderr[-2000:]}")
+        steps = int(re.search(r"chunks: (\d+)", out.stdout).group(1))
+        secs = float(re.search(r"Epc=\s*2,.*time = ([\d.]+)s",
+                               out.stdout).group(1))
+        rates[tag].append(steps / secs)
+    # one card: --mesh 2 is JAX's error, and nothing runs
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(base + ["--model-dir", os.path.join(work, "dp_mesh2"),
+                              "--mesh", "2"])
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    if have < 2 and (rc != 1 or f"ERROR: --mesh 2 needs 2 devices, have "
+                     f"{have}" not in err.getvalue()):
+        raise AssertionError(f"--mesh 2 on one device: rc {rc}, "
+                             f"{err.getvalue()!r}")
+    print(f"cli train --mesh 2 on {have} device(s): rc {rc}, "
+          f"{err.getvalue().strip()!r}")
+    print(f"train steps/s, epoch 2 (loo, batch {BATCH}), alternated "
+          f"processes: without --mesh {[round(r, 2) for r in rates['plain']]}"
+          f", --mesh 1 {[round(r, 2) for r in rates['mesh1']]} [{card}]")
+    return {"launches": runs["mesh1"][1], "rates": rates}
+
+
+def dp_ranks(mesh, job):
+    """Phase 17b-d on one rank of 2 gloo ranks sharing the card (run by
+    ``parallel.spawn``): (b) a full-width loo DP step, an epoch and the DP
+    evaluate, (c) ``crowd_simulate_sharded``, (d) ``EnsembleTrainer``
+    sharding 4 members; rank 0 also runs each single-process counterpart
+    on the card and holds the pair.  Returns the rank's launches and
+    measurements."""
+    import torch
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import EnsembleTrainer
+    from socialways_torch.engine.losses import sample_noise
+    from socialways_torch.engine.simulate import (crowd_simulate,
+                                                  crowd_simulate_sharded,
+                                                  initial_crowd)
+    from socialways_torch.engine.train_step import (StepDraws, draw_step,
+                                                    eval_params, gan_step)
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.eval.metrics import (EvalSums, draw_noise,
+                                               eval_chunk, finalize_eval)
+    from socialways_torch.io.checkpoint import (flatten_state,
+                                                restore_generator,
+                                                state_from_flat)
+    from socialways_torch.kernels import social_attention as sa
+    from socialways_torch.parallel.mesh import (rank_column,
+                                                shard_packed_for_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, r, d = mesh.device, mesh.rank, mesh.size
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    out = {}
+    ds = load_npz_dataset(job["npz"])
+    tr = Trainer(job["cfg"], ds, mesh=mesh)
+    cfg, width = tr.cfg, tr.train_packed.width
+
+    def to_dev(draws):
+        return StepDraws(*(None if t is None else t.to(dev) for t in draws))
+
+    def group(packed, g):
+        """Group g concatenated, scene ids unique across its chunks (the
+        single-process counterpart of the ranks' chunks)."""
+        grouped = shard_packed_for_mesh(packed, d)
+        b = {k: torch.from_numpy(v[g]).to(dev) for k, v in grouped.items()}
+        ids = grouped["scene_ids"][g].copy()
+        for p in range(d):
+            part = ids[p * width:(p + 1) * width]
+            part[part >= 0] += p * width
+        b["scene_ids"] = torch.from_numpy(ids).to(dev)
+        return b
+
+    # (b) one DP step on group 0 (2 chunks), then an epoch, then evaluate
+    flat0 = flatten_state(tr.init_state(seed=1))
+    draws = to_dev(draw_step(d * width, cfg,
+                             torch.Generator().manual_seed(7)))
+    counts = tr.train_counts
+    reset_launches(sa)
+    st, m = gan_step(state_from_flat(flat0, cfg, dev),
+                     chunk_of(tr.train_dev, 0), draws, cfg,
+                     n_valid=int(counts[0, r]), mesh=mesh,
+                     n_valid_global=int(counts[0].sum()))
+    sync()
+    out["step_launches"] = read_launches(sa)
+    out["step_flat"] = flatten_state(st)
+    out["step_metrics"] = [float(v) for v in m[:4]]
+    if r == 0:
+        ref, m_ref = gan_step(state_from_flat(flat0, cfg, dev),
+                              group(tr.train_packed, 0), draws, cfg)
+        out["single_flat"] = flatten_state(ref)
+        out["single_metrics"] = [float(v) for v in m_ref[:4]]
+    st = state_from_flat(flat0, cfg, dev)
+    reset_launches(sa)
+    st, me = tr.train_epoch(st, torch.Generator(device=dev).manual_seed(3))
+    out["epoch_launches"] = read_launches(sa)
+    out["epoch"] = me
+    reset_launches(sa)
+    test_groups = tr.test_dev["valid"].shape[0]
+    k = cfg.n_gen_samples
+    gen = torch.Generator().manual_seed(11)
+    noises = [draw_noise(k, d * width, cfg, gen).to(dev)
+              for _ in range(test_groups)]
+    out["eval"] = tr.evaluate(eval_params(st), noises=noises)
+    out["eval_launches"] = read_launches(sa)
+    if r == 0:
+        total = None
+        for g in range(test_groups):
+            s = eval_chunk(eval_params(st), group(tr.test_packed, g), k, cfg,
+                           noise=noises[g])
+            total = s if total is None else EvalSums(
+                *(a + b for a, b in zip(total, s)))
+        out["single_eval"] = finalize_eval(total, ds.ss, ds.n_test_samples)
+
+    # (c) crowd_simulate_sharded (gather) against crowd_simulate
+    g_sim, _, _ = restore_generator(job["ckpt"], job["sim_cfg"], dev)
+    obsv0, ids = initial_crowd(job["crowd_n"], CROWD_SCENE, N_PAST, 0)
+    obsv0, ids = torch.from_numpy(obsv0).to(dev), torch.from_numpy(ids).to(dev)
+    noise = sample_noise((DP_CROWD_WINDOWS, job["crowd_n"]), job["sim_cfg"],
+                         torch.Generator().manual_seed(5)).to(dev)
+    sim = lambda: crowd_simulate_sharded(
+        g_sim, obsv0, ids, DP_CROWD_WINDOWS, job["sim_cfg"], mesh,
+        noise=noise)
+    traj = sim()
+    sync()
+    tic = time.perf_counter()
+    traj2 = sim()
+    sync()
+    out["sim_s"] = time.perf_counter() - tic
+    out["sim_repeat_equal"] = bool(torch.equal(traj, traj2))
+    out["sim_shape"] = tuple(traj.shape)
+    if r == 0:
+        ref = crowd_simulate(g_sim, obsv0, ids, DP_CROWD_WINDOWS,
+                             job["sim_cfg"], noise=noise)
+        out["sim_err"] = float((traj - ref).abs().max())
+        out["sim_finite"] = bool(torch.isfinite(traj).all())
+
+    # (d) EnsembleTrainer(mesh=): 2 members a rank
+    ens_tr = Trainer(job["cfg"], ds, dev)
+    seeds = list(DP_SEEDS)
+    gens = lambda: [torch.Generator(device=dev).manual_seed(90 + s)
+                    for s in seeds]
+    ens = EnsembleTrainer(ens_tr, mesh)
+    reset_launches(sa)
+    states, m_ens = ens.train_epoch(ens.init_states(seeds), gens())
+    out["ens_epoch_launches"] = read_launches(sa)
+    out["ens"] = (m_ens, ens.evaluate(states, seeds))
+    if r == 0:
+        solo = EnsembleTrainer(ens_tr)
+        states1, m1 = solo.train_epoch(solo.init_states(seeds), gens())
+        out["ens_single"] = (m1, solo.evaluate(states1, seeds))
+    return out
+
+
+def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
+    """Phase 17: data parallelism.  (a) ``dp_mesh1_cli``; (b)-(d)
+    ``dp_ranks`` on 2 gloo ranks sharing the card, held here: the DP step
+    against the single-process step on the concatenated group (losses and
+    sums rel 1e-5, the state by ``hold_step``), each rank's launches one
+    forward and one dkv a step and a forward an eval group, the DP
+    evaluate within rel 1e-4 of the single-process one; the sharded
+    simulate within atol 1e-4 of ``crowd_simulate`` on the card; the
+    member-sharded ensemble's epoch and evaluate within rel 2e-4 of the
+    4-member ensemble in one process.  The ring form is not run on the
+    card: gloo aborts the process on point-to-point sends of CUDA tensors
+    (the CPU tests hold it)."""
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.io.checkpoint import adopt_checkpoint_config
+    from socialways_torch.parallel.mesh import spawn
+    tic_phase = time.perf_counter()
+    mesh1 = dp_mesh1_cli(torch, sa, cli_main, npz, work, card)
+
+    # simulate's configuration of phase 7's checkpoint (scene window 16)
+    sim_cfg = adopt_checkpoint_config(TrainConfig(), ckpt).replace(
+        max_scene_size=CROWD_SCENE)
+    tr = Trainer(train_cfg, load_npz_dataset(npz), "cpu")
+    groups, test_groups = (-(-tr.train_packed.n_chunks // 2),
+                           -(-tr.test_packed.n_chunks // 2))
+    tic = time.perf_counter()
+    ranks = spawn(dp_ranks, 2, "cuda", backend="gloo",
+                  args=({"npz": npz, "cfg": train_cfg, "ckpt": ckpt,
+                         "sim_cfg": sim_cfg, "crowd_n": DP_CROWD_N},),
+                  timeout=400)
+    spawn_s = time.perf_counter() - tic
+    r0 = ranks[0]
+    # (b) the DP step against the single-process step
+    held = hold_step("DP step (2 gloo ranks) vs single process",
+                     r0["step_flat"], r0["single_flat"], r0["step_metrics"],
+                     r0["single_metrics"], tr.cfg)
+    for nm, a, b in zip(("d_loss", "g_loss", "ade_sum", "fde_sum"),
+                        r0["step_metrics"], r0["single_metrics"]):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"DP step {nm}: {a} vs {b} (rel 1e-5)")
+    # and the CPU tests' bound on every parameter (JAX's DP tests')
+    outside = sum(int((~np.isclose(r0["step_flat"][k], v, rtol=2e-4,
+                                   atol=1e-6)).sum())
+                  for k, v in r0["single_flat"].items()
+                  if k.startswith((".g_params/", ".d_params/")))
+    if outside:
+        raise AssertionError(f"DP step: {outside} parameter elements "
+                             "outside rtol 2e-4 / atol 1e-6")
+    for k, v in r0["step_flat"].items():
+        if not np.array_equal(ranks[1]["step_flat"][k], v):
+            raise AssertionError(f"DP step: rank 1's {k} differs")
+    per_step = {"fwd": 1, "dq": 0, "dkv": 1}
+    per_epoch = {"fwd": groups, "dq": 0, "dkv": groups}
+    per_eval = {"fwd": test_groups, "dq": 0, "dkv": 0}
+    for rank, res in enumerate(ranks):
+        for what, got, want in (("step", res["step_launches"], per_step),
+                                ("epoch", res["epoch_launches"], per_epoch),
+                                ("evaluate", res["eval_launches"], per_eval)):
+            if got != want:
+                raise AssertionError(f"rank {rank} DP {what} launched {got}"
+                                     f", want {want}")
+    m = r0["epoch"]
+    if not all(np.isfinite(v) for v in m.values()) or ranks[1]["epoch"][
+            "train_ade"] != m["train_ade"]:
+        raise AssertionError(f"DP epoch metrics {m} / {ranks[1]['epoch']}")
+    eval_rel = 0.0
+    for key, b in r0["single_eval"].items():
+        a = r0["eval"][key]
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b) or \
+                ranks[1]["eval"][key] != a:
+            raise AssertionError(f"DP evaluate {key}: {a} vs single "
+                                 f"process {b} (rel 1e-4)")
+        eval_rel = max(eval_rel, abs(a - b) / abs(b))
+    print(f"DP step (2 gloo ranks on one card, loo width, group of 2 chunks "
+          f"of {tr.train_packed.width}) vs the single-process step on the "
+          f"concatenated group: losses and sums within rel 1e-5, gradients "
+          f"at most {held['gradient'][0]:.3f} of 1e-3 their scale, new "
+          f"params G at most {held['params']['G']:.3f} of hold_step's bound,"
+          f" D max abs diff {held['params']['D']:.3e}; every parameter "
+          f"within rtol 2e-4 / atol 1e-6; both ranks equal; "
+          f"launches a rank {per_step}")
+    print(f"DP epoch: {groups} group steps a rank, launches {per_epoch} on "
+          f"each rank, {groups / m['epoch_time_s']:.2f} group-steps/s "
+          f"({m['epoch_time_s'] / groups * 1e3:.1f} ms a step; rank 1 "
+          f"{groups / ranks[1]['epoch']['epoch_time_s']:.2f}); DP evaluate "
+          f"({test_groups} groups, launches {per_eval} a rank) within rel "
+          f"1e-4 of the single process (worst rel {eval_rel:.2e}; ade_min "
+          f"{r0['eval']['ade_min']:.6f}) [{card}]")
+    # (c) crowd_simulate_sharded
+    n_steps = DP_CROWD_N * DP_CROWD_WINDOWS * N_NEXT
+    if not (r0["sim_finite"] and r0["sim_err"] <= 1e-4
+            and r0["sim_repeat_equal"]
+            and r0["sim_shape"] == (DP_CROWD_N, DP_CROWD_WINDOWS * N_NEXT, 2)):
+        raise AssertionError(f"crowd_simulate_sharded: max abs diff "
+                             f"{r0['sim_err']:.3e} against crowd_simulate "
+                             f"(atol 1e-4), shape {r0['sim_shape']}")
+    sim_rate = n_steps / max(r0["sim_s"], ranks[1]["sim_s"])
+    print(f"crowd_simulate_sharded (gather, 2 gloo ranks) at {DP_CROWD_N} "
+          f"agents in scenes of {CROWD_SCENE}, {DP_CROWD_WINDOWS} windows: "
+          f"max abs diff {r0['sim_err']:.3e} against crowd_simulate on the "
+          f"card (atol 1e-4), {sim_rate:.4g} agent-steps/s (second call); "
+          f"ring: not run on the card (gloo aborts on CUDA point to point) "
+          f"[{card}]")
+    # (d) the member-sharded ensemble
+    (m_mesh, ev_mesh), (m_one, ev_one) = r0["ens"], r0["ens_single"]
+    ens_rel = 0.0
+    for key in ("d_loss", "g_loss", "train_ade", "train_fde"):
+        a, b = np.asarray(m_mesh[key]), np.asarray(m_one[key])
+        if a.shape != (len(DP_SEEDS),) or not np.allclose(a, b, rtol=2e-4,
+                                                          atol=0):
+            raise AssertionError(f"ensemble mesh {key}: {a} vs {b}")
+        ens_rel = max(ens_rel, float(np.max(np.abs(a - b) / np.abs(b))))
+    for i, (a, b) in enumerate(zip(ev_mesh, ev_one)):
+        for key in b:
+            if abs(a[key] - b[key]) > 2e-4 * abs(b[key]):
+                raise AssertionError(f"ensemble mesh member {i} eval {key}:"
+                                     f" {a[key]} vs {b[key]}")
+            ens_rel = max(ens_rel, abs(a[key] - b[key]) / abs(b[key]))
+    if ranks[1]["ens"][1] != ev_mesh or len(ev_mesh) != len(DP_SEEDS):
+        raise AssertionError("the ranks' ensemble evaluations differ")
+    n_steps_ens = tr.n_steps_per_epoch
+    for rank, res in enumerate(ranks):
+        want = {"fwd": n_steps_ens, "dq": 0, "dkv": n_steps_ens}
+        if res["ens_epoch_launches"] != want:
+            raise AssertionError(f"rank {rank} ensemble epoch launched "
+                                 f"{res['ens_epoch_launches']}, want {want}")
+    print(f"EnsembleTrainer(mesh=) 2 ranks x 2 members vs the 4-member "
+          f"ensemble in one process: epoch metrics and evaluate within rel "
+          f"2e-4 for every member (worst rel {ens_rel:.2e}), on both ranks;"
+          f" launches a rank "
+          f"{ranks[0]['ens_epoch_launches']} over {n_steps_ens} steps")
+    wall = time.perf_counter() - tic_phase
+    print(f"data-parallel phase: {wall:.2f} s wall (2-rank spawn "
+          f"{spawn_s:.2f} s) [{card}]")
+    return {"mesh1": mesh1, "ranks": [{k: res[k] for k in (
+        "step_launches", "epoch_launches", "eval_launches",
+        "ens_epoch_launches")} for res in ranks],
+        "dp_steps_s": groups / m["epoch_time_s"], "sim_rate": sim_rate,
+        "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3289,6 +3666,14 @@ def main() -> int:
             torch, sa, dev, npz, os.path.join(work, "crowd-8-12.npz"),
             os.path.join(work, "crowd16-8-12.npz"), train_cfg, smi)
 
+        # ---- 17. data parallelism: --mesh 1, 2 gloo ranks on the card
+        dp = dp_phase(torch, sa, cli_main, npz, loo_ckpt, work, train_cfg,
+                      smi)
+        dp_paths = {"dp_mesh1_cli": dp["mesh1"]["launches"],
+                    **{f"dp_{what}_rank{r}": launches[f"{what}_launches"]
+                       for r, launches in enumerate(dp["ranks"])
+                       for what in ("step", "epoch", "eval")}}
+
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
         tpu = "socialways_tpu/kernels/social_attention.py"
@@ -3313,7 +3698,9 @@ def main() -> int:
                                  **{k: v["fwd"] for k, v in
                                     widths["launches"].items()},
                                  **{f"loop_flags_{k}": v["fwd"]
-                                    for k, v in loops.items()}},
+                                    for k, v in loops.items()},
+                                 **{k: v["fwd"] for k, v in
+                                    dp_paths.items()}},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -3352,7 +3739,9 @@ def main() -> int:
                                      **{k: v[key] for k, v in
                                         widths["launches"].items()},
                                      **{f"loop_flags_{k}": v[key]
-                                        for k, v in loops.items()}},
+                                        for k, v in loops.items()},
+                                     **{k: v[key] for k, v in
+                                        dp_paths.items()}},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],
@@ -3406,7 +3795,11 @@ def main() -> int:
         # first loo training chunk
         for dt, suffix in (("float32", ""), ("bfloat16", "_bf16")):
             res = ens["kernels"][dt][0]
-            by_path = ({"ensemble_loo": ens["launches"]} if not suffix else
+            by_path = ({"ensemble_loo": ens["launches"],
+                        **{f"dp_ensemble_rank{r}": launches[
+                            "ens_epoch_launches"]
+                           for r, launches in enumerate(dp["ranks"])}}
+                       if not suffix else
                        {"ensemble_loo_bf16": variants["bf16_ensemble"]})
             by_path.update({f"member_{k}": v["launches"] for k, v in
                             variants["fields"].items()
@@ -3457,7 +3850,12 @@ def main() -> int:
               + ", ".join(f"{k} {v['member_steps_s']:.2f} "
                           f"({v['solo_steps_s']:.2f})"
                           for k, v in variants["fields"].items())
-              + f", phase 16 {variants['wall_s']:.1f} s; chip_smoke wall "
+              + f", phase 16 {variants['wall_s']:.1f} s; data parallel: "
+              f"train steps/s without --mesh {dp['mesh1']['rates']['plain']}"
+              f", --mesh 1 {dp['mesh1']['rates']['mesh1']}, 2 gloo ranks "
+              f"{dp['dp_steps_s']:.2f} group-steps/s, sharded simulate "
+              f"{dp['sim_rate']:.4g} agent-steps/s, phase 17 "
+              f"{dp['wall_s']:.1f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)

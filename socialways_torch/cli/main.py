@@ -17,6 +17,7 @@ real-data pipeline and the toy protocol.
     python -m socialways_torch.cli.main predict --data obsmat.txt --model-file ckpt.npz
     python -m socialways_torch.cli.main simulate --agents 10000 --scene-size 16 --model-file ckpt.npz
     python -m socialways_torch.cli.main --cpu train ...   # run on the CPU
+    python -m socialways_torch.cli.main --cpu --cpu-devices 4 train --mesh 4 ...
 
 Flags, outputs and printouts follow socialways_tpu/cli/main.py:475-516
 (create-toy, create-dataset), :519-819 (train), :822-974 (evaluate,
@@ -25,14 +26,20 @@ and :1172-1225 (stats, animate, plot-tracks, visualize).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
 ``create-*``, ``stats``, ``visualize``, ``animate`` and ``plot-tracks``
 are host-only (numpy in, files out; viz/ imports matplotlib and cv2 where
-it uses them).  ``train``, ``eth-ucy`` and
-``sweep`` take every ``gan_step`` flag of the JAX CLI but ``--mesh`` (not
-ported yet), which argparse refuses.  Every command that takes a model
-takes JAX's loop flags (``--fused-epochs``, ``--block-size``,
-``--host-loop``, ``--latent-dim``, ``--pallas``): ``train
---fused-epochs`` prints, logs, checkpoints and evaluates once a block of
-epochs as JAX does; the port's epoch loop runs on the host and its
-kernels on the card whatever ``--host-loop`` and ``--pallas`` say.
+it uses them).  ``train``, ``eth-ucy`` and ``sweep`` take every
+``gan_step`` flag of the JAX CLI.  Every command that takes a model takes
+JAX's loop flags (``--fused-epochs``, ``--block-size``, ``--host-loop``,
+``--latent-dim``, ``--pallas``, ``--mesh``): ``train --fused-epochs``
+prints, logs, checkpoints and evaluates once a block of epochs as JAX
+does; the port's epoch loop runs on the host and its kernels on the card
+whatever ``--host-loop`` and ``--pallas`` say.  ``train --mesh N`` (or
+``AxB``) trains data-parallel over N ranks (parallel/mesh.py): N cards
+on NCCL, or with ``--cpu --cpu-devices N`` N gloo processes on the CPU;
+inside ``torchrun`` each process is one rank.  Rank 0 alone prints and
+writes checkpoints, logs, dumps and traces; every rank evaluates, since
+the data-parallel eval reduces over the ranks.  NCCL takes one card a
+rank, so one card runs ``--mesh 1``.  The other commands take ``--mesh``
+and ignore it, as JAX's do.
 ``--bf16`` runs the forward math of every command that takes a model in
 bfloat16 (the attention kernels' bf16 mode on the card), with float32
 master weights, losses, gradients and optimizer state.
@@ -52,11 +59,13 @@ ones they lack (``decoder``, ``noise_dist``, ...).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -125,6 +134,13 @@ def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
                    help="train blocks of epochs: one print, one metrics "
                         "row and one divergence check a block; save and "
                         "eval at block ends (train only)")
+    p.add_argument("--mesh", type=str, default="0",
+                   help="train data-parallel over N ranks, one a device: "
+                        "chunk groups of N, gradients count-weighted and "
+                        "averaged over the ranks every step (an epoch has "
+                        "ceil(chunks/N) steps; 0 = off).  'AxB' (e.g. 2x4) "
+                        "is the hierarchical (dcn, data) mesh of A x B "
+                        "ranks.  Acted on by train only")
 
 
 def _add_bf16_flag(p: argparse.ArgumentParser) -> None:
@@ -601,6 +617,19 @@ def _train_cfg(args):
         compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
+def _resumed_train_cfg(args, exists: Callable[[str], bool]):
+    """``train``'s config: the flags', or, where ``exists`` finds the run's
+    checkpoint, its model-defining config (resume continues THE run on
+    disk)."""
+    from socialways_torch.io.checkpoint import adopt_checkpoint_config
+    cfg = _train_cfg(args)
+    resume_file = os.path.join(cfg.model_dir,
+                               f"{args.model}-{args.dataset}.npz")
+    if exists(resume_file):
+        cfg = adopt_checkpoint_config(cfg, resume_file)
+    return cfg
+
+
 def _log_metrics(path: str, **record) -> None:
     """Append one JSON line to ``path`` (nothing when it is empty): the
     machine-readable counterpart of train's prints
@@ -663,13 +692,59 @@ def _dump_first_chunk(trainer, g_params, epoch: int, seed: int) -> str:
 _COVERAGE_STREAM, _DUMP_STREAM = 99, 98
 
 
+def _n_devices(args, device) -> int:
+    """Devices ``--mesh`` may take: the torchrun world, the cards, or
+    ``--cpu-devices`` (one CPU device without it)."""
+    from socialways_torch.parallel.mesh import in_torchrun
+    if in_torchrun():
+        return int(os.environ["WORLD_SIZE"])
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return args.cpu_devices or 1
+
+
 def cmd_train(args, device) -> int:
+    """``train``: the loop below on ``device``, or with ``--mesh`` on every
+    rank of a mesh (socialways_tpu/cli/main.py:539-554): too few devices
+    print JAX's error and give 1; on the card the kernels are built here
+    before the ranks start."""
+    from socialways_torch.parallel.mesh import mesh_shape, run
+    shape = mesh_shape(str(args.mesh))
+    if not shape:
+        return _train(args, device)
+    need, have = math.prod(shape), _n_devices(args, device)
+    if have < need:
+        print(f"ERROR: --mesh {args.mesh} needs {need} devices, have "
+              f"{have}", file=sys.stderr)
+        return 1
+    if device.type == "cuda":
+        from socialways_torch.kernels.social_attention import prebuild
+        cfg = _resumed_train_cfg(args, os.path.isfile)
+        prebuild(cfg.hidden_size, cfg.social_feature_size,
+                 torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                 else torch.float32)
+    return run(_train_rank, shape, device.type, args=(args,))
+
+
+def _train_rank(mesh, args) -> int:
+    """One rank's ``train``; the others than rank 0 print nothing."""
+    import contextlib
+    if mesh.rank == 0:
+        return _train(args, mesh.device, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _train(args, mesh.device, mesh)
+
+
+def _train(args, device, mesh=None) -> int:
     """The JAX training loop (socialways_tpu/cli/main.py:519-762): resume
     with the checkpoint's config, the optional profiled epoch, the metrics
     log, the divergence rescue, periodic checkpoints, eval and a ``-best``
     checkpoint, the gated ADE-stall rescue, toy coverage with its
     ``-bestcov`` checkpoint and stall rescue, prediction dumps, and always
-    a final checkpoint."""
+    a final checkpoint.  On a ``mesh`` every rank runs it on its chunks
+    and takes the same decisions (the metrics and evaluations come back
+    reduced, the coverage is rank 0's); rank 0 alone writes files, and
+    every rank waits for each checkpoint before it goes on."""
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.rescue import (StallTracker,
                                                 reinit_discriminator)
@@ -677,18 +752,35 @@ def cmd_train(args, device) -> int:
                                                     transplant_schedule_clock)
     from socialways_torch.engine.trainer import (Trainer, fork_seed,
                                                  stream_seed)
-    from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
-                                                restore_checkpoint,
+    from socialways_torch.io.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 
-    cfg = _train_cfg(args)
-    # resume continues THE run on disk: adopt its model-defining config
-    resume_file = os.path.join(cfg.model_dir,
-                               f"{args.model}-{args.dataset}.npz")
-    if os.path.isfile(resume_file):
-        cfg = adopt_checkpoint_config(cfg, resume_file)
+    main = mesh is None or mesh.rank == 0
+
+    def shared(value: float) -> float:
+        """Rank 0's ``value`` on every rank."""
+        if mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=device)
+        torch.distributed.broadcast(t, 0)
+        return float(t)
+
+    def on_disk(path: str) -> bool:
+        """Whether rank 0 sees ``path``: every rank takes the branch that
+        rank 0 takes, also while rank 0 is writing it."""
+        return bool(shared(float(main and os.path.isfile(path))))
+
+    cfg = _resumed_train_cfg(args, on_disk)
     ds = load_npz_dataset(args.data)
-    trainer = Trainer(cfg, ds, device)
+    trainer = Trainer(cfg, ds, device, mesh)
+    log = functools.partial(_log_metrics, args.metrics_log if main else "")
+
+    def save(path: str, st, at_epoch: int) -> None:
+        if main:
+            save_checkpoint(path, st, at_epoch, rng, ds.scale, cfg)
+        if mesh is not None:
+            torch.distributed.barrier()
+
     if cfg.d_input_noise_steps < 0:
         print(f"instance-noise anneal over the full run: "
               f"{trainer.cfg.d_input_noise_steps} GAN steps")
@@ -717,17 +809,17 @@ def cmd_train(args, device) -> int:
     state = trainer.init_state()
     rng = torch.Generator(device=device).manual_seed(cfg.seed)
     start_epoch = 1
-    if os.path.isfile(model_file):
+    if on_disk(model_file):
         state, last_epoch, rng_state, _ = restore_checkpoint(
             model_file, cfg, device)
         if rng_state is not None and rng_state[0] == device.type:
             rng.set_state(rng_state[1])
         start_epoch = last_epoch + 1
         print(f"resumed from {model_file} at epoch {last_epoch}")
-    if args.auto_recover and not os.path.isfile(best_file):
+    if args.auto_recover and not on_disk(best_file):
         # a baseline, so that a divergence before the first eval restores
         # the initial state
-        save_checkpoint(best_file, state, 0, rng, ds.scale, cfg)
+        save(best_file, state, 0)
 
     def rescue_restore(path: str):
         """The checkpoint at ``path``, on the run's clock under
@@ -741,7 +833,9 @@ def cmd_train(args, device) -> int:
           f"chunks: {trainer.train_packed.n_chunks}  "
           f"width: {trainer.train_packed.width}")
     print(f"hidden dim = {cfg.hidden_size} | lr(G) = {cfg.lr_g:.5f} | "
-          f"lr(D) = {cfg.lr_d:.5f} | devices: [{device}]")
+          f"lr(D) = {cfg.lr_d:.5f} | devices: [{device}]"
+          + ("" if mesh is None else f" | mesh {args.mesh}: {mesh.size} "
+             f"ranks, {torch.distributed.get_backend()}"))
 
     # --fused-epochs: blocks of --block-size epochs (or gcd of the save
     # and test intervals), each one print, metrics row and divergence
@@ -752,7 +846,8 @@ def cmd_train(args, device) -> int:
     epoch = start_epoch - 1
     while epoch < cfg.n_epochs:
         n_block = min(block, cfg.n_epochs - epoch) if block > 1 else 1
-        if args.profile_dir and epoch == start_epoch + n_block - 1:
+        if (args.profile_dir and main
+                and epoch == start_epoch + n_block - 1):
             # the run's second block: the first holds the kernels' build
             from socialways_torch.utils.profiling import trace
             with trace(args.profile_dir):
@@ -764,21 +859,21 @@ def cmd_train(args, device) -> int:
         print(f" Epc={epoch:4d}, Train ADE,FDE = ({m['train_ade']:.3f}, "
               f"{m['train_fde']:.3f}) | time = {m['epoch_time_s']:.2f}s"
               + (f" ({n_block} fused epochs)" if n_block > 1 else ""))
-        _log_metrics(args.metrics_log, kind="train", epoch=epoch,
-                     train_ade=m["train_ade"], train_fde=m["train_fde"],
-                     epoch_time_s=m["epoch_time_s"], n_block=n_block)
+        log(kind="train", epoch=epoch, train_ade=m["train_ade"],
+            train_fde=m["train_fde"], epoch_time_s=m["epoch_time_s"],
+            n_block=n_block)
 
         # divergence: a non-finite train ADE or a jump past 5x the best
         diverged = (not math.isfinite(m["train_ade"])
                     or m["train_ade"] > 5 * best_train_ade + 0.1)
         best_train_ade = min(best_train_ade, m["train_ade"])
-        if args.auto_recover and diverged and os.path.isfile(best_file):
+        if args.auto_recover and diverged and on_disk(best_file):
             state, b_epoch = rescue_restore(best_file)
             print(f"DIVERGED at epoch {epoch} (ADE {m['train_ade']:.3f}); "
                   f"restored best checkpoint from epoch {b_epoch}")
 
         if epoch % cfg.save_interval == 0:
-            save_checkpoint(model_file, state, epoch, rng, ds.scale, cfg)
+            save(model_file, state, epoch)
             print(f"saved checkpoint to {model_file}")
         if epoch % cfg.test_interval or trainer.test_packed is None:
             continue
@@ -787,16 +882,16 @@ def cmd_train(args, device) -> int:
               f"{ev['fde_avg']:.3f}) | Min({cfg.n_gen_samples}) ADE,FDE "
               f"({cfg.n_next})= ({ev['ade_min']:.3f}, "
               f"{ev['fde_min']:.3f})")
-        _log_metrics(args.metrics_log, kind="eval", epoch=epoch,
-                     ade_avg=ev["ade_avg"], fde_avg=ev["fde_avg"],
-                     ade_min=ev["ade_min"], fde_min=ev["fde_min"])
+        log(kind="eval", epoch=epoch, ade_avg=ev["ade_avg"],
+            fde_avg=ev["fde_avg"], ade_min=ev["ade_min"],
+            fde_min=ev["fde_min"])
         if ev["ade_min"] < best_ade:
             best_ade = ev["ade_min"]
-            save_checkpoint(best_file, state, epoch, rng, ds.scale, cfg)
+            save(best_file, state, epoch)
             print(f"new best (ADE {best_ade:.3f}) saved to {best_file}")
         if (tracker.observe(ev["ade_min"], ade_avg=ev["ade_avg"],
                             train_ade=m["train_ade"])
-                and epoch < cfg.n_epochs and os.path.isfile(best_file)):
+                and epoch < cfg.n_epochs and on_disk(best_file)):
             state, b_epoch = rescue_restore(best_file)
             state = reinit_discriminator(
                 state, cfg, torch.Generator().manual_seed(fork_seed(rng)))
@@ -809,27 +904,26 @@ def cmd_train(args, device) -> int:
             print(f"ADE STALLED at epoch {epoch} (best {best_ade:.3f}, "
                   f"{trigger}); restored best checkpoint from epoch "
                   f"{b_epoch} with a RE-INITIALIZED discriminator")
-            _log_metrics(args.metrics_log, kind="rescue", epoch=epoch,
-                         ade_stall=True, trigger=tracker.last_trigger,
-                         signature=tracker.last_signature)
+            log(kind="rescue", epoch=epoch, ade_stall=True,
+                trigger=tracker.last_trigger,
+                signature=tracker.last_signature)
         if args.track_coverage:
-            cov = _coverage(eval_params(state), ds, cfg, cfg.n_gen_samples,
-                            stream_seed(cfg.seed, _COVERAGE_STREAM, epoch),
-                            device)
+            cov = shared(_coverage(
+                eval_params(state), ds, cfg, cfg.n_gen_samples,
+                stream_seed(cfg.seed, _COVERAGE_STREAM, epoch), device)
+                if main else 0.0)
             print(f"mode coverage = {cov:.2f}")
-            _log_metrics(args.metrics_log, kind="coverage", epoch=epoch,
-                         coverage=cov)
+            log(kind="coverage", epoch=epoch, coverage=cov)
             if cov > best_cov:
                 best_cov, cov_stall = cov, 0
-                save_checkpoint(bestcov_file, state, epoch, rng, ds.scale,
-                                cfg)
+                save(bestcov_file, state, epoch)
                 print(f"new best coverage saved to {bestcov_file}")
             else:
                 cov_stall += 1
                 if (args.stall_recover > 0
                         and cov_stall >= args.stall_recover
                         and best_cov < 1.0
-                        and os.path.isfile(bestcov_file)):
+                        and on_disk(bestcov_file)):
                     state, c_epoch = rescue_restore(bestcov_file)
                     cov_stall = 0
                     extra = ""
@@ -843,14 +937,14 @@ def cmd_train(args, device) -> int:
                           f"best-coverage checkpoint from epoch "
                           f"{c_epoch}{extra}, continuing on a fresh "
                           f"stream")
-        if cfg.dump_dir:
+        if cfg.dump_dir and main:
             f = _dump_first_chunk(trainer, eval_params(state), epoch,
                                   stream_seed(cfg.seed, _DUMP_STREAM, epoch))
             print(f"saved predictions to {f}")
 
     # always leave a final checkpoint (evaluate and resume then work)
     if epoch % cfg.save_interval != 0:
-        save_checkpoint(model_file, state, epoch, rng, ds.scale, cfg)
+        save(model_file, state, epoch)
         print(f"saved final checkpoint to {model_file}")
     return 0
 
@@ -1058,6 +1152,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device; "
                          "without one the command fails)")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="with --cpu: N CPU devices, so that --mesh N runs "
+                         "N gloo processes without cards")
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("create-toy", help="generate the toy dataset")
@@ -1260,13 +1357,18 @@ def parse_args(argv):
         if not tok.startswith("--recipe="):
             rest.append(tok)
         i += 1
-    sub_i = next(k for k, tok in enumerate(rest) if not tok.startswith("-"))
+    sub_i = 0
+    while rest[sub_i].startswith("-"):     # the global flags before it
+        sub_i += 2 if rest[sub_i] == "--cpu-devices" else 1
     return ap.parse_args(rest[:sub_i + 1] + RECIPES[name] + rest[sub_i + 1:])
 
 
 def main(argv=None) -> int:
     from socialways_torch.device import resolve_device
     args = parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.cpu_devices and not args.cpu:
+        print("--cpu-devices requires --cpu", file=sys.stderr)
+        return 1
     if getattr(args, "host_only", False):
         return args.fn(args)
     device = resolve_device("cpu" if args.cpu else None)

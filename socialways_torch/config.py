@@ -4,10 +4,11 @@ The fields the port reads, with the defaults of
 ``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
 ``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
 define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
-The JAX fields the port does not implement yet (a mesh, compute dtypes
-other than float32 and bfloat16) are fields here too, so that
-``check_supported`` can name them when a caller sets one instead of
-silently training another model.
+Values the port does not implement (compute dtypes other than float32
+and bfloat16) and ``mesh_shape``, a JAX field that JAX reads nowhere (a
+mesh is ``Trainer(mesh=)`` and ``train --mesh``), are refused by
+``check_supported``, which names the field, instead of silently training
+another model.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ class TrainConfig:
     # the social attention scans scene windows only (0 = unknown)
     max_scene_size: int = 0
 
-    # ---- JAX knobs not ported yet (check_supported names them)
+    # ---- read by no code of either package (check_supported refuses it)
     mesh_shape: Optional[int] = None
 
     def replace(self, **kw) -> "TrainConfig":

@@ -1,7 +1,7 @@
 """Multi-seed ensemble training: M independent GAN replicas trained as one
 batched step.
 
-Counterpart of socialways_tpu/engine/ensemble.py without a mesh.
+Counterpart of socialways_tpu/engine/ensemble.py.
 Seed-robustness protocols train one recipe under several seeds and score
 each final model (benchmarks/coverage_ensemble.py).  The model is small
 and a solo step leaves the card idle between its ~2.4k launches, so the
@@ -25,8 +25,13 @@ equals the solo run up to float reassociation of the batched products.
 One deliberate limit: the optimizer counts are host integers shared by
 the members (the schedules read them on the host), where JAX keeps one
 device count a member; ``stack_states`` refuses members whose counts
-differ.  ``mesh`` (JAX's member sharding) waits for the port's
-``parallel/`` (ROADMAP Queue 1, item 4).
+differ.
+
+With a ``mesh`` (``parallel.Mesh``) the member axis is sharded over the
+ranks (JAX's :50-94): rank r trains members [r M/D, (r + 1) M/D) with no
+collective in the step (members are independent), and the per-member
+metrics, evaluations and coverages are all-gathered, so every rank returns
+all M.  Callers pass every member's seed and generator on every rank.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from socialways_torch.eval.metrics import (EvalSums, draw_noise,
                                            k_sample_rollout_members)
 from socialways_torch.eval.stats import toy_mode_coverage
 from socialways_torch.models.stacked import member_module, stack_modules
+from socialways_torch.parallel.mesh import all_gather_rows
 
 
 def _stack_opts(opts: Sequence[AdamState]) -> AdamState:
@@ -100,22 +106,48 @@ def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
 
 
 class EnsembleTrainer:
-    """Wraps a :class:`Trainer` (its packed data, config and device) and
-    trains M members jointly, one member-batched ``gan_step`` a chunk.
-    It takes every configuration the solo ``Trainer`` takes (bf16,
-    accumulation, remat and every loss); ``mesh`` is refused."""
+    """Wraps a single-device :class:`Trainer` (its packed data, config and
+    device) and trains M members jointly, one member-batched ``gan_step``
+    a chunk.  It takes every configuration the solo ``Trainer`` takes
+    (bf16, accumulation, remat and every loss).  ``mesh``: this rank's
+    view of a mesh over which the members are sharded (the trainer on
+    the rank's device)."""
 
     def __init__(self, trainer: Trainer, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: sharding the ensemble's members over devices waits "
-                "for the port's parallel/ (ROADMAP Queue 1, item 4)")
+        if trainer.mesh is not None:
+            raise ValueError("EnsembleTrainer wraps a SINGLE-DEVICE "
+                             "trainer; pass mesh= to EnsembleTrainer to "
+                             "shard the member axis instead")
+        if mesh is not None and trainer.device != mesh.device:
+            raise ValueError(f"the trainer's device {trainer.device} is "
+                             f"not the rank's {mesh.device}")
         self.trainer = trainer
         self.cfg = trainer.cfg
+        self.mesh = mesh
+
+    def _span(self, n_members: int) -> slice:
+        """This rank's members (all of them without a mesh), after JAX's
+        check that the members divide over the mesh."""
+        d = 1 if self.mesh is None else self.mesh.size
+        if n_members % d:
+            raise ValueError(
+                f"{n_members} ensemble members not divisible by the "
+                f"{d}-device mesh")
+        m, r = n_members // d, 0 if self.mesh is None else self.mesh.rank
+        return slice(r * m, (r + 1) * m)
+
+    def _local(self, members: Sequence) -> Sequence:
+        return members[self._span(len(members))]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[m_local, ...] of every rank -> [M, ...] in member order."""
+        return t if self.mesh is None else all_gather_rows(t, self.mesh)
 
     def init_states(self, seeds: Sequence[int]) -> TrainState:
-        """Member m drawn as ``Trainer.init_state(seeds[m])``."""
-        return stack_states([self.trainer.init_state(s) for s in seeds])
+        """Member m drawn as ``Trainer.init_state(seeds[m])`` (this rank's
+        members on a mesh)."""
+        return stack_states([self.trainer.init_state(s)
+                             for s in self._local(seeds)])
 
     def train_epoch(self, states: TrainState,
                     generators: Sequence[torch.Generator]
@@ -129,7 +161,7 @@ class EnsembleTrainer:
         tr, cfg = self.trainer, self.cfg
         per_member = [[draw_step(tr.train_packed.width, cfg, g, tr.device)
                        for _ in range(tr.n_steps_per_epoch)]
-                      for g in generators]
+                      for g in self._local(generators)]
         sums = None
         for i in range(tr.n_steps_per_epoch):
             states, m = gan_step(states, chunk_of(tr.train_dev, i),
@@ -139,9 +171,10 @@ class EnsembleTrainer:
             sums = m if sums is None else StepMetrics(
                 *(a + b for a, b in zip(sums, m)))
         n_chunks = tr.n_steps_per_epoch
-        vals = np.array(torch.stack([
+        vals = np.array(self._gather(torch.stack([
             sums.d_loss / n_chunks, sums.g_loss / n_chunks, sums.ade_sum,
-            sums.fde_sum, sums.n_samples.to(sums.ade_sum.dtype)]).tolist())
+            sums.fde_sum, sums.n_samples.to(sums.ade_sum.dtype)], dim=1)
+        ).T.tolist())
         d_loss, g_loss, ade_sum, fde_sum, n_samp = vals
         n, ss = np.maximum(n_samp, 1), tr.dataset.ss
         return states, {
@@ -183,19 +216,21 @@ class EnsembleTrainer:
         if tr.test_dev is None:
             return []
         k = n_gen_samples or self.cfg.n_gen_samples
-        rngs = self._noise_rngs(seeds)
+        rngs = self._noise_rngs(self._local(seeds))
         g, total = eval_params(states), None
         for i in range(tr.test_packed.n_chunks):
             noise = torch.stack([draw_noise(k, tr.test_packed.width,
                                             self.cfg, r, tr.device)
                                  for r in rngs]) if noises is None else (
-                noises[i].to(tr.device))
+                noises[i][self._span(len(seeds))].to(tr.device))
             s = eval_chunk_members(g, chunk_of(tr.test_dev, i), k, self.cfg,
                                    noise)
             total = s if total is None else EvalSums(
                 *(a + b for a, b in zip(total, s)))
-        return [finalize_eval(EvalSums(*(x[m] for x in total)),
-                              tr.dataset.ss, tr.dataset.n_test_samples)
+        sums = self._gather(torch.stack(
+            [x.to(total.ade_avg.dtype) for x in total], dim=1)).cpu()
+        return [finalize_eval(EvalSums(*sums[m]), tr.dataset.ss,
+                              tr.dataset.n_test_samples)
                 for m in range(len(seeds))]
 
     def coverage(self, states: TrainState, seeds: Sequence[int],
@@ -209,12 +244,15 @@ class EnsembleTrainer:
         obs = ds.obsvs[nt:nt + n_samples]
         ids = ds.scene_ids_for_rows(nt, obs.shape[0])
         k = cfg.n_gen_samples
+        local = self._local(seeds)
         noise = torch.stack([draw_noise(k, obs.shape[0], cfg, r, tr.device)
-                             for r in self._noise_rngs(seeds)])
+                             for r in self._noise_rngs(local)])
         pk = k_sample_rollout_members(
             eval_params(states), torch.from_numpy(obs).to(tr.device),
             torch.from_numpy(ids).to(tr.device), k, cfg, noise)
         finals = ds.scale.denormalize(pk[..., :2].cpu().numpy())
         obs_w = ds.scale.denormalize(obs)
-        return [toy_mode_coverage(obs_w, finals[m])
-                for m in range(len(seeds))]
+        cov = torch.tensor([toy_mode_coverage(obs_w, finals[m])
+                            for m in range(len(local))], dtype=torch.float64,
+                           device=tr.device)
+        return self._gather(cov).tolist()

@@ -1,6 +1,6 @@
 """Crowd simulation: roll a crowd forward window after window.
 
-Counterpart of socialways_tpu/engine/simulate.py:27-80 and :185-195.  Each
+Counterpart of socialways_tpu/engine/simulate.py:27-195.  Each
 window runs the whole generator (encode, social attention over every
 agent's scene, autoregressive decode); its predicted steps are appended to
 the observation buffer and the last ``n_past`` of it observe the next
@@ -13,6 +13,12 @@ windows when ``cfg.max_scene_size > 0``.  Under
 ``compute_dtype="bfloat16"`` the weights, the observations, the noise and
 the world-frame buffer are bf16 (socialways_tpu/engine/simulate.py:41-47,
 60-83); the trajectories come back float32.
+
+``crowd_simulate_sharded`` splits the agents over the ranks of a mesh
+(JAX's :83-182): each rank encodes and decodes its own agents, and each
+window's social attention runs the agents-axis sharded form
+(parallel/agents.py: one all-gather of the keys, or the ring), plain torch
+as JAX's is plain XLA.
 """
 
 from __future__ import annotations
@@ -24,10 +30,45 @@ import torch
 
 from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
-from socialways_torch.models.generator import Generator, generator_rollout
+from socialways_torch.models.generator import (Generator, decode_rollout,
+                                               encode_observation,
+                                               generator_rollout)
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
-                                       from_agent_frame_4d)
+                                       from_agent_frame_4d, obsv_to_4d)
+from socialways_torch.parallel.agents import (ring_social_context,
+                                              sharded_social_context)
+from socialways_torch.parallel.mesh import all_gather_rows
+
+
+def _inputs(g_params, obsv0, n_windows, cfg, generator, noise):
+    """The compute-dtype weights, observations and noise (drawn from
+    ``generator`` unless given) of a simulation."""
+    if noise is None:
+        noise = sample_noise((n_windows, obsv0.shape[0]), cfg, generator,
+                             obsv0.device)
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cdt != obsv0.dtype:
+        g_params = cast_params(g_params, cdt)
+        obsv0 = obsv0.to(cdt)
+    return g_params, obsv0, noise.to(cdt)
+
+
+def _windows(rollout, obsv0, noise, cfg) -> torch.Tensor:
+    """The window loop: each window canonicalizes its own buffer, rolls it
+    out with ``rollout(obsv_in, social_x4, z)``, and maps the predictions
+    back to the world before they re-enter the buffer."""
+    n_past, obsv, windows = obsv0.shape[1], obsv0, []
+    for z in noise:
+        obsv_in, frame, social_x4 = canonicalize_for_rollout(
+            obsv, cfg.agent_frame, cfg.use_social)
+        pred = rollout(obsv_in, social_x4, z)
+        if frame is not None:
+            pred = from_agent_frame_4d(pred, frame)
+        pos = pred[..., :2]
+        windows.append(pos)
+        obsv = torch.cat([obsv, pos], dim=1)[:, -n_past:]
+    return torch.cat(windows, dim=1).float()
 
 
 @torch.no_grad()
@@ -40,29 +81,61 @@ def crowd_simulate(g_params: Generator, obsv0: torch.Tensor,
 
     ``noise [n_windows, N, noise_len]`` overrides the draw from
     ``generator`` (tests pass JAX's draw in)."""
-    n, n_past, _ = obsv0.shape
-    if noise is None:
-        noise = sample_noise((n_windows, n), cfg, generator, obsv0.device)
-    cdt = getattr(torch, cfg.compute_dtype)
-    if cdt != obsv0.dtype:
-        g_params = cast_params(g_params, cdt)
-        obsv0 = obsv0.to(cdt)
-    noise = noise.to(cdt)
-    obsv, windows = obsv0, []
-    for z in noise:
-        # each window canonicalizes its own buffer, and predictions map
-        # back to the world before they re-enter it
-        obsv_in, frame, social_x4 = canonicalize_for_rollout(
-            obsv, cfg.agent_frame, cfg.use_social)
-        pred = generator_rollout(g_params, obsv_in, z, cfg.n_next, scene_ids,
+    g_params, obsv0, noise = _inputs(g_params, obsv0, n_windows, cfg,
+                                     generator, noise)
+
+    def rollout(obsv_in, social_x4, z):
+        return generator_rollout(g_params, obsv_in, z, cfg.n_next, scene_ids,
                                  cfg.use_social, social_x4, cfg.decoder,
                                  max_scene=cfg.max_scene_size)
-        if frame is not None:
-            pred = from_agent_frame_4d(pred, frame)
-        pos = pred[..., :2]
-        windows.append(pos)
-        obsv = torch.cat([obsv, pos], dim=1)[:, -n_past:]
-    return torch.cat(windows, dim=1).float()
+    return _windows(rollout, obsv0, noise, cfg)
+
+
+@torch.no_grad()
+def crowd_simulate_sharded(g_params: Generator, obsv0: torch.Tensor,
+                           scene_ids: torch.Tensor, n_windows: int,
+                           cfg: TrainConfig, mesh,
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None,
+                           neighbor_exchange: str = "gather"
+                           ) -> torch.Tensor:
+    """:func:`crowd_simulate` with the agents split over ``mesh``'s ranks.
+
+    Every rank passes the whole crowd (``obsv0`` [N, n_past, 2],
+    ``scene_ids`` [N], the noise [n_windows, N, noise_len] drawn from
+    ``generator``, the same on every rank, or given) and keeps its rows
+    [r N/D, (r + 1) N/D); the trajectories [N, n_windows * n_next, 2]
+    (float32) come back gathered to every rank.  ``neighbor_exchange``:
+    "gather" (one all-gather of the keys a window) or "ring" (the key
+    blocks passed round the ranks, one block held at a time).  Equals
+    :func:`crowd_simulate` under the same noise up to float
+    reassociation."""
+    if neighbor_exchange not in ("gather", "ring"):
+        raise ValueError(f"neighbor_exchange must be gather or ring, got "
+                         f"{neighbor_exchange!r}")
+    n = obsv0.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} agents do not split over {mesh.size} ranks")
+    social_ctx = (ring_social_context if neighbor_exchange == "ring"
+                  else sharded_social_context)
+    g_params, obsv0, noise = _inputs(g_params, obsv0, n_windows, cfg,
+                                     generator, noise)
+    rows = slice(mesh.rank * (n // mesh.size),
+                 (mesh.rank + 1) * (n // mesh.size))
+    ids = scene_ids[rows]
+
+    def rollout(obsv_in, social_x4, z):
+        obsv_4d = obsv_to_4d(obsv_in)
+        h, c = encode_observation(g_params, obsv_4d)
+        if cfg.use_social:
+            x4 = obsv_4d[:, -1] if social_x4 is None else social_x4
+            s = social_ctx(g_params, x4, h, ids, mesh)
+        else:
+            s = torch.zeros_like(h)
+        return decode_rollout(g_params, (h, c, s, obsv_in[:, -1]), z,
+                              cfg.n_next, cfg.decoder)
+    local = _windows(rollout, obsv0[rows], noise[:, rows], cfg)
+    return all_gather_rows(local, mesh)
 
 
 def initial_crowd(n: int, scene_size: int, n_past: int, seed: int):

@@ -1,9 +1,10 @@
 """The unrolled LSGAN + InfoGAN training step.
 
-Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764 without a
-mesh, in float32 or bf16 mixed precision: agent frame, social attention,
-EMA generator, D instance noise annealed to a floor, ``n_unrolling_steps``
-lookahead D updates with a configurable restore, the continuous or categorical info loss and its
+Counterpart of socialways_tpu/engine/train_step.py:49-171, 174-764, in
+float32 or bf16 mixed precision, on one device or data-parallel over a
+mesh: agent frame, social attention, EMA generator, D instance noise
+annealed to a floor, ``n_unrolling_steps`` lookahead D updates with a
+configurable restore, the continuous or categorical info loss and its
 ramp, lr schedules and a global-norm gradient clip, the LSTM decoder,
 PacGAN, minibatch stddev, spectral norm, R1, the l2, variety, mode-seeking
 and diversity-hinge losses, the D/G update-ratio schedule, the serial
@@ -51,6 +52,21 @@ feed JAX's draws in).  The schedules (info weight, instance noise, D/G
 ratio) read the G optimizer's count on the host.  A chunk with no valid
 row leaves the state as it is (:732-763), decided on the host from its
 valid count.
+
+Data parallelism (``mesh``, parallel/mesh.py; JAX's ``axis_name``
+branches): each rank holds whole scenes and the draws of the GLOBAL batch,
+of which it keeps its rows (``shard_draws``, :234-245, 428-437).  Each
+gradient sync weights the rank's gradients by its share of the valid rows,
+``local * D / max(global, 1)``, and averages them over the ranks in one
+all-reduce of one flattened buffer (:266-279).  Under ``mb_std``,
+``ms_weight`` or ``ds_weight`` the rank's LOSS carries that weight
+instead, since those losses couple the ranks through sums over the mesh
+(``parallel.mesh.psum``, whose backward sums every rank's cotangent, as
+the transpose of JAX's psum does; :247-264, 638-661).  The metrics come
+back reduced (:734-757).  The step is a no-op only when every rank's chunk
+is padding (:758-763): a rank whose chunk is filler still runs every
+collective.  The Adam counts stay host integers, equal on every rank,
+since every rank takes every step.
 
 Member mode (``members=True``, engine/ensemble.py): the state holds M
 models stacked on a leading member axis (every parameter, moment and EMA
@@ -104,6 +120,7 @@ from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
                                        pred_to_4d, to_agent_frame)
+from socialways_torch.parallel.mesh import all_reduce_sum, psum
 
 
 @dataclasses.dataclass
@@ -330,6 +347,22 @@ def draw_step(n: int, cfg: TrainConfig,
                      extra)
 
 
+def shard_draws(draws: StepDraws, rank: int, n_ranks: int) -> StepDraws:
+    """Rank ``rank``'s rows of a global batch's draws, the batch split into
+    ``n_ranks`` equal parts in rank order: the noise and the eps tensors on
+    their row axis, the variety and extra noise (a leading K) on axis 1;
+    the two label scalars are shared."""
+    def rows(t, dim):
+        if t is None:
+            return None
+        n = t.shape[dim] // n_ranks
+        return t.narrow(dim, rank * n, n)
+    return StepDraws(rows(draws.noise, 0), draws.zero_label,
+                     draws.one_label, rows(draws.eps_fake, 0),
+                     rows(draws.eps_real, 0), rows(draws.eps_g, 0),
+                     rows(draws.variety_noise, 1), rows(draws.extra_noise, 1))
+
+
 def info_weight(cfg: TrainConfig, step: int) -> float:
     """The info-loss weight at G step ``step``: the ramp from
     ``loss_info_w`` to ``loss_info_w_end`` over ``loss_info_w_steps``
@@ -428,14 +461,59 @@ def _pair_mean(t: torch.Tensor) -> torch.Tensor:
     return acc / (k * (k - 1) // 2)
 
 
-def _masked_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return (torch.where(valid, per, 0.0).sum()
-            / torch.clamp(valid.sum().float(), min=1.0))
+def _masked_mean(per: torch.Tensor, valid: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """The mean of ``per`` over the valid rows (of every rank, with a
+    mesh)."""
+    return (psum(torch.where(valid, per, 0.0).sum(), mesh)
+            / torch.clamp(psum(valid.sum().float(), mesh), min=1.0))
+
+
+class _DataParallel:
+    """The DP step's host-side weights and its gradient and metric
+    reductions over ``mesh``, from the rank's and the group's valid
+    counts.  ``coupled``: a loss sums over the mesh (mb_std, mode seeking,
+    diversity hinge), so the loss carries the rank's weight and the
+    gradients are plainly averaged (JAX's ``_shard_weight``)."""
+
+    def __init__(self, mesh, cfg: TrainConfig, n_valid: int,
+                 n_valid_global: int):
+        f32 = np.float32
+        self.mesh, self.n_valid, self.n_valid_global = (mesh, n_valid,
+                                                        n_valid_global)
+        self.coupled = cfg.mb_std or cfg.ms_weight > 0 or cfg.ds_weight > 0
+        # the rank's share of the valid rows, times D, in float32 (:274-277)
+        self.weight = float(f32(n_valid) * f32(mesh.size)
+                            / max(f32(n_valid_global), f32(1.0)))
+
+    def loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss * self.weight if self.coupled else loss
+
+    def grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """pmean of the count-weighted gradients: one all-reduce."""
+        if not self.coupled:
+            grads = torch._foreach_mul(grads, self.weight)
+        return torch._foreach_div(all_reduce_sum(grads, self.mesh),
+                                  float(self.mesh.size))
+
+    def metrics(self, m: StepMetrics) -> StepMetrics:
+        """Losses as JAX averages them (the global masked mean), errors and
+        counts summed (:734-757): one all-reduce."""
+        w = 1.0 if self.coupled else float(self.n_valid)
+        d, g, ade, fde, n = all_reduce_sum(
+            [torch.stack([m.d_loss * w, m.g_loss * w, m.ade_sum, m.fde_sum,
+                          m.n_samples.to(m.ade_sum.dtype)])],
+            self.mesh)[0].unbind(0)
+        div = (float(self.mesh.size) if self.coupled
+               else float(max(self.n_valid_global, 1)))
+        return StepMetrics(d / div, g / div, ade, fde,
+                           n.round().to(m.n_samples.dtype))
 
 
 def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws, cfg: TrainConfig,
-             n_valid: Optional[int] = None, members: bool = False
+             n_valid: Optional[int] = None, members: bool = False,
+             mesh=None, n_valid_global: Optional[int] = None
              ) -> Tuple[TrainState, StepMetrics]:
     """One GAN update on a padded scene chunk, in place on ``state``.
 
@@ -443,13 +521,27 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     valid [N] bool.  ``n_valid`` (the chunk's valid count, known on the
     host from packing) saves a device round trip.  ``members``: ``state``
     and ``draws`` hold M stacked members (``stack_states``, draws with a
-    leading M), the batch is shared, and every metric is [M]."""
+    leading M), the batch is shared, and every metric is [M].  ``mesh``
+    (``parallel.Mesh``): this rank's chunk of a data-parallel step, with
+    the GLOBAL batch's ``draws``; ``n_valid_global`` (the group's valid
+    count, from packing) saves an all-reduce, and every metric comes back
+    reduced over the mesh."""
     valid = batch["valid"]
     dev = valid.device
     vm = Members(draws.noise.shape[0] if members else None)
     if n_valid is None:
         n_valid = int(valid.sum())
-    if n_valid == 0:
+    dp = None
+    if mesh is not None:
+        if members:
+            raise ValueError("a member step takes no mesh: "
+                             "EnsembleTrainer(mesh=) shards the members")
+        draws = shard_draws(draws, mesh.rank, mesh.size)
+        if n_valid_global is None:
+            n_valid_global = int(all_reduce_sum(
+                [torch.tensor([n_valid], device=dev)], mesh)[0])
+        dp = _DataParallel(mesh, cfg, n_valid, n_valid_global)
+    if (n_valid if dp is None else n_valid_global) == 0:
         zero = torch.zeros(vm.lead, device=dev)
         return state, StepMetrics(zero, zero, zero, zero,
                                   torch.zeros(vm.lead, dtype=torch.int64,
@@ -480,7 +572,14 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         return v if cfg.pac == 1 else v.reshape(-1, cfg.pac).all(dim=1)
 
     def mb_feat(block, valid_):
-        return mb_std_feature(block, valid_) if cfg.mb_std else None
+        return mb_std_feature(block, valid_, mesh) if cfg.mb_std else None
+
+    def weighted(loss):
+        """The loss a rank differentiates (its DP share when coupled)."""
+        return loss if dp is None else dp.loss(loss)
+
+    def synced(grads):
+        return grads if dp is None else dp.grads(grads)
 
     cdt = getattr(torch, cfg.compute_dtype)
 
@@ -606,7 +705,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         graph = with_grads or cfg.r1_gamma > 0
         with torch.enable_grad() if graph else torch.no_grad():
             for c, wp, ws in zip(parts, w_pack, w_sample):
-                loss = on_members(d_part_loss, (state.d,), c, wp, ws)
+                loss = weighted(on_members(d_part_loss, (state.d,), c, wp,
+                                           ws))
                 total = loss.detach() if total is None else (
                     total + loss.detach())
                 if with_grads:
@@ -621,7 +721,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if d_phase_due(cfg, step0):
         for u in range(cfg.n_unrolling_steps + 1):
             d_loss, d_grads = d_value_and_grad()
-            d_tx.step(state.d_opt, state.d, d_grads, members)
+            d_tx.step(state.d_opt, state.d, synced(d_grads), members)
             if u == 0:
                 d_loss_first = d_loss
                 if cfg.n_unrolling_steps > 0:
@@ -687,13 +787,14 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
             d_row = _pair_mean(out[[0] + list(range(first, r)), ..., :2])
             dz_row = _pair_mean(torch.cat([c["noise"][None], c["extra"]]))
             if cfg.ms_weight > 0:
-                ratio = (_masked_mean(d_row, valid)
-                         / (_masked_mean(dz_row, valid) + 1e-8))
+                ratio = (_masked_mean(d_row, valid, mesh)
+                         / (_masked_mean(dz_row, valid, mesh) + 1e-8))
                 loss = loss + cfg.ms_weight / (ratio + 1e-5)
             if cfg.ds_weight > 0:
                 hinge = torch.clamp(cfg.ds_tau - d_row / (dz_row + 1e-8),
                                     min=0.0)
-                loss = loss + cfg.ds_weight * _masked_mean(hinge, valid)
+                loss = loss + cfg.ds_weight * _masked_mean(hinge, valid,
+                                                           mesh)
         return loss, out[0]
 
     g_params = list(state.g.parameters())
@@ -701,7 +802,8 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         if accum:
             g_loss, g_grads = None, None
             for c, wp, ws in zip(parts, w_pack, w_sample):
-                loss = on_members(g_rollout_loss, (state.g, d_g), c, wp, ws)
+                loss = weighted(on_members(g_rollout_loss, (state.g, d_g), c,
+                                           wp, ws))
                 g_loss = loss.detach() if g_loss is None else (
                     g_loss + loss.detach())
                 g = _grads(loss, g_params)
@@ -709,16 +811,18 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     a + b for a, b in zip(g_grads, g)]
             pred_hat = pred_hat_fwd
         elif not separate:
-            g_loss = on_members(g_part_loss, (d_g,),
-                                {**parts[0], "ph": pred_hat}, 1.0, 1.0)
+            g_loss = weighted(on_members(g_part_loss, (d_g,),
+                                         {**parts[0], "ph": pred_hat}, 1.0,
+                                         1.0))
             g_grads = _grads(g_loss, g_params)
         else:
             g_loss, pred_hat = on_members(
                 g_separate_loss, (state.g, d_g),
                 {**parts[0], "variety": draws.variety_noise,
                  "extra": draws.extra_noise})
+            g_loss = weighted(g_loss)
             g_grads = _grads(g_loss, g_params)
-    g_tx.step(state.g_opt, state.g, g_grads, members)
+    g_tx.step(state.g_opt, state.g, synced(g_grads), members)
 
     if cfg.g_ema_decay > 0:
         with torch.no_grad():
@@ -743,4 +847,4 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         metrics = StepMetrics(d_loss=d_loss_first, g_loss=g_loss.detach(),
                               ade_sum=ade_sum, fde_sum=fde_sum,
                               n_samples=n_samples)
-    return state, metrics
+    return state, metrics if dp is None else dp.metrics(metrics)

@@ -2,19 +2,26 @@
 evaluation.
 
 Counterpart of socialways_tpu/engine/trainer.py:51-77 (the grad-accum
-alignment check), :91-134 (packing and the one-time transfer of both
-splits, the -1 anneal sentinel), :153-266 (the
-epoch loop) and :269-290 (``evaluate``), without a mesh.  JAX scans the GAN
-step over the chunks on the device; here an epoch is a Python loop of
-``gan_step`` over the chunks (no CUDA graph, no ``torch.compile``) with the
-per-chunk metrics summed on the device and read once at the epoch's end.
+alignment check), :83-160 (packing and the one-time transfer of both
+splits, the -1 anneal sentinel), :153-266 (the epoch loop) and :269-290
+(``evaluate``).  JAX scans the GAN step over the chunks on the device;
+here an epoch is a Python loop of ``gan_step`` over the chunks (no CUDA
+graph, no ``torch.compile``) with the per-chunk metrics summed on the
+device and read once at the epoch's end.
+
+With a ``mesh`` (``parallel.Mesh``, one rank of a data-parallel group)
+the same loop runs data-parallel: the chunks are grouped D at a time
+(``parallel.shard_packed_for_mesh``, filler chunks padding the last
+group), each rank holds its column of the groups on its device, and a
+step is one group (JAX's :206-231): the draws are the group's global
+draws, identical on every rank, and the metrics come back reduced.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,16 +35,20 @@ from socialways_torch.engine.train_step import (StepDraws, StepMetrics,
                                                 gan_step, init_train_state)
 from socialways_torch.eval.metrics import EvalSums, eval_chunk, finalize_eval
 from socialways_torch.models.generator import Generator
+from socialways_torch.parallel.mesh import (group_valid_counts, rank_column,
+                                            shard_packed_for_mesh)
 
 
-def packed_to_device(packed: PackedBatches, device) -> Dict[str, torch.Tensor]:
-    """One host-to-device copy of every packed chunk."""
-    return {
-        "obsvs": torch.from_numpy(packed.obsvs).to(device),
-        "preds": torch.from_numpy(packed.preds).to(device),
-        "scene_ids": torch.from_numpy(packed.scene_ids).to(device),
-        "valid": torch.from_numpy(packed.valid).to(device),
-    }
+def packed_to_device(packed: PackedBatches, device, mesh=None
+                     ) -> Dict[str, torch.Tensor]:
+    """One host-to-device copy of every packed chunk; with a ``mesh``, of
+    this rank's column of the chunk groups ([groups, width, ...])."""
+    arrays = {"obsvs": packed.obsvs, "preds": packed.preds,
+              "scene_ids": packed.scene_ids, "valid": packed.valid}
+    if mesh is not None:
+        arrays = rank_column(shard_packed_for_mesh(packed, mesh.size),
+                             mesh.rank, mesh.size)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
 def fork_seed(rng: torch.Generator) -> int:
@@ -87,31 +98,61 @@ def chunk_of(batches: Dict[str, torch.Tensor], i: int
     return {k: v[i] for k, v in batches.items()}
 
 
+def run_epoch(state: TrainState, batches: Dict[str, torch.Tensor],
+              draws: Sequence[StepDraws], cfg: TrainConfig,
+              counts: Optional[np.ndarray] = None, mesh=None
+              ) -> Tuple[TrainState, StepMetrics]:
+    """One ``gan_step`` a step of ``batches`` ([steps, width, ...]: the
+    chunks, or this rank's column of the chunk groups on a ``mesh``) with
+    ``draws[i]`` (the group's global draws on a mesh).  ``counts``: the
+    [steps, D] host valid counts (None: each step counts its rows on the
+    device).  Returns the state and the epoch's metrics on the device:
+    mean losses, summed errors and sample counts
+    (socialways_tpu/parallel/mesh.py:126-147)."""
+    rank = 0 if mesh is None else mesh.rank
+    n = batches["valid"].shape[0]
+    sums = None
+    for i in range(n):
+        kw = {} if counts is None else dict(
+            n_valid=int(counts[i, rank]), n_valid_global=int(counts[i].sum()))
+        state, m = gan_step(state, chunk_of(batches, i), draws[i], cfg,
+                            mesh=mesh, **kw)
+        sums = m if sums is None else StepMetrics(
+            *(a + b for a, b in zip(sums, m)))
+    return state, sums._replace(d_loss=sums.d_loss / n,
+                                g_loss=sums.g_loss / n)
+
+
 class Trainer:
     """Owns both packed splits on ``device`` (``None`` = ``cuda``; it
-    raises when there is no GPU rather than run on the CPU).  The training
-    split is packed and copied on its first use, so that evaluation alone
-    does no training-only work."""
+    raises when there is no GPU rather than run on the CPU), or, with a
+    ``mesh``, this rank's column of them on the mesh's device.  The
+    training split is packed and copied on its first use, so that
+    evaluation alone does no training-only work."""
 
     def __init__(self, cfg: TrainConfig, dataset: TrajectoryDataset,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg.replace(n_past=dataset.n_past, n_next=dataset.n_next)
         check_supported(self.cfg)
         self.dataset = dataset
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
+        self.n_dev = 1 if mesh is None else mesh.size
         nt = dataset.n_train_samples
         if len(dataset.test_batches):
             test_batches = dataset.test_batches - dataset.test_batches[0][0]
             self.test_packed = pack_scene_batches(
                 dataset.obsvs[nt:], dataset.preds[nt:], test_batches,
                 cfg.batch_size)
-            self.test_dev = packed_to_device(self.test_packed, self.device)
+            self.test_dev = packed_to_device(self.test_packed, self.device,
+                                             mesh)
         else:
             self.test_packed = None
             self.test_dev = None
         if self.cfg.d_input_noise_steps < 0:
             # -1 = anneal over the whole planned run, in optimizer steps
-            # (socialways_tpu/engine/trainer.py:125-134)
+            # (groups on a mesh; socialways_tpu/engine/trainer.py:125-134)
             self.cfg = self.cfg.replace(
                 d_input_noise_steps=cfg.n_epochs * self.n_steps_per_epoch)
 
@@ -128,13 +169,20 @@ class Trainer:
 
     @functools.cached_property
     def train_dev(self) -> Dict[str, torch.Tensor]:
-        """One host-to-device copy of the training split."""
-        return packed_to_device(self.train_packed, self.device)
+        """One host-to-device copy of the training split (this rank's
+        column on a mesh)."""
+        return packed_to_device(self.train_packed, self.device, self.mesh)
+
+    @functools.cached_property
+    def train_counts(self) -> np.ndarray:
+        """[steps, D] valid rows of each rank's chunk of each step."""
+        return group_valid_counts(self.train_packed, self.n_dev)
 
     @property
     def n_steps_per_epoch(self) -> int:
-        """Optimizer steps one epoch performs: one per packed chunk."""
-        return self.train_packed.n_chunks
+        """Optimizer steps one epoch performs: one per packed chunk, one
+        per chunk group on a mesh."""
+        return -(-self.train_packed.n_chunks // self.n_dev)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """G, D, both optimizers and the EMA, drawn from ``seed``
@@ -143,41 +191,45 @@ class Trainer:
             self.cfg.seed if seed is None else seed)
         return init_train_state(self.cfg, gen, self.device)
 
+    def _draws(self, generator: torch.Generator) -> List[StepDraws]:
+        """One epoch's draws: one ``StepDraws`` a step, for its global
+        batch on a mesh."""
+        return [draw_step(self.n_dev * self.train_packed.width, self.cfg,
+                          generator, self.device)
+                for _ in range(self.n_steps_per_epoch)]
+
+    def _host_metrics(self, m: StepMetrics, tic: float) -> Dict[str, float]:
+        """JAX's epoch metrics from the device's (one host read): mean
+        losses, train ADE/FDE in meters, the time since ``tic`` and the
+        step count."""
+        d_loss, g_loss, ade_sum, fde_sum, n_samp = torch.stack(
+            [m.d_loss, m.g_loss, m.ade_sum, m.fde_sum,
+             m.n_samples.to(m.ade_sum.dtype)]).tolist()
+        n_s, ss = max(int(n_samp), 1), self.dataset.ss
+        return {
+            "d_loss": d_loss,
+            "g_loss": g_loss,
+            "train_ade": ade_sum / ss / n_s,
+            "train_fde": fde_sum / ss / n_s,
+            "epoch_time_s": time.perf_counter() - tic,
+            "steps": self.n_steps_per_epoch,
+        }
+
     def train_epoch(self, state: TrainState,
                     generator: Optional[torch.Generator] = None,
                     draws: Optional[Sequence[StepDraws]] = None
                     ) -> Tuple[TrainState, Dict[str, float]]:
-        """One ``gan_step`` per chunk.  The draws come from ``generator``
-        (a ``torch.Generator`` on the device), one ``StepDraws`` per chunk,
-        or from ``draws``.  Returns the same metrics as JAX: per-chunk mean
-        losses, train ADE/FDE in meters, wall time and step count."""
+        """One ``gan_step`` per chunk (per chunk group on a mesh).  The
+        draws come from ``generator`` (a ``torch.Generator`` on the
+        device), one ``StepDraws`` per step, or from ``draws``.  Returns
+        the same metrics as JAX: per-step mean losses, train ADE/FDE in
+        meters, wall time and step count."""
         tic = time.perf_counter()
-        if draws is None:
-            draws = [draw_step(self.train_packed.width, self.cfg, generator,
-                               self.device)
-                     for _ in range(self.n_steps_per_epoch)]
-        sums = None
-        for i in range(self.n_steps_per_epoch):
-            state, m = gan_step(state, chunk_of(self.train_dev, i),
-                                draws[i], self.cfg,
-                                n_valid=int(self.train_packed.n_valid[i]))
-            sums = m if sums is None else StepMetrics(
-                *(a + b for a, b in zip(sums, m)))
-        n_chunks = self.n_steps_per_epoch
-        vals = torch.stack([sums.d_loss / n_chunks, sums.g_loss / n_chunks,
-                            sums.ade_sum, sums.fde_sum,
-                            sums.n_samples.to(sums.ade_sum.dtype)]).tolist()
-        d_loss, g_loss, ade_sum, fde_sum, n_samp = vals
-        toc = time.perf_counter()
-        n, ss = max(int(n_samp), 1), self.dataset.ss
-        return state, {
-            "d_loss": d_loss,
-            "g_loss": g_loss,
-            "train_ade": ade_sum / ss / n,
-            "train_fde": fde_sum / ss / n,
-            "epoch_time_s": toc - tic,
-            "steps": n_chunks,
-        }
+        state, m = run_epoch(
+            state, self.train_dev,
+            self._draws(generator) if draws is None else draws, self.cfg,
+            self.train_counts, self.mesh)
+        return state, self._host_metrics(m, tic)
 
     def train_epochs(self, state: TrainState, generator: torch.Generator,
                      n: int) -> Tuple[TrainState, Dict[str, float]]:
@@ -196,19 +248,21 @@ class Trainer:
                  ) -> Dict[str, float]:
         """Min-of-K / avg-of-K ADE & FDE over the test split, in meters.
 
-        One noise draw per chunk from a ``torch.Generator`` seeded with
+        One noise draw per chunk (per chunk group on a mesh, for the
+        group's global batch) from a ``torch.Generator`` seeded with
         ``seed`` on the device; ``noises`` (one [K, W, noise_len] tensor per
-        chunk) replaces the draws."""
+        chunk, [K, D W, noise_len] per group) replaces the draws.  On a
+        mesh every rank evaluates its rows and the sums are reduced."""
         if self.test_dev is None:
             return {}
         k = n_gen_samples or self.cfg.n_gen_samples
         rng = torch.Generator(device=self.device)
         rng.manual_seed(seed)
         total = None
-        for i in range(self.test_packed.n_chunks):
+        for i in range(self.test_dev["valid"].shape[0]):
             noise = None if noises is None else noises[i].to(self.device)
             s = eval_chunk(g_params, chunk_of(self.test_dev, i), k, self.cfg,
-                           rng, noise)
+                           rng, noise, mesh=self.mesh)
             total = s if total is None else EvalSums(
                 *(a + b for a, b in zip(total, s)))
         return finalize_eval(total, self.dataset.ss,

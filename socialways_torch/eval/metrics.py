@@ -27,6 +27,7 @@ from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d)
+from socialways_torch.parallel.mesh import all_reduce_sum
 
 
 class EvalSums(NamedTuple):
@@ -104,10 +105,21 @@ def k_sample_errors(pred_hat_k: torch.Tensor, pred: torch.Tensor
 
 def eval_chunk(g_params: Generator, batch: Dict[str, torch.Tensor], k: int,
                cfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> EvalSums:
+               noise: Optional[torch.Tensor] = None, mesh=None) -> EvalSums:
     """Min-of-K / avg-of-K ADE & FDE sums over one padded chunk
-    (train.py:602-607)."""
+    (train.py:602-607).  With a ``mesh`` (``parallel.Mesh``) ``batch`` is
+    this rank's rows of a data-parallel group: the noise is the GLOBAL
+    batch's [K, D N, noise_len] (drawn from ``generator``, the same on
+    every rank, or given), each rank keeps its rows, and the sums come
+    back reduced over the mesh (socialways_tpu/eval/metrics.py:33-65), so
+    they equal the single-process sums of the concatenated group."""
     valid = batch["valid"]
+    if mesh is not None:
+        n = valid.shape[0]
+        if noise is None:
+            noise = draw_noise(k, n * mesh.size, cfg, generator,
+                               valid.device)
+        noise = noise[:, mesh.rank * n:(mesh.rank + 1) * n]
     pred_hat_k = k_sample_rollout(g_params, batch["obsvs"],
                                   batch["scene_ids"], k, cfg, generator,
                                   noise)
@@ -118,13 +130,18 @@ def eval_chunk(g_params: Generator, batch: Dict[str, torch.Tensor], k: int,
     def msum(x):
         return torch.where(valid, x, 0.0).sum()
 
-    return EvalSums(
+    sums = EvalSums(
         ade_avg=msum(ade_per_k.mean(dim=0)),
         fde_avg=msum(fde_per_k.mean(dim=0)),
         ade_min=msum(ade_per_k.min(dim=0).values),
         fde_min=msum(fde_per_k.min(dim=0).values),
         n_samples=valid.sum(),
     )
+    if mesh is None:
+        return sums
+    red = all_reduce_sum([torch.stack([*sums[:4], sums.n_samples.to(
+        sums.ade_avg.dtype)])], mesh)[0].unbind(0)
+    return EvalSums(*red[:4], red[4].round().to(sums.n_samples.dtype))
 
 
 def eval_chunk_members(g_params: Generator, batch: Dict[str, torch.Tensor],

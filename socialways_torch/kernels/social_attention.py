@@ -418,6 +418,17 @@ def _entry(name: str, h: torch.Tensor, width: int) -> str:
             + ("" if h.dtype == torch.float32 else "_bf16"))
 
 
+def prebuild(hidden_size: int, feat_size: int, dtype: torch.dtype) -> None:
+    """Build (or take from the cache) the forward and backward libraries
+    that a model of these widths and operand dtype launches: a parent
+    process calls it before it spawns ranks, so that no two ranks run
+    nvcc on one source."""
+    from socialways_torch.kernels._build import build
+    h = torch.empty(0, dtype=dtype)
+    width = max(padded_width(hidden_size), padded_width(feat_size))
+    build([_entry(_FWD, h, width), _entry(_BWD, h, width)])
+
+
 def _count(wrapper, h: torch.Tensor) -> None:
     """One launch of ``wrapper``'s float32 or bf16 kernel; a member launch
     (``h`` [M, N, H]) also counts in ``member_launches`` (``_bf16``)."""

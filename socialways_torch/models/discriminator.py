@@ -43,6 +43,7 @@ from socialways_torch.ops.lstm import LSTMCell, lstm_init, lstm_seq, zero_state
 from socialways_torch.ops.nn import (MLP, LinearView, leaky_relu,
                                      linear_apply, mlp_init,
                                      spectral_normalize)
+from socialways_torch.parallel.mesh import psum
 
 #: the fully connected blocks; ``restore_linear_only`` takes these
 LINEAR_BLOCKS = ("obsv_fc", "pred_fc", "classifier", "latent_dec")
@@ -125,18 +126,21 @@ def discriminator_apply(params: Discriminator, obsv_4d: torch.Tensor,
                                pred_4d, pac, extra_feat)
 
 
-def mb_std_feature(pred_4d: torch.Tensor, valid: torch.Tensor
-                   ) -> torch.Tensor:
+def mb_std_feature(pred_4d: torch.Tensor, valid: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
     """Minibatch standard deviation (ProGAN's single-group form) over one
     block of futures of one provenance (all fake or all real): the mean
     over features of the std over valid rows, broadcast to [N, 1].
-    Differentiable, so G feels it in the G phase."""
+    Differentiable, so G feels it in the G phase.  With a ``mesh`` the
+    moment sums run over every rank's rows (``parallel.mesh.psum``), so
+    each rank sees the global statistic (socialways_tpu/models/
+    discriminator.py:107-130)."""
     n = pred_4d.shape[0]
     x = pred_4d.reshape(n, -1).float()
     w = valid.float()[:, None]
-    cnt = torch.clamp(w.sum(), min=1.0)
-    mean = (x * w).sum(dim=0, keepdim=True) / cnt
-    var = (w * (x - mean) ** 2).sum(dim=0, keepdim=True) / cnt
+    cnt = torch.clamp(psum(w.sum(), mesh), min=1.0)
+    mean = psum((x * w).sum(dim=0, keepdim=True), mesh) / cnt
+    var = psum((w * (x - mean) ** 2).sum(dim=0, keepdim=True), mesh) / cnt
     feat = torch.mean(torch.sqrt(var + 1e-8))
     return feat.reshape(1, 1).expand(n, 1)
 

@@ -1,7 +1,7 @@
 """The port's multi-seed ensemble (socialways_torch/engine/ensemble.py,
 ``gan_step(..., members=True)``) against solo runs of the port and against
 socialways_tpu's ``EnsembleTrainer`` and ``jax.vmap`` of its ``gan_step``;
-the mesh refusal; the host helpers of ``utils``.  The member axis of the
+the mesh refusals; the host helpers of ``utils``.  The member axis of the
 social-attention wrappers, and the card, are in test_torch_members.py
 (no JAX); R1, the extra G losses, the serial rollout, accumulation, remat
 and bf16 in member mode are in test_torch_member_variants.py.
@@ -302,9 +302,17 @@ def test_torch_member_checkpoint_restores_in_jax(toy_npz, tmp_path):
 
 # ---------------------------------------------------------------- refusals
 def test_torch_ensemble_refuses_a_mesh_and_differing_counts(toy_npz):
-    tr = Trainer(TrainConfig(**JAX_TEST), load_npz_dataset(toy_npz), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        EnsembleTrainer(tr, mesh=object())
+    """JAX's refusals (socialways_tpu/engine/ensemble.py:58-77): a trainer
+    that has a mesh, and members that do not divide over the mesh."""
+    from socialways_torch.parallel import Mesh
+    mesh = Mesh((2,), ("data",), 0, torch.device("cpu"))
+    ds = load_npz_dataset(toy_npz)
+    with pytest.raises(ValueError, match="wraps a SINGLE-DEVICE trainer"):
+        EnsembleTrainer(Trainer(TrainConfig(**JAX_TEST), ds, "cpu", mesh))
+    tr = Trainer(TrainConfig(**JAX_TEST), ds, "cpu")
+    with pytest.raises(ValueError, match="3 ensemble members not divisible "
+                                         "by the 2-device mesh"):
+        EnsembleTrainer(tr, mesh=mesh).init_states([0, 1, 2])
     a, b = tr.init_state(0), tr.init_state(1)
     b.g_opt = dataclasses.replace(b.g_opt, count=3)
     with pytest.raises(ValueError, match="counts differ"):
