@@ -133,8 +133,9 @@ Phases (any failure raises):
    solo steps under the same draws (float32 at phase 13b's bounds, bf16 at
    phase 12's first-step bounds), its forward and dkv launches exactly
    what phase 10 predicts for one solo step, every one a member launch,
-   and member-steps/s beside solo steps/s in the same process over 26
-   warm steps each (a loo epoch), alternated over two rounds; (b) peak
+   and member-steps/s beside solo steps/s in the same process over
+   graphed epochs (each run's first epoch captures), alternated over two
+   rounds; (b) peak
    device memory of one member step at batch 4,608 (phase 11's crowd npz)
    with ``remat_steps`` off and on, lower with it on; (c) a bf16
    ``EnsembleTrainer`` epoch and ``evaluate``, launches exact;
@@ -153,7 +154,20 @@ Phases (any failure raises):
    gloo aborts on CUDA point to point); (d) ``EnsembleTrainer(mesh=)``, 2
    ranks x 2 members, against the 4-member ensemble in one process (rel
    2e-4);
-18. a ``kernels`` JSON line, then the device JSON as the last line.
+18. JAX's epoch on the device (engine/graphed.py: every training step a
+   replay of a captured CUDA graph): (a) a forward and a dkv launch
+   captured alone and replayed bit for bit against eager launches, before
+   and after their inputs change in place; then ``cli train`` graphed
+   against ``--host-loop``, every checkpoint leaf, metrics row and launch
+   counter bit for bit, for the loo recipe (and a second eager run), under
+   ``--bf16``, with every schedule moving, ``--fused-epochs``, and the
+   toy-flagship recipe with a coverage rescue resetting D, then resumed;
+   (f) an ``EnsembleTrainer`` epoch from members at different counts; (g)
+   a profiled replayed epoch whose kernel names agree with the credited
+   launch counters, and a graphed step's ops and idle share; (h) train
+   steps/s and member-steps/s graphed against eager in alternated
+   processes;
+19. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -2731,13 +2745,15 @@ def ensemble_rates(torch, dev, tr, card):
     """Phase 13c: member-steps/s of an ensemble epoch at each M of
     ENSEMBLE_RATE_MS and the solo train steps/s, in one process, the runs
     alternated over two rounds (medians); one ensemble step at M =
-    ENSEMBLE_M profiled."""
+    ENSEMBLE_M profiled.  Each M has an ``EnsembleTrainer`` of its own:
+    one trainer's epoch graphs hold one state's tensors, and another
+    state through it is captured anew."""
     from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
     from socialways_torch.engine.train_step import draw_step, gan_step
     from socialways_torch.engine.trainer import chunk_of
-    ens = EnsembleTrainer(tr)
+    enss = {m: EnsembleTrainer(tr) for m in ENSEMBLE_RATE_MS}
     n_steps = tr.n_steps_per_epoch
-    runs = {m: (ens.init_states(list(range(m))),
+    runs = {m: (enss[m].init_states(list(range(m))),
                 [torch.Generator(device=dev).manual_seed(s)
                  for s in range(m)]) for m in ENSEMBLE_RATE_MS}
     solo = [tr.init_state(0), torch.Generator(device=dev).manual_seed(0)]
@@ -2750,7 +2766,7 @@ def ensemble_rates(torch, dev, tr, card):
                 solo[0], _ = tr.train_epoch(*solo)
             else:
                 st, gens = runs[key]
-                runs[key] = (ens.train_epoch(st, gens)[0], gens)
+                runs[key] = (enss[key].train_epoch(st, gens)[0], gens)
             torch.cuda.synchronize()
             if rnd:
                 times[key].append(time.perf_counter() - tic)
@@ -2861,14 +2877,14 @@ MEMBER_FIELDS = {
     "remat_steps": (dict(remat_steps=True), (1, 1)),
     "bf16": (dict(compute_dtype="bfloat16"), (1, 1)),
 }
-MEMBER_SEEDS, MEMBER_RATE_STEPS, REMAT_BATCH = (1, 2, 3, 4), 26, 4608
+MEMBER_SEEDS, REMAT_BATCH = (1, 2, 3, 4), 4608
 
 
 def member_field(torch, sa, dev, tr, tag, per_step, card):
     """Phase 16a for one field: ``tr``'s first chunk, one member step of
     MEMBER_SEEDS against their solo steps under the same draws
     (``hold_member_step``), launches exact; then member-steps/s and solo
-    steps/s over MEMBER_RATE_STEPS warm steps each (a loo epoch's count),
+    steps/s of graphed epochs (the main path; a first epoch captures),
     alternated over two rounds (means)."""
     from socialways_torch.engine.ensemble import EnsembleTrainer, stack_draws
     from socialways_torch.engine.train_step import draw_step, gan_step
@@ -2892,26 +2908,20 @@ def member_field(torch, sa, dev, tr, tag, per_step, card):
         for i, s in enumerate(MEMBER_SEEDS)], cfg)
     solo = tr.init_state(MEMBER_SEEDS[0])
     gens = [torch.Generator(device=dev).manual_seed(s) for s in MEMBER_SEEDS]
-    n_chunks = len(tr.train_packed.n_valid)
+    n_steps = tr.n_steps_per_epoch
     times = {"members": [], "solo": []}
-    for _ in range(2):
+    for rnd in range(3):             # round 0 captures
         for key in times:
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            for i in range(1, 1 + MEMBER_RATE_STEPS):
-                c, nv_i = chunk_of(tr.train_dev, i % n_chunks), int(
-                    tr.train_packed.n_valid[i % n_chunks])
-                if key == "solo":
-                    solo, _ = gan_step(solo, c, draw_step(
-                        width, cfg, gens[0], dev), cfg, nv_i)
-                else:
-                    stacked, _ = gan_step(stacked, c, stack_draws(
-                        [draw_step(width, cfg, g, dev) for g in gens]), cfg,
-                        nv_i, members=True)
-            torch.cuda.synchronize()
-            times[key].append(time.perf_counter() - tic)
-    rate = m_ * MEMBER_RATE_STEPS / float(np.mean(times["members"]))
-    solo_rate = MEMBER_RATE_STEPS / float(np.mean(times["solo"]))
+            if key == "solo":
+                solo, m = tr.train_epoch(solo, gens[0])
+            else:
+                stacked, m = ens.train_epoch(stacked, gens)
+            if not np.isfinite(m["g_loss"]).all():
+                raise AssertionError(f"member field {tag} {key}: {m}")
+            if rnd:
+                times[key].append(m["epoch_time_s"])
+    rate = m_ * n_steps / float(np.mean(times["members"]))
+    solo_rate = n_steps / float(np.mean(times["solo"]))
     rule = ("hold_step, bf16" if bf16 else
             f"hold_step and every leaf within 1e-3 of its scale but "
             f"{held['allowance']} of {held['noise']} noise-gradient G "
@@ -2921,7 +2931,8 @@ def member_field(torch, sa, dev, tr, tag, per_step, card):
           f"{held['gradient']:.3f} of their bound); launches {launches}, "
           f"every one a member launch; {rate:.2f} member-steps/s, solo "
           f"{solo_rate:.2f} steps/s ({rate / solo_rate:.2f}x; "
-          f"{MEMBER_RATE_STEPS} steps, 2 alternated rounds, means) [{card}]")
+          f"graphed epochs of {n_steps} steps, 2 alternated rounds, means) "
+          f"[{card}]")
     return {"launches": launches, "member_steps_s": rate,
             "solo_steps_s": solo_rate, "held": held}
 
@@ -3388,6 +3399,368 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
         "wall_s": wall}
 
 
+#: phase 18: JAX's epoch on the device (engine/graphed.py).  Each run of
+#: ``graph_vs_eager`` trains the same command twice, graphed (the default)
+#: and with ``--host-loop``; the runs' configurations: (a) the loo recipe,
+#: (b) under --bf16, (c) every schedule moving (the lr decays with warmup,
+#: the D/G ratio switching from 2 to 1 inside the run, the info ramp, the
+#: clip, the unroll's full restore, noise annealed over the planned run),
+#: (d) fused epochs, and (e) the toy-flagship recipe with a coverage
+#: rescue that resets D, then resumed
+GRAPH_EPOCHS = 3
+GRAPH_SCHEDULES = ["--lr-decay-rate", "0.9", "--lr-decay-steps", "7",
+                   "--lr-warmup-steps", "5", "--d-lr-decay-rate", "0.8",
+                   "--d-lr-decay-steps", "11", "--d-update-every", "2",
+                   "--d-update-every-end", "1", "--d-update-every-switch",
+                   "40", "--info-weight-end", "1.5", "--info-weight-steps",
+                   "60", "--grad-clip", "1.0", "--unroll", "1",
+                   "--d-restore", "full"]
+GRAPH_TOY = ["--recipe", "toy-flagship", "--test-interval", "1",
+             "--track-coverage", "--stall-recover", "1", "--stall-reset-d"]
+
+
+def graph_kernel_probe(torch, sa, dev, cfg, card):
+    """Phase 18a: a forward (with stats) and a dkv launch captured alone in
+    a CUDA graph and replayed, against eager launches on the same inputs
+    bit for bit, then again after the inputs change in place: the kernels'
+    own CUDA runtime launches onto the capturing stream, and the forward's
+    and the finalize's programmatic dependent launches become the graph's
+    edges.  The capture counts no launch; its record holds one of each."""
+    from socialways_torch.models.generator import init_generator
+    from socialways_torch.ops.nn import linear_apply
+    rng = np.random.RandomState(18)
+    g = init_generator(cfg, torch.Generator().manual_seed(18), dev)
+    x4, h, ids = (torch.from_numpy(a).to(dev)
+                  for a in attention_inputs(rng, BATCH, HIDDEN))
+    gout = torch.from_numpy(rng.randn(BATCH, HIDDEN).astype(
+        np.float32)).to(dev)
+    w = [t.detach() for layer in g.feat_mlp for t in (layer.w, layer.b)]
+    with torch.no_grad():
+        wh = linear_apply(g.attn_w, h)
+
+    def pair():
+        out, stats, u, c = sa._launch_fwd(x4, ids, h, wh, w, with_stats=True)
+        grads = sa.social_attention_bwd_dkv(x4, ids, h, wh, gout, stats,
+                                            (gout * out).sum(-1), w, u, c)
+        return [out, stats, u, c] + grads
+
+    with torch.no_grad():
+        pair()                                   # warm-up
+        graph = torch.cuda.CUDAGraph()
+        before = sa.launch_counts()
+        with sa.captured_launches() as record:
+            with torch.cuda.graph(graph):
+                outs = pair()
+        if sa.launch_counts() != before:
+            raise AssertionError("a capture counted launches")
+        want = {(sa.social_attention_fwd, "launches"): 1,
+                (sa.social_attention_bwd_dkv, "launches"): 1}
+        if record != want:
+            raise AssertionError(f"the capture recorded {record}")
+        for step in ("as captured", "after h, wh and g change in place"):
+            if step.startswith("after"):
+                h.mul_(0.5)
+                wh.copy_(linear_apply(g.attn_w, h))
+                gout.mul_(-1.5)
+            graph.replay()
+            ref = pair()
+            torch.cuda.synchronize()
+            names = ["out", "stats", "u", "c", "dx", "dh", "dwh", "dw1",
+                     "db1", "dw2", "db2", "dw3", "db3"]
+            for nm, a, b in zip(names, outs, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"replayed {nm} ({step}) differs "
+                                         "from the eager launch")
+        replay_ms = median_ms(torch, graph.replay)
+        eager_ms = median_ms(torch, pair)
+    print(f"graph probe: forward + dkv captured alone (PDL edges, the "
+          f"kernels' own CUDA runtime), replays equal eager launches bit "
+          f"for bit as captured and after the inputs change in place (13 "
+          f"outputs); capture counted 0, recorded {len(record)} launches; "
+          f"replay {replay_ms * 1e3:.2f} us, eager {eager_ms * 1e3:.2f} us "
+          f"[{card}]")
+
+
+def _named_launches(sa) -> dict:
+    """The counters as names (for printing and comparing)."""
+    return {f"{w.__name__}.{c}": n for (w, c), n in sa.launch_counts().items()
+            if n}
+
+
+def graph_vs_eager(torch, sa, cli_main, argv, work, tag, card,
+                   resume_epochs=0, eager_twice=False, must_print=None):
+    """One CLI ``train`` command graphed and with ``--host-loop`` (and a
+    second ``--host-loop`` run when ``eager_twice``), each in a model dir
+    of its own with a metrics log: every checkpoint leaf (the counts too),
+    every metrics row but its times, and every launch counter equal
+    bit for bit.  ``resume_epochs`` > 0 trains each dir again to that
+    many epochs (a resumed run).  ``must_print``: text the graphed run
+    must print (a rescue firing).  Returns the graphed run's launches."""
+    modes = ["graph", "eager"] + (["eager2"] if eager_twice else [])
+    runs, tic = {}, time.perf_counter()
+    for mode in modes:
+        mdir = os.path.join(work, f"g18_{tag}_{mode}")
+        log = mdir + ".jsonl"
+        extra = [] if mode == "graph" else ["--host-loop"]
+        reset_launches(sa)
+        outs = []
+        for epochs in [None] + ([resume_epochs] if resume_epochs else []):
+            buf = io.StringIO()
+            cmd = argv + ["--model-dir", mdir, "--metrics-log", log] + extra
+            if epochs:
+                cmd = cmd + ["--epochs", str(epochs)]
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(cmd)
+            outs.append(buf.getvalue())
+            if rc != 0:
+                raise AssertionError(f"18 {tag} {mode}: rc {rc}\n{outs[-1]}")
+        torch.cuda.synchronize()
+        with open(log) as fh:
+            rows = [{k: v for k, v in json.loads(line).items()
+                     if k not in ("epoch_time_s", "t")} for line in fh]
+        runs[mode] = (mdir, rows, _named_launches(sa), "".join(outs))
+    if resume_epochs and "resumed from" not in runs["graph"][3]:
+        raise AssertionError(f"18 {tag}: the second run did not resume")
+    if must_print and must_print not in runs["graph"][3]:
+        raise AssertionError(f"18 {tag}: no {must_print!r} in\n"
+                             f"{runs['graph'][3]}")
+    n_leaves, files = 0, sorted(os.listdir(runs["graph"][0]))
+    for other in modes[1:]:
+        a, b = runs["graph"], runs[other]
+        if other == "eager2":
+            a = runs["eager"]
+        if sorted(os.listdir(b[0])) != files or not files:
+            raise AssertionError(f"18 {tag} {other}: checkpoints "
+                                 f"{os.listdir(b[0])} vs {files}")
+        for f in files:
+            with np.load(os.path.join(a[0], f)) as x, \
+                    np.load(os.path.join(b[0], f)) as y:
+                if sorted(x.files) != sorted(y.files):
+                    raise AssertionError(f"18 {tag} {f}: keys differ")
+                for k in x.files:
+                    if not np.array_equal(x[k], y[k]):
+                        raise AssertionError(f"18 {tag} {f} {k}: {other} "
+                                             "differs")
+                n_leaves += len(x.files)
+        if a[1] != b[1]:
+            raise AssertionError(f"18 {tag} metrics rows differ ({other}):\n"
+                                 f"{a[1]}\n{b[1]}")
+        if a[2] != b[2]:
+            raise AssertionError(f"18 {tag} launches differ ({other}): "
+                                 f"{a[2]} vs {b[2]}")
+    rescues = runs["graph"][3].count("STALLED")
+    print(f"18 {tag}: graphed = --host-loop"
+          + (" = --host-loop again" if eager_twice else "")
+          + f" bit for bit: {len(files)} checkpoints ({n_leaves} leaf "
+          f"comparisons, counts included), {len(runs['graph'][1])} metrics "
+          f"rows, launches {runs['graph'][2]}"
+          + (f", {rescues} rescues" if rescues else "")
+          + (", resumed" if resume_epochs else "")
+          + f" ({time.perf_counter() - tic:.1f} s) [{card}]")
+    return runs["graph"][2]
+
+
+def graph_ensemble(torch, sa, dev, npz, cfg, card):
+    """Phase 18f: an ``EnsembleTrainer`` epoch at M = ENSEMBLE_M on the loo
+    recipe from members stacked at counts 0 to M - 1 (member i trained i
+    solo steps first), graphed against ``epoch_on_device=False``: every
+    member's state, the counts and the metrics bit for bit, launches
+    equal (one forward and one dkv a step for all members)."""
+    import copy
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import (EnsembleTrainer,
+                                                  member_state, stack_states)
+    from socialways_torch.engine.train_step import draw_step, gan_step
+    from socialways_torch.engine.trainer import Trainer, chunk_of
+    from socialways_torch.io.checkpoint import flatten_state
+    ds = load_npz_dataset(npz)
+    trs = {"graph": Trainer(cfg, ds, dev),
+           "eager": Trainer(cfg.replace(epoch_on_device=False), ds, dev)}
+    tr = trs["graph"]
+    solos = []
+    for i in range(ENSEMBLE_M):
+        s = tr.init_state(1 + i)
+        for j in range(i):
+            s, _ = gan_step(s, chunk_of(tr.train_dev, j), draw_step(
+                tr.train_packed.width, tr.cfg,
+                torch.Generator(device=dev).manual_seed(40 + j), dev),
+                tr.cfg, int(tr.train_packed.n_valid[j]))
+        solos.append(s)
+    stacked = stack_states(solos)
+    if stacked.g_opt.count.tolist() != list(range(ENSEMBLE_M)):
+        raise AssertionError(f"member counts {stacked.g_opt.count}")
+    out = {}
+    for mode, t in trs.items():
+        ens = EnsembleTrainer(t)
+        if ens.graphed != (mode == "graph"):
+            raise AssertionError(f"18f {mode}: graphed {ens.graphed}")
+        reset_launches(sa)
+        st, m = ens.train_epoch(copy.deepcopy(stacked), [
+            torch.Generator(device=dev).manual_seed(90 + s)
+            for s in range(ENSEMBLE_M)])
+        torch.cuda.synchronize()
+        out[mode] = ([flatten_state(member_state(st, i))
+                      for i in range(ENSEMBLE_M)], m, _named_launches(sa))
+    (fa, ma, la), (fb, mb, lb) = out["graph"], out["eager"]
+    for i in range(ENSEMBLE_M):
+        for k in fa[i]:
+            if not np.array_equal(fa[i][k], fb[i][k]):
+                raise AssertionError(f"18f member {i} {k} differs")
+    for k in ("d_loss", "g_loss", "train_ade", "train_fde"):
+        if not np.array_equal(ma[k], mb[k]):
+            raise AssertionError(f"18f {k}: {ma[k]} vs {mb[k]}")
+    n = tr.n_steps_per_epoch
+    want = {"social_attention_fwd.launches": n,
+            "social_attention_fwd.member_launches": n,
+            "social_attention_bwd_dkv.launches": n,
+            "social_attention_bwd_dkv.member_launches": n}
+    if la != lb or la != want:
+        raise AssertionError(f"18f launches {la} / eager {lb}, want {want}")
+    counts = [int(f[".g_opt/[0]/.count"]) for f in fa]
+    print(f"18f EnsembleTrainer M = {ENSEMBLE_M} loo epoch from counts "
+          f"{list(range(ENSEMBLE_M))} (now {counts}): graphed = eager bit "
+          f"for bit for every member's {len(fa[0])} leaves and the "
+          f"metrics; launches {la} [{card}]")
+    return la
+
+
+def graph_profile(torch, sa, dev, npz, cfg, card):
+    """Phase 18g: one graphed epoch (every step a replay) under
+    torch.profiler: the kernels it names, counted, against the credited
+    launch counters of the same epoch; and the device ops, device time and
+    idle share of a graphed epoch."""
+    from torch.profiler import ProfilerActivity, profile
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer
+    tr = Trainer(cfg, load_npz_dataset(npz), dev)
+    state = tr.init_state(1)
+    rng = torch.Generator(device=dev).manual_seed(3)
+    state, _ = tr.train_epoch(state, rng)        # the captures
+    reset_launches(sa)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = tr.train_epoch(state, rng)
+        torch.cuda.synchronize()
+    credited = read_launches(sa)
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    seen = {"fwd": sum("social_attention_fwd_kernel" in n for n in names),
+            "dq": sum("bwd_dq_kernel" in n for n in names),
+            "dkv": sum("bwd_dkv_kernel" in n for n in names)}
+    if seen != credited or credited["fwd"] != tr.n_steps_per_epoch:
+        raise AssertionError(f"profiled replayed epoch: kernels {seen}, "
+                             f"credited counters {credited}")
+    print(f"18g profiled graphed epoch ({tr.n_steps_per_epoch} replays): "
+          f"the trace names {seen} kernel launches, the credited counters "
+          f"{credited}")
+    prof_ep = profile_step(torch, f"one graphed epoch ({tr.n_steps_per_epoch}"
+                           " steps)", lambda: tr.train_epoch(state, rng))
+    steps = tr.n_steps_per_epoch
+    print(f"18g a graphed step: {prof_ep['ops'] / steps:.0f} device ops, "
+          f"{prof_ep['device_us'] / steps:.1f} us device time, "
+          f"{prof_ep['wall_us'] / steps:.1f} us wall, idle "
+          f"{prof_ep['idle']:.1%} [{card}]")
+    return prof_ep
+
+
+def graph_rate(npz: str, mode: str) -> None:
+    """``chip_smoke.py --graph-rate graph|eager NPZ`` (phase 18h's child
+    process): train steps/s of a loo epoch and member-steps/s of an M =
+    ENSEMBLE_M epoch, each the second epoch of its run, graphed or eager;
+    prints one JSON line."""
+    import torch
+    sys.path.insert(0, REPO)
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.ensemble import EnsembleTrainer
+    from socialways_torch.engine.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = TrainConfig(agent_frame=True, use_social=True, g_ema_decay=0.999,
+                      hidden_size=HIDDEN, social_feature_size=HIDDEN,
+                      noise_len=HIDDEN // 2, batch_size=BATCH,
+                      n_past=N_PAST, n_next=N_NEXT, n_gen_samples=K,
+                      d_input_noise=0.05, d_input_noise_steps=-1,
+                      d_input_noise_floor=0.02, n_epochs=200,
+                      epoch_on_device=mode == "graph")
+    tr = Trainer(cfg, load_npz_dataset(npz), dev)
+    state = tr.init_state(1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(2):
+        state, m = tr.train_epoch(state, gen)
+    ens = EnsembleTrainer(tr)
+    states = ens.init_states(list(range(ENSEMBLE_M)))
+    gens = [torch.Generator(device=dev).manual_seed(s)
+            for s in range(ENSEMBLE_M)]
+    for _ in range(2):
+        states, me = ens.train_epoch(states, gens)
+    n = tr.n_steps_per_epoch
+    print(json.dumps({"mode": mode, "steps_s": n / m["epoch_time_s"],
+                      "member_steps_s": ENSEMBLE_M * n / me["epoch_time_s"]}))
+
+
+def graph_rates(npz, card):
+    """Phase 18h: train steps/s and member-steps/s graphed against eager
+    in alternated processes (graph, eager, eager, graph)."""
+    rates = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        out = subprocess.run([sys.executable, os.path.join(REPO,
+                                                           "chip_smoke.py"),
+                              "--graph-rate", mode, npz], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"--graph-rate {mode}: rc {out.returncode}"
+                                 f"\n{out.stderr[-2000:]}")
+        rates[mode].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    fmt = lambda key, mode: [round(r[key], 2) for r in rates[mode]]
+    print(f"18h alternated processes (loo, batch {BATCH}, second epoch): "
+          f"train steps/s graphed {fmt('steps_s', 'graph')}, eager "
+          f"{fmt('steps_s', 'eager')}; member-steps/s (M = {ENSEMBLE_M}) "
+          f"graphed {fmt('member_steps_s', 'graph')}, eager "
+          f"{fmt('member_steps_s', 'eager')} [{card}]")
+    return rates
+
+
+def graph_phase(torch, sa, cli_main, dev, npz, work, train_cfg, card):
+    """Phase 18: JAX's epoch on the device, every step a replayed CUDA
+    graph (engine/graphed.py), held bit for bit against the eager loop:
+    (a) the kernels captured alone, then ``graph_vs_eager`` of (a) ``cli
+    train --recipe loo`` (and a second eager run), (b) ``--bf16``, (c)
+    every schedule moving, (d) ``--fused-epochs --block-size 2``, (e) the
+    toy-flagship recipe with a rescue, resumed; (f) the ensemble at
+    different counts; (g) a profiled replayed epoch; (h) the rates."""
+    tic = time.perf_counter()
+    graph_kernel_probe(torch, sa, dev, train_cfg, card)
+    loo = ["train", "--recipe", "loo", "--data", npz, "--epochs",
+           str(GRAPH_EPOCHS), "--test-interval", "1", "--save-interval", "1"]
+    launches = {}
+    launches["loo"] = graph_vs_eager(torch, sa, cli_main, loo, work, "a loo",
+                                     card, eager_twice=True)
+    launches["bf16"] = graph_vs_eager(torch, sa, cli_main, loo + ["--bf16"],
+                                      work, "b bf16", card)
+    launches["schedules"] = graph_vs_eager(
+        torch, sa, cli_main, loo + GRAPH_SCHEDULES, work, "c schedules",
+        card)
+    launches["fused"] = graph_vs_eager(
+        torch, sa, cli_main, loo[:6] + ["4", "--test-interval", "2",
+                                        "--save-interval", "2",
+                                        "--fused-epochs", "--block-size",
+                                        "2"], work, "d fused", card)
+    toy = os.path.join(work, "toy-graph.npz")
+    run_cli(cli_main, ["create-toy", "--npz", toy], "create-toy")
+    launches["toy_rescue"] = graph_vs_eager(
+        torch, sa, cli_main, ["train", "--data", toy, "--epochs", "4"]
+        + GRAPH_TOY, work, "e toy rescue", card, resume_epochs=6,
+        must_print="coverage STALLED")
+    launches["ensemble"] = graph_ensemble(torch, sa, dev, npz, train_cfg,
+                                          card)
+    prof = graph_profile(torch, sa, dev, npz, train_cfg, card)
+    rates = graph_rates(npz, card)
+    wall = time.perf_counter() - tic
+    print(f"graph phase: {wall:.1f} s wall [{card}]")
+    return {"launches": launches, "profile": prof, "rates": rates,
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3669,10 +4042,19 @@ def main() -> int:
         # ---- 17. data parallelism: --mesh 1, 2 gloo ranks on the card
         dp = dp_phase(torch, sa, cli_main, npz, loo_ckpt, work, train_cfg,
                       smi)
+        # ---- 18. JAX's epoch on the device: graphed = eager, bit for bit
+        graph = graph_phase(torch, sa, cli_main, dev, npz, work, train_cfg,
+                            smi)
         dp_paths = {"dp_mesh1_cli": dp["mesh1"]["launches"],
                     **{f"dp_{what}_rank{r}": launches[f"{what}_launches"]
                        for r, launches in enumerate(dp["ranks"])
-                       for what in ("step", "epoch", "eval")}}
+                       for what in ("step", "epoch", "eval")},
+                    **{f"graph_{k}": {key: v.get(
+                        f"social_attention_{name}.launches", 0)
+                        for key, name in (("fwd", "fwd"), ("dq", "bwd_dq"),
+                                          ("dkv", "bwd_dkv"))}
+                       for k, v in graph["launches"].items()
+                       if k not in ("bf16", "ensemble")}}
 
         k_ms, p_ms, bound, wr_ms = path_timing
         src = "socialways_torch/kernels/csrc/"
@@ -3855,7 +4237,15 @@ def main() -> int:
               f", --mesh 1 {dp['mesh1']['rates']['mesh1']}, 2 gloo ranks "
               f"{dp['dp_steps_s']:.2f} group-steps/s, sharded simulate "
               f"{dp['sim_rate']:.4g} agent-steps/s, phase 17 "
-              f"{dp['wall_s']:.1f} s; chip_smoke wall "
+              f"{dp['wall_s']:.1f} s; graphed epochs: train steps/s "
+              f"{[round(r['steps_s'], 2) for r in graph['rates']['graph']]}"
+              f" (eager {[round(r['steps_s'], 2) for r in graph['rates']['eager']]}"
+              f"), member-steps/s "
+              f"{[round(r['member_steps_s'], 2) for r in graph['rates']['graph']]}"
+              f" (eager "
+              f"{[round(r['member_steps_s'], 2) for r in graph['rates']['eager']]}"
+              f"), a graphed epoch {graph['profile']['idle']:.1%} idle, phase "
+              f"18 {graph['wall_s']:.1f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3868,4 +4258,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--graph-rate"]:
+        graph_rate(sys.argv[3], sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

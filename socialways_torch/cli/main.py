@@ -31,8 +31,11 @@ it uses them).  ``train``, ``eth-ucy`` and ``sweep`` take every
 JAX's loop flags (``--fused-epochs``, ``--block-size``, ``--host-loop``,
 ``--latent-dim``, ``--pallas``, ``--mesh``): ``train --fused-epochs``
 prints, logs, checkpoints and evaluates once a block of epochs as JAX
-does; the port's epoch loop runs on the host and its kernels on the card
-whatever ``--host-loop`` and ``--pallas`` say.  ``train --mesh N`` (or
+does, and reads the metrics once a block; on the card every training step
+is a replay of a captured CUDA graph of the step (JAX's epoch on the
+device) unless ``--host-loop`` asks for the eager per-chunk loop, bit for
+bit the same steps; ``--cpu`` and ``--mesh`` train eagerly.  The kernels
+run on the card whatever ``--pallas`` says.  ``train --mesh N`` (or
 ``AxB``) trains data-parallel over N ranks (parallel/mesh.py): N cards
 on NCCL, or with ``--cpu --cpu-devices N`` N gloo processes on the CPU;
 inside ``torchrun`` each process is one rank.  Rank 0 alone prints and
@@ -122,8 +125,8 @@ def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--latent-dim", "--ld", type=int, default=10,
                    help="the reference's --latent-dim (read by nothing)")
     p.add_argument("--host-loop", action="store_true",
-                   help="per-chunk host loop instead of epoch-on-device "
-                        "(the port's loop always runs on the host)")
+                   help="per-chunk host loop (eager steps) instead of "
+                        "epoch-on-device (a replayed CUDA graph a step)")
     p.add_argument("--pallas", action="store_true",
                    help="use the fused social-attention kernels (the port "
                         "runs its CUDA kernels on the card anyway)")

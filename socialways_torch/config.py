@@ -100,8 +100,11 @@ class TrainConfig:
     dump_dir: str = ""               # prediction dumps each test interval
     lnr_model: str = "cv"            # the dumps' linear baseline: cv | kalman
     # JAX's loop knobs (socialways_tpu/config.py:236, 279): the port runs
-    # the CUDA kernels on the card whatever use_pallas says, and its epoch
-    # loop runs on the host whatever epoch_on_device says
+    # the CUDA kernels on the card whatever use_pallas says; with
+    # epoch_on_device every step of an epoch on the card is a replay of a
+    # captured CUDA graph (engine/graphed.py), and False runs the steps
+    # eagerly from the host (JAX's per-chunk host loop).  The CPU and a
+    # mesh always run eagerly
     use_pallas: bool = False
     epoch_on_device: bool = True
 

@@ -13,7 +13,7 @@ _EXPORTS = {
     "init_train_state": "train_step", "make_optimizers": "train_step",
     "transplant_schedule_clock": "train_step", "Trainer": "trainer",
     "EnsembleTrainer": "ensemble", "member_state": "ensemble",
-    "stack_states": "ensemble",
+    "stack_states": "ensemble", "EpochGraphs": "graphed",
 }
 __all__ = list(_EXPORTS)
 

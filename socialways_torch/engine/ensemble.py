@@ -22,10 +22,13 @@ random streams, drawn as a solo run with its seed draws them:
 The packed data is shared (JAX's ``in_axes=(0, 0, None)``).  So member m
 equals the solo run up to float reassociation of the batched products.
 
-One deliberate limit: the optimizer counts are host integers shared by
-the members (the schedules read them on the host), where JAX keeps one
-device count a member; ``stack_states`` refuses members whose counts
-differ.
+Each member keeps its own optimizer counts, as JAX's stacked leaves do
+(``[M]`` int32 tensors): members at different counts follow their own
+schedules, instance noise, info weight and D/G ratio.
+
+On the card with ``epoch_on_device`` (the default) every step of an epoch
+is a replay of a captured CUDA graph of the member step
+(``engine/graphed.py``), JAX's ``jit`` of ``vmap`` of the epoch scan.
 
 With a ``mesh`` (``parallel.Mesh``) the member axis is sharded over the
 ranks (JAX's :50-94): rank r trains members [r M/D, (r + 1) M/D) with no
@@ -37,16 +40,19 @@ all M.  Callers pass every member's seed and generator on every rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from socialways_torch.engine.train_step import (AdamState, StepDraws,
-                                                StepMetrics, TrainState,
-                                                draw_step, eval_params,
-                                                gan_step)
+from socialways_torch.engine.graphed import (EpochGraphs, add_metrics,
+                                             epoch_means)
+from socialways_torch.engine.train_step import (AdamState, StepMetrics,
+                                                TrainState, draw_step,
+                                                eval_params, gan_step,
+                                                stack_draws)
 from socialways_torch.engine.trainer import Trainer, chunk_of
 from socialways_torch.eval.metrics import (EvalSums, draw_noise,
                                            eval_chunk_members,
@@ -58,24 +64,21 @@ from socialways_torch.parallel.mesh import all_gather_rows
 
 
 def _stack_opts(opts: Sequence[AdamState]) -> AdamState:
+    """The members' optimizer states as one: moments [M, ...], counts
+    [M]."""
     first = opts[0]
-    for o in opts[1:]:
-        if (o.count, o.schedule_count, o.clipped) != (
-                first.count, first.schedule_count, first.clipped):
-            raise ValueError(
-                f"ensemble members' optimizer counts differ ({o.count}, "
-                f"schedule {o.schedule_count} against {first.count}, "
-                f"{first.schedule_count}): the ensemble keeps one host "
-                "count for all members")
     stack = lambda key: {k: torch.stack([getattr(o, key)[k] for o in opts])
                          for k in getattr(first, key)}
-    return dataclasses.replace(first, mu=stack("mu"), nu=stack("nu"))
+    return dataclasses.replace(
+        first, count=torch.stack([o.count for o in opts]),
+        schedule_count=(None if first.schedule_count is None else
+                        torch.stack([o.schedule_count for o in opts])),
+        mu=stack("mu"), nu=stack("nu"))
 
 
 def stack_states(states: Sequence[TrainState]) -> TrainState:
-    """The members' TrainStates as one, every tensor leaf stacked on a
-    leading member axis; the optimizer counts, equal in every member, stay
-    host integers."""
+    """The members' TrainStates as one, every tensor leaf (the optimizer
+    counts too) stacked on a leading member axis."""
     emas = [s.g_ema for s in states]
     return TrainState(
         stack_modules([s.g for s in states]),
@@ -90,19 +93,16 @@ def member_state(stacked: TrainState, i: int) -> TrainState:
     it with ``io.checkpoint.save_checkpoint``."""
     def opt(o: AdamState) -> AdamState:
         return dataclasses.replace(
-            o, mu={k: v[i].clone() for k, v in o.mu.items()},
+            o, count=o.count[i].clone(),
+            schedule_count=(None if o.schedule_count is None
+                            else o.schedule_count[i].clone()),
+            mu={k: v[i].clone() for k, v in o.mu.items()},
             nu={k: v[i].clone() for k, v in o.nu.items()})
     return TrainState(member_module(stacked.g, i),
                       member_module(stacked.d, i), opt(stacked.g_opt),
                       opt(stacked.d_opt),
                       None if stacked.g_ema is None
                       else member_module(stacked.g_ema, i))
-
-
-def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
-    """The members' step draws stacked on a leading member axis."""
-    return StepDraws(*(None if f[0] is None else torch.stack(f)
-                       for f in zip(*draws)))
 
 
 class EnsembleTrainer:
@@ -149,55 +149,85 @@ class EnsembleTrainer:
         return stack_states([self.trainer.init_state(s)
                              for s in self._local(seeds)])
 
-    def train_epoch(self, states: TrainState,
-                    generators: Sequence[torch.Generator]
-                    ) -> Tuple[TrainState, Dict]:
-        """One member-batched ``gan_step`` a chunk; member m's draws come
-        from ``generators[m]`` (a device generator), drawn as
-        ``Trainer.train_epoch`` draws them.  Per-member metrics (numpy
-        [M]) as ``Trainer.train_epoch`` gives a solo run's, with the wall
-        time and step count."""
-        tic = time.perf_counter()
+    @property
+    def graphed(self) -> bool:
+        """Whether the epochs run as CUDA graph replays of the member step
+        (the trainer's ``graphed``, without a member mesh)."""
+        return self.mesh is None and self.trainer.graphed
+
+    @functools.cached_property
+    def epoch_graphs(self) -> EpochGraphs:
+        """The captured member steps of the training split."""
+        tr = self.trainer
+        return EpochGraphs(self.cfg, tr.train_dev, tr.train_packed.n_valid,
+                           members=True)
+
+    def _epoch(self, states: TrainState,
+               generators: Sequence[torch.Generator]
+               ) -> Tuple[TrainState, StepMetrics]:
+        """One epoch of member-batched steps; member m's draws from
+        ``generators[m]``, drawn as ``Trainer.train_epoch`` draws them.
+        The per-member metrics [M] on the device."""
         tr, cfg = self.trainer, self.cfg
         per_member = [[draw_step(tr.train_packed.width, cfg, g, tr.device)
                        for _ in range(tr.n_steps_per_epoch)]
                       for g in self._local(generators)]
+        draws = [stack_draws([d[i] for d in per_member])
+                 for i in range(tr.n_steps_per_epoch)]
+        if self.graphed:
+            return states, self.epoch_graphs.epoch(states,
+                                                   stack_draws(draws))
         sums = None
         for i in range(tr.n_steps_per_epoch):
-            states, m = gan_step(states, chunk_of(tr.train_dev, i),
-                                 stack_draws([d[i] for d in per_member]), cfg,
-                                 n_valid=int(tr.train_packed.n_valid[i]),
+            states, m = gan_step(states, chunk_of(tr.train_dev, i), draws[i],
+                                 cfg, n_valid=int(tr.train_packed.n_valid[i]),
                                  members=True)
-            sums = m if sums is None else StepMetrics(
-                *(a + b for a, b in zip(sums, m)))
-        n_chunks = tr.n_steps_per_epoch
+            sums = add_metrics(sums, m)
+        return states, epoch_means(sums, tr.n_steps_per_epoch)
+
+    def _metrics(self, m: StepMetrics, tic: float, n: int = 1) -> Dict:
+        """Per-member metrics (numpy [M], one host read) as
+        ``Trainer.train_epoch`` gives a solo run's, with the wall time a
+        epoch and the step count of ``n`` epochs."""
+        tr = self.trainer
         vals = np.array(self._gather(torch.stack([
-            sums.d_loss / n_chunks, sums.g_loss / n_chunks, sums.ade_sum,
-            sums.fde_sum, sums.n_samples.to(sums.ade_sum.dtype)], dim=1)
-        ).T.tolist())
+            m.d_loss, m.g_loss, m.ade_sum, m.fde_sum,
+            m.n_samples.to(m.ade_sum.dtype)], dim=1)).T.tolist())
         d_loss, g_loss, ade_sum, fde_sum, n_samp = vals
-        n, ss = np.maximum(n_samp, 1), tr.dataset.ss
-        return states, {
+        n_s, ss = np.maximum(n_samp, 1), tr.dataset.ss
+        return {
             "d_loss": d_loss,
             "g_loss": g_loss,
-            "train_ade": ade_sum / ss / n,
-            "train_fde": fde_sum / ss / n,
-            "epoch_time_s": time.perf_counter() - tic,
-            "steps": n_chunks,
+            "train_ade": ade_sum / ss / n_s,
+            "train_fde": fde_sum / ss / n_s,
+            "epoch_time_s": (time.perf_counter() - tic) / n,
+            "steps": tr.n_steps_per_epoch * n,
         }
+
+    def train_epoch(self, states: TrainState,
+                    generators: Sequence[torch.Generator]
+                    ) -> Tuple[TrainState, Dict]:
+        """One member-batched ``gan_step`` a chunk (graphed on the card
+        with ``epoch_on_device``); member m's draws come from
+        ``generators[m]`` (a device generator), drawn as
+        ``Trainer.train_epoch`` draws them.  Per-member metrics (numpy
+        [M]) as ``Trainer.train_epoch`` gives a solo run's, with the wall
+        time and step count."""
+        tic = time.perf_counter()
+        states, m = self._epoch(states, generators)
+        return states, self._metrics(m, tic)
 
     def train_epochs(self, states: TrainState,
                      generators: Sequence[torch.Generator], n: int
                      ) -> Tuple[TrainState, Dict]:
-        """``n`` epochs; the LAST epoch's per-member metrics (d_loss,
+        """``n`` epochs and one metrics read (JAX's ``jit`` of ``vmap`` of
+        the epochs scan); the LAST epoch's per-member metrics (d_loss,
         g_loss, train_ade, train_fde), with the mean epoch time and the
         steps of all ``n``."""
         tic = time.perf_counter()
         for _ in range(n):
-            states, m = self.train_epoch(states, generators)
-        m["epoch_time_s"] = (time.perf_counter() - tic) / n
-        m["steps"] = self.trainer.n_steps_per_epoch * n
-        return states, m
+            states, m = self._epoch(states, generators)
+        return states, self._metrics(m, tic, n)
 
     def _noise_rngs(self, seeds: Sequence[int]) -> List[torch.Generator]:
         return [torch.Generator(device=self.trainer.device).manual_seed(s)

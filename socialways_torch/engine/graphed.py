@@ -1,0 +1,181 @@
+"""JAX's epoch on the device: every step of an epoch as the replay of a
+captured CUDA graph of ``gan_step``.
+
+Counterpart of socialways_tpu/engine/trainer.py:138-141, 167-231 (the
+``jax.jit`` of the step, ``_epoch_fn``'s ``lax.scan`` of ``gan_step`` over
+the chunks, ``_epochs_fn`` and ``train_epoch``'s on-device path) and
+socialways_tpu/engine/ensemble.py:101-125 (the ``jit`` of ``vmap`` of that
+scan).  JAX compiles the epoch into one device program with no host round
+trip inside it; here the state, the step's clock and the metric sums stay
+on the device, and one captured graph of the step is replayed once a
+step, so the host pays one launch a step instead of one an op.
+
+``EpochGraphs`` owns the static inputs of one step: the epoch's chunks
+(the trainer's packed split, [steps, width, ...]), a buffer of the epoch's
+draws ([steps, ...], drawn by the caller as the eager loop draws them and
+copied in at the epoch's start) and a device step index that selects both
+inside the graph and advances there.  The metric sums are device buffers
+the step adds into.  The first step of each outcome runs eagerly (the
+warm-up: kernel builds, cuBLAS handles and the unroll backup are in place
+before the capture), then the step is captured; a capture runs nothing,
+so the state does not move, and every later step of that outcome is a
+replay.  The outcomes are the solo D/G ratio's two branches (JAX's
+``lax.cond``): the host knows each step's outcome from the G count read
+once an epoch, since every non-empty chunk advances it by one.  Members
+have one outcome (the D phase runs and each member selects its own).
+
+The graph holds the addresses of the state's tensors.  A state whose
+tensors are not the captured ones (a resumed run, a rescue, a best-state
+restore, ``reinit_discriminator``, ``transplant_schedule_clock``) drops
+the graphs and is captured anew after a first eager step, so no step ever
+trains stale tensors.  The runner holds one binding: states alternated
+through one trainer are each captured anew as they come back.  A capture
+that fails raises: the loop never falls back to eager.  The launch counters of the attention kernels count at
+call time, so each capture's launches are taken back out and credited
+once a replay (``kernels.social_attention.captured_launches``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from socialways_torch.config import TrainConfig
+from socialways_torch.engine.train_step import (StepDraws, StepMetrics,
+                                                TrainState, d_phase_due,
+                                                d_ratio_on, gan_step)
+from socialways_torch.kernels.social_attention import (Launches,
+                                                       captured_launches,
+                                                       credit_launches)
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a step reads or updates in place: the modules'
+    parameters and buffers and both optimizers' moments and counts."""
+    out = []
+    for m in (state.g, state.d, state.g_ema):
+        if m is not None:
+            out += [*m.parameters(), *m.buffers()]
+    return out + state.g_opt.tensors() + state.d_opt.tensors()
+
+
+def solo_clock(cfg: TrainConfig, state: TrainState) -> Optional[int]:
+    """The G count the solo D/G ratio branches on, read once (None when
+    the ratio is off and nothing needs it)."""
+    return int(state.g_opt.count) if d_ratio_on(cfg) else None
+
+
+def add_metrics(sums: Optional[List[torch.Tensor]], m: StepMetrics
+                ) -> List[torch.Tensor]:
+    """The epoch's device sums with the step's metrics added in place
+    (zeros first): the eager loop and the graphs sum alike."""
+    if sums is None:
+        sums = [torch.zeros_like(t) for t in m]
+    torch._foreach_add_(sums, list(m))
+    return sums
+
+
+def epoch_means(sums: List[torch.Tensor], n_steps: int) -> StepMetrics:
+    """JAX's epoch metrics from the sums: mean losses, summed errors and
+    sample counts (copies)."""
+    d, g, ade, fde, n = sums
+    return StepMetrics(d / n_steps, g / n_steps, ade.clone(), fde.clone(),
+                       n.clone())
+
+
+class EpochGraphs:
+    """Replays of captured CUDA graphs of ``gan_step`` over the chunks of
+    ``batches`` ([steps, width, ...] on a CUDA device), whose valid counts
+    are ``n_valid`` (from packing: a chunk with none is no step).
+    ``members``: the member step of stacked states."""
+
+    def __init__(self, cfg: TrainConfig, batches: Dict[str, torch.Tensor],
+                 n_valid: Sequence[int], members: bool = False):
+        self.cfg, self.batches, self.members = cfg, batches, members
+        self.n_valid = [int(v) for v in n_valid]
+        self.idx = torch.zeros(1, dtype=torch.int64,
+                               device=batches["valid"].device)
+        self.draws: Optional[StepDraws] = None
+        self.bound: List[torch.Tensor] = []
+        self._drop()
+
+    def _drop(self) -> None:
+        """Drop the graphs, and with them their memory."""
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, Launches]] = {}
+        self.pool = None
+        self.sums: Optional[List[torch.Tensor]] = None
+
+    def _bind(self, state: TrainState) -> None:
+        """Keep the graphs when ``state`` holds the captured tensors (the
+        bound list keeps them alive, so equal addresses are the same
+        tensors), else drop them."""
+        tensors = state_tensors(state)
+        if [t.data_ptr() for t in tensors] != [t.data_ptr()
+                                                for t in self.bound]:
+            self._drop()
+            self.bound = tensors
+
+    def _load_draws(self, draws: StepDraws) -> None:
+        if self.draws is not None and all(
+                (a is None) == (b is None) and (a is None
+                                                or a.shape == b.shape)
+                for a, b in zip(self.draws, draws)):
+            torch._foreach_copy_([a for a in self.draws if a is not None],
+                                 [b for b in draws if b is not None])
+            return
+        self._drop()
+        self.draws = StepDraws(*(None if t is None else t.clone()
+                                 for t in draws))
+
+    def _step(self, state: TrainState, n_valid: int,
+              g_count: Optional[int]) -> None:
+        """The step at the device index: its chunk and draws selected on
+        the device, its metrics added to the sums, the index advanced."""
+        pick = lambda t: t.index_select(0, self.idx).squeeze(0)
+        chunk = {k: pick(v) for k, v in self.batches.items()}
+        draws = StepDraws(*(None if t is None else pick(t)
+                            for t in self.draws))
+        _, m = gan_step(state, chunk, draws, self.cfg, n_valid=n_valid,
+                        members=self.members, g_count=g_count)
+        self.sums = add_metrics(self.sums, m)
+        self.idx.add_(1)
+
+    def _capture(self, step) -> Tuple[torch.cuda.CUDAGraph, Launches]:
+        """A CUDA graph of ``step()`` (nothing runs) and its launches."""
+        graph = torch.cuda.CUDAGraph()
+        with captured_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool):
+                step()
+        self.pool = graph.pool()
+        return graph, launches
+
+    def epoch(self, state: TrainState, draws: StepDraws,
+              g_count: Optional[int] = None) -> StepMetrics:
+        """One epoch of ``state`` in place under ``draws`` (``stack_draws``
+        of the eager loop's draws); ``g_count``: the solo G count at the
+        epoch's start (``solo_clock``).  Returns the epoch's metrics on
+        the device, as ``trainer.run_epoch``."""
+        self._bind(state)
+        self._load_draws(draws)
+        if self.sums is not None:
+            torch._foreach_zero_(self.sums)
+        self.idx.zero_()
+        ratio = not self.members and d_ratio_on(self.cfg)
+        for n_valid in self.n_valid:
+            if n_valid == 0:
+                self.idx.add_(1)
+                continue
+            outcome = d_phase_due(self.cfg, g_count) if ratio else True
+            entry = self.graphs.get(outcome)
+            if entry is None:
+                self._step(state, n_valid, g_count)
+                self.graphs[outcome] = self._capture(functools.partial(
+                    self._step, state, n_valid, g_count))
+            else:
+                entry[0].replay()
+                credit_launches(entry[1])
+            if g_count is not None:
+                g_count += 1
+        return epoch_means(self.sums, len(self.n_valid))

@@ -168,8 +168,9 @@ class StallTracker:
 def reinit_discriminator(state, cfg: TrainConfig,
                          generator: Optional[torch.Generator] = None):
     """``state`` with a fresh discriminator drawn from ``generator`` (a CPU
-    ``torch.Generator``) on the device of its G, and a fresh D optimizer.
-    The core of the ``--stall-reset-d`` rescue."""
+    ``torch.Generator``) on the device of its G, and a fresh D optimizer
+    (its counts int32 tensors at 0 on that device).  The core of the
+    ``--stall-reset-d`` rescue."""
     from socialways_torch.engine.train_step import make_optimizers
     from socialways_torch.models.discriminator import init_discriminator
 

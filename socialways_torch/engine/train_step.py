@@ -48,10 +48,15 @@ and one backward for them together.
 
 State lives in modules updated in place.  Every random draw is an explicit
 tensor in a ``StepDraws`` (torch cannot reproduce ``jax.random``; tests
-feed JAX's draws in).  The schedules (info weight, instance noise, D/G
-ratio) read the G optimizer's count on the host.  A chunk with no valid
-row leaves the state as it is (:732-763), decided on the host from its
-valid count.
+feed JAX's draws in).  The step's clock is on the device, as optax's is:
+the optimizer counts are int32 tensors, and the lr schedules, the info
+weight and the instance-noise sigma are float32 tensors computed from them
+(JAX's formulas), so a CUDA graph of the step (engine/graphed.py) replays
+it at any count.  The one host decision on the count is the solo D/G
+ratio (JAX's ``lax.cond``): the caller passes the G count it knows
+(``g_count``; the trainer reads it once an epoch), else the step reads it.
+A chunk with no valid row leaves the state as it is (:732-763), decided
+on the host from its valid count.
 
 Data parallelism (``mesh``, parallel/mesh.py; JAX's ``axis_name``
 branches): each rank holds whole scenes and the draws of the GLOBAL batch,
@@ -65,13 +70,16 @@ instead, since those losses couple the ranks through sums over the mesh
 the transpose of JAX's psum does; :247-264, 638-661).  The metrics come
 back reduced (:734-757).  The step is a no-op only when every rank's chunk
 is padding (:758-763): a rank whose chunk is filler still runs every
-collective.  The Adam counts stay host integers, equal on every rank,
-since every rank takes every step.
+collective.  The counts stay equal on every rank, since every rank
+takes every step.
 
 Member mode (``members=True``, engine/ensemble.py): the state holds M
 models stacked on a leading member axis (every parameter, moment and EMA
-leaf [M, ...]; the optimizer counts shared host integers) and the draws
-carry a leading M; the data is shared.  The same loss code runs under
+leaf [M, ...], every optimizer count [M]) and the draws carry a leading
+M; the data is shared.  Each member's schedules, sigma and info weight
+follow its own count; under a D/G ratio the D phase runs for all and each
+member keeps its update only where its count makes the phase due (what
+JAX's ``vmap`` of ``lax.cond`` lowers to).  The same loss code runs under
 ``torch.func.vmap`` over the members (``models/stacked.py``: each stacked
 module enters as its parameters, seen inside as one member's namespace),
 the kernels launching once for all members (``_SocialAttention``'s vmap
@@ -93,6 +101,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import weakref
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
@@ -130,13 +140,33 @@ class AdamState:
     schedule, ``ScaleByScheduleState``'s count (``schedule_count``; None
     for a constant lr, whose state is empty).  ``clipped``: the optimizer
     is ``chain(clip_by_global_norm, adam)``, whose (empty) clip state comes
-    first and nests the Adam state one level deeper.  The counts are host
-    integers: the schedules read them without a device round trip."""
-    count: int
+    first and nests the Adam state one level deeper.  The counts are int32
+    tensors on the parameters' device, [] or [M] for stacked members, as
+    optax's are: the step updates and reads them on the device."""
+    count: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
-    schedule_count: Optional[int] = None
+    schedule_count: Optional[torch.Tensor] = None
     clipped: bool = False
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state: the moments and the counts."""
+        out = [*self.mu.values(), *self.nu.values(), self.count]
+        return out + ([] if self.schedule_count is None
+                      else [self.schedule_count])
+
+
+def _count_tensor(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _per_leaf(t: Union[float, torch.Tensor], leaves: Sequence[torch.Tensor]):
+    """A per-optimizer scalar (a float, a [] tensor or, for members, an [M]
+    tensor) as a foreach operand of ``leaves``: members' [M] values
+    broadcast along each leaf's leading axis."""
+    if not isinstance(t, torch.Tensor) or t.dim() == 0:
+        return t
+    return [t.view((-1,) + (1,) * (x.dim() - 1)) for x in leaves]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,9 +174,10 @@ class Adam:
     """optax.adam: ``p -= lr * m_hat / (sqrt(v_hat) + eps)``, eps outside
     the root.  ``lr`` is a constant or a schedule of the update count,
     which, as optax's ``scale_by_schedule``, reads the count BEFORE the
-    update; the bias correction reads the count after it.  ``clip`` > 0
-    puts optax's ``clip_by_global_norm(clip)`` before it."""
-    lr: Union[float, Callable[[int], float]]
+    update; the bias correction ``1 - b**count`` (float32, optax's) reads
+    the count after it.  ``clip`` > 0 puts optax's
+    ``clip_by_global_norm(clip)`` before it."""
+    lr: Union[float, Callable]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -155,36 +186,44 @@ class Adam:
     def init(self, params: nn.Module) -> AdamState:
         zeros = lambda: {k: torch.zeros_like(p)
                          for k, p in params.named_parameters()}
-        return AdamState(0, zeros(), zeros(),
-                         0 if callable(self.lr) else None, self.clip > 0)
+        dev = next(params.parameters()).device
+        return AdamState(_count_tensor(dev), zeros(), zeros(),
+                         _count_tensor(dev) if callable(self.lr) else None,
+                         self.clip > 0)
 
     @torch.no_grad()
     def step(self, opt: AdamState, params: nn.Module,
              grads: Sequence[torch.Tensor], members: bool = False) -> None:
         """One update of ``params`` in place from ``grads`` (in
-        ``parameters()`` order).  ``members``: every leaf is stacked on a
-        leading member axis, and the clip takes one norm per member (the
-        rest is elementwise)."""
-        lr = self.lr
-        if callable(lr):
-            lr = lr(opt.schedule_count)
-            opt.schedule_count += 1
+        ``parameters()`` order), the counts advanced in place.  Nothing is
+        read on the host.  ``members``: every leaf is stacked on a leading
+        member axis, each member with its own counts, and the clip takes
+        one norm per member (the rest is elementwise)."""
         ps = list(params.parameters())
         mu, nu = list(opt.mu.values()), list(opt.nu.values())
         grads = list(grads)
+        lr = self.lr
+        if callable(lr):
+            lr = lr(opt.schedule_count)
+            opt.schedule_count.add_(1)
         if self.clip > 0:
             grads = clip_by_global_norm(grads, self.clip, members)
-        opt.count += 1
+        opt.count.add_(1)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        m_hat = torch._foreach_div(mu, 1.0 - self.b1 ** opt.count)
-        denom = torch._foreach_div(nu, 1.0 - self.b2 ** opt.count)
+        count = opt.count.float()
+        m_hat = torch._foreach_div(mu, _per_leaf(1.0 - _pow32(self.b1, count),
+                                                 mu))
+        denom = torch._foreach_div(nu, _per_leaf(1.0 - _pow32(self.b2, count),
+                                                 nu))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(m_hat, denom)
-        torch._foreach_add_(ps, m_hat, alpha=-lr)
+        # optax's scale_by_learning_rate, then apply_updates
+        torch._foreach_mul_(m_hat, _per_leaf(-lr, m_hat))
+        torch._foreach_add_(ps, m_hat)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
@@ -243,27 +282,61 @@ def eval_params(state: TrainState) -> Generator:
     return state.g_ema if state.g_ema is not None else state.g
 
 
+def _on_device(fn: Callable) -> Callable:
+    """``fn`` of a count tensor (int32, [] or [M]) -> float32 tensor, also
+    taking a host int and then returning a Python float (the same float32
+    value)."""
+    @functools.wraps(fn)
+    def call(*args):
+        count = args[-1]
+        if isinstance(count, torch.Tensor):
+            return fn(*args)
+        return float(fn(*args[:-1], torch.tensor(count, dtype=torch.int32)))
+    return call
+
+
+def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a float32 tensor on ``like``'s device, made there (a
+    fill, which a CUDA graph captures).  A divisor is a tensor: torch
+    divides by a Python scalar as a product with its reciprocal, not as
+    the correctly rounded quotient XLA computes."""
+    return torch.full(like.shape, value, dtype=torch.float32,
+                      device=like.device)
+
+
+def _pow32(base: float, p: torch.Tensor) -> torch.Tensor:
+    """float32 ``base ** p`` for float32 ``p`` (``base`` rounded to float32
+    first, as JAX's weak scalar), computed in float64 and
+    rounded once.  XLA's float32 power, which the JAX step's optax calls,
+    equals it on all but about 0.1 % of (base, p) pairs (there by one
+    ulp), where torch's float32 ``pow`` misses on about 4 %."""
+    return torch.pow(_f32(base, p).double(), p.double()).float()
+
+
 def lr_schedule(lr: float, decay_rate: float, decay_steps: int,
-                warmup_steps: int) -> Union[float, Callable[[int], float]]:
+                warmup_steps: int) -> Union[float, Callable]:
     """``lr``, or JAX's schedule of it (socialways_tpu/engine/train_step.py:
     75-84): optax's staircase ``exponential_decay`` when ``decay_rate`` !=
     1 and ``decay_steps`` > 0, times the linear warmup ``min(1, (count +
-    1) / warmup_steps)`` when ``warmup_steps`` > 0.  Computed in float32,
-    as the JAX step computes it."""
+    1) / warmup_steps)`` when ``warmup_steps`` > 0.  The schedule maps a
+    count tensor to the float32 lr tensor, as optax computes it on the
+    device (a host int gives a float)."""
     decay = decay_rate != 1.0 and decay_steps > 0
     if not decay and warmup_steps <= 0:
         return lr
-    f32 = np.float32
 
-    def schedule(count: int) -> float:
-        v = f32(lr)
+    @_on_device
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.float()
+        v = _f32(lr, c)
         # optax keeps a zero rate's schedule constant
-        if decay and decay_rate != 0 and count > 0:
-            p = np.floor(f32(count) / f32(decay_steps))
-            v = f32(lr) * np.power(f32(decay_rate), p)
+        if decay and decay_rate != 0:
+            p = torch.floor(c / _f32(decay_steps, c))
+            v = torch.where(count > 0,
+                            lr * _pow32(decay_rate, p), v)
         if warmup_steps > 0:
-            v = v * min(f32(1.0), (f32(count) + f32(1.0)) / f32(warmup_steps))
-        return float(v)
+            v = v * torch.clamp((c + 1.0) / _f32(warmup_steps, c), max=1.0)
+        return v
     return schedule
 
 
@@ -285,17 +358,17 @@ def make_optimizers(cfg: TrainConfig) -> Tuple[Adam, Adam]:
 def transplant_schedule_clock(restored: TrainState,
                               clock: TrainState) -> TrainState:
     """``restored`` with every optimizer count (Adam's and the schedule's)
-    taken from ``clock`` (socialways_tpu/engine/train_step.py:129-153).
+    copied from ``clock`` (socialways_tpu/engine/train_step.py:129-153).
 
     A checkpoint-restore rescue rewinds the counts and with them every
     count-keyed schedule (the instance-noise anneal, lr decay); with this
     transplant the rescue restores parameters and moments but keeps the
-    schedules on the run's clock.  ``clock`` is only read: pass the state
-    as it was before the restore."""
+    schedules on the run's clock.  Neither input changes: the result's
+    counts are copies of ``clock``'s."""
     def merge(r: AdamState, c: AdamState) -> AdamState:
         return dataclasses.replace(
-            r, count=c.count,
-            schedule_count=(c.schedule_count
+            r, count=c.count.clone(),
+            schedule_count=(c.schedule_count.clone()
                             if r.schedule_count is not None else None))
     return dataclasses.replace(restored,
                                g_opt=merge(restored.g_opt, clock.g_opt),
@@ -347,6 +420,13 @@ def draw_step(n: int, cfg: TrainConfig,
                      extra)
 
 
+def stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
+    """Step draws stacked on a new leading axis: the members' draws of a
+    step, or an epoch's draws of its steps."""
+    return StepDraws(*(None if f[0] is None else torch.stack(f)
+                       for f in zip(*draws)))
+
+
 def shard_draws(draws: StepDraws, rank: int, n_ranks: int) -> StepDraws:
     """Rank ``rank``'s rows of a global batch's draws, the batch split into
     ``n_ranks`` equal parts in rank order: the noise and the eps tensors on
@@ -363,30 +443,50 @@ def shard_draws(draws: StepDraws, rank: int, n_ranks: int) -> StepDraws:
                      rows(draws.variety_noise, 1), rows(draws.extra_noise, 1))
 
 
-def info_weight(cfg: TrainConfig, step: int) -> float:
-    """The info-loss weight at G step ``step``: the ramp from
-    ``loss_info_w`` to ``loss_info_w_end`` over ``loss_info_w_steps``
-    steps, in float32 as the JAX step computes it (:291-300)."""
+def info_weight(cfg: TrainConfig, step):
+    """The info-loss weight at G step ``step`` (the G count: a tensor, or
+    a host int): the ramp from ``loss_info_w`` to ``loss_info_w_end`` over
+    ``loss_info_w_steps`` steps, a float32 tensor as the JAX step computes
+    it (:291-300); without a ramp the constant."""
     if cfg.loss_info_w_end > 0 and cfg.loss_info_w_steps > 0:
-        f32 = np.float32
-        frac = min(f32(1.0), f32(step) / f32(cfg.loss_info_w_steps))
-        return float(f32(cfg.loss_info_w)
-                     + f32(cfg.loss_info_w_end - cfg.loss_info_w) * frac)
+        return _info_ramp(cfg, step)
     return cfg.loss_info_w
 
 
-def d_phase_due(cfg: TrainConfig, step: int) -> bool:
+@_on_device
+def _info_ramp(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    s = step.float()
+    frac = torch.clamp(s / _f32(cfg.loss_info_w_steps, s), max=1.0)
+    return cfg.loss_info_w + (cfg.loss_info_w_end - cfg.loss_info_w) * frac
+
+
+def d_ratio_on(cfg: TrainConfig) -> bool:
+    """Whether the D/G update ratio can skip a D phase (:551-557)."""
+    return cfg.d_update_every > 1 or _ratio_scheduled(cfg)
+
+
+def _ratio_scheduled(cfg: TrainConfig) -> bool:
+    return (cfg.d_update_every_end > 0 and cfg.d_update_every_switch > 0
+            and cfg.d_update_every_end != cfg.d_update_every)
+
+
+def d_phase_due(cfg: TrainConfig, step):
     """Whether the D phase runs at G step ``step``: every
     ``d_update_every``-th step, every ``d_update_every_end``-th from
-    ``d_update_every_switch`` on (:551-569).  JAX decides it on the device
-    (``lax.cond``); here it is a host branch on the host count."""
-    scheduled = (cfg.d_update_every_end > 0 and cfg.d_update_every_switch > 0
-                 and cfg.d_update_every_end != cfg.d_update_every)
-    if cfg.d_update_every <= 1 and not scheduled:
-        return True
-    every = cfg.d_update_every
-    if scheduled and step >= cfg.d_update_every_switch:
-        every = cfg.d_update_every_end
+    ``d_update_every_switch`` on (:551-569).  A host int gives a bool; a
+    count tensor gives a bool tensor of its shape (JAX's ``lax.cond``
+    predicate)."""
+    if not d_ratio_on(cfg):
+        return (True if not isinstance(step, torch.Tensor)
+                else torch.ones_like(step, dtype=torch.bool))
+    every, end = cfg.d_update_every, cfg.d_update_every_end
+    if isinstance(step, torch.Tensor):
+        if _ratio_scheduled(cfg):
+            every = torch.where(step < cfg.d_update_every_switch,
+                                every, end).to(step.dtype)
+        return step % every == 0
+    if _ratio_scheduled(cfg) and step >= cfg.d_update_every_switch:
+        every = end
     return step % every == 0
 
 
@@ -412,19 +512,26 @@ def check_rows(cfg: TrainConfig, n: int) -> None:
                          f"by pac {cfg.pac}")
 
 
-def instance_noise_sigma(cfg: TrainConfig, step0: int) -> Optional[float]:
-    """The D instance-noise std at G step ``step0`` (None when off),
-    computed in float32 as the JAX step does (:415-427)."""
+def instance_noise_sigma(cfg: TrainConfig, step0):
+    """The D instance-noise std at G step ``step0`` (the G count: a
+    tensor, or a host int; None when off): annealed and floored, a float32
+    tensor as the JAX step computes it (:415-427); unannealed the
+    constant."""
     if cfg.d_input_noise <= 0:
         return None
-    f32 = np.float32
     if cfg.d_input_noise_steps > 0:
-        sigma = f32(cfg.d_input_noise) * max(
-            f32(0.0), f32(1.0) - f32(step0) / f32(cfg.d_input_noise_steps))
-        if cfg.d_input_noise_floor > 0:
-            sigma = max(sigma, f32(cfg.d_input_noise_floor))
-        return float(sigma)
+        return _annealed_sigma(cfg, step0)
     return cfg.d_input_noise
+
+
+@_on_device
+def _annealed_sigma(cfg: TrainConfig, step0: torch.Tensor) -> torch.Tensor:
+    s = step0.float()
+    sigma = cfg.d_input_noise * torch.clamp(
+        1.0 - s / _f32(cfg.d_input_noise_steps, s), min=0.0)
+    if cfg.d_input_noise_floor > 0:
+        sigma = torch.clamp(sigma, min=cfg.d_input_noise_floor)
+    return sigma
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]
@@ -441,8 +548,31 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]
 
 @torch.no_grad()
 def _copy_params(dst: nn.Module, src: nn.Module) -> None:
-    for a, b in zip(dst.parameters(), src.parameters()):
-        a.copy_(b)
+    torch._foreach_copy_(list(dst.parameters()), list(src.parameters()))
+
+
+#: each discriminator's unroll backup, allocated at its first snapshot
+_BACKUPS: "weakref.WeakKeyDictionary[nn.Module, nn.Module]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _backup_of(d: nn.Module) -> nn.Module:
+    """The module ``d``'s snapshot is copied into (same structure)."""
+    backup = _BACKUPS.get(d)
+    if backup is None:
+        backup = _BACKUPS[d] = copy.deepcopy(d).requires_grad_(False)
+    return backup
+
+
+@torch.no_grad()
+def _select_members(due: torch.Tensor, out: Sequence[torch.Tensor],
+                    if_due: Sequence[torch.Tensor],
+                    if_not: Sequence[torch.Tensor]) -> None:
+    """``out[i]`` = member-wise ``if_due[i]`` where ``due`` [M], else
+    ``if_not[i]``, in place (every tensor with a leading M)."""
+    torch._foreach_copy_(list(out), [
+        torch.where(due.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+        for a, b in zip(if_due, if_not)])
 
 
 #: the members' own entries of a step's per-part tensors (the draws and what
@@ -513,7 +643,8 @@ class _DataParallel:
 def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws, cfg: TrainConfig,
              n_valid: Optional[int] = None, members: bool = False,
-             mesh=None, n_valid_global: Optional[int] = None
+             mesh=None, n_valid_global: Optional[int] = None,
+             g_count: Optional[int] = None
              ) -> Tuple[TrainState, StepMetrics]:
     """One GAN update on a padded scene chunk, in place on ``state``.
 
@@ -525,7 +656,10 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     (``parallel.Mesh``): this rank's chunk of a data-parallel step, with
     the GLOBAL batch's ``draws``; ``n_valid_global`` (the group's valid
     count, from packing) saves an all-reduce, and every metric comes back
-    reduced over the mesh."""
+    reduced over the mesh.  ``g_count``: the G count before this step as
+    the caller knows it on the host; the solo D/G ratio branches on it
+    (None reads the device count, a host sync).  Otherwise nothing of the
+    step is read on the host."""
     valid = batch["valid"]
     dev = valid.device
     vm = Members(draws.noise.shape[0] if members else None)
@@ -559,9 +693,18 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     zeros_t = torch.zeros((n, 1), device=dev) + rows(draws.zero_label)
     ones_t = torch.ones((n, 1), device=dev) * rows(draws.one_label)
     obsv_4d, pred_4d = obsv_to_4d(obsv), pred_to_4d(obsv, pred)
+    # the schedules from the G count before this step's update, on the
+    # device; members' [M] values enter each member's call as its own
     step0 = state.g_opt.count
-    info = (cfg.use_info_loss, info_weight(cfg, step0), cfg.n_latent_codes,
-            cfg.latent_code_type)
+    scalars = {"info_w": info_weight(cfg, step0),
+               # D instance noise on the prediction inputs (observations
+               # stay clean)
+               "sigma": instance_noise_sigma(cfg, step0)}
+    sigma = scalars["sigma"]
+
+    def info(c):
+        return (cfg.use_info_loss, c["info_w"], cfg.n_latent_codes,
+                cfg.latent_code_type)
     accum = cfg.grad_accum > 1
     diverse = cfg.ms_weight > 0 or cfg.ds_weight > 0
     separate = not accum and (cfg.use_variety_loss or cfg.serial_rollout
@@ -598,10 +741,9 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                  cast(c["social_x4"]), cfg.decoder,
                                  cfg.remat_steps, cfg.max_scene_size).float()
 
-    # D instance noise on the prediction inputs (observations stay clean);
-    # sigma from the G step count before this step's update
-    sigma = instance_noise_sigma(cfg, step0)
     member_keys = _MEMBER_KEYS + (() if sigma is None else ("pred_4d",))
+    member_keys += tuple(k for k, v in scalars.items()
+                         if isinstance(v, torch.Tensor))
     n_parts = cfg.grad_accum if accum else 1
 
     def split(key, v):
@@ -615,7 +757,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     rows = {"obsv": obsv, "obsv_4d": obsv_4d, "noise": noise,
             "scene_ids": scene_ids, "valid": valid, "zeros": zeros_t,
             "ones": ones_t, "pred": pred, "social_x4": social_x4}
-    parts = [{} for _ in range(n_parts)]
+    parts = [dict(scalars) for _ in range(n_parts)]
     for k, v in rows.items():
         for c, part in zip(parts, split(k, v)):
             c[k] = part
@@ -640,8 +782,10 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     pred_hat_d, pred_4d_d, eps_g = pred_hat_fwd, pred_4d, None
     if sigma is not None:
-        pred_hat_d = pred_hat_d + sigma * draws.eps_fake
-        pred_4d_d = pred_4d + sigma * draws.eps_real
+        s = sigma.view(-1, 1, 1, 1) if members and isinstance(
+            sigma, torch.Tensor) else sigma
+        pred_hat_d = pred_hat_d + s * draws.eps_fake
+        pred_4d_d = pred_4d + s * draws.eps_real
         eps_g = draws.eps_g
     for k, v in (("pred_hat", pred_hat_d), ("pred_4d", pred_4d_d),
                  ("eps_g", eps_g)):
@@ -679,7 +823,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         gv_c = group_valid(c["valid"])
         loss = lsgan_d_loss(labels[:n_packs], labels[n_packs:], codes[:nn_],
                             c["noise"], c["valid"], c["zeros"], c["ones"],
-                            *info, label_valid=gv_c, w_label=w_label,
+                            *info(c), label_valid=gv_c, w_label=w_label,
                             w_info=w_rest)
         if cfg.r1_gamma > 0:
             # R1: |d D(obsv, real) / d real|^2, a function of D that the
@@ -715,19 +859,34 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                         a + b for a, b in zip(grads, g)]
         return total, grads
 
-    # D phase: n_unrolling_steps + 1 updates, snapshot after the first; a
-    # step the D/G ratio skips leaves D and its optimizer as they are
-    d_backup = None
-    if d_phase_due(cfg, step0):
+    # D phase: n_unrolling_steps + 1 updates, snapshot after the first
+    # (into a backup allocated once); a step the D/G ratio skips leaves D
+    # and its optimizer as they are.  Members run it, and each keeps its
+    # update where its own count makes the phase due (the select JAX's
+    # vmap of lax.cond lowers to)
+    d_backup, due = None, True
+    if members and d_ratio_on(cfg):
+        due = d_phase_due(cfg, step0)
+        before = [t.clone() for t in d_params + state.d_opt.tensors()]
+    elif d_ratio_on(cfg):
+        due = d_phase_due(cfg, int(step0) if g_count is None else g_count)
+    if due is True or members:
         for u in range(cfg.n_unrolling_steps + 1):
             d_loss, d_grads = d_value_and_grad()
             d_tx.step(state.d_opt, state.d, synced(d_grads), members)
             if u == 0:
                 d_loss_first = d_loss
                 if cfg.n_unrolling_steps > 0:
-                    d_backup = copy.deepcopy(state.d)
+                    d_backup = _backup_of(state.d)
+                    _copy_params(d_backup, state.d)
     else:
         d_loss_first, _ = d_value_and_grad(with_grads=False)
+    if due is not True and members:
+        after = d_params + state.d_opt.tensors()
+        _select_members(due, after, after, before)
+        if d_backup is not None:
+            b = list(d_backup.parameters())
+            _select_members(due, b, b, before[:len(b)])
 
     # G phase against the unrolled D, normalized once (per member)
     def sn_const(d):
@@ -739,12 +898,12 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         """The G loss of one part against D (:583-601, 664-682), of the
         part's rollout ``c["ph"]`` under grad."""
         ph = c["ph"]
-        ph_in = ph if c["eps_g"] is None else ph + sigma * c["eps_g"]
+        ph_in = ph if c["eps_g"] is None else ph + c["sigma"] * c["eps_g"]
         gen_label, gen_code = discriminator_apply(
             cast(d_g), cast(c["obsv_4d"]), cast(ph_in), cfg.remat_steps,
             cfg.pac, mb_feat(ph_in, c["valid"]))
         loss = lsgan_g_loss(gen_label.float(), gen_code.float(), c["noise"],
-                            c["valid"], c["ones"], *info,
+                            c["valid"], c["ones"], *info(c),
                             label_valid=group_valid(c["valid"]),
                             w_label=w_label, w_info=w_info)
         if cfg.use_l2_loss:
@@ -784,7 +943,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                 out[1:first, ..., :2], pred, valid)
         if diverse:
             # pairs of the step's draw and the extra ones (:609-661)
-            d_row = _pair_mean(out[[0] + list(range(first, r)), ..., :2])
+            d_row = _pair_mean(torch.cat([out[:1], out[first:]])[..., :2])
             dz_row = _pair_mean(torch.cat([c["noise"][None], c["extra"]]))
             if cfg.ms_weight > 0:
                 ratio = (_masked_mean(d_row, valid, mesh)

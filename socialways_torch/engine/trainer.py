@@ -4,17 +4,27 @@ evaluation.
 Counterpart of socialways_tpu/engine/trainer.py:51-77 (the grad-accum
 alignment check), :83-160 (packing and the one-time transfer of both
 splits, the -1 anneal sentinel), :153-266 (the epoch loop) and :269-290
-(``evaluate``).  JAX scans the GAN step over the chunks on the device;
-here an epoch is a Python loop of ``gan_step`` over the chunks (no CUDA
-graph, no ``torch.compile``) with the per-chunk metrics summed on the
-device and read once at the epoch's end.
+(``evaluate``).  JAX scans the GAN step over the chunks on the device
+(``epoch_on_device``, its default; socialways_tpu/engine/trainer.py:
+138-231).  So does the port on the card: with ``epoch_on_device`` every
+step of ``train_epoch`` and ``train_epochs`` is the replay of a captured
+CUDA graph of ``gan_step`` (engine/graphed.py), bit for bit the eager
+step, with no host read of a device value between the epoch's start (the
+G count, read once when the D/G ratio needs it) and its one metrics read.
+``epoch_on_device=False`` (``--host-loop``) runs the same steps eagerly,
+one Python call of ``gan_step`` a chunk, as JAX keeps its per-chunk host
+loop; on the CPU (the tests, ``--cpu``) the loop is eager, since graphs
+are CUDA's.  Either way the metrics are summed on the device and read
+once at the epoch's end.
 
 With a ``mesh`` (``parallel.Mesh``, one rank of a data-parallel group)
 the same loop runs data-parallel: the chunks are grouped D at a time
 (``parallel.shard_packed_for_mesh``, filler chunks padding the last
 group), each rank holds its column of the groups on its device, and a
 step is one group (JAX's :206-231): the draws are the group's global
-draws, identical on every rank, and the metrics come back reduced.
+draws, identical on every rank, and the metrics come back reduced.  Under
+a mesh the loop is eager: a graph of the data-parallel step would need
+its collectives captured (NCCL), which this port does not do yet.
 """
 
 from __future__ import annotations
@@ -30,9 +40,12 @@ from socialways_torch.config import TrainConfig, check_supported
 from socialways_torch.data.dataset import (PackedBatches, TrajectoryDataset,
                                            pack_scene_batches)
 from socialways_torch.device import resolve_device
+from socialways_torch.engine.graphed import (EpochGraphs, add_metrics,
+                                             epoch_means, solo_clock)
 from socialways_torch.engine.train_step import (StepDraws, StepMetrics,
                                                 TrainState, draw_step,
-                                                gan_step, init_train_state)
+                                                gan_step, init_train_state,
+                                                stack_draws)
 from socialways_torch.eval.metrics import EvalSums, eval_chunk, finalize_eval
 from socialways_torch.models.generator import Generator
 from socialways_torch.parallel.mesh import (group_valid_counts, rank_column,
@@ -108,19 +121,22 @@ def run_epoch(state: TrainState, batches: Dict[str, torch.Tensor],
     [steps, D] host valid counts (None: each step counts its rows on the
     device).  Returns the state and the epoch's metrics on the device:
     mean losses, summed errors and sample counts
-    (socialways_tpu/parallel/mesh.py:126-147)."""
+    (socialways_tpu/parallel/mesh.py:126-147).  The solo D/G ratio takes
+    its G count from one read at the start (every step with valid rows
+    advances it by one)."""
     rank = 0 if mesh is None else mesh.rank
     n = batches["valid"].shape[0]
+    g_count = None if counts is None else solo_clock(cfg, state)
     sums = None
     for i in range(n):
         kw = {} if counts is None else dict(
             n_valid=int(counts[i, rank]), n_valid_global=int(counts[i].sum()))
         state, m = gan_step(state, chunk_of(batches, i), draws[i], cfg,
-                            mesh=mesh, **kw)
-        sums = m if sums is None else StepMetrics(
-            *(a + b for a, b in zip(sums, m)))
-    return state, sums._replace(d_loss=sums.d_loss / n,
-                                g_loss=sums.g_loss / n)
+                            mesh=mesh, g_count=g_count, **kw)
+        sums = add_metrics(sums, m)
+        if g_count is not None and counts[i].sum():
+            g_count += 1
+    return state, epoch_means(sums, n)
 
 
 class Trainer:
@@ -128,7 +144,9 @@ class Trainer:
     raises when there is no GPU rather than run on the CPU), or, with a
     ``mesh``, this rank's column of them on the mesh's device.  The
     training split is packed and copied on its first use, so that
-    evaluation alone does no training-only work."""
+    evaluation alone does no training-only work.  On the card with
+    ``epoch_on_device`` it also owns the epoch's CUDA graphs, freed with
+    it."""
 
     def __init__(self, cfg: TrainConfig, dataset: TrajectoryDataset,
                  device=None, mesh=None):
@@ -198,6 +216,35 @@ class Trainer:
                           generator, self.device)
                 for _ in range(self.n_steps_per_epoch)]
 
+    @property
+    def graphed(self) -> bool:
+        """Whether the epochs run as CUDA graph replays: ``epoch_on_device``
+        on a CUDA device without a mesh."""
+        return (self.cfg.epoch_on_device and self.mesh is None
+                and self.device.type == "cuda")
+
+    @functools.cached_property
+    def epoch_graphs(self) -> EpochGraphs:
+        """The captured steps of the training split (built on first use)."""
+        return EpochGraphs(self.cfg, self.train_dev,
+                           self.train_packed.n_valid)
+
+    def _graphed_epochs(self, state: TrainState, n: int,
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[Sequence[StepDraws]] = None
+                        ) -> Tuple[TrainState, StepMetrics]:
+        """``n`` graphed epochs (``draws``: the one epoch's); the last
+        epoch's device metrics.  The solo G count is read once for all
+        ``n``."""
+        g_count = solo_clock(self.cfg, state)
+        steps = int((self.train_packed.n_valid > 0).sum())
+        for _ in range(n):
+            m = self.epoch_graphs.epoch(state, stack_draws(
+                self._draws(generator) if draws is None else draws), g_count)
+            if g_count is not None:
+                g_count += steps
+        return state, m
+
     def _host_metrics(self, m: StepMetrics, tic: float) -> Dict[str, float]:
         """JAX's epoch metrics from the device's (one host read): mean
         losses, train ADE/FDE in meters, the time since ``tic`` and the
@@ -225,19 +272,27 @@ class Trainer:
         the same metrics as JAX: per-step mean losses, train ADE/FDE in
         meters, wall time and step count."""
         tic = time.perf_counter()
-        state, m = run_epoch(
-            state, self.train_dev,
-            self._draws(generator) if draws is None else draws, self.cfg,
-            self.train_counts, self.mesh)
+        if self.graphed:
+            state, m = self._graphed_epochs(state, 1, generator, draws)
+        else:
+            state, m = run_epoch(
+                state, self.train_dev,
+                self._draws(generator) if draws is None else draws,
+                self.cfg, self.train_counts, self.mesh)
         return state, self._host_metrics(m, tic)
 
     def train_epochs(self, state: TrainState, generator: torch.Generator,
                      n: int) -> Tuple[TrainState, Dict[str, float]]:
-        """``n`` epochs; the LAST epoch's metrics, with the mean epoch time
-        and the steps of all ``n``."""
+        """``n`` epochs (JAX's ``_epochs_fn``: graphed, n x steps replays
+        and one metrics read); the LAST epoch's metrics, with the mean
+        epoch time and the steps of all ``n``."""
         tic = time.perf_counter()
-        for _ in range(n):
-            state, m = self.train_epoch(state, generator)
+        if self.graphed:
+            state, m = self._graphed_epochs(state, n, generator)
+            m = self._host_metrics(m, tic)
+        else:
+            for _ in range(n):
+                state, m = self.train_epoch(state, generator)
         m["epoch_time_s"] = (time.perf_counter() - tic) / n
         m["steps"] = self.n_steps_per_epoch * n
         return state, m

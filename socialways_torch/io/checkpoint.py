@@ -201,6 +201,11 @@ def _opt_prefix(prefix: str, opt) -> str:
     return prefix + ("[1]/" if opt.clipped else "")
 
 
+def _count_array(count: torch.Tensor) -> np.ndarray:
+    """An optimizer count tensor as JAX's leaf: an int32 array."""
+    return count.detach().cpu().numpy().astype(np.int32)
+
+
 def flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
     """The JAX ``TrainState`` leaves of ``state``, keyed as JAX flattens
     them."""
@@ -214,10 +219,9 @@ def flatten_state(state: TrainState) -> Dict[str, np.ndarray]:
             flat[prefix + _name_to_jax_path(name)] = t.detach().cpu().numpy()
     for prefix, opt in zip(_OPTS, (state.g_opt, state.d_opt)):
         prefix = _opt_prefix(prefix, opt)
-        flat[f"{prefix}[0]/.count"] = np.asarray(opt.count, np.int32)
+        flat[f"{prefix}[0]/.count"] = _count_array(opt.count)
         if opt.schedule_count is not None:
-            flat[f"{prefix}[1]/.count"] = np.asarray(opt.schedule_count,
-                                                     np.int32)
+            flat[f"{prefix}[1]/.count"] = _count_array(opt.schedule_count)
         for moment in ("mu", "nu"):
             for name, t in getattr(opt, moment).items():
                 flat[f"{prefix}[0]/.{moment}/{_name_to_jax_path(name)}"] = (
@@ -260,7 +264,8 @@ def state_from_flat(flat: Mapping[str, np.ndarray], cfg: TrainConfig,
         for attr, key in counts:
             if key not in flat:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            setattr(opt, attr, int(flat[key]))
+            setattr(opt, attr, torch.from_numpy(
+                np.array(flat[key], dtype=np.int32)))
         for moment in ("mu", "nu"):
             tensors = getattr(opt, moment)
             for name, t in tensors.items():
@@ -268,6 +273,9 @@ def state_from_flat(flat: Mapping[str, np.ndarray], cfg: TrainConfig,
                     f"{prefix}[0]/.{moment}/{_name_to_jax_path(name)}", t)
     dev = resolve_device(device)
     for opt in (state.g_opt, state.d_opt):
+        opt.count = opt.count.to(dev)
+        if opt.schedule_count is not None:
+            opt.schedule_count = opt.schedule_count.to(dev)
         for moment in (opt.mu, opt.nu):
             for name in moment:
                 moment[name] = moment[name].to(dev)

@@ -14,6 +14,7 @@ view of a model whose weights are bf16 casts of the float32 masters, and
 
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 from typing import Callable, List, NamedTuple, Optional, Sequence
@@ -113,8 +114,14 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     """For bf16 ``x`` the slope is rounded to bf16 first, as JAX's weakly
     typed scalar is (0.2 becomes 0.2002)."""
     if wide(x.dtype) != x.dtype:
-        negative_slope = float(torch.tensor(negative_slope, dtype=x.dtype))
+        negative_slope = _rounded(negative_slope, x.dtype)
     return F.leaky_relu(x, negative_slope)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (once: no tensor read a step)."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def spectral_normalize(w: torch.Tensor, n_iters: int = 30,

@@ -37,7 +37,8 @@ def agent_frame_of(obsv_p: torch.Tensor) -> Frame:
     c = obsv_p[..., -1, :]
     d = obsv_p[..., -1, :] - obsv_p[..., -2, :]
     nrm = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
-    identity = torch.tensor([1.0, 0.0], dtype=d.dtype, device=d.device)
+    # [1, 0] made on the device (no host copy, which a CUDA graph refuses)
+    identity = torch.eye(1, 2, dtype=d.dtype, device=d.device)[0]
     unit = torch.where(nrm > 1e-8, d / torch.clamp(nrm, min=1e-8), identity)
     return c, unit[..., 0], unit[..., 1]
 

@@ -17,8 +17,6 @@ The ensemble's batched CPU products run one torch thread here: under the
 suite's parallel workers a multi-threaded batched product oversubscribes
 the cores (tens of times slower, same values)."""
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -161,7 +159,7 @@ def test_torch_member_step_matches_solo_steps(variant):
             tol = ATOL + 1e-3 * float(np.abs(want[key]).max())
             np.testing.assert_allclose(got[key], want[key], rtol=RTOL,
                                        atol=tol, err_msg=f"{variant} {key}")
-    assert stacked.g_opt.count == solos[0].g_opt.count
+    assert (stacked.g_opt.count == solos[0].g_opt.count).all()
 
 
 # ------------------------------------------------------------------ vs JAX
@@ -303,7 +301,8 @@ def test_torch_member_checkpoint_restores_in_jax(toy_npz, tmp_path):
 # ---------------------------------------------------------------- refusals
 def test_torch_ensemble_refuses_a_mesh_and_differing_counts(toy_npz):
     """JAX's refusals (socialways_tpu/engine/ensemble.py:58-77): a trainer
-    that has a mesh, and members that do not divide over the mesh."""
+    that has a mesh, and members that do not divide over the mesh; and
+    members at different counts, which are taken, each on its own clock."""
     from socialways_torch.parallel import Mesh
     mesh = Mesh((2,), ("data",), 0, torch.device("cpu"))
     ds = load_npz_dataset(toy_npz)
@@ -313,10 +312,45 @@ def test_torch_ensemble_refuses_a_mesh_and_differing_counts(toy_npz):
     with pytest.raises(ValueError, match="3 ensemble members not divisible "
                                          "by the 2-device mesh"):
         EnsembleTrainer(tr, mesh=mesh).init_states([0, 1, 2])
-    a, b = tr.init_state(0), tr.init_state(1)
-    b.g_opt = dataclasses.replace(b.g_opt, count=3)
-    with pytest.raises(ValueError, match="counts differ"):
-        stack_states([a, b])
+    # members at different counts (0 and 3) are taken, each on its own
+    # clock: the member step equals jax.vmap of JAX's gan_step on the same
+    # stacked state, with lr decay and the D/G ratio on (member 0's D
+    # phase is due, member 1's is not)
+    flags = dict(LOO, lr_decay_rate=0.9, lr_decay_steps=2, d_update_every=2)
+    jcfg, tcfg = JaxConfig(**flags), TrainConfig(**flags)
+    n = 32
+    solo = jax.jit(lambda st, bb, k: jax_gan_step(st, bb, k, jcfg))
+    ja, jb = (jax_init(jax.random.PRNGKey(s), jcfg) for s in (7, 8))
+    for i in range(3):
+        jb = solo(jb, {k: jnp.asarray(v) for k, v in
+                       make_chunk(40 + i, n=n).items()},
+                  jax.random.PRNGKey(50 + i))[0]
+    j0 = jax_stack_states([ja, jb])
+    batch = make_chunk(9, n=n)
+    keys = jnp.stack([jax.random.PRNGKey(20 + s) for s in (7, 8)])
+    step = jax.jit(jax.vmap(lambda st, bb, k: jax_gan_step(st, bb, k, jcfg),
+                            in_axes=(0, None, 0)))
+    j1, jm = step(j0, {k: jnp.asarray(v) for k, v in batch.items()}, keys)
+    j0, j1, jm = jax.device_get((j0, j1, jm))
+    state = stack_states([train_state_from_jax(jax_member_state(j0, i),
+                                               tcfg, "cpu")
+                          for i in range(2)])
+    assert state.g_opt.count.tolist() == [0, 3]
+    olds = [{k: v.copy() for k, v in flatten_state(
+        member_state(state, i)).items()} for i in range(2)]
+    state, m = gan_step(state, to_torch(batch),
+                        stack_draws([jax_draws(k, n, jcfg) for k in keys]),
+                        tcfg, members=True)
+    for i in range(2):
+        assert_state_close(member_state(state, i), jax_member_state(j1, i),
+                           tag=f"member {i}", t_old=olds[i],
+                           j_old=jax_member_state(j0, i), cfg=tcfg)
+        for name in ("d_loss", "g_loss", "ade_sum", "fde_sum"):
+            np.testing.assert_allclose(float(getattr(m, name)[i]),
+                                       float(getattr(jm, name)[i]),
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+    assert state.g_opt.count.tolist() == [1, 4]
+    assert state.d_opt.count.tolist() == [2, 4]
 
 
 # ------------------------------------------------------------ host helpers
