@@ -141,10 +141,14 @@ Phases (any failure raises):
    ``EnsembleTrainer`` epoch and ``evaluate``, launches exact;
 17. data parallelism (parallel/, ``train --mesh``): (a) ``cli train
    --recipe loo --mesh 1`` (NCCL at world size 1: NCCL takes one card a
-   rank and the machine has one) for 2 epochs equal bit for bit to the
-   run without ``--mesh``, checkpoints and launches, and train steps/s of
-   both in alternated processes; on 2 gloo ranks sharing the card: (b) a
-   full-width loo DP step on a group of 2 chunks against the
+   rank and the machine has one), graphed (every DP step a replay, its
+   all-reduces captured), for 2 epochs equal bit for bit to ``--mesh 1
+   --host-loop`` and to the graphed run without ``--mesh``, checkpoints
+   and launches; a profiled replayed ``--mesh 1`` epoch whose kernels
+   agree with the credited counters (and the NCCL kernels it names), and
+   train steps/s of the three in alternated processes; on 2 gloo ranks
+   sharing the card: (b) a gloo mesh with ``epoch_on_device`` refused,
+   then eagerly a full-width loo DP step on a group of 2 chunks against the
    single-process step on the concatenated group (losses rel 1e-5, the
    state by ``hold_step``), an epoch (one forward and one dkv launch a
    group step on each rank) and the DP ``evaluate`` against the
@@ -152,8 +156,10 @@ Phases (any failure raises):
    at 4,096 agents in scenes of 16, 2 windows, against ``crowd_simulate``
    on the card (atol 1e-4), timed (the ring form is held on the CPU only:
    gloo aborts on CUDA point to point); (d) ``EnsembleTrainer(mesh=)``, 2
-   ranks x 2 members, against the 4-member ensemble in one process (rel
-   2e-4);
+   ranks x 2 members, graphed against eager bit for bit and against the
+   4-member ensemble in one process (rel 2e-4), member-steps/s of both;
+   (e) with 2 cards, 2 NCCL ranks graphed against eager bit for bit (with
+   one, a line saying it did not run);
 18. JAX's epoch on the device (engine/graphed.py: every training step a
    replay of a captured CUDA graph): (a) a forward and a dkv launch
    captured alone and replayed bit for bit against eager launches, before
@@ -3046,17 +3052,34 @@ def member_variants_phase(torch, sa, dev, npz, crowd_npz, crowd16_npz,
 DP_CROWD_N, DP_CROWD_WINDOWS, DP_SEEDS = 4096, 2, (1, 2, 3, 4)
 
 
+def loo_cfg(**kw):
+    """The loo training configuration of the phases (main's ``train_cfg``),
+    for the functions that run in a process or rank of their own."""
+    from socialways_torch.config import TrainConfig
+    return TrainConfig(agent_frame=True, use_social=True, g_ema_decay=0.999,
+                       hidden_size=HIDDEN, social_feature_size=HIDDEN,
+                       noise_len=HIDDEN // 2, batch_size=BATCH,
+                       n_past=N_PAST, n_next=N_NEXT, n_gen_samples=K,
+                       d_input_noise=0.05, d_input_noise_steps=-1,
+                       d_input_noise_floor=0.02, n_epochs=200, **kw)
+
+
 def dp_mesh1_cli(torch, sa, cli_main, npz, work, card):
-    """Phase 17a: ``cli train --recipe loo --mesh 1`` for 2 epochs against
-    the same run without ``--mesh``, in this process: the checkpoints equal
-    bit for bit (the count weight is exactly 1 at D = 1 and a one-rank
-    all-reduce is the identity), so do the kernels' launches.  Then
-    train steps/s of both in alternated processes (without, with, with,
-    without)."""
+    """Phase 17a: ``cli train --recipe loo --mesh 1`` for 2 epochs, graphed
+    (NCCL at world size 1: every DP step a replay, its all-reduces
+    captured), against ``--mesh 1 --host-loop`` and against the graphed
+    run without ``--mesh``, in this process: the checkpoints equal bit
+    for bit (the count weight is exactly 1 at D = 1 and a one-rank
+    all-reduce is the identity), so do the kernels' launches.  Then a
+    profiled replayed ``--mesh 1`` epoch (``dp_graph_profile``) and train
+    steps/s of the three in alternated processes."""
+    from socialways_torch.parallel.mesh import run
     base = ["train", "--recipe", "loo", "--data", npz, "--epochs", "2",
             "--test-interval", "1", "--save-interval", "1"]
+    modes = {"plain": [], "mesh1": ["--mesh", "1"],
+             "mesh1_host": ["--mesh", "1", "--host-loop"]}
     runs = {}
-    for tag, extra in (("plain", []), ("mesh1", ["--mesh", "1"])):
+    for tag, extra in modes.items():
         mdir = os.path.join(work, f"dp_{tag}")
         buf = io.StringIO()
         reset_launches(sa)
@@ -3067,46 +3090,52 @@ def dp_mesh1_cli(torch, sa, cli_main, npz, work, card):
             raise AssertionError(f"cli train {extra}: rc {rc}\n"
                                  f"{buf.getvalue()}")
         runs[tag] = (mdir, launches, buf.getvalue())
-    if runs["plain"][1] != runs["mesh1"][1]:
-        raise AssertionError(f"--mesh 1 launched {runs['mesh1'][1]}, "
-                             f"without {runs['plain'][1]}")
-    files = sorted(os.listdir(runs["plain"][0]))
-    if files != sorted(os.listdir(runs["mesh1"][0])) or not files:
-        raise AssertionError(f"checkpoints differ: {files}")
+    files = sorted(os.listdir(runs["mesh1"][0]))
     n_leaves = 0
-    for f in files:
-        with np.load(os.path.join(runs["plain"][0], f)) as a, \
-                np.load(os.path.join(runs["mesh1"][0], f)) as b:
-            if sorted(a.files) != sorted(b.files):
-                raise AssertionError(f"{f}: keys differ")
-            for k in a.files:
-                if not np.array_equal(a[k], b[k]):
-                    raise AssertionError(f"--mesh 1 {f} {k} differs from "
-                                         "the run without --mesh")
-            n_leaves += len(a.files)
+    for other in ("mesh1_host", "plain"):
+        if runs[other][1] != runs["mesh1"][1]:
+            raise AssertionError(f"--mesh 1 launched {runs['mesh1'][1]}, "
+                                 f"{other} {runs[other][1]}")
+        if files != sorted(os.listdir(runs[other][0])) or not files:
+            raise AssertionError(f"checkpoints differ: {files}")
+        for f in files:
+            with np.load(os.path.join(runs["mesh1"][0], f)) as a, \
+                    np.load(os.path.join(runs[other][0], f)) as b:
+                if sorted(a.files) != sorted(b.files):
+                    raise AssertionError(f"{f}: keys differ")
+                for k in a.files:
+                    if not np.array_equal(a[k], b[k]):
+                        raise AssertionError(f"--mesh 1 {f} {k} differs from "
+                                             f"{other}")
+                n_leaves += len(a.files)
     backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if f"mesh 1: 1 ranks, {backend}" not in runs["mesh1"][2]:
-        raise AssertionError(f"--mesh 1 did not run {backend} at world "
-                             "size 1")
-    print(f"cli train --recipe loo --mesh 1 ({backend}, world size 1) vs "
-          f"without"
-          f", 2 epochs: {len(files)} checkpoints ({n_leaves} leaves) equal "
-          f"bit for bit; launches {runs['mesh1'][1]} equal")
-    rates = {"plain": [], "mesh1": []}
-    for tag in ("plain", "mesh1", "mesh1", "plain"):
+    for tag in ("mesh1", "mesh1_host"):
+        if f"mesh 1: 1 ranks, {backend}" not in runs[tag][2]:
+            raise AssertionError(f"{tag} did not run {backend} at world "
+                                 "size 1")
+    print(f"cli train --recipe loo --mesh 1 ({backend}, world size 1, "
+          f"graphed) vs --mesh 1 --host-loop and vs graphed without --mesh,"
+          f" 2 epochs: {len(files)} checkpoints ({n_leaves} leaf "
+          f"comparisons) equal bit for bit; launches {runs['mesh1'][1]} "
+          f"equal")
+    prof = run(dp_graph_profile, 1, "cuda", args=(npz, card))
+    rates = {tag: [] for tag in modes}
+    for tag in ("plain", "mesh1", "mesh1_host", "mesh1_host", "mesh1",
+                "plain"):
         mdir = tempfile.mkdtemp(prefix=f"dp_rate_{tag}_", dir=work)
+        log = os.path.join(mdir, "metrics.jsonl")
         out = subprocess.run(
             [sys.executable, "-m", "socialways_torch.cli.main"] + base[:7]
             + ["--test-interval", "10", "--save-interval", "10",
-               "--model-dir", mdir] + (["--mesh", "1"] if tag == "mesh1"
-                                       else []),
+               "--model-dir", mdir, "--metrics-log", log] + modes[tag],
             cwd=REPO, capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
             raise AssertionError(f"{tag} process: rc {out.returncode}\n"
                                  f"{out.stderr[-2000:]}")
         steps = int(re.search(r"chunks: (\d+)", out.stdout).group(1))
-        secs = float(re.search(r"Epc=\s*2,.*time = ([\d.]+)s",
-                               out.stdout).group(1))
+        with open(log) as fh:
+            secs = [row["epoch_time_s"] for row in map(json.loads, fh)
+                    if row["kind"] == "train" and row["epoch"] == 2][0]
         rates[tag].append(steps / secs)
     # one card: --mesh 2 is JAX's error, and nothing runs
     err = io.StringIO()
@@ -3120,10 +3149,23 @@ def dp_mesh1_cli(torch, sa, cli_main, npz, work, card):
                              f"{err.getvalue()!r}")
     print(f"cli train --mesh 2 on {have} device(s): rc {rc}, "
           f"{err.getvalue().strip()!r}")
+    fmt = lambda tag: [round(r, 2) for r in rates[tag]]
     print(f"train steps/s, epoch 2 (loo, batch {BATCH}), alternated "
-          f"processes: without --mesh {[round(r, 2) for r in rates['plain']]}"
-          f", --mesh 1 {[round(r, 2) for r in rates['mesh1']]} [{card}]")
-    return {"launches": runs["mesh1"][1], "rates": rates}
+          f"processes: graphed without --mesh {fmt('plain')}, graphed "
+          f"--mesh 1 {fmt('mesh1')}, --mesh 1 --host-loop "
+          f"{fmt('mesh1_host')} [{card}]")
+    return {"launches": runs["mesh1"][1], "rates": rates, "profile": prof}
+
+
+def dp_graph_profile(mesh, npz, card):
+    """Phase 17a's profiled replayed epoch of ``Trainer(mesh=)`` on a mesh
+    of one NCCL rank (``parallel.run`` in this process)."""
+    import torch
+    from socialways_torch.kernels import social_attention as sa
+    if mesh.backend != "nccl":
+        raise AssertionError(f"17a: a {mesh.backend} mesh")
+    return graph_profile(torch, sa, mesh.device, npz, loo_cfg(), card, mesh,
+                         tag="17a")
 
 
 def dp_ranks(mesh, job):
@@ -3135,7 +3177,7 @@ def dp_ranks(mesh, job):
     measurements."""
     import torch
     from socialways_torch.data.dataset import load_npz_dataset
-    from socialways_torch.engine.ensemble import EnsembleTrainer
+    from socialways_torch.engine.ensemble import EnsembleTrainer, member_state
     from socialways_torch.engine.losses import sample_noise
     from socialways_torch.engine.simulate import (crowd_simulate,
                                                   crowd_simulate_sharded,
@@ -3158,7 +3200,13 @@ def dp_ranks(mesh, job):
     sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
     out = {}
     ds = load_npz_dataset(job["npz"])
-    tr = Trainer(job["cfg"], ds, mesh=mesh)
+    # gloo's collectives cannot be captured: the graphed epoch refuses
+    try:
+        Trainer(job["cfg"], ds, mesh=mesh)
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    tr = Trainer(job["cfg"].replace(epoch_on_device=False), ds, mesh=mesh)
     cfg, width = tr.cfg, tr.train_packed.width
 
     def to_dev(draws):
@@ -3240,35 +3288,118 @@ def dp_ranks(mesh, job):
         out["sim_err"] = float((traj - ref).abs().max())
         out["sim_finite"] = bool(torch.isfinite(traj).all())
 
-    # (d) EnsembleTrainer(mesh=): 2 members a rank
-    ens_tr = Trainer(job["cfg"], ds, dev)
+    # (d) EnsembleTrainer(mesh=): 2 members a rank, graphed (each rank
+    # replays its own member step) and eager; a second epoch timed
     seeds = list(DP_SEEDS)
     gens = lambda: [torch.Generator(device=dev).manual_seed(90 + s)
                     for s in seeds]
-    ens = EnsembleTrainer(ens_tr, mesh)
-    reset_launches(sa)
-    states, m_ens = ens.train_epoch(ens.init_states(seeds), gens())
-    out["ens_epoch_launches"] = read_launches(sa)
-    out["ens"] = (m_ens, ens.evaluate(states, seeds))
+    for mode in ("graph", "eager"):
+        ens = EnsembleTrainer(Trainer(job["cfg"].replace(
+            epoch_on_device=mode == "graph"), ds, dev), mesh)
+        if ens.graphed != (mode == "graph"):
+            raise AssertionError(f"ensemble mesh {mode}: graphed "
+                                 f"{ens.graphed}")
+        g = gens()
+        reset_launches(sa)
+        states, m_ens = ens.train_epoch(ens.init_states(seeds), g)
+        sync()
+        launches = read_launches(sa)
+        ev = ens.evaluate(states, seeds)
+        sync()
+        tic = time.perf_counter()
+        states, m2 = ens.train_epoch(states, g)
+        sync()
+        out[f"ens_{mode}"] = {
+            "launches": launches, "epochs": (m_ens, m2), "eval": ev,
+            "secs": time.perf_counter() - tic,
+            "flats": [flatten_state(member_state(states, i))
+                      for i in range(len(seeds) // d)]}
+    out["ens_epoch_launches"] = out["ens_graph"]["launches"]
     if r == 0:
-        solo = EnsembleTrainer(ens_tr)
+        solo = EnsembleTrainer(Trainer(job["cfg"], ds, dev))
         states1, m1 = solo.train_epoch(solo.init_states(seeds), gens())
         out["ens_single"] = (m1, solo.evaluate(states1, seeds))
     return out
 
 
+def dp_nccl_ranks(mesh, job):
+    """Phase 17e on one rank of 2 NCCL ranks (one card each):
+    ``Trainer(mesh=)`` 2 loo epochs graphed and eager
+    (``epoch_on_device=False``) from one state and seed; the rank's final
+    states and metrics."""
+    import torch
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.trainer import Trainer
+    from socialways_torch.io.checkpoint import flatten_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = load_npz_dataset(job["npz"])
+    out = {}
+    for mode in ("graph", "eager"):
+        tr = Trainer(job["cfg"].replace(epoch_on_device=mode == "graph"), ds,
+                     mesh=mesh)
+        if tr.graphed != (mode == "graph"):
+            raise AssertionError(f"17e {mode}: graphed {tr.graphed}")
+        state = tr.init_state(1)
+        rng = torch.Generator(device=mesh.device).manual_seed(3)
+        ms = []
+        for _ in range(2):
+            state, m = tr.train_epoch(state, rng)
+            ms.append({k: m[k] for k in ("d_loss", "g_loss", "train_ade",
+                                         "train_fde")})
+        out[mode] = (flatten_state(state), ms)
+        out[f"{mode}_steps_s"] = tr.n_steps_per_epoch / m["epoch_time_s"]
+    out["counts"] = tr.train_counts.tolist()
+    return out
+
+
+def dp_nccl_phase(torch, npz, card, world=2):
+    """Phase 17e: with ``world`` cards, a ``world``-rank NCCL graphed DP
+    run (its all-reduces captured) against the same ranks run eagerly,
+    bit for bit, and group-steps/s of both (the second epoch); with fewer
+    cards, one line saying that it did not run and why."""
+    from socialways_torch.parallel.mesh import spawn
+    have = torch.cuda.device_count()
+    if have < world:
+        print(f"17e NOT RUN: a {world}-rank NCCL graphed DP epoch needs "
+              f"{world} cards (NCCL takes one card a rank), this machine has "
+              f"{have}; a captured multi-rank all-reduce is not checked "
+              f"here [{card}]")
+        return None
+    ranks = spawn(dp_nccl_ranks, world, "cuda",
+                  args=({"npz": npz, "cfg": loo_cfg()},), timeout=300)
+    for rank, res in enumerate(ranks):
+        (fg, mg), (fe, me) = res["graph"], res["eager"]
+        bad = [k for k in fg if not np.array_equal(fg[k], fe[k])]
+        if bad or mg != me:
+            raise AssertionError(f"17e rank {rank}: graphed differs from "
+                                 f"eager in {bad[:5]} / {mg} vs {me}")
+        if any(not np.array_equal(v, ranks[0]["graph"][0][k])
+               for k, v in fg.items()):
+            raise AssertionError("17e: the ranks' states differ")
+    rates = {mode: min(r[f"{mode}_steps_s"] for r in ranks)
+             for mode in ("graph", "eager")}
+    print(f"17e {world} NCCL ranks, 2 loo epochs (last group's counts "
+          f"{ranks[0]['counts'][-1]}): graphed (all-reduces captured) = "
+          f"eager bit for bit on every rank ({len(fg)} leaves); "
+          f"group-steps/s (second epoch, slowest rank) graphed "
+          f"{rates['graph']:.2f}, eager {rates['eager']:.2f} [{card}]")
+    return rates
+
+
 def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
     """Phase 17: data parallelism.  (a) ``dp_mesh1_cli``; (b)-(d)
-    ``dp_ranks`` on 2 gloo ranks sharing the card, held here: the DP step
-    against the single-process step on the concatenated group (losses and
-    sums rel 1e-5, the state by ``hold_step``), each rank's launches one
-    forward and one dkv a step and a forward an eval group, the DP
-    evaluate within rel 1e-4 of the single-process one; the sharded
-    simulate within atol 1e-4 of ``crowd_simulate`` on the card; the
-    member-sharded ensemble's epoch and evaluate within rel 2e-4 of the
-    4-member ensemble in one process.  The ring form is not run on the
-    card: gloo aborts the process on point-to-point sends of CUDA tensors
-    (the CPU tests hold it)."""
+    ``dp_ranks`` on 2 gloo ranks sharing the card, held here: a gloo mesh
+    with ``epoch_on_device`` refused (its collectives cannot be captured),
+    then eagerly the DP step against the single-process step on the
+    concatenated group (losses and sums rel 1e-5, the state by
+    ``hold_step``), each rank's launches one forward and one dkv a step
+    and a forward an eval group, the DP evaluate within rel 1e-4 of the
+    single-process one; the sharded simulate within atol 1e-4 of
+    ``crowd_simulate`` on the card; the member-sharded ensemble graphed
+    against eager bit for bit, and its epoch and evaluate within rel 2e-4
+    of the 4-member ensemble in one process; (e) ``dp_nccl_phase``.  The
+    ring form is not run on the card: gloo aborts the process on
+    point-to-point sends of CUDA tensors (the CPU tests hold it)."""
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.trainer import Trainer
     from socialways_torch.config import TrainConfig
@@ -3290,6 +3421,14 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
                   timeout=400)
     spawn_s = time.perf_counter() - tic
     r0 = ranks[0]
+    # (b) gloo on the card refuses the graphed epoch, naming --host-loop
+    for rank, res in enumerate(ranks):
+        if not res["refusal"] or "--host-loop" not in res["refusal"]:
+            raise AssertionError(f"rank {rank}: a gloo mesh on the card with "
+                                 f"epoch_on_device gave {res['refusal']!r}")
+    print(f"17b gloo + CUDA + epoch_on_device refused on both ranks: "
+          f"{r0['refusal']!r}; the DP checks below run "
+          f"epoch_on_device=False")
     # (b) the DP step against the single-process step
     held = hold_step("DP step (2 gloo ranks) vs single process",
                      r0["step_flat"], r0["single_flat"], r0["step_metrics"],
@@ -3361,8 +3500,25 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
           f"card (atol 1e-4), {sim_rate:.4g} agent-steps/s (second call); "
           f"ring: not run on the card (gloo aborts on CUDA point to point) "
           f"[{card}]")
-    # (d) the member-sharded ensemble
-    (m_mesh, ev_mesh), (m_one, ev_one) = r0["ens"], r0["ens_single"]
+    # (d) the member-sharded ensemble: graphed = eager, bit for bit
+    for rank, res in enumerate(ranks):
+        a, b = res["ens_graph"], res["ens_eager"]
+        for i, (fa, fb) in enumerate(zip(a["flats"], b["flats"])):
+            bad = [k for k in fa if not np.array_equal(fa[k], fb[k])]
+            if bad:
+                raise AssertionError(f"rank {rank} ensemble member {i}: "
+                                     f"graphed differs from eager in "
+                                     f"{bad[:5]}")
+        for ma, mb in zip(a["epochs"], b["epochs"]):
+            for key in ("d_loss", "g_loss", "train_ade", "train_fde"):
+                if not np.array_equal(ma[key], mb[key]):
+                    raise AssertionError(f"rank {rank} ensemble {key}: "
+                                         f"{ma[key]} vs {mb[key]}")
+        if a["eval"] != b["eval"] or a["launches"] != b["launches"]:
+            raise AssertionError(f"rank {rank} ensemble: evaluate or "
+                                 "launches differ graphed and eager")
+    m_mesh, ev_mesh = r0["ens_graph"]["epochs"][0], r0["ens_graph"]["eval"]
+    m_one, ev_one = r0["ens_single"]
     ens_rel = 0.0
     for key in ("d_loss", "g_loss", "train_ade", "train_fde"):
         a, b = np.asarray(m_mesh[key]), np.asarray(m_one[key])
@@ -3376,7 +3532,8 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
                 raise AssertionError(f"ensemble mesh member {i} eval {key}:"
                                      f" {a[key]} vs {b[key]}")
             ens_rel = max(ens_rel, abs(a[key] - b[key]) / abs(b[key]))
-    if ranks[1]["ens"][1] != ev_mesh or len(ev_mesh) != len(DP_SEEDS):
+    if ranks[1]["ens_graph"]["eval"] != ev_mesh or len(ev_mesh) != len(
+            DP_SEEDS):
         raise AssertionError("the ranks' ensemble evaluations differ")
     n_steps_ens = tr.n_steps_per_epoch
     for rank, res in enumerate(ranks):
@@ -3384,11 +3541,20 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
         if res["ens_epoch_launches"] != want:
             raise AssertionError(f"rank {rank} ensemble epoch launched "
                                  f"{res['ens_epoch_launches']}, want {want}")
-    print(f"EnsembleTrainer(mesh=) 2 ranks x 2 members vs the 4-member "
-          f"ensemble in one process: epoch metrics and evaluate within rel "
-          f"2e-4 for every member (worst rel {ens_rel:.2e}), on both ranks;"
-          f" launches a rank "
-          f"{ranks[0]['ens_epoch_launches']} over {n_steps_ens} steps")
+    ens_rates = {mode: len(DP_SEEDS) * n_steps_ens / max(
+        res[f"ens_{mode}"]["secs"] for res in ranks)
+        for mode in ("graph", "eager")}
+    print(f"EnsembleTrainer(mesh=) 2 gloo ranks x 2 members, graphed (each "
+          f"rank replays its member step) = eager bit for bit over 2 epochs "
+          f"(every member's leaves, the metrics, evaluate and launches), and"
+          f" vs the 4-member ensemble in one process: epoch metrics and "
+          f"evaluate within rel 2e-4 for every member (worst rel "
+          f"{ens_rel:.2e}), on both ranks; launches a rank "
+          f"{ranks[0]['ens_epoch_launches']} over {n_steps_ens} steps; "
+          f"member-steps/s (second epoch, both ranks on the card) graphed "
+          f"{ens_rates['graph']:.2f}, eager {ens_rates['eager']:.2f} "
+          f"[{card}]")
+    nccl2 = dp_nccl_phase(torch, npz, card)
     wall = time.perf_counter() - tic_phase
     print(f"data-parallel phase: {wall:.2f} s wall (2-rank spawn "
           f"{spawn_s:.2f} s) [{card}]")
@@ -3396,7 +3562,7 @@ def dp_phase(torch, sa, cli_main, npz, ckpt, work, train_cfg, card):
         "step_launches", "epoch_launches", "eval_launches",
         "ens_epoch_launches")} for res in ranks],
         "dp_steps_s": groups / m["epoch_time_s"], "sim_rate": sim_rate,
-        "wall_s": wall}
+        "ens_rates": ens_rates, "nccl2": nccl2, "wall_s": wall}
 
 
 #: phase 18: JAX's epoch on the device (engine/graphed.py).  Each run of
@@ -3624,15 +3790,19 @@ def graph_ensemble(torch, sa, dev, npz, cfg, card):
     return la
 
 
-def graph_profile(torch, sa, dev, npz, cfg, card):
-    """Phase 18g: one graphed epoch (every step a replay) under
-    torch.profiler: the kernels it names, counted, against the credited
-    launch counters of the same epoch; and the device ops, device time and
-    idle share of a graphed epoch."""
+def graph_profile(torch, sa, dev, npz, cfg, card, mesh=None,
+                  tag="18g"):
+    """Phase 18g (17a with a ``mesh``): one graphed epoch (every step a
+    replay) under torch.profiler: the kernels it names, counted, against
+    the credited launch counters of the same epoch, and the NCCL kernels
+    it names; and the device ops, device time and idle share of a graphed
+    epoch."""
     from torch.profiler import ProfilerActivity, profile
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.trainer import Trainer
-    tr = Trainer(cfg, load_npz_dataset(npz), dev)
+    tr = Trainer(cfg, load_npz_dataset(npz), dev, mesh)
+    if not tr.graphed:
+        raise AssertionError(f"{tag}: the epoch is not graphed")
     state = tr.init_state(1)
     rng = torch.Generator(device=dev).manual_seed(3)
     state, _ = tr.train_epoch(state, rng)        # the captures
@@ -3646,20 +3816,23 @@ def graph_profile(torch, sa, dev, npz, cfg, card):
     seen = {"fwd": sum("social_attention_fwd_kernel" in n for n in names),
             "dq": sum("bwd_dq_kernel" in n for n in names),
             "dkv": sum("bwd_dkv_kernel" in n for n in names)}
-    if seen != credited or credited["fwd"] != tr.n_steps_per_epoch:
-        raise AssertionError(f"profiled replayed epoch: kernels {seen}, "
-                             f"credited counters {credited}")
-    print(f"18g profiled graphed epoch ({tr.n_steps_per_epoch} replays): "
-          f"the trace names {seen} kernel launches, the credited counters "
-          f"{credited}")
-    prof_ep = profile_step(torch, f"one graphed epoch ({tr.n_steps_per_epoch}"
-                           " steps)", lambda: tr.train_epoch(state, rng))
     steps = tr.n_steps_per_epoch
-    print(f"18g a graphed step: {prof_ep['ops'] / steps:.0f} device ops, "
+    if seen != credited or credited["fwd"] != steps:
+        raise AssertionError(f"{tag} profiled replayed epoch: kernels "
+                             f"{seen}, credited counters {credited}")
+    nccl = sorted({n[:60] for n in names if "nccl" in n.lower()})
+    print(f"{tag} profiled graphed epoch ({steps} replays"
+          + ("" if mesh is None else f", a mesh of {mesh.size} "
+             f"{mesh.backend} rank") + f"): the trace names {seen} kernel "
+          f"launches, the credited counters {credited}; NCCL kernels: "
+          f"{nccl or 'none'}")
+    prof_ep = profile_step(torch, f"one graphed epoch ({steps} steps)",
+                           lambda: tr.train_epoch(state, rng))
+    print(f"{tag} a graphed step: {prof_ep['ops'] / steps:.0f} device ops, "
           f"{prof_ep['device_us'] / steps:.1f} us device time, "
           f"{prof_ep['wall_us'] / steps:.1f} us wall, idle "
           f"{prof_ep['idle']:.1%} [{card}]")
-    return prof_ep
+    return dict(prof_ep, credited=credited, nccl=nccl)
 
 
 def graph_rate(npz: str, mode: str) -> None:
@@ -3669,19 +3842,12 @@ def graph_rate(npz: str, mode: str) -> None:
     prints one JSON line."""
     import torch
     sys.path.insert(0, REPO)
-    from socialways_torch.config import TrainConfig
     from socialways_torch.data.dataset import load_npz_dataset
     from socialways_torch.engine.ensemble import EnsembleTrainer
     from socialways_torch.engine.trainer import Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = TrainConfig(agent_frame=True, use_social=True, g_ema_decay=0.999,
-                      hidden_size=HIDDEN, social_feature_size=HIDDEN,
-                      noise_len=HIDDEN // 2, batch_size=BATCH,
-                      n_past=N_PAST, n_next=N_NEXT, n_gen_samples=K,
-                      d_input_noise=0.05, d_input_noise_steps=-1,
-                      d_input_noise_floor=0.02, n_epochs=200,
-                      epoch_on_device=mode == "graph")
+    cfg = loo_cfg(epoch_on_device=mode == "graph")
     tr = Trainer(cfg, load_npz_dataset(npz), dev)
     state = tr.init_state(1)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -4046,6 +4212,8 @@ def main() -> int:
         graph = graph_phase(torch, sa, cli_main, dev, npz, work, train_cfg,
                             smi)
         dp_paths = {"dp_mesh1_cli": dp["mesh1"]["launches"],
+                    "dp_mesh1_replayed_epoch": dp["mesh1"]["profile"][
+                        "credited"],
                     **{f"dp_{what}_rank{r}": launches[f"{what}_launches"]
                        for r, launches in enumerate(dp["ranks"])
                        for what in ("step", "epoch", "eval")},
@@ -4233,9 +4401,16 @@ def main() -> int:
                           f"({v['solo_steps_s']:.2f})"
                           for k, v in variants["fields"].items())
               + f", phase 16 {variants['wall_s']:.1f} s; data parallel: "
-              f"train steps/s without --mesh {dp['mesh1']['rates']['plain']}"
-              f", --mesh 1 {dp['mesh1']['rates']['mesh1']}, 2 gloo ranks "
-              f"{dp['dp_steps_s']:.2f} group-steps/s, sharded simulate "
+              f"train steps/s graphed without --mesh "
+              f"{[round(r, 2) for r in dp['mesh1']['rates']['plain']]}, "
+              f"graphed --mesh 1 "
+              f"{[round(r, 2) for r in dp['mesh1']['rates']['mesh1']]}, "
+              f"--mesh 1 --host-loop "
+              f"{[round(r, 2) for r in dp['mesh1']['rates']['mesh1_host']]}"
+              f", 2 gloo ranks {dp['dp_steps_s']:.2f} group-steps/s, "
+              f"member-sharded ensemble member-steps/s graphed "
+              f"{dp['ens_rates']['graph']:.2f} (eager "
+              f"{dp['ens_rates']['eager']:.2f}), sharded simulate "
               f"{dp['sim_rate']:.4g} agent-steps/s, phase 17 "
               f"{dp['wall_s']:.1f} s; graphed epochs: train steps/s "
               f"{[round(r['steps_s'], 2) for r in graph['rates']['graph']]}"

@@ -34,7 +34,9 @@ prints, logs, checkpoints and evaluates once a block of epochs as JAX
 does, and reads the metrics once a block; on the card every training step
 is a replay of a captured CUDA graph of the step (JAX's epoch on the
 device) unless ``--host-loop`` asks for the eager per-chunk loop, bit for
-bit the same steps; ``--cpu`` and ``--mesh`` train eagerly.  The kernels
+bit the same steps; with ``--mesh`` on NCCL ranks every data-parallel step
+is such a replay too, its all-reduces captured with it, and
+``--host-loop`` runs it eagerly; ``--cpu`` trains eagerly.  The kernels
 run on the card whatever ``--pallas`` says.  ``train --mesh N`` (or
 ``AxB``) trains data-parallel over N ranks (parallel/mesh.py): N cards
 on NCCL, or with ``--cpu --cpu-devices N`` N gloo processes on the CPU;

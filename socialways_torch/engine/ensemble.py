@@ -34,7 +34,11 @@ With a ``mesh`` (``parallel.Mesh``) the member axis is sharded over the
 ranks (JAX's :50-94): rank r trains members [r M/D, (r + 1) M/D) with no
 collective in the step (members are independent), and the per-member
 metrics, evaluations and coverages are all-gathered, so every rank returns
-all M.  Callers pass every member's seed and generator on every rank.
+all M.  Callers pass every member's seed and generator on every rank.  On
+the card each rank's epoch is graphed as without a mesh (JAX's ``jit`` of
+``shard_map`` of ``vmap`` of the scan, :60-125): nothing collective is
+captured, so this holds on gloo too, and the metrics are gathered once an
+epoch.
 """
 
 from __future__ import annotations
@@ -152,14 +156,15 @@ class EnsembleTrainer:
     @property
     def graphed(self) -> bool:
         """Whether the epochs run as CUDA graph replays of the member step
-        (the trainer's ``graphed``, without a member mesh)."""
-        return self.mesh is None and self.trainer.graphed
+        (the trainer's ``graphed``; under a member mesh each rank replays
+        its own members' step, which holds no collective)."""
+        return self.trainer.graphed
 
     @functools.cached_property
     def epoch_graphs(self) -> EpochGraphs:
         """The captured member steps of the training split."""
         tr = self.trainer
-        return EpochGraphs(self.cfg, tr.train_dev, tr.train_packed.n_valid,
+        return EpochGraphs(self.cfg, tr.train_dev, tr.train_counts,
                            members=True)
 
     def _epoch(self, states: TrainState,

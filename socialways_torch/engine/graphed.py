@@ -24,6 +24,27 @@ replay.  The outcomes are the solo D/G ratio's two branches (JAX's
 once an epoch, since every non-empty chunk advances it by one.  Members
 have one outcome (the D phase runs and each member selects its own).
 
+Under a ``mesh`` (``parallel.Mesh``, one rank of a data-parallel group on
+NCCL) the step is the DP step (JAX's ``make_dp_epoch_fn``: the ``jit`` of
+``shard_map`` of the scan, socialways_tpu/parallel/mesh.py:111-171):
+``batches`` is this rank's column of the chunk groups, the draws are each
+group's global draws (``gan_step`` keeps the rank's rows), and the
+[groups, D] valid counts are copied to the device once, so that the graph
+selects the rank's and the group's counts by the step index and the count
+weights are computed on the device at each replay.  The gradient and
+metric all-reduces are captured in the graph (NCCL enqueues them on the
+capturing stream's work; a capture runs none of them, and an eager step
+and a replay issue the same ones in the same order).  Every rank must
+therefore take its eager warm-up steps and its captures at the same
+steps: the decision to drop the graphs is taken once an epoch over the
+mesh (an all-reduce of each rank's wish, read on the host like the G
+count), so the ranks recapture in lockstep.  A group that is all padding
+is skipped on every rank, as packing tells each rank alike.  Graphs are
+CUDA's: on the CPU the loops are eager, and the tests run this runner
+there with its capture stubbed (tests/torch_dist_workers.py), on gloo
+ranks under a mesh; on the card the mesh is NCCL's (``--mesh 1`` on a
+machine of one card).
+
 The graph holds the addresses of the state's tensors.  A state whose
 tensors are not the captured ones (a resumed run, a rescue, a best-state
 restore, ``reinit_discriminator``, ``transplant_schedule_clock``) drops
@@ -40,6 +61,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from socialways_torch.config import TrainConfig
@@ -49,6 +71,7 @@ from socialways_torch.engine.train_step import (StepDraws, StepMetrics,
 from socialways_torch.kernels.social_attention import (Launches,
                                                        captured_launches,
                                                        credit_launches)
+from socialways_torch.parallel.mesh import any_rank
 
 
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
@@ -87,16 +110,22 @@ def epoch_means(sums: List[torch.Tensor], n_steps: int) -> StepMetrics:
 
 class EpochGraphs:
     """Replays of captured CUDA graphs of ``gan_step`` over the chunks of
-    ``batches`` ([steps, width, ...] on a CUDA device), whose valid counts
-    are ``n_valid`` (from packing: a chunk with none is no step).
-    ``members``: the member step of stacked states."""
+    ``batches`` ([steps, width, ...] on a CUDA device; this rank's column
+    of the chunk groups under a ``mesh``), whose valid counts are
+    ``counts`` ([steps], or [steps, D] of each rank's chunk under a mesh;
+    from packing: a step with none is no step).  ``members``: the member
+    step of stacked states."""
 
     def __init__(self, cfg: TrainConfig, batches: Dict[str, torch.Tensor],
-                 n_valid: Sequence[int], members: bool = False):
+                 counts, members: bool = False, mesh=None):
         self.cfg, self.batches, self.members = cfg, batches, members
-        self.n_valid = [int(v) for v in n_valid]
-        self.idx = torch.zeros(1, dtype=torch.int64,
-                               device=batches["valid"].device)
+        self.mesh = mesh
+        dev = batches["valid"].device
+        counts = np.asarray(counts).reshape(len(counts), -1)
+        self.n_valid = [int(v) for v in counts.sum(axis=1)]
+        self.counts = (None if mesh is None
+                       else torch.from_numpy(counts).to(dev))
+        self.idx = torch.zeros(1, dtype=torch.int64, device=dev)
         self.draws: Optional[StepDraws] = None
         self.bound: List[torch.Tensor] = []
         self._drop()
@@ -110,10 +139,14 @@ class EpochGraphs:
     def _bind(self, state: TrainState) -> None:
         """Keep the graphs when ``state`` holds the captured tensors (the
         bound list keeps them alive, so equal addresses are the same
-        tensors), else drop them."""
+        tensors), else drop them; under a mesh every rank drops when any
+        rank does."""
         tensors = state_tensors(state)
-        if [t.data_ptr() for t in tensors] != [t.data_ptr()
-                                                for t in self.bound]:
+        drop = [t.data_ptr() for t in tensors] != [t.data_ptr()
+                                                  for t in self.bound]
+        if self.mesh is not None:
+            drop = any_rank(drop, self.mesh)
+        if drop:
             self._drop()
             self.bound = tensors
 
@@ -137,16 +170,25 @@ class EpochGraphs:
         chunk = {k: pick(v) for k, v in self.batches.items()}
         draws = StepDraws(*(None if t is None else pick(t)
                             for t in self.draws))
-        _, m = gan_step(state, chunk, draws, self.cfg, n_valid=n_valid,
-                        members=self.members, g_count=g_count)
+        kw = dict(n_valid=n_valid)
+        if self.mesh is not None:
+            c = pick(self.counts)
+            kw = dict(n_valid=c[self.mesh.rank], n_valid_global=c.sum(),
+                      mesh=self.mesh)
+        _, m = gan_step(state, chunk, draws, self.cfg, members=self.members,
+                        g_count=g_count, **kw)
         self.sums = add_metrics(self.sums, m)
         self.idx.add_(1)
 
     def _capture(self, step) -> Tuple[torch.cuda.CUDAGraph, Launches]:
-        """A CUDA graph of ``step()`` (nothing runs) and its launches."""
+        """A CUDA graph of ``step()`` (nothing runs) and its launches.
+        Under a mesh the capture's error mode is ``thread_local``: NCCL's
+        watchdog thread queries its events while a rank captures."""
         graph = torch.cuda.CUDAGraph()
+        mode = "global" if self.mesh is None else "thread_local"
         with captured_launches() as launches:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode=mode):
                 step()
         self.pool = graph.pool()
         return graph, launches

@@ -62,8 +62,9 @@ Data parallelism (``mesh``, parallel/mesh.py; JAX's ``axis_name``
 branches): each rank holds whole scenes and the draws of the GLOBAL batch,
 of which it keeps its rows (``shard_draws``, :234-245, 428-437).  Each
 gradient sync weights the rank's gradients by its share of the valid rows,
-``local * D / max(global, 1)``, and averages them over the ranks in one
-all-reduce of one flattened buffer (:266-279).  Under ``mb_std``,
+``local * D / max(global, 1)`` (float32, computed on the device from the
+counts, so that a captured step replays any group's), and averages them
+over the ranks in one all-reduce of one flattened buffer (:266-279).  Under ``mb_std``,
 ``ms_weight`` or ``ds_weight`` the rank's LOSS carries that weight
 instead, since those losses couple the ranks through sums over the mesh
 (``parallel.mesh.psum``, whose backward sums every rank's cotangent, as
@@ -106,7 +107,6 @@ import weakref
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -600,21 +600,25 @@ def _masked_mean(per: torch.Tensor, valid: torch.Tensor,
 
 
 class _DataParallel:
-    """The DP step's host-side weights and its gradient and metric
-    reductions over ``mesh``, from the rank's and the group's valid
-    counts.  ``coupled``: a loss sums over the mesh (mb_std, mode seeking,
+    """The DP step's weights and its gradient and metric reductions over
+    ``mesh``, from the rank's and the group's valid counts (0-dim int
+    tensors on the step's device: the weights are device values, so a
+    captured step reads each group's counts at its replay).
+    ``coupled``: a loss sums over the mesh (mb_std, mode seeking,
     diversity hinge), so the loss carries the rank's weight and the
     gradients are plainly averaged (JAX's ``_shard_weight``)."""
 
-    def __init__(self, mesh, cfg: TrainConfig, n_valid: int,
-                 n_valid_global: int):
-        f32 = np.float32
-        self.mesh, self.n_valid, self.n_valid_global = (mesh, n_valid,
-                                                        n_valid_global)
+    def __init__(self, mesh, cfg: TrainConfig, n_valid: torch.Tensor,
+                 n_valid_global: torch.Tensor):
+        self.mesh = mesh
         self.coupled = cfg.mb_std or cfg.ms_weight > 0 or cfg.ds_weight > 0
+        local = n_valid.float()
+        total = torch.clamp(n_valid_global.float(), min=1.0)
         # the rank's share of the valid rows, times D, in float32 (:274-277)
-        self.weight = float(f32(n_valid) * f32(mesh.size)
-                            / max(f32(n_valid_global), f32(1.0)))
+        self.weight = local * float(mesh.size) / total
+        # the metrics' weight and divisor (:734-757)
+        self.w, self.div = ((1.0, float(mesh.size)) if self.coupled
+                            else (local, total))
 
     def loss(self, loss: torch.Tensor) -> torch.Tensor:
         return loss * self.weight if self.coupled else loss
@@ -629,21 +633,26 @@ class _DataParallel:
     def metrics(self, m: StepMetrics) -> StepMetrics:
         """Losses as JAX averages them (the global masked mean), errors and
         counts summed (:734-757): one all-reduce."""
-        w = 1.0 if self.coupled else float(self.n_valid)
         d, g, ade, fde, n = all_reduce_sum(
-            [torch.stack([m.d_loss * w, m.g_loss * w, m.ade_sum, m.fde_sum,
-                          m.n_samples.to(m.ade_sum.dtype)])],
+            [torch.stack([m.d_loss * self.w, m.g_loss * self.w, m.ade_sum,
+                          m.fde_sum, m.n_samples.to(m.ade_sum.dtype)])],
             self.mesh)[0].unbind(0)
-        div = (float(self.mesh.size) if self.coupled
-               else float(max(self.n_valid_global, 1)))
-        return StepMetrics(d / div, g / div, ade, fde,
+        return StepMetrics(d / self.div, g / self.div, ade, fde,
                            n.round().to(m.n_samples.dtype))
+
+
+def _count(n, device) -> torch.Tensor:
+    """A valid count as a 0-dim tensor on ``device`` (a host int is copied
+    there: the eager step's form of the runner's device counts)."""
+    return (n if isinstance(n, torch.Tensor)
+            else torch.tensor(n, dtype=torch.int64, device=device))
 
 
 def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws, cfg: TrainConfig,
-             n_valid: Optional[int] = None, members: bool = False,
-             mesh=None, n_valid_global: Optional[int] = None,
+             n_valid: Optional[Union[int, torch.Tensor]] = None,
+             members: bool = False, mesh=None,
+             n_valid_global: Optional[Union[int, torch.Tensor]] = None,
              g_count: Optional[int] = None
              ) -> Tuple[TrainState, StepMetrics]:
     """One GAN update on a padded scene chunk, in place on ``state``.
@@ -656,7 +665,12 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     (``parallel.Mesh``): this rank's chunk of a data-parallel step, with
     the GLOBAL batch's ``draws``; ``n_valid_global`` (the group's valid
     count, from packing) saves an all-reduce, and every metric comes back
-    reduced over the mesh.  ``g_count``: the G count before this step as
+    reduced over the mesh.  Under a mesh both counts may be 0-dim int
+    tensors on the device (the graphed epoch's, selected by its step
+    index): the weights are computed from them on the device, and a
+    device count is the caller's word that the group has a valid row (the
+    no-op of an all-padding group is decided on the host, from packing).
+    ``g_count``: the G count before this step as
     the caller knows it on the host; the solo D/G ratio branches on it
     (None reads the device count, a host sync).  Otherwise nothing of the
     step is read on the host."""
@@ -673,9 +687,11 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
         draws = shard_draws(draws, mesh.rank, mesh.size)
         if n_valid_global is None:
             n_valid_global = int(all_reduce_sum(
-                [torch.tensor([n_valid], device=dev)], mesh)[0])
-        dp = _DataParallel(mesh, cfg, n_valid, n_valid_global)
-    if (n_valid if dp is None else n_valid_global) == 0:
+                [_count(n_valid, dev).reshape(1)], mesh)[0])
+        dp = _DataParallel(mesh, cfg, _count(n_valid, dev),
+                           _count(n_valid_global, dev))
+    total = n_valid if dp is None else n_valid_global
+    if not isinstance(total, torch.Tensor) and total == 0:
         zero = torch.zeros(vm.lead, device=dev)
         return state, StepMetrics(zero, zero, zero, zero,
                                   torch.zeros(vm.lead, dtype=torch.int64,

@@ -22,9 +22,17 @@ the same loop runs data-parallel: the chunks are grouped D at a time
 (``parallel.shard_packed_for_mesh``, filler chunks padding the last
 group), each rank holds its column of the groups on its device, and a
 step is one group (JAX's :206-231): the draws are the group's global
-draws, identical on every rank, and the metrics come back reduced.  Under
-a mesh the loop is eager: a graph of the data-parallel step would need
-its collectives captured (NCCL), which this port does not do yet.
+draws, identical on every rank, and the metrics come back reduced.  The
+[groups, D] valid counts go to the device once, and the step's count
+weights are computed there from them.  On the card with
+``epoch_on_device`` and NCCL every step is again a replay of a captured
+graph, its gradient and metric all-reduces captured with it (JAX's
+``make_dp_epoch_fn``; engine/graphed.py), and ``--host-loop`` runs the
+same DP steps eagerly, bit for bit.  gloo's collectives are staged on the
+host and cannot be captured: a gloo mesh on a CUDA device with
+``epoch_on_device`` raises rather than train eagerly without a word.  On
+the CPU (gloo ranks, ``--cpu --mesh``) the DP loop is eager; the tests
+run the graphed DP loop there with the capture stubbed.
 """
 
 from __future__ import annotations
@@ -119,24 +127,50 @@ def run_epoch(state: TrainState, batches: Dict[str, torch.Tensor],
     chunks, or this rank's column of the chunk groups on a ``mesh``) with
     ``draws[i]`` (the group's global draws on a mesh).  ``counts``: the
     [steps, D] host valid counts (None: each step counts its rows on the
-    device).  Returns the state and the epoch's metrics on the device:
-    mean losses, summed errors and sample counts
-    (socialways_tpu/parallel/mesh.py:126-147).  The solo D/G ratio takes
-    its G count from one read at the start (every step with valid rows
-    advances it by one)."""
-    rank = 0 if mesh is None else mesh.rank
+    device); under a mesh they are copied to the device once, and each
+    step takes the rank's and the group's counts as device tensors, as the
+    graphed epoch's steps do (a group that is all padding is the no-op,
+    known from packing).  Returns the state and
+    the epoch's metrics on the device: mean losses, summed errors and
+    sample counts (socialways_tpu/parallel/mesh.py:126-147).  The solo D/G
+    ratio takes its G count from one read at the start (every step with
+    valid rows advances it by one)."""
     n = batches["valid"].shape[0]
     g_count = None if counts is None else solo_clock(cfg, state)
+    on_dev = (None if counts is None or mesh is None
+              else torch.from_numpy(counts).to(batches["valid"].device))
     sums = None
     for i in range(n):
-        kw = {} if counts is None else dict(
-            n_valid=int(counts[i, rank]), n_valid_global=int(counts[i].sum()))
+        if counts is None:
+            kw = {}
+        elif mesh is None:
+            kw = dict(n_valid=int(counts[i, 0]))
+        elif not counts[i].sum():
+            kw = dict(n_valid=0, n_valid_global=0)
+        else:
+            kw = dict(n_valid=on_dev[i, mesh.rank],
+                      n_valid_global=on_dev[i].sum())
         state, m = gan_step(state, chunk_of(batches, i), draws[i], cfg,
                             mesh=mesh, g_count=g_count, **kw)
         sums = add_metrics(sums, m)
         if g_count is not None and counts[i].sum():
             g_count += 1
     return state, epoch_means(sums, n)
+
+
+def check_graphable(cfg: TrainConfig, device: torch.device, mesh=None
+                    ) -> bool:
+    """Whether a trainer's epochs run as CUDA graph replays:
+    ``epoch_on_device`` on a CUDA device.  A mesh whose backend is not
+    NCCL there raises: its collectives cannot be captured."""
+    if not (cfg.epoch_on_device and device.type == "cuda"):
+        return False
+    if mesh is not None and mesh.backend != "nccl":
+        raise ValueError(
+            f"a {mesh.backend} mesh on {device} cannot capture its "
+            "collectives in a CUDA graph: train it eagerly with "
+            "epoch_on_device=False (--host-loop), or use NCCL")
+    return True
 
 
 class Trainer:
@@ -156,6 +190,7 @@ class Trainer:
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
+        check_graphable(self.cfg, self.device, mesh)
         self.n_dev = 1 if mesh is None else mesh.size
         nt = dataset.n_train_samples
         if len(dataset.test_batches):
@@ -219,15 +254,15 @@ class Trainer:
     @property
     def graphed(self) -> bool:
         """Whether the epochs run as CUDA graph replays: ``epoch_on_device``
-        on a CUDA device without a mesh."""
-        return (self.cfg.epoch_on_device and self.mesh is None
-                and self.device.type == "cuda")
+        on a CUDA device (under a mesh, an NCCL one)."""
+        return check_graphable(self.cfg, self.device, self.mesh)
 
     @functools.cached_property
     def epoch_graphs(self) -> EpochGraphs:
-        """The captured steps of the training split (built on first use)."""
-        return EpochGraphs(self.cfg, self.train_dev,
-                           self.train_packed.n_valid)
+        """The captured steps of the training split, or of this rank's
+        column of its groups (built on first use)."""
+        return EpochGraphs(self.cfg, self.train_dev, self.train_counts,
+                           mesh=self.mesh)
 
     def _graphed_epochs(self, state: TrainState, n: int,
                         generator: Optional[torch.Generator] = None,
@@ -237,7 +272,7 @@ class Trainer:
         epoch's device metrics.  The solo G count is read once for all
         ``n``."""
         g_count = solo_clock(self.cfg, state)
-        steps = int((self.train_packed.n_valid > 0).sum())
+        steps = int((self.train_counts.sum(axis=1) > 0).sum())
         for _ in range(n):
             m = self.epoch_graphs.epoch(state, stack_draws(
                 self._draws(generator) if draws is None else draws), g_count)

@@ -23,6 +23,17 @@ rendezvous in a temporary directory.  The backend is NCCL on ``cuda`` and
 gloo on ``cpu``; gloo on ``cuda`` is taken only when asked for
 (``backend="gloo"``), which is how two ranks share one card.  Nothing falls
 back to the CPU.
+
+Under NCCL the DP step's collectives are captured in the graphed epoch's
+CUDA graphs (engine/graphed.py): the communicator exists before any
+capture (``device_id`` when the group is joined, and the eager warm-up
+step), nothing is read on the host between the flatten, the all-reduce
+and the split of ``all_reduce_sum`` and ``psum``, and ``dist.all_reduce``
+is called without ``async_op``, so the capturing stream waits for it.
+ProcessGroupNCCL keeps captured work off its watchdog's list, so a
+captured collective that hangs is not reported: ``spawn``'s timeout
+stays the guard.  gloo stages its collectives on the host and cannot be
+captured.
 """
 
 from __future__ import annotations
@@ -54,13 +65,14 @@ class Mesh:
     """One rank's view of a device mesh: ``shape`` (``(D,)``, or ``(n_dcn,
     n_ici)`` for the hierarchical form), its ``axis_names``, this process's
     ``rank`` (dcn-major over the shape, so the 1-D and 2-D forms slice the
-    same noise rows) and its ``device``.  Its collectives run on the
-    process's default group, the whole world: gradients and metrics reduce
-    over every rank."""
+    same noise rows), its ``device`` and the group's ``backend``.  Its
+    collectives run on the process's default group, the whole world:
+    gradients and metrics reduce over every rank."""
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     rank: int
     device: torch.device
+    backend: str = "gloo"
 
     @property
     def size(self) -> int:
@@ -85,7 +97,7 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
         raise ValueError(f"a mesh of shape {shape} needs "
                          f"{math.prod(shape)} ranks, the group has {world}")
     dev = _rank_device(torch.device(device or "cuda").type)
-    return Mesh(shape, names, dist.get_rank(), dev)
+    return Mesh(shape, names, dist.get_rank(), dev, dist.get_backend())
 
 
 def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
@@ -297,6 +309,14 @@ def psum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return t if mesh is None else _AllReduceSum.apply(t)
 
 
+def any_rank(flag: bool, mesh: Mesh) -> bool:
+    """Whether ``flag`` holds on any rank: one all-reduce (max) and a host
+    read, so that every rank takes the same host branch."""
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The ranks' ``t`` [n, ...] concatenated in rank order: [D n, ...]."""
     t = t.contiguous()
@@ -364,26 +384,50 @@ def make_dp_train_step(cfg, mesh: Mesh):
     return step
 
 
-def make_dp_epoch_fn(cfg, mesh: Mesh):
+def make_dp_epoch_fn(cfg, mesh: Mesh, runner=None):
     """The data-parallel epoch: ``epoch(state, batches, draws,
     counts=None)`` runs the DP step over this rank's column of groups
     (``batches`` [groups, width, ...] on the device, one global
     ``StepDraws`` a group, ``counts`` the [groups, D] host valid counts)
     and returns the state and the epoch's reduced metrics (JAX's
-    ``make_dp_epoch_fn``, a host loop instead of a scan): the Trainer's
-    epoch, ``engine.trainer.run_epoch``, on the mesh."""
-    from socialways_torch.engine.trainer import run_epoch
+    ``make_dp_epoch_fn``): the Trainer's epoch on the mesh.  On a CUDA
+    device with ``cfg.epoch_on_device`` (NCCL; another backend raises) it
+    is the graphed epoch, as JAX's is one program: ``runner`` (an
+    ``engine.graphed.EpochGraphs`` of ``batches``, such as
+    ``Trainer(mesh=).epoch_graphs``), or one built for ``batches`` at the
+    first call, replays a captured DP step a group.  Otherwise it is the
+    eager loop, ``engine.trainer.run_epoch``."""
+    from socialways_torch.engine.graphed import EpochGraphs, solo_clock
+    from socialways_torch.engine.train_step import stack_draws
+    from socialways_torch.engine.trainer import check_graphable, run_epoch
+    graphed = check_graphable(cfg, mesh.device, mesh)
 
     def epoch(state, batches, draws, counts=None):
-        return run_epoch(state, batches, draws, cfg, counts, mesh)
+        nonlocal runner
+        if not graphed:
+            return run_epoch(state, batches, draws, cfg, counts, mesh)
+        if runner is None or runner.batches is not batches:
+            if counts is None:
+                counts = _group_counts(batches, mesh)
+            runner = EpochGraphs(cfg, batches, counts, mesh=mesh)
+        return state, runner.epoch(state, stack_draws(draws),
+                                   solo_clock(cfg, state))
     return epoch
 
 
-def make_dp_epochs_fn(cfg, mesh: Mesh):
+def _group_counts(batches, mesh: Mesh) -> np.ndarray:
+    """[groups, D] valid rows of every rank's chunk of each group (one
+    all-gather and a host read)."""
+    local = batches["valid"].sum(dim=1)
+    return all_gather_rows(local[None], mesh).T.cpu().numpy()
+
+
+def make_dp_epochs_fn(cfg, mesh: Mesh, runner=None):
     """``n`` DP epochs: ``epochs(state, batches, draws_of_epoch, n,
     counts=None)`` with ``draws_of_epoch(e)`` the e-th epoch's draws; the
-    LAST epoch's metrics (JAX's ``make_dp_epochs_fn``)."""
-    epoch = make_dp_epoch_fn(cfg, mesh)
+    LAST epoch's metrics (JAX's ``make_dp_epochs_fn``), graphed as
+    ``make_dp_epoch_fn``'s epoch."""
+    epoch = make_dp_epoch_fn(cfg, mesh, runner)
 
     def epochs(state, batches, draws_of_epoch, n, counts=None):
         for e in range(n):

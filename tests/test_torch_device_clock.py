@@ -29,7 +29,6 @@ import jax.numpy as jnp
 import optax
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from socialways_tpu.config import TrainConfig as JaxConfig
 from socialways_tpu.engine.train_step import gan_step as jax_gan_step
@@ -50,6 +49,7 @@ from socialways_torch.io.checkpoint import flatten_state, train_state_from_jax
 from socialways_torch.kernels import social_attention as sa
 from test_torch_train_step import (ATOL, LOO, RTOL, assert_state_close,
                                    jax_draws, jax_init, make_chunk, to_torch)
+from torch_dist_workers import NoHostRead, stub_capture
 
 COUNTS = 61
 
@@ -217,22 +217,6 @@ def test_torch_gan_step_at_a_nonzero_count_matches_jax(jax_at_count_7):
 
 
 # ------------------------------------------------------------ host reads
-class NoHostRead(TorchDispatchMode):
-    """Raises on an op that reads a tensor's value on the host."""
-    FORBIDDEN = (torch.ops.aten._local_scalar_dense.default,
-                 torch.ops.aten.nonzero.default)
-
-    def __init__(self):
-        super().__init__()
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in self.FORBIDDEN:
-            raise AssertionError(f"host read inside the epoch: {func}")
-        self.ops += 1
-        return func(*args, **(kwargs or {}))
-
-
 H = 16
 BASE = dict(hidden_size=H, social_feature_size=H, noise_len=H // 2,
             batch_size=48, agent_frame=True, use_social=True,
@@ -339,31 +323,6 @@ def test_torch_launch_counters_credit_each_replay():
 
 
 # ------------------------------------------- the runner, capture stubbed
-class _Replay:
-    """A captured step as a CPU stand-in: a replay runs the step again
-    (its launches counted by the runner's credit alone)."""
-
-    def __init__(self, step):
-        self.step = step
-
-    def replay(self):
-        with sa.captured_launches():
-            self.step()
-
-
-def _stub_capture(self, step):
-    """``EpochGraphs._capture`` on the CPU: like a capture, it leaves the
-    state, the sums and the index as they were."""
-    kept = self.bound + (self.sums or []) + [self.idx]
-    saved = [t.detach().clone() for t in kept]
-    with sa.captured_launches() as launches:
-        step()
-    with torch.no_grad():
-        for t, s in zip(kept, saved):
-            t.copy_(s)
-    return _Replay(step), launches
-
-
 def _assert_same(a, b, what):
     fa, fb = flatten_state(a), flatten_state(b)
     assert sorted(fa) == sorted(fb)
@@ -381,7 +340,7 @@ def test_torch_graphed_epochs_equal_the_eager_loop(members, toy_npz,
     captures = []
     monkeypatch.setattr(graphed.EpochGraphs, "_capture",
                         lambda self, step: (captures.append(1),
-                                            _stub_capture(self, step))[1])
+                                            stub_capture(self, step))[1])
     cfg = TrainConfig(**dict(BASE, d_update_every=2, lr_decay_rate=0.9,
                              lr_decay_steps=2))
     ds = load_npz_dataset(toy_npz)

@@ -1,4 +1,6 @@
-"""Rank functions of tests/test_torch_parallel.py.
+"""Rank functions of tests/test_torch_parallel.py and
+tests/test_torch_dp_graphed.py, and the CPU stand-ins of a CUDA graph's
+capture they share with tests/test_torch_device_clock.py.
 
 ``socialways_torch.parallel.spawn`` starts each rank in a fresh process
 that unpickles these functions by import path, so this module imports
@@ -6,12 +8,83 @@ torch, numpy and socialways_torch only (no JAX: a rank starts in seconds).
 Inputs come as numpy arrays and plain dicts; each function returns numpy
 arrays and floats."""
 
+import contextlib
+import copy
+
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from socialways_torch.config import TrainConfig
 from socialways_torch.engine.train_step import StepDraws, gan_step
 from socialways_torch.io.checkpoint import flatten_state, state_from_flat
+from socialways_torch.kernels import social_attention as sa
+
+
+# ------------------------------------------ a CUDA graph's capture on the CPU
+class NoHostRead(TorchDispatchMode):
+    """Raises on an op that reads a tensor's value on the host."""
+    FORBIDDEN = (torch.ops.aten._local_scalar_dense.default,
+                 torch.ops.aten.nonzero.default)
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.FORBIDDEN:
+            raise AssertionError(f"host read inside the epoch: {func}")
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+class _Replay:
+    """A captured step as a CPU stand-in: a replay runs the step again
+    (its launches counted by the runner's credit alone)."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def replay(self):
+        with sa.captured_launches():
+            self.step()
+
+
+def stub_capture(self, step):
+    """``EpochGraphs._capture`` on the CPU: like a capture, it leaves the
+    state, the sums and the index as they were (under a mesh it runs the
+    step's collectives, so the ranks must capture at the same steps).  It
+    runs the warm-up's step again: the index has moved past it, and past
+    the epoch's end when the warm-up was its last step."""
+    kept = self.bound + (self.sums or []) + [self.idx]
+    saved = [t.detach().clone() for t in kept]
+    self.idx.sub_(1)
+    with sa.captured_launches() as launches:
+        step()
+    with torch.no_grad():
+        for t, s in zip(kept, saved):
+            t.copy_(s)
+    return _Replay(step), launches
+
+
+@contextlib.contextmanager
+def stubbed_graphs(captures: list):
+    """Inside: ``epoch_on_device`` graphs the epochs on the CPU too (the
+    trainers' and ``make_dp_epoch_fn``'s), each capture stubbed and
+    appended to ``captures``."""
+    from socialways_torch.engine import graphed, trainer
+    saved = graphed.EpochGraphs._capture, trainer.check_graphable
+
+    def capture(self, step):
+        captures.append(1)
+        return stub_capture(self, step)
+    graphed.EpochGraphs._capture = capture
+    trainer.check_graphable = lambda cfg, device, mesh=None: \
+        cfg.epoch_on_device
+    try:
+        yield
+    finally:
+        graphed.EpochGraphs._capture, trainer.check_graphable = saved
 
 
 def _tensors(batch):
@@ -209,6 +282,151 @@ def ensemble_case(mesh, case):
            "mesh": run(ens)}
     if mesh.rank == 0:
         out["single"] = run(EnsembleTrainer(_toy_trainer(case)))
+    return out
+
+
+# ------------------------------------------------ the graphed DP epoch
+_METRICS = ("d_loss", "g_loss", "train_ade", "train_fde", "steps")
+
+
+def graphed_dp_case(mesh, case):
+    """``Trainer(mesh=)`` epochs graphed (capture stubbed) and eager
+    (``epoch_on_device=False``) from one state and draw seed: each run's
+    final state, its metrics a call, and the graphed run's captures.
+    ``case["rescue"]`` {epoch: "all" | "rank0"}: after that epoch every
+    rank replaces its state by one with a re-initialized D (seeded alike),
+    or rank 0 alone by a copy of equal values (the runner must recapture
+    on every rank in lockstep).  ``case["fused"]``: all epochs in one
+    ``train_epochs`` call."""
+    from socialways_torch.engine.rescue import reinit_discriminator
+    torch.set_num_threads(1)
+    captures, out = [], {}
+    with stubbed_graphs(captures):
+        for mode in ("graph", "eager"):
+            tr = _toy_trainer(dict(case, cfg=dict(
+                case["cfg"], epoch_on_device=mode == "graph")), mesh)
+            assert tr.graphed == (mode == "graph")
+            state = tr.init_state(1)
+            gen = torch.Generator().manual_seed(case["seed"])
+            ms = []
+            if case.get("fused"):
+                state, m = tr.train_epochs(state, gen, case["epochs"])
+                ms.append(m)
+            for e in range(0 if case.get("fused") else case["epochs"]):
+                state, m = tr.train_epoch(state, gen)
+                ms.append(m)
+                rescue = case.get("rescue", {}).get(e)
+                if rescue == "all":
+                    state = reinit_discriminator(
+                        state, tr.cfg, torch.Generator().manual_seed(9))
+                elif rescue == "rank0" and mesh.rank == 0:
+                    state = copy.deepcopy(state)
+            out[mode] = (flatten_state(state),
+                         [{k: m[k] for k in _METRICS} for m in ms])
+    out["captures"] = len(captures)
+    out["steps"] = tr.n_steps_per_epoch
+    out["counts"] = tr.train_counts.tolist()
+    return out
+
+
+def no_host_read_case(mesh, case):
+    """One ``Trainer(mesh=)`` epoch, graphed (capture stubbed) or eager,
+    with every step after the first under ``NoHostRead`` until the epoch's
+    one metrics read: each step's dispatched op count."""
+    from socialways_torch.engine import graphed, trainer
+    from socialways_torch.engine.trainer import Trainer
+    torch.set_num_threads(1)
+    graph = case["mode"] == "graph"
+    tr = _toy_trainer(dict(case, cfg=dict(case["cfg"],
+                                          epoch_on_device=graph)), mesh)
+    mode, calls, left = NoHostRead(), [], []
+    mod = graphed if graph else trainer
+    real_step, real_metrics = mod.gan_step, Trainer._host_metrics
+
+    def step(*args, **kwargs):
+        out = real_step(*args, **kwargs)
+        calls.append(mode.ops)
+        if len(calls) == 1:
+            mode.__enter__()
+        return out
+
+    def metrics(self, *args):
+        if calls and not left:
+            left.append(1)
+            mode.__exit__(None, None, None)
+        return real_metrics(self, *args)
+    mod.gan_step, Trainer._host_metrics = step, metrics
+    try:
+        with stubbed_graphs([]):
+            assert tr.graphed == graph
+            _, m = tr.train_epoch(tr.init_state(1),
+                                  torch.Generator().manual_seed(3))
+    finally:
+        mod.gan_step, Trainer._host_metrics = real_step, real_metrics
+        if calls and not left:
+            mode.__exit__(None, None, None)
+    return {"calls": calls, "left": bool(left), "g_loss": m["g_loss"],
+            "steps": tr.n_steps_per_epoch}
+
+
+def jax_epoch_case(mesh, case):
+    """The graphed DP epoch (capture stubbed) under the given global draws
+    (JAX's) from the given state, three ways: ``Trainer(mesh=)
+    .train_epoch``, ``make_dp_epoch_fn`` (its own runner) and
+    ``make_dp_epochs_fn`` given the trainer's runner."""
+    from socialways_torch.parallel.mesh import (make_dp_epoch_fn,
+                                                make_dp_epochs_fn)
+    torch.set_num_threads(1)
+    draws = [_draws(d) for d in case["draws"]]
+    out = {}
+    with stubbed_graphs([]):
+        tr = _toy_trainer(case, mesh)
+        cfg = tr.cfg
+        assert tr.graphed
+        state, m = tr.train_epoch(state_from_flat(case["flat"], cfg, "cpu"),
+                                  draws=draws)
+        out["trainer"] = (flatten_state(state), {k: m[k] for k in _METRICS})
+        state, m = make_dp_epoch_fn(cfg, mesh)(
+            state_from_flat(case["flat"], cfg, "cpu"), tr.train_dev, draws)
+        out["epoch_fn"] = (flatten_state(state), _metrics(m))
+        state, m = make_dp_epochs_fn(cfg, mesh, tr.epoch_graphs)(
+            state_from_flat(case["flat"], cfg, "cpu"), tr.train_dev,
+            lambda e: draws, 1, tr.train_counts)
+        out["epochs_fn"] = (flatten_state(state), _metrics(m))
+    return out
+
+
+def graphed_ensemble_case(mesh, case):
+    """``EnsembleTrainer(mesh=)`` epochs graphed (capture stubbed) and
+    eager from the same seeds and generators: each rank's members' final
+    states and the metrics of every member; rank 0 also runs the
+    M-member ensemble in one process, eager."""
+    from socialways_torch.engine.ensemble import EnsembleTrainer, member_state
+    torch.set_num_threads(1)
+    seeds = case["seeds"]
+
+    def run(ens):
+        states = ens.init_states(seeds)
+        gens = [torch.Generator().manual_seed(100 + s) for s in seeds]
+        ms = []
+        for _ in range(case["epochs"]):
+            states, m = ens.train_epoch(states, gens)
+            ms.append({k: np.asarray(m[k]) for k in _METRICS[:4]})
+        n_local = len(seeds) // (ens.mesh.size if ens.mesh else 1)
+        return [flatten_state(member_state(states, i))
+                for i in range(n_local)], ms
+
+    out, captures = {}, []
+    with stubbed_graphs(captures):
+        for mode in ("graph", "eager"):
+            ens = EnsembleTrainer(_toy_trainer(dict(case, cfg=dict(
+                case["cfg"], epoch_on_device=mode == "graph"))), mesh)
+            assert ens.graphed == (mode == "graph")
+            out[mode] = run(ens)
+        if mesh.rank == 0:
+            out["single"] = run(EnsembleTrainer(_toy_trainer(dict(
+                case, cfg=dict(case["cfg"], epoch_on_device=False)))))
+    out["captures"] = len(captures)
     return out
 
 
