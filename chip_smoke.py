@@ -173,7 +173,22 @@ Phases (any failure raises):
    launch counters, and a graphed step's ops and idle share; (h) train
    steps/s and member-steps/s graphed against eager in alternated
    processes;
-19. a ``kernels`` JSON line, then the device JSON as the last line.
+19. JAX's serving command lines and library surface: (a) a loo-width
+   generator (``SERVE_FLAGS``: ``--recipe loo`` with the LSTM decoder,
+   gaussian noise and 3 categorical codes, its raw G jittered off the
+   EMA) saved with ``__config__`` and without; ``cli evaluate`` and ``cli
+   predict`` of both with those flags on phase 5's npz, equal printouts
+   and predict npz bit for bit, one forward launch a chunk; ``predict`` of
+   the configless file on the card against ``--cpu`` under one CPU noise
+   stream (rtol 1e-4 / atol 1e-5); (b) ``cli simulate`` of both at 10,000
+   agents x 1 window, trajectories bit for bit, 2 launches a run; (c)
+   ``kernels.social_attention_fused`` at the loo training chunk and
+   ``social_attention_chunked`` at N = 10,000 in scenes of 16, forward and
+   every gradient against autograd through their plain forms (phase 4's
+   and phase 11's bounds), one forward, dq and dkv launch each, timed; (d)
+   ``jitter_generator`` on the card against the CPU, sigma 0 the identity,
+   the EMA and optimizers untouched;
+20. a ``kernels`` JSON line, then the device JSON as the last line.
 """
 
 from __future__ import annotations
@@ -3927,6 +3942,282 @@ def graph_phase(torch, sa, cli_main, dev, npz, work, train_cfg, card):
             "wall_s": wall}
 
 
+#: phase 19's served model: the loo recipe at full width with the LSTM
+#: decoder, gaussian noise and 3 categorical codes (EMA on, from loo)
+SERVE_FLAGS = ["--recipe", "loo", "--decoder", "lstm", "--noise-dist",
+               "gaussian", "--latent-code", "categorical",
+               "--n-latent-codes", "3"]
+
+
+def serve_checkpoints(torch, npz, work):
+    """19a's checkpoints: a state of ``SERVE_FLAGS``'s model whose raw G is
+    jittered off its EMA (``jitter_generator``), so that serving the wrong
+    one shows; saved once with ``__config__`` and once without."""
+    from socialways_torch.cli.main import _train_cfg, parse_args
+    from socialways_torch.data.dataset import load_npz_dataset
+    from socialways_torch.engine.rescue import (draw_jitter_noises,
+                                                jitter_generator)
+    from socialways_torch.engine.train_step import init_train_state
+    from socialways_torch.io.checkpoint import save_checkpoint
+    cfg = _train_cfg(parse_args(["train", "--data", npz] + SERVE_FLAGS))
+    state = init_train_state(cfg, torch.Generator().manual_seed(19), "cpu")
+    state = jitter_generator(state, draw_jitter_noises(
+        state, torch.Generator().manual_seed(20)), 0.05)
+    scale = load_npz_dataset(npz).scale
+    paths = {}
+    for tag, saved in (("configful", cfg), ("configless", None)):
+        paths[tag] = os.path.join(work, f"serve-{tag}.npz")
+        save_checkpoint(paths[tag], state, 7,
+                        torch.Generator().manual_seed(0), scale, saved)
+    return cfg, paths
+
+
+def head_npz(npz: str, path: str, n_max: int) -> int:
+    """The scenes of ``npz`` that end within its first ``n_max`` windows,
+    written to ``path``; returns their window count."""
+    with np.load(npz) as d:
+        batches = np.asarray(d["batches"])
+        keep = batches[batches[:, 1] <= n_max]
+        m = int(keep[-1, 1])
+        np.savez(path, obsvs=d["obsvs"][:m], preds=d["preds"][:m],
+                 times=d["times"][:m], batches=keep)
+    return m
+
+
+def serve_flags_cli(torch, sa, cli_main, dev, npz, work, card):
+    """19a and 19b: ``evaluate``, ``predict`` and ``simulate`` of the
+    configless checkpoint with ``SERVE_FLAGS`` against the configful one,
+    bit for bit, with the forward launches the chunk counts predict; then
+    ``predict`` on the card against ``--cpu`` under the same draws."""
+    import socialways_torch.eval.metrics as tmetrics
+    from socialways_torch.data.dataset import greedy_chunks
+
+    cfg, paths = serve_checkpoints(torch, npz, work)
+    with np.load(npz) as d:
+        all_chunks = len(greedy_chunks(np.asarray(d["batches"]), BATCH))
+    from socialways_torch.data.dataset import load_npz_dataset
+    eval_chunks = len(greedy_chunks(load_npz_dataset(npz).test_batches,
+                                    BATCH))
+    want = {"evaluate": eval_chunks, "predict": all_chunks, "simulate": 2}
+    runs, launches = {}, {}
+    for tag, path in paths.items():
+        pred = os.path.join(work, f"serve-pred-{tag}.npz")
+        traj = os.path.join(work, f"serve-sim-{tag}.npz")
+        argvs = {"evaluate": ["evaluate", "--data", npz],
+                 "predict": ["predict", "--data", npz, "--out", pred],
+                 "simulate": ["simulate", "--agents", str(CROWD_N),
+                              "--windows", "1", "--out", traj]}
+        res = {}
+        for cmd, argv in argvs.items():
+            reset_launches(sa)
+            out = run_cli(cli_main, argv + ["--model-file", path]
+                          + SERVE_FLAGS, f"{cmd} {tag} {' '.join(SERVE_FLAGS)}",
+                          card)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            got = read_launches(sa)
+            if got != {"fwd": want[cmd], "dq": 0, "dkv": 0}:
+                raise AssertionError(f"{cmd} {tag}: launched {got}, not "
+                                     f"{want[cmd]} forwards")
+            launches[f"serve_flags_{cmd}_{tag}"] = got
+            # the timed simulate line varies: compare what it computed
+            res[cmd] = (re.sub(r"in [\d.]+ ms = [\d.]+M", "in T", out)
+                        .replace(path, "CKPT").replace(pred, "OUT")
+                        .replace(traj, "OUT"))
+        with np.load(pred) as f:
+            res["predict_npz"] = {k: f[k] for k in f.files}
+        with np.load(traj) as f:
+            res["simulate_npz"] = f["trajectories"]
+        runs[tag] = res
+    a, b = runs["configless"], runs["configful"]
+    for key in ("evaluate", "predict", "simulate"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{key}: configless printed {a[key]!r}, "
+                                 f"configful {b[key]!r}")
+    for key, arr in b["predict_npz"].items():
+        if not np.array_equal(a["predict_npz"][key], arr):
+            raise AssertionError(f"predict npz {key}: configless differs "
+                                 f"from configful in its bits")
+    if not np.array_equal(a["simulate_npz"], b["simulate_npz"]):
+        raise AssertionError("simulate: configless trajectories differ from "
+                             "configful in their bits")
+    if not np.isfinite(b["predict_npz"]["preds_our"]).all():
+        raise AssertionError("predict wrote non-finite predictions")
+    print(f"serving flags: configless = configful bit for bit for evaluate "
+          f"({eval_chunks} forward launches), predict ({all_chunks}) and "
+          f"simulate {CROWD_N} agents x 1 window (2 calls, 2 launches) "
+          f"[{card}]")
+
+    # predict on the card against --cpu, both drawing their noise from one
+    # CPU stream, on the scenes of the first 600 windows
+    sub = os.path.join(work, "serve-head.npz")
+    m = head_npz(npz, sub, 600)
+    real_draw, arrays = tmetrics.draw_noise, {}
+    try:
+        for where in ("card", "cpu"):
+            stream = torch.Generator().manual_seed(11)
+            tmetrics.draw_noise = (
+                lambda k, n, c, generator=None, device=None:
+                real_draw(k, n, c, stream, "cpu").to(device))
+            out = os.path.join(work, f"serve-head-{where}.npz")
+            run_cli(cli_main, (["--cpu"] if where == "cpu" else [])
+                    + ["predict", "--data", sub, "--model-file",
+                       paths["configless"], "--out", out] + SERVE_FLAGS,
+                    f"predict {m} windows on the {where}", card)
+            with np.load(out) as f:
+                arrays[where] = {k: f[k] for k in f.files}
+    finally:
+        tmetrics.draw_noise = real_draw
+    worst = {}
+    for key, want_arr in arrays["cpu"].items():
+        got = arrays["card"][key]
+        np.testing.assert_allclose(got, want_arr, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"predict card vs cpu {key}")
+        worst[key] = float(np.abs(got.astype(np.float64) - want_arr).max())
+    print(f"serving flags: predict card vs --cpu under the same draws, {m} "
+          f"windows: max abs diff {worst} (rtol 1e-4, atol 1e-5, world "
+          f"units)")
+    return launches
+
+
+def library_attention(torch, sa, dev, train_chunk, card):
+    """19c: ``kernels.social_attention_fused`` at the loo training chunk
+    and ``social_attention_chunked`` at N = 10,000 in scenes of 16, each
+    forward and gradient (x4, h, the MLP and attention weights) against
+    autograd through its plain form at phase 4's and phase 11's bounds,
+    timed (forward, and forward + backward) beside the plain forms."""
+    import socialways_torch.kernels as kernels
+    from socialways_torch.models.generator import init_generator
+    from socialways_torch.ops.social import social_context_windowed
+
+    g0, x4_np, h_np, ids_np = train_chunk
+    cfg = loo_cfg()
+    g1 = init_generator(cfg, torch.Generator().manual_seed(17), dev)
+    crowd = crowd_inputs(np.random.RandomState(29), CROWD_N, HIDDEN)
+    w = CROWD_SCENE
+    cases = {
+        "fused": (kernels.social_attention_fused, sa.social_attention_plain,
+                  g0, (x4_np, h_np, ids_np), {}),
+        "chunked": (sa.social_attention_chunked,
+                    lambda *a: social_context_windowed(*a, w), g1, crowd,
+                    {"max_scene": w, "chunk": 0}),
+    }
+    names = ["dx", "dh", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dWw",
+             "dbw"]
+    launches, entries = {}, {}
+    for tag, (fn, plain, g, arrays, kw) in cases.items():
+        x4, h, ids = (torch.from_numpy(a).to(dev) for a in arrays)
+        gout = torch.from_numpy(np.random.RandomState(31).randn(
+            *h.shape).astype(np.float32)).to(dev)
+        weights = [t for layer in g.feat_mlp for t in (layer.w, layer.b)]
+
+        def grads(f, x4=x4, h=h, g=g, weights=weights, gout=gout, ids=ids,
+                  kw=None):
+            xk, hk = x4.clone().requires_grad_(), h.clone().requires_grad_()
+            out = f(g.feat_mlp, g.attn_w, xk, hk, ids, **(kw or {}))
+            return out, torch.autograd.grad(
+                (out * gout).sum(), [xk, hk] + weights
+                + [g.attn_w.w, g.attn_w.b])
+
+        reset_launches(sa)
+        out, got = grads(fn, kw=kw)
+        torch.cuda.synchronize()
+        launches[f"library_{tag}"] = read_launches(sa)
+        if launches[f"library_{tag}"] != {"fwd": 1, "dq": 1, "dkv": 1}:
+            raise AssertionError(f"{tag}: launched "
+                                 f"{launches[f'library_{tag}']}, not one "
+                                 f"forward, dq and dkv")
+        ref_out, want = grads(plain)
+        err = check_close(out, ref_out, f"{tag} out")
+        for i, (nm, a, b) in enumerate(zip(names, got, want)):
+            err = max(err, check_close(
+                a, b, f"{tag} {nm}",
+                "dx" if nm == "dx" else "weight" if i >= 2 else "value"))
+        with torch.no_grad():
+            fwd_ms = median_ms(torch, lambda: fn(g.feat_mlp, g.attn_w, x4, h,
+                                                 ids, **kw))
+            fwd_plain_ms = median_ms(torch, lambda: plain(
+                g.feat_mlp, g.attn_w, x4, h, ids), repeats=3)
+        both_ms = median_ms(torch, lambda: grads(fn, kw=kw))
+        both_plain_ms = median_ms(torch, lambda: grads(plain), repeats=3)
+        n = h.shape[0]
+        entries[tag] = {"n": n, "max_abs_err": err, "fwd_ms": fwd_ms,
+                        "fwd_plain_ms": fwd_plain_ms,
+                        "fwd_bwd_ms": both_ms,
+                        "fwd_bwd_plain_ms": both_plain_ms}
+        print(f"library social_attention_{tag} N={n}: forward and gradient "
+              f"vs plain "
+              f"max abs {err:.3e} ok; forward {fwd_ms * 1e3:.2f} us (plain "
+              f"{fwd_plain_ms * 1e3:.2f} us), forward + backward "
+              f"{both_ms * 1e3:.2f} us (plain {both_plain_ms * 1e3:.2f} us), "
+              f"launches {launches[f'library_{tag}']} [{card}]")
+    return launches, entries
+
+
+def library_jitter(torch, dev, card):
+    """19d: ``jitter_generator`` on the card against the CPU under the same
+    draws (each leaf within 1e-6 of its values' magnitude plus its RMS:
+    the leaf's RMS is a sum in another order), ``sigma == 0`` the state
+    itself, and the EMA, D and both optimizers untouched."""
+    from socialways_torch.engine.rescue import (draw_jitter_noises,
+                                                jitter_generator)
+    from socialways_torch.engine.train_step import init_train_state
+    from socialways_torch.io.checkpoint import flatten_state
+    cfg = loo_cfg()
+    noises = None
+    flat = {}
+    for where in (dev, torch.device("cpu")):
+        state = init_train_state(cfg, torch.Generator().manual_seed(41),
+                                 where)
+        if noises is None:
+            noises = draw_jitter_noises(state, torch.Generator().manual_seed(
+                43))
+        before = {k: v.copy() for k, v in flatten_state(state).items()}
+        out = jitter_generator(state, [t.to(where) for t in noises], 0.1)
+        if jitter_generator(state, noises, 0.0) is not state:
+            raise AssertionError("jitter_generator at sigma 0 is not the "
+                                 "identity")
+        after = flatten_state(out)
+        for k, v in before.items():
+            moved = not np.array_equal(after[k], v)
+            if moved != k.startswith(".g_params/"):
+                raise AssertionError(f"jitter {where}: leaf {k} "
+                                     f"{'moved' if moved else 'stayed'}")
+        if any(not np.array_equal(v, before[k])
+               for k, v in flatten_state(state).items()):
+            raise AssertionError("jitter_generator moved its input state")
+        flat[where.type] = after
+    worst = 0.0
+    for k, want in flat["cpu"].items():
+        if not k.startswith(".g_params/"):
+            continue
+        got = flat[dev.type][k]
+        rms = float(np.sqrt(np.mean(np.square(want))))
+        err = np.abs(got - want)
+        if (err > 1e-6 * (np.abs(want) + rms)).any():
+            raise AssertionError(f"jitter card vs cpu {k}: max abs "
+                                 f"{float(err.max()):.3e} (rms {rms:.3e})")
+        worst = max(worst, float((err / (np.abs(want) + rms)).max()))
+    print(f"library jitter_generator: card vs cpu max |err| / (|w| + "
+          f"rms) {worst:.3e} (<= 1e-6); sigma 0 is the identity; EMA, D and "
+          f"both optimizers untouched [{card}]")
+
+
+def library_phase(torch, sa, cli_main, dev, npz, work, train_chunk, card):
+    """Phase 19: JAX's serving command lines and library surface on the
+    card.  Returns the launches of its paths and the attention entries'
+    times."""
+    tic = time.perf_counter()
+    launches = serve_flags_cli(torch, sa, cli_main, dev, npz, work, card)
+    more, entries = library_attention(torch, sa, dev, train_chunk, card)
+    launches.update(more)
+    library_jitter(torch, dev, card)
+    wall = time.perf_counter() - tic
+    print(f"phase 19 (serving flags, library surface): {wall:.1f} s "
+          f"[{card}]")
+    return {"launches": launches, "kernels": entries, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4211,6 +4502,9 @@ def main() -> int:
         # ---- 18. JAX's epoch on the device: graphed = eager, bit for bit
         graph = graph_phase(torch, sa, cli_main, dev, npz, work, train_cfg,
                             smi)
+        # ---- 19. JAX's serving command lines and library surface
+        library = library_phase(torch, sa, cli_main, dev, npz, work,
+                                bwd_cases[-1][1:], smi)
         dp_paths = {"dp_mesh1_cli": dp["mesh1"]["launches"],
                     "dp_mesh1_replayed_epoch": dp["mesh1"]["profile"][
                         "credited"],
@@ -4250,7 +4544,9 @@ def main() -> int:
                                  **{f"loop_flags_{k}": v["fwd"]
                                     for k, v in loops.items()},
                                  **{k: v["fwd"] for k, v in
-                                    dp_paths.items()}},
+                                    dp_paths.items()},
+                                 **{k: v["fwd"] for k, v in
+                                    library["launches"].items()}},
             "max_abs_err": max_err,
             "ms": bwd_path["stats_ms"],
             "kernel_ms": bwd_path["stats_ms"],
@@ -4269,6 +4565,7 @@ def main() -> int:
             "crowd_1m": crowd["kernels"]["fwd_1m"],
             "widths": {w: r["fwd_stats"] for w, r in
                        widths["kernels"].items()},
+            "library_entries": library["kernels"],
         }]
         for key, fn, line in (("dq", "_bwd_dq_kernel", 317),
                               ("dkv", "_bwd_dkv_kernel", 372)):
@@ -4291,7 +4588,10 @@ def main() -> int:
                                      **{f"loop_flags_{k}": v[key]
                                         for k, v in loops.items()},
                                      **{k: v[key] for k, v in
-                                        dp_paths.items()}},
+                                        dp_paths.items()},
+                                     **{k: v[key] for k, v in
+                                        library["launches"].items()
+                                        if k.startswith("library_")}},
                 "max_abs_err": bwd_err[key],
                 "ms": bwd_path["ms"][key][0],
                 "kernel_ms": bwd_path["ms"][key][0],
@@ -4420,7 +4720,8 @@ def main() -> int:
               f" (eager "
               f"{[round(r['member_steps_s'], 2) for r in graph['rates']['eager']]}"
               f"), a graphed epoch {graph['profile']['idle']:.1%} idle, phase "
-              f"18 {graph['wall_s']:.1f} s; chip_smoke wall "
+              f"18 {graph['wall_s']:.1f} s; phase 19 "
+              f"{library['wall_s']:.1f} s; chip_smoke wall "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)

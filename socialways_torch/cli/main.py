@@ -26,9 +26,15 @@ and :1172-1225 (stats, animate, plot-tracks, visualize).
 Everything that runs a model runs on the GPU unless ``--cpu`` is given;
 ``create-*``, ``stats``, ``visualize``, ``animate`` and ``plot-tracks``
 are host-only (numpy in, files out; viz/ imports matplotlib and cv2 where
-it uses them).  ``train``, ``eth-ucy`` and ``sweep`` take every
-``gan_step`` flag of the JAX CLI.  Every command that takes a model takes
-JAX's loop flags (``--fused-epochs``, ``--block-size``, ``--host-loop``,
+it uses them).  Every command that takes a model (``train``,
+``evaluate``, ``predict``, ``sweep``, ``eth-ucy``, ``simulate``) takes
+JAX's whole model flag set and recipes (``_add_train_flags``) and builds
+its config with the one ``_train_cfg``, as JAX's commands take its
+``_add_model_flags`` and ``_cfg_from_args``: each subcommand's options
+are JAX's, but for ``eth-ucy``'s ``--compare-reference`` and
+``--ref-epochs`` (they run the upstream reference, which is not in the
+repository) and ``simulate``'s ``--no-pallas``.  Among them are JAX's loop
+flags (``--fused-epochs``, ``--block-size``, ``--host-loop``,
 ``--latent-dim``, ``--pallas``, ``--mesh``): ``train --fused-epochs``
 prints, logs, checkpoints and evaluates once a block of epochs as JAX
 does, and reads the metrics once a block; on the card every training step
@@ -52,13 +58,21 @@ master weights, losses, gradients and optimizer state.
 contiguous) lets the social attention scan scene windows on every
 subcommand that runs a model.  ``simulate`` has no ``--no-pallas``: on the
 card the CUDA kernel is its only path.  The loop's outputs and rescues
-(dumps, metrics log, profiler trace, coverage, ``--auto-recover``) are
-``train``'s alone: ``eth-ucy`` and ``sweep`` refuse them rather than
-ignore them.  ``eth-ucy``
-without ``--recipe`` runs the loo recipe (``--recipe=`` opts out).  The
-model flags of evaluate/predict are the widths and switches of the served
-generator; a checkpoint's embedded config overrides them and brings the
-ones they lack (``decoder``, ``noise_dist``, ...).
+(dumps, metrics log, profiler trace, coverage, ``--auto-recover``, ...)
+are ``train``'s alone: ``eth-ucy`` and ``sweep`` refuse them when they
+are given on the command line rather than ignore them (a recipe's bundle
+may bring them: ``sweep --recipe robust1`` carries ``--auto-recover``,
+read by nothing, as in JAX); ``evaluate``, ``predict`` and ``simulate``
+accept them and the ``--ade-stall-*`` flags, as JAX's do, read none of
+them, and print one stderr NOTE naming each one given.  ``eth-ucy`` takes
+``--recipe loo`` alone, and without ``--recipe`` runs it (``--recipe=``
+opts out).  The structure flags of a served model (the widths,
+``--decoder``, ``--noise-dist``, ``--latent-code``, ``--n-latent-codes``,
+``--pac``, ``--mb-std``, ``--spectral-norm``, ``--use-social``,
+``--agent-frame``, ``--g-ema-decay``) set the config before a
+checkpoint's embedded config is adopted, which wins with a warning; a
+checkpoint without one (JAX's before it embedded it) is served as the
+flags name it.
 """
 
 from __future__ import annotations
@@ -101,24 +115,24 @@ RECIPES["loo"] = ["--agent-frame", "--use-social", "--g-ema-decay", "0.999",
 
 #: deprecated recipe names -> their replacement (expanded with a note)
 RECIPE_ALIASES = {"flagship": "toy-flagship"}
+ALL_RECIPES = list(RECIPES) + list(RECIPE_ALIASES)
 
-
-def _add_model_flags(p: argparse.ArgumentParser) -> None:
-    """Flags of the served model; a checkpoint's embedded config wins."""
-    p.add_argument("--batch-size", "--b", type=int, default=256)
-    p.add_argument("--hidden-size", "--h-size", type=int, default=64)
-    p.add_argument("--use-social", action="store_true",
-                   help="social attention pooling (the paper's mechanism)")
-    p.add_argument("--agent-frame", action="store_true",
-                   help="per-agent canonical heading frames (pairwise "
-                        "social geometry stays world-frame)")
-    p.add_argument("--g-ema-decay", type=float, default=0.0,
-                   help="> 0: serve the checkpoint's EMA generator")
-    _add_bf16_flag(p)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--n-gen-samples", "--k", type=int, default=20)
-    _add_max_scene_flag(p)
-    _add_loop_mode_flags(p)
+#: train's loop outputs and rescues (``_add_loop_flags``), read by train
+#: alone, and the ADE-stall rescue's flags, read by train and eth-ucy
+_LOOP_OUTPUTS = ("dump_dir", "lnr_model", "metrics_log", "profile_dir",
+                 "auto_recover", "track_coverage", "stall_recover",
+                 "stall_reset_d", "rescue_keep_clock")
+_ADE_STALL = ("ade_stall_recover", "ade_stall_grace",
+              "ade_stall_max_rescues", "ade_stall_classify")
+#: flags a command refuses when they are given on its command line: it
+#: writes none of those outputs (a recipe's bundle may still bring them)
+_REFUSED = {"eth-ucy": _LOOP_OUTPUTS, "sweep": _LOOP_OUTPUTS}
+#: flags a command accepts and reads nothing of, as JAX's do (the recipes
+#: bring --auto-recover and the --ade-stall-* flags): a NOTE names each
+#: one given on its command line
+_IGNORED = {"evaluate": _LOOP_OUTPUTS + _ADE_STALL,
+            "predict": _LOOP_OUTPUTS + _ADE_STALL,
+            "simulate": _LOOP_OUTPUTS + _ADE_STALL, "sweep": _ADE_STALL}
 
 
 def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
@@ -146,41 +160,6 @@ def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
                         "ceil(chunks/N) steps; 0 = off).  'AxB' (e.g. 2x4) "
                         "is the hierarchical (dcn, data) mesh of A x B "
                         "ranks.  Acted on by train only")
-
-
-def _add_bf16_flag(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--bf16", action="store_true",
-                   help="run generator/discriminator forward math in "
-                        "bfloat16 (f32 master params, f32 losses); float32 "
-                        "remains the parity default")
-
-
-def _add_max_scene_flag(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--max-scene-size", type=int, default=0,
-                   help="static bound on agents per scene (ids sorted + "
-                        "contiguous): the social attention scans only each "
-                        "agent's scene window, O(N*max_scene) at crowd "
-                        "scale (0 = unknown)")
-
-
-def _cfg_from_args(args):
-    from socialways_torch.config import TrainConfig
-    return TrainConfig(
-        batch_size=args.batch_size,
-        hidden_size=args.hidden_size,
-        social_feature_size=args.hidden_size,
-        noise_len=args.hidden_size // 2,
-        use_social=args.use_social,
-        agent_frame=args.agent_frame,
-        g_ema_decay=args.g_ema_decay,
-        compute_dtype="bfloat16" if args.bf16 else "float32",
-        seed=args.seed,
-        n_gen_samples=args.n_gen_samples,
-        max_scene_size=args.max_scene_size,
-        latent_dim=args.latent_dim,
-        use_pallas=args.pallas,
-        epoch_on_device=not args.host_loop,
-    )
 
 
 def _load_generator(args, cfg, device):
@@ -245,7 +224,7 @@ def cmd_evaluate(args, device) -> int:
     from socialways_torch.engine.trainer import Trainer, chunk_of
     from socialways_torch.io.checkpoint import adopt_checkpoint_config
 
-    cfg = _cfg_from_args(args)
+    cfg = _train_cfg(args)
     if args.model_file:
         cfg = adopt_checkpoint_config(cfg, args.model_file)
     ds = load_npz_dataset(args.data)
@@ -292,7 +271,7 @@ def cmd_predict(args, device) -> int:
     from socialways_torch.io.checkpoint import adopt_checkpoint_config
     from socialways_torch.ops.traj import predict_cv
 
-    cfg = adopt_checkpoint_config(_cfg_from_args(args), args.model_file)
+    cfg = adopt_checkpoint_config(_train_cfg(args), args.model_file)
     agent_idx = at_time = None
     # explicit flags win, else the checkpoint's training horizons
     n_past = args.n_past if args.n_past is not None else cfg.n_past
@@ -366,10 +345,8 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--epochs", "--e", type=int, default=1000)
     p.add_argument("--batch-size", "--b", type=int, default=256)
     p.add_argument("--hidden-size", "--h-size", type=int, default=64)
-    p.add_argument("--g-learning-rate", "--g-lr", "--lr-g", type=float,
-                   default=1e-4)
-    p.add_argument("--d-learning-rate", "--d-lr", "--lr-d", type=float,
-                   default=1e-3)
+    p.add_argument("--g-learning-rate", "--g-lr", type=float, default=1e-4)
+    p.add_argument("--d-learning-rate", "--d-lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-gen-samples", "--k", type=int, default=20)
     p.add_argument("--use-social", action="store_true",
@@ -489,25 +466,34 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
                         "full-batch gradient). Batch rows must divide by "
                         "N and (with --use-social) scene boundaries must "
                         "align to chunk boundaries")
-    _add_max_scene_flag(p)
-    _add_bf16_flag(p)
+    p.add_argument("--max-scene-size", type=int, default=0,
+                   help="static bound on agents per scene (ids sorted + "
+                        "contiguous): the social attention scans only each "
+                        "agent's scene window, O(N*max_scene) at crowd "
+                        "scale (0 = unknown)")
+    p.add_argument("--bf16", action="store_true",
+                   help="run generator/discriminator forward math in "
+                        "bfloat16 (f32 master params, f32 losses); float32 "
+                        "remains the parity default")
     _add_loop_mode_flags(p)
 
 
 def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
-    """The flags of train and eth-ucy: a recipe out of ``recipes``, the
-    checkpoint layout, the ADE-stall rescue and the GAN flags."""
+    """JAX's whole model flag set (socialways_tpu/cli/main.py:112-400), on
+    every command that takes a model: a recipe out of ``recipes``, the
+    checkpoint layout, the ADE-stall rescue, the GAN flags and train's loop
+    outputs and rescues.  ``parse_args`` refuses or notes the flags a
+    command does not read (``_REFUSED``, ``_IGNORED``)."""
     p.add_argument("--recipe", default="", choices=[""] + list(recipes),
                    help="expand a documented flag bundle; explicit flags "
                         "override it.  Real data: 'loo' = the record arm "
                         "(--agent-frame --use-social --g-ema-decay 0.999 "
                         "+ D instance noise 0.05 annealed over the run to "
                         "a 0.02 floor + the signature-gated ADE-stall "
-                        "rescue).  Toy protocol (train only): robust1 = "
-                        "categorical codes + cooled D + --auto-recover; "
-                        "inoise2 = + annealed D instance noise; "
-                        "toy-flagship = + agent frame, social attention "
-                        "and EMA")
+                        "rescue).  Toy protocol: robust1 = categorical "
+                        "codes + cooled D + --auto-recover; inoise2 = + "
+                        "annealed D instance noise; toy-flagship = + agent "
+                        "frame, social attention and EMA")
     p.add_argument("--test-interval", type=int, default=5)
     p.add_argument("--save-interval", type=int, default=50)
     p.add_argument("--model-dir", default="trained_models")
@@ -528,6 +514,7 @@ def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
                    help="fire after N flat evals matching the under-fit "
                         "or diversity-collapse signature (0 = off)")
     _add_gan_flags(p)
+    _add_loop_flags(p)
 
 
 def _add_loop_flags(p: argparse.ArgumentParser) -> None:
@@ -571,6 +558,9 @@ def _add_loop_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _train_cfg(args):
+    """The config of any command that takes a model, from its flags (JAX's
+    one ``_cfg_from_args``, socialways_tpu/cli/main.py:402-470); a
+    checkpoint's embedded config is adopted over it afterwards."""
     from socialways_torch.config import TrainConfig
     if args.d_lr_decay_rate != 1.0 and args.d_lr_decay_steps == 0:
         print("WARNING: --d-lr-decay-rate is ignored without "
@@ -578,7 +568,7 @@ def _train_cfg(args):
               "shared --lr-decay-* schedule)", file=sys.stderr)
     h = args.hidden_size
     return TrainConfig(
-        dataset=getattr(args, "dataset", "hotel"),
+        dataset=args.dataset,
         batch_size=args.batch_size, n_epochs=args.epochs,
         lr_g=args.g_learning_rate, lr_d=args.d_learning_rate,
         n_unrolling_steps=args.unrolling_steps,
@@ -588,7 +578,8 @@ def _train_cfg(args):
         d_restore=args.d_restore,
         hidden_size=h, social_feature_size=h, noise_len=h // 2,
         latent_dim=args.latent_dim, use_pallas=args.pallas,
-        epoch_on_device=not args.host_loop, decoder=args.decoder, noise_dist=args.noise_dist,
+        epoch_on_device=not args.host_loop, decoder=args.decoder,
+        noise_dist=args.noise_dist,
         n_latent_codes=args.n_latent_codes,
         latent_code_type=args.latent_code,
         use_l2_loss=args.use_l2_loss,
@@ -614,11 +605,9 @@ def _train_cfg(args):
         lr_warmup_steps=args.lr_warmup_steps,
         d_lr_warmup_steps=args.d_lr_warmup_steps,
         seed=args.seed, n_gen_samples=args.n_gen_samples,
-        test_interval=getattr(args, "test_interval", 5),
-        save_interval=getattr(args, "save_interval", 50),
-        model_dir=getattr(args, "model_dir", "trained_models"),
-        dump_dir=getattr(args, "dump_dir", ""),
-        lnr_model=getattr(args, "lnr_model", "cv"),
+        test_interval=args.test_interval, save_interval=args.save_interval,
+        model_dir=args.model_dir, dump_dir=args.dump_dir,
+        lnr_model=args.lnr_model,
         compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
@@ -966,7 +955,7 @@ def cmd_simulate(args, device) -> int:
                                                   throughput_agent_steps)
     from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
                                                 load_checkpoint_config)
-    cfg = _cfg_from_args(args)
+    cfg = _train_cfg(args)
     if args.model_file:
         cfg = adopt_checkpoint_config(cfg, args.model_file)
         # configless checkpoints keep the legacy social default
@@ -1188,8 +1177,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("train", help="train the GAN (checkpoints, eval, "
                                      "dumps, coverage, the rescues)")
     p.add_argument("--data", required=True, help="a windowed .npz")
-    _add_train_flags(p, list(RECIPES) + list(RECIPE_ALIASES))
-    _add_loop_flags(p)
+    _add_train_flags(p, ALL_RECIPES)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("stats",
@@ -1248,7 +1236,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sweep-epochs", type=int, default=20000)
     p.add_argument("--coverage-k", type=int, default=64)
     p.add_argument("--out-json", default="sweep.json")
-    _add_gan_flags(p)
+    _add_train_flags(p, ALL_RECIPES)
     p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("evaluate", help="evaluate a checkpoint")
@@ -1261,7 +1249,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "utils/linear_models.py:9-20; bare --linear) or "
                         "'kalman' (the constant-acceleration Kalman filter "
                         "of ops/kalman.py, rolled forward)")
-    _add_model_flags(p)
+    _add_train_flags(p, ALL_RECIPES)
     p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("predict",
@@ -1286,7 +1274,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--at-time", type=int, default=-1,
                    help="raw mode: forecast the scene at this timestamp "
                         "(-1 = the latest with a full-history agent)")
-    _add_model_flags(p)
+    _add_train_flags(p, ALL_RECIPES)
     p.set_defaults(fn=cmd_predict)
 
     p = sub.add_parser("eth-ucy",
@@ -1306,7 +1294,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prepare-only", action="store_true",
                    help="stop after obsmat discovery + npz building")
     p.add_argument("--out-json", default="")
-    # the toy recipes carry --auto-recover, a flag of train's loop
+    # the toy bundles are the toy protocol's (6.4x worse than the defaults
+    # on the leave-one-out protocol, BASELINE.md r4m): loo alone
     _add_train_flags(p, ["loo"])
     p.set_defaults(fn=cmd_eth_ucy)
 
@@ -1323,18 +1312,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "from torch.Generator().manual_seed(--seed), whose "
                         "weights are not the JAX package's)")
     p.add_argument("--out", default="", help="optional npz to write")
-    _add_model_flags(p)
+    _add_train_flags(p, ALL_RECIPES)
     p.set_defaults(fn=cmd_simulate)
     return ap
+
+
+def _given(ap: argparse.ArgumentParser, args, dests) -> list:
+    """The option strings of ``dests`` that ``args``, parsed from the
+    command line before any recipe's expansion, holds off their default:
+    the ones given there."""
+    sub = next(a for a in ap._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return [a.option_strings[0] for a in sub.choices[args.command]._actions
+            if a.dest in dests and getattr(args, a.dest) != a.default]
 
 
 def parse_args(argv):
     """Parse ``argv``; a ``--recipe NAME`` is expanded into its flags right
     after the subcommand (explicit flags, wherever they stand, then
     override the bundle) and parsed again.  ``eth-ucy`` without a
-    ``--recipe`` runs ``loo``; ``--recipe=`` opts out."""
+    ``--recipe`` runs ``loo``; ``--recipe=`` opts out.  A flag of
+    ``_REFUSED`` given on the command line exits 2; one of ``_IGNORED``
+    prints a NOTE."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    refused = _given(ap, args, _REFUSED.get(args.command, ()))
+    if refused:
+        ap.error(f"{args.command} writes none of train's loop outputs and "
+                 f"runs none of its rescues: {', '.join(refused)} (run "
+                 f"train for them)")
+    ignored = _given(ap, args, _IGNORED.get(args.command, ()))
+    if ignored:
+        print(f"NOTE: {args.command} reads none of {', '.join(ignored)} "
+              f"(train's outputs and rescues; accepted as JAX accepts "
+              f"them, and ignored)", file=sys.stderr)
     given = any(tok == "--recipe" or tok.startswith("--recipe=")
                 for tok in argv)
     name = getattr(args, "recipe", "")

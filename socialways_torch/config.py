@@ -1,12 +1,13 @@
 """Configuration of the serving and training paths.
 
-The fields the port reads, with the defaults of
-``socialways_tpu/config.py:TrainConfig`` (reference train.py:19-84), plus
-``MODEL_CONFIG_FIELDS`` — the fields a checkpoint carries because they
-define what its weights mean (socialways_tpu/io/checkpoint.py:46-59).
-Values the port does not implement (compute dtypes other than float32
-and bfloat16) and ``mesh_shape``, a JAX field that JAX reads nowhere (a
-mesh is ``Trainer(mesh=)`` and ``train --mesh``), are refused by
+Every field of ``socialways_tpu/config.py:TrainConfig``, with its
+defaults (reference train.py:19-84), plus ``MODEL_CONFIG_FIELDS`` — the
+fields a checkpoint carries because they define what its weights mean
+(socialways_tpu/io/checkpoint.py:46-59).  ``data_file`` is accepted and
+read by nothing, as in JAX.  Values the port does not implement (a master
+``dtype`` other than float32, compute dtypes other than float32 and
+bfloat16) and ``mesh_shape``, a JAX field that JAX reads nowhere (a mesh
+is ``Trainer(mesh=)`` and ``train --mesh``), are refused by
 ``check_supported``, which names the field, instead of silently training
 another model.
 """
@@ -31,6 +32,7 @@ MODEL_CONFIG_FIELDS = (
 class TrainConfig:
     # ---- data ----
     dataset: str = "hotel"
+    data_file: str = ""              # read by nothing, as in JAX
     n_past: int = 8
     n_next: int = 12
     batch_size: int = 256            # greedy scene-batch accumulation cap
@@ -95,6 +97,9 @@ class TrainConfig:
 
     # ---- runtime ----
     seed: int = 0
+    # the parameter and optimizer (master) dtype: float32 only (JAX's
+    # socialways_tpu/config.py:230; check_supported refuses the others)
+    dtype: str = "float32"
     compute_dtype: str = "float32"
     model_dir: str = "trained_models"
     dump_dir: str = ""               # prediction dumps each test interval
@@ -163,6 +168,7 @@ def check_supported(cfg: TrainConfig) -> None:
         ("latent_code_type",
          cfg.latent_code_type not in ("continuous", "categorical")),
         ("noise_dist", cfg.noise_dist not in ("uniform", "gaussian")),
+        ("dtype", cfg.dtype != "float32"),
         ("compute_dtype", cfg.compute_dtype not in ("float32", "bfloat16")),
         ("mesh_shape", cfg.mesh_shape is not None),
     ]

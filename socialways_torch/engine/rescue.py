@@ -1,18 +1,22 @@
 """Eval-keyed stall detection and the discriminator-reset rescue.
 
-Counterpart of socialways_tpu/engine/rescue.py:45-200.  ``StallTracker`` is
+Counterpart of socialways_tpu/engine/rescue.py:45-227.  ``StallTracker`` is
 pure Python and is copied as it is (its comments cite the JAX package's
 measurements, BASELINE.md r4k-r5).  ``reinit_discriminator`` gives the
 state a fresh D and a fresh D optimizer and leaves G, the EMA and the G
 optimizer (with its schedule clock) untouched: a GAN stuck in a
 bad-but-stable equilibrium is restored to its best generator and handed a
-new random discriminator.
+new random discriminator.  ``jitter_generator`` is JAX's second lever:
+it moves every raw G leaf by ``sigma`` times its RMS along a normal draw,
+which comes in as tensors (``draw_jitter_noises`` draws them from a
+``torch.Generator``; tests feed JAX's ``jax.random.normal`` draws).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -178,3 +182,39 @@ def reinit_discriminator(state, cfg: TrainConfig,
     d = init_discriminator(cfg, generator, device)
     _, d_tx = make_optimizers(cfg)
     return dataclasses.replace(state, d=d, d_opt=d_tx.init(d))
+
+
+def jax_leaf_order(module: torch.nn.Module
+                   ) -> List[Tuple[str, torch.nn.Parameter]]:
+    """``module``'s named parameters in the order ``jax.tree_util`` flattens
+    the JAX tree they mirror: dict keys sorted, list entries by index."""
+    def key(name: str):
+        return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+    return sorted(module.named_parameters(), key=lambda item: key(item[0]))
+
+
+def draw_jitter_noises(state, generator: torch.Generator
+                       ) -> List[torch.Tensor]:
+    """One N(0, 1) draw for each raw G leaf of ``state``, in JAX's leaf
+    order, from ``generator`` (a CPU ``torch.Generator``) and on G's
+    device: the ``noises`` of ``jitter_generator``."""
+    return [torch.randn(w.shape, generator=generator).to(w.device)
+            for _, w in jax_leaf_order(state.g)]
+
+
+def jitter_generator(state, noises: Sequence[torch.Tensor], sigma: float):
+    """``state`` with every raw G leaf moved to ``w + sigma * rms(w) * n``,
+    ``rms(w) = sqrt(mean(w^2) + 1e-12)`` and ``n`` the leaf's entry of
+    ``noises`` (one tensor a leaf, in ``jax_leaf_order``;
+    socialways_tpu/engine/rescue.py:203-227): every layer moves the same
+    relative amount.  The EMA generator, what evaluation serves, and both
+    optimizer states are untouched, and ``state`` itself too (G is
+    copied).  ``sigma == 0`` returns ``state``."""
+    if not sigma:
+        return state
+    g = copy.deepcopy(state.g)
+    with torch.no_grad():
+        for (_, w), n in zip(jax_leaf_order(g), noises, strict=True):
+            rms = torch.sqrt(torch.mean(torch.square(w)) + 1e-12)
+            w.add_(sigma * rms * n.to(w.device, w.dtype))
+    return dataclasses.replace(state, g=g)

@@ -360,3 +360,8 @@ def restore_checkpoint(path: str, cfg: TrainConfig, device=None
                    if k.startswith("__scale__/")}
     scale = Scale.from_dict(scale_items) if scale_items else None
     return state_from_flat(flat, cfg, device), epoch, rng, scale
+
+
+def checkpoint_exists(path: str) -> bool:
+    """Whether ``path`` is a file (socialways_tpu/io/checkpoint.py:170)."""
+    return os.path.isfile(path)

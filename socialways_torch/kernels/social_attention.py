@@ -102,12 +102,19 @@ or raises for a CUDA tensor.  ``social_attention`` is the size-aware
 dispatch of socialways_tpu/kernels/social_attention.py:747-784 with
 ``use_pallas`` off: on the CPU dense up to ``_DENSE_MAX_AGENTS``, then
 windowed (``max_scene > 0``) or blockwise; on CUDA always the kernels.
+JAX's other two entry points keep their names: ``social_attention_fused``
+is ``social_attention_fwd``, and ``social_attention_chunked`` the windowed
+launch (the windowed plain form on the CPU).  They take the port's
+``MLP`` and ``Linear`` where JAX's take a parameter dict.  Called, this
+module is ``social_attention``, as JAX's package exports it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import sys
+import types
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -758,6 +765,33 @@ def social_attention(feat_mlp: MLP, attn_w: Linear, x4_last: torch.Tensor,
                                 max_scene)
 
 
+#: JAX's name for the kernel pair without a size dispatch
+#: (socialways_tpu/kernels/social_attention.py:601-679)
+social_attention_fused = social_attention_fwd
+
+
+def social_attention_chunked(feat_mlp: MLP, attn_w: Linear,
+                             x4_last: torch.Tensor, h: torch.Tensor,
+                             scene_ids: torch.Tensor, max_scene: int,
+                             chunk: int = 0) -> torch.Tensor:
+    """The attention at crowd scale under JAX's contract
+    (socialways_tpu/kernels/social_attention.py:682-732): scene ids sorted
+    and contiguous, scenes of at most ``max_scene`` rows, ``max_scene > 0``.
+    JAX maps the fused kernel over row chunks with scene halos only to stay
+    inside VMEM; the CUDA kernels have no such cap, so on the card this is
+    one windowed launch of the kernel pair (forward, and dq / dkv under
+    autograd) and ``chunk`` is accepted and read by nothing.  The CPU takes
+    the windowed plain form."""
+    if max_scene <= 0:
+        raise ValueError(f"social_attention_chunked needs max_scene > 0, "
+                         f"got {max_scene}")
+    if h.device.type == "cpu":
+        return social_context_windowed(feat_mlp, attn_w, x4_last, h,
+                                       scene_ids, max_scene)
+    return social_attention_fwd(feat_mlp, attn_w, x4_last, h, scene_ids,
+                                max_scene)
+
+
 for _wrapper in (social_attention_fwd, social_attention_bwd_dq,
                  social_attention_bwd_dkv):
     _wrapper.launches = 0          # float32 kernel
@@ -801,3 +835,16 @@ def credit_launches(record: Launches, times: int = 1) -> None:
     replay of the graph whose capture recorded them."""
     for (wrapper, counter), n in record.items():
         setattr(wrapper, counter, getattr(wrapper, counter) + n * times)
+
+
+class _CallableModule(types.ModuleType):
+    """JAX's ``socialways_tpu.kernels`` exports the function
+    ``social_attention`` under this module's name: called, the module is
+    that function, so ``from socialways_torch.kernels import
+    social_attention`` serves both uses."""
+
+    def __call__(self, *args, **kwargs) -> torch.Tensor:
+        return social_attention(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -160,6 +160,15 @@ def attention_pool(w: Linear, f_emb: torch.Tensor, h: torch.Tensor,
     return torch.where(has_neighbor, pooled, 0.0)
 
 
+def social_pool(w: Linear, embed_fn, x4d_last: torch.Tensor,
+                h: torch.Tensor, scene_ids: torch.Tensor) -> torch.Tensor:
+    """Features -> ``embed_fn`` -> masked attention pooling, the dense form
+    (socialways_tpu/ops/social.py:105-111); ``embed_fn`` maps the [N, N, 3]
+    features to [N, N, F] embeddings."""
+    f_emb = embed_fn(social_features(x4d_last))
+    return attention_pool(w, f_emb, h, scene_mask(scene_ids))
+
+
 def _pad_rows(x4: torch.Tensor, h: torch.Tensor, ids: torch.Tensor,
               n_pad: int):
     """Append ``n_pad`` rows of zeros with scene id -1."""

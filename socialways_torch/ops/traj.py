@@ -8,7 +8,7 @@ baseline.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +28,15 @@ def pred_to_4d(obsv_p: torch.Tensor, pred_p: torch.Tensor) -> torch.Tensor:
     train.py:135-137)."""
     prev = torch.cat([obsv_p[..., -1:, :], pred_p[..., :-1, :]], dim=-2)
     return torch.cat([pred_p, pred_p - prev], dim=-1)
+
+
+def get_traj_4d(obsv_p: torch.Tensor, pred_p: Optional[torch.Tensor] = None
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """``obsv_to_4d(obsv_p)``, or with ``pred_p`` the pair ``(obsv_to_4d,
+    pred_to_4d)`` (socialways_tpu/ops/traj.py:33-37)."""
+    if pred_p is None:
+        return obsv_to_4d(obsv_p)
+    return obsv_to_4d(obsv_p), pred_to_4d(obsv_p, pred_p)
 
 
 def agent_frame_of(obsv_p: torch.Tensor) -> Frame:

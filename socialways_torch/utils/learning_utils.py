@@ -20,10 +20,11 @@ def step_decay_lr(base_lr: float = 0.005, decay: float = 0.6,
     return schedule
 
 
-def make_step_decay_schedule(base_lr: float, decay: float = 0.6,
-                             interval_steps: int = 50):
-    """The same schedule indexed by the update count (JAX's
-    ``make_step_decay_optax``)."""
+def make_step_decay_optax(base_lr: float, decay: float = 0.6,
+                          interval_steps: int = 50):
+    """The same schedule indexed by the update count, JAX's name: a
+    callable lr that ``engine/train_step.py``'s ``Adam`` takes as optax
+    takes it."""
     def schedule(count: int) -> float:
         return base_lr * decay ** (count // interval_steps)
     return schedule

@@ -690,8 +690,7 @@ def test_torch_bf16_flag_builds_jax_config(command):
             "eth-ucy": ["eth-ucy", "--data-dir", "d", "--recipe="],
             "simulate": ["simulate"]}[command] + ["--bf16", "--h-size", "32"]
     args = cli.parse_args(["--cpu"] + argv)
-    build = (cli._train_cfg if command in ("train", "sweep", "eth-ucy")
-             else cli._cfg_from_args)
+    build = cli._train_cfg
     got = build(args)
     want = jax_cli._cfg_from_args(jax_cli.build_parser().parse_args(
         jax_cli._apply_recipe(argv)))

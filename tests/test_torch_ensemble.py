@@ -373,6 +373,6 @@ def test_torch_learning_utils_match_jax():
         got, want = tlearn.step_decay_lr(*args), jlearn.step_decay_lr(*args)
         assert [got(e) for e in range(0, 400, 13)] == [want(e) for e in
                                                        range(0, 400, 13)]
-    got = tlearn.make_step_decay_schedule(0.002, 0.9, 11)
+    got = tlearn.make_step_decay_optax(0.002, 0.9, 11)
     want = jlearn.make_step_decay_optax(0.002, 0.9, 11)
     assert [got(c) for c in range(100)] == [want(c) for c in range(100)]

@@ -61,8 +61,7 @@ def test_torch_loop_flag_builds_jax_config(command, flag):
     want_args = jax_args(argv)
     want = jax_cli._cfg_from_args(want_args)
     args = cli.parse_args(["--cpu"] + argv)
-    build = (cli._train_cfg if command in ("train", "sweep", "eth-ucy")
-             else cli._cfg_from_args)
+    build = cli._train_cfg
     got = build(args)
     for field in ("latent_dim", "use_pallas", "epoch_on_device"):
         assert getattr(got, field) == getattr(want, field), field
