@@ -53,8 +53,11 @@
 // activations in either kernel.
 //
 // bf16 operands (the _bf16 entries): h, wh and the weights bf16, the
-// scores rebuilt with the forward's rounding (social_attention_pairs.cuh),
-// so a_ij renormalizes exactly against the forward's (m, l).  The relu masks
+// scores rebuilt with the forward's rounding and its layer-2 + score
+// routine (social_attention_pairs.cuh, layer2_scores), so a_ij renormalizes
+// exactly against the forward's (m, l).  The bf16 dkv is dkv_mma (below: a
+// warp a column, every product on the tensor cores), with a finalize of its
+// own; the bf16 dq is bwd_dq_kernel with layer2_scores.  The relu masks
 // come from the float pre-activations; dW2 = a1^T dz2 and dW1 take the
 // rounded a1 and features, A_j the rounded a2.  Every cotangent stays
 // float.  JAX's vjp rounds some per-tile cotangents to bf16 (the transpose
@@ -79,6 +82,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "social_attention_pairs.cuh"
 
 namespace {
@@ -100,7 +105,19 @@ constexpr int kW3Slices = kFinThreads / 16;                 // 64
 constexpr int kPartCols = 32;              // partial elements a finalize block
 constexpr int kPartSlices = kFinThreads / kPartCols;        // 32
 constexpr int kPartBlocks = (kPartial + kPartCols - 1) / kPartCols;
+constexpr int kW3RowsM = 2;                // the bf16 finalize's rows a block
+constexpr int kW3TilesM = (kH2 + 1 + kW3RowsM - 1) / kW3RowsM;   // 33
 static_assert(kW3Slices % kGroup == 0 && kPartSlices % kGroup == 0, "tree");
+constexpr int kA2Stride = kH2 + 8;         // the bf16 dq's a2 [kBatch][kH2], padded
+
+// The bf16 dq's tensor-core arrays (social_attention_pairs.cuh: W2's B
+// fragments, a batch's a2 rows and scores); none for float operands.
+template <typename T> struct DqMma {};
+template <> struct DqMma<__nv_bfloat16> {
+    uint2 w2f[kW2Frags];
+    float a2[kBatch * kA2Stride];
+    float s[kBatch];
+};
 
 // W1, b1, b2 and W2 (rows padded to kW2Stride) into shared memory, as float.
 template <typename T>
@@ -226,6 +243,53 @@ __device__ __forceinline__ PairDs pair_ds(const float (&a2i)[4],
     return {a, a * (gh - r)};
 }
 
+// a_ij and ds_ij of one pair from its score s (the bf16 dq: layer2_scores
+// gave it), as pair_ds forms them.
+__device__ __forceinline__ PairDs pair_ds_of(const float s, const float gh,
+                                             const bool act, const float m,
+                                             const float l, const float r) {
+    const float a = act ? expf(s - m) / fmaxf(l, 1e-20f) : 0.f;
+    return {a, a * (gh - r)};
+}
+
+// The bf16 dq's layer 2 and scores (warps 0 and 1, an m-tile of 16 pairs
+// each): a1 from the batch's a1^T (layer1's bits), layer2_scores with the
+// pairs' u rows and c, and a2 and the scores into shared memory, where the
+// block's register tile reads them.
+__device__ __forceinline__ void dq_scores_mma(const float* s_a1,
+                                              const uint2* s_w2f,
+                                              const float* s_b2,
+                                              const float* __restrict__ u,
+                                              const int mrow, const int* s_col,
+                                              const float* s_c, float* s_a2,
+                                              float* s_s) {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int p0 = 16 * (threadIdx.x >> 5) + (lane >> 2), p1 = p0 + 8;
+    unsigned a[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+        const float* k0 = s_a1 + (16 * ks + 2 * t) * kA1Stride;
+        a[ks][0] = pack_bf16(k0[p0], k0[kA1Stride + p0]);
+        a[ks][1] = pack_bf16(k0[p1], k0[kA1Stride + p1]);
+        a[ks][2] = pack_bf16(k0[8 * kA1Stride + p0], k0[9 * kA1Stride + p0]);
+        a[ks][3] = pack_bf16(k0[8 * kA1Stride + p1], k0[9 * kA1Stride + p1]);
+    }
+    float a2[kN2][4];
+    const float2 sc = layer2_scores(
+        a, s_w2f, s_b2, u + (size_t)(mrow + s_col[p0]) * kH2,
+        u + (size_t)(mrow + s_col[p1]) * kH2, s_c[p0], s_c[p1], a2);
+#pragma unroll
+    for (int nt = 0; nt < kN2; ++nt) {
+        const int o = 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(s_a2 + p0 * kA2Stride + o) = make_float2(a2[nt][0], a2[nt][1]);
+        *reinterpret_cast<float2*>(s_a2 + p1 * kA2Stride + o) = make_float2(a2[nt][2], a2[nt][3]);
+    }
+    if (t == 0) {
+        s_s[p0] = sc.x;
+        s_s[p1] = sc.y;
+    }
+}
+
 // dz2 = [z2 > 0] ds u_j over this lane's four outputs, written over a2i.
 __device__ __forceinline__ void dz2_of(float (&a2i)[4], const float4 u4,
                                        const float ds) {
@@ -330,6 +394,7 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float4 s_xt[kTile];
     __shared__ float s_m[kTile], s_l[kTile], s_r[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
+    __shared__ __align__(16) DqMma<T> s_mma;    // bf16: layer2_scores' arrays
 
     // member m's rows: h, g, stats, r, u, c, dx at m N; x4 and ids at m
     // ms.x4, m ms.ids (0 when shared); its weights at m ms.w*
@@ -337,6 +402,8 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               irow = m * ms.ids;
     stage_mlp12(w1 + m * ms.w1, b1 + m * ms.b1, w2 + m * ms.w2,
                 b2 + m * ms.b2, s_w1, s_b1, s_w2, s_b2);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+        stage_w2_frags(w2 + m * ms.w2, s_mma.w2f);
     const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
     const int n_tiles = (n + kTile - 1) / kTile;
 
@@ -410,15 +477,37 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             __syncthreads();
             layer1<T>(s_feat, s_w1, s_b1, s_a1);
             __syncthreads();
+            if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+                // layer 2 and the scores on the tensor cores, the forward's
+                // and dkv's routine, so a_ij renormalizes exactly
+                if (threadIdx.x < 2 * 32)
+                    dq_scores_mma(s_a1, s_mma.w2f, s_b2, u, mrow, s_col, s_c,
+                                  s_mma.a2, s_mma.s);
+                __syncthreads();
+            }
             {
                 float a2[4][4];
-                layer2_tile<T>(s_a1, s_w2, kW2Stride, s_b2, a2);
+                if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        const float4 v = *reinterpret_cast<const float4*>(
+                            s_mma.a2 + (4 * pg + i) * kA2Stride + 4 * og);
+                        a2[i][0] = v.x; a2[i][1] = v.y; a2[i][2] = v.z; a2[i][3] = v.w;
+                    }
+                } else {
+                    layer2_tile<T>(s_a1, s_w2, kW2Stride, s_b2, a2);
+                }
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, col = s_col[p], slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(u + (size_t)(mrow + col) * kH2)[og];
-                    const PairDs d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
-                                             s_m[slot], s_l[slot], s_r[slot]);
+                    PairDs d;
+                    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+                        d = pair_ds_of(s_mma.s[p], s_gh[p], p < nb, s_m[slot],
+                                       s_l[slot], s_r[slot]);
+                    else
+                        d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
+                                    s_m[slot], s_l[slot], s_r[slot]);
                     dz2_of(a2[i], u4, d.ds);
                 }
                 store_dz2(s_dz2, a2);
@@ -492,6 +581,9 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
                float* __restrict__ s_sum, float* __restrict__ partial,
                const int n, const int hdim, const int feat, const int w,
                const Members ms) {
+    // bf16 operands take dkv_mma (the specializations below): this body
+    // runs for float alone
+    static_assert(std::is_same_v<T, float>, "bf16: define SA_BF16_ENTRIES");
     __shared__ __align__(16) float s_w2[kH1 * kW2Stride];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -770,6 +862,445 @@ bwd_dkv_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     part[kH1 * kH2 + kH2 + threadIdx.x] = p_w1;   // dW1 [3][32] | db1 [32]
 }
 
+// The bf16 dkv on the tensor cores (social_attention_pairs.cuh, "bf16
+// operands on Hopper's tensor cores").  Each warp owns one column j at a
+// time and walks columns with the stride of the grid's warps (dkv_blocks
+// caps the grid), takes its partners i in m-tiles of 16 and, per m-tile, in
+// registers and shuffles only:
+//   features, layer 1, layer2_scores (u_j, c_j) as the forward;
+//   g_i . h_j (lane p & 15 over half of H, the halves added), a_ij, ds_ij;
+//   S_j, A_j = sum ds a2 (the m-tile's eight row groups added by shuffles),
+//   dh_j = sum a_ij g_i (a lane's two neighbouring columns at a time;
+//   kWide: past 128 in row j of dh, which only this warp touches);
+//   dz2 = [a2 > 0] ds u_j in the accumulator layout, which is the A
+//   operand of dz1 = [a1 > 0] dz2 W2^T (mma);
+//   with dx: gf = W1 dz1 (the quad's rows) and the feature backward;
+//   dW2 += a1^T dz2, db2 += 1^T dz2, dW1 | db1 += [feat | 1]^T dz1 (mma;
+//   a1^T, dz2^T and dz1^T by movmatrix from the registers that hold them).
+// The cotangents dz2 and dz1 stay float32: each enters a product split
+// exactly into three bf16 pieces (split3), so every partial product is
+// exact and only the order of the float sums differs from FFMA.  A warp's
+// partials of dW2 (in fragment order: it is each product's accumulator),
+// db2 and dW1 | db1 live in shared memory; at the end each warp writes its
+// own partial slot, with no block barrier, and bwd_finalize_kernel adds
+// the slots.  Every sum runs in a fixed order: two runs, a
+// w > 0 and a w = 0 launch, and a member and a solo launch give equal
+// bits (the grid depends on N alone).
+template <bool kWide>
+__device__ __forceinline__ void dkv_mma(
+        const float4* __restrict__ x4, const int* __restrict__ ids,
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ g,
+        const float2* __restrict__ stats, const float* __restrict__ r,
+        const float* __restrict__ u, const float* __restrict__ cvec,
+        const __nv_bfloat16* __restrict__ w1,
+        const __nv_bfloat16* __restrict__ b1,
+        const __nv_bfloat16* __restrict__ w2,
+        const __nv_bfloat16* __restrict__ b2,
+        const __nv_bfloat16* __restrict__ w3,
+        const __nv_bfloat16* __restrict__ b3, float4* __restrict__ dx,
+        float* __restrict__ dh, float* __restrict__ dwh,
+        float* __restrict__ a_sum, float* __restrict__ s_sum,
+        float* __restrict__ partial, const int n, const int hdim,
+        const int feat, const int w, const Members ms) {
+    // Static shared memory, bytes: the warps' partials of dW2 32,768, db2
+    // 1,024 and dW1 | db1 2,048 | W2's layer-2 B fragments 4,096 | the rings
+    // 4,096 | the warps' A_j 1,024 | b2, W1, b1 768: 45,824 in all (under
+    // the 48 KB of static shared memory).  Partials in shared memory, not
+    // registers: the m-tile's products need the registers.  dz1's B
+    // fragments are W2's own 32-bit words, read from the (cached) weights.
+    constexpr int kTail = kIn * kH1 + kH1;          // dW1 | db1: 128
+    __shared__ __align__(16) float4 s_dw2[kWarps][2 * kN2 * 32];
+    __shared__ __align__(16) float s_db2[kWarps][kH2];
+    __shared__ __align__(16) float s_aj[kWarps][kH2];
+    __shared__ __align__(16) uint2 s_w2f[kW2Frags];
+    __shared__ int s_ring[kWarps][kWRing];
+    __shared__ __align__(16) float s_misc[kWarps][kTail];
+    __shared__ __align__(16) float s_b2[kH2];
+    __shared__ float s_w1[kIn * kH1];
+    __shared__ float s_b1[kH1];
+
+    // member m's rows: h, g, stats, r, u, c and every output at m N; x4 and
+    // ids at m ms.x4, m ms.ids (0 when shared); its weights at m ms.w*; its
+    // partial slots after the members' before.  A row offset at every index
+    // (the float kernels' way): moved pointers would each hold two registers
+    const int m = member(), mrow = m * n, xrow = m * ms.x4,
+              irow = m * ms.ids, w3o = m * ms.w3, b3o = m * ms.b3;
+    w1 += m * ms.w1; b1 += m * ms.b1; w2 += m * ms.w2; b2 += m * ms.b2;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // the warp's first column: its scan starts before the staging, so that
+    // the two wait for their loads together
+    int j = blockIdx.x * kWarps + warp, sid = 0;
+    WarpRing wr{s_ring[warp], 0, 0, 0, 0};
+    if (j < n) {
+        sid = ids[irow + j];
+        wr.next = w == 0 ? 0 : max(0, j - w);
+        wr.end = w == 0 ? n : min(n, j + 1 + w);
+        warp_fill(wr, ids, irow, sid, j);
+    }
+    stage_w2_frags(w2, s_w2f);
+    const unsigned* const w2t = reinterpret_cast<const unsigned*>(w2);
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = ld(b2[t]);
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = ld(w1[t]);
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = ld(b1[t]);
+    for (int e = threadIdx.x; e < kWarps * 2 * kN2 * 32; e += kThreads)
+        (&s_dw2[0][0])[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = threadIdx.x; e < kWarps * kH2; e += kThreads)
+        (&s_db2[0][0])[e] = 0.f;
+    for (int e = threadIdx.x; e < kWarps * kTail; e += kThreads)
+        (&s_misc[0][0])[e] = 0.f;
+    __syncthreads();
+    pdl_launch_dependents();     // the finalize may start, and waits for us
+
+    const int gq = lane >> 2, t = lane & 3, p = lane & 15;
+    float4* const dw2 = s_dw2[warp];
+    float* const db2 = s_db2[warp];     // row 3 of [feat | 1]^T dz2 (gq = 3)
+    // rows c = gq < 4 of [feat | 1]^T dz1: dW1[c][k1] (c < 3), db1 (c = 3)
+    float* const dw1 = s_misc[warp];
+    float* const aj = s_aj[warp];       // the column's A_j
+
+    for (bool first = true; j < n; j += gridDim.x * kWarps, first = false) {
+        if (!first) {
+            sid = ids[irow + j];
+            wr = WarpRing{s_ring[warp], 0, 0, w == 0 ? 0 : max(0, j - w),
+                          w == 0 ? n : min(n, j + 1 + w)};
+        }
+        const float4 xj = x4[xrow + j];
+        const float cj = cvec[mrow + j];
+        const float* const uj = u + (size_t)(mrow + j) * kH2;
+        const __nv_bfloat16* const hj = h + (size_t)(mrow + j) * hdim;
+        float* const dhrow = dh + (size_t)(mrow + j) * hdim;
+        // dh_j[d], d = 2 (lane + 32 q) + e, in dha[q][e]
+        float S = 0.f, dha[kNarrowWidth / 64][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        if (lane < 16) reinterpret_cast<float4*>(aj)[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 dxj = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (kWide)
+            for (int d = kNarrowWidth + 2 * lane; d < hdim; d += 64)
+                *reinterpret_cast<float2*>(dhrow + d) = make_float2(0.f, 0.f);
+        while (true) {
+            warp_fill(wr, ids, irow, sid, j);
+            if (wr.count == 0) break;
+            const int nb = wr.count < kMma ? wr.count : kMma;
+            // lane p < nb: pair p's row, features, stats and r
+            int row = 0;
+            float f[kIn] = {0.f, 0.f, 0.f}, mi = 0.f, li = 1.f, ri = 0.f;
+            float4 xi = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (p < nb) {
+                row = wr.ring[(wr.head + p) & (kWRing - 1)];
+                xi = x4[xrow + row];
+                const Geo q = pair_geo(xi, speed(xi), xj);
+#pragma unroll
+                for (int c = 0; c < kIn; ++c) f[c] = rnd<__nv_bfloat16>(q.feat[c]);
+                const float2 st = stats[mrow + row];
+                mi = st.x;
+                li = st.y;
+                ri = r[mrow + row];
+            }
+            float fg[kIn], fg8[kIn];
+#pragma unroll
+            for (int c = 0; c < kIn; ++c) {
+                fg[c] = __shfl_sync(kFull, f[c], gq);
+                fg8[c] = __shfl_sync(kFull, f[c], gq + 8);
+            }
+            unsigned a[2][4];
+            layer1_frags(fg, fg8, s_w1, s_b1, a);
+            float a2[kN2][4];
+            const float2 sc = layer2_scores(a, s_w2f, s_b2, uj, uj, cj, cj, a2);
+            // pair p's a_ij (lane p & 15)
+            const float s_a = __shfl_sync(kFull, sc.x, 4 * (p & 7));
+            const float s_b = __shfl_sync(kFull, sc.y, 4 * (p & 7));
+            const float ap = p < nb ? expf((p < 8 ? s_a : s_b) - mi) / fmaxf(li, 1e-20f)
+                                    : 0.f;
+            // g_i . h_j and dh_j += a_ij g_i, H in chunks of 64 columns: lane
+            // (p, lane >> 4) loads its pair's 32 columns of g_i, adds its part
+            // of g_i . h_j, and the half warp sums a_ij g_i column by column
+            // (reduce-scatter: lane l ends with columns 64 c + 2 l, + 1)
+            float gh = 0.f;
+            const float* const gi = g + (size_t)(mrow + row) * hdim;
+            for (int c0 = 0; c0 < hdim; c0 += 64) {
+                const int d0 = c0 + 32 * (lane >> 4);
+                float v[32];
+#pragma unroll
+                for (int q = 0; q < 8; ++q) {
+                    const int d = d0 + 4 * q;
+                    float4 ga = make_float4(0.f, 0.f, 0.f, 0.f), hb = ga;
+                    if (d < hdim) {
+                        ga = *reinterpret_cast<const float4*>(gi + d);
+                        hb = ld4(hj + d, 0);
+                    }
+                    gh = fmaf(ga.x, hb.x, gh);
+                    gh = fmaf(ga.y, hb.y, gh);
+                    gh = fmaf(ga.z, hb.z, gh);
+                    gh = fmaf(ga.w, hb.w, gh);
+                    v[4 * q] = ap * ga.x;
+                    v[4 * q + 1] = ap * ga.y;
+                    v[4 * q + 2] = ap * ga.z;
+                    v[4 * q + 3] = ap * ga.w;
+                }
+                half_warp_reduce_scatter(v);
+                if (c0 == 0) {
+                    dha[0][0] += v[0];
+                    dha[0][1] += v[1];
+                } else if (c0 == 64) {
+                    dha[1][0] += v[0];
+                    dha[1][1] += v[1];
+                } else if (kWide && c0 + 2 * lane < hdim) {
+                    float2* const o = reinterpret_cast<float2*>(dhrow + c0 + 2 * lane);
+                    const float2 ov = *o;
+                    *o = make_float2(ov.x + v[0], ov.y + v[1]);
+                }
+            }
+            gh += __shfl_xor_sync(kFull, gh, 16);
+            const PairDs pd{ap, ap * (gh - ri)};
+            S += warp_sum(lane < kMma ? pd.ds : 0.f);
+            // A_j += ds a2 (the m-tile's sum over the eight row groups, the
+            // same bits in every group, added by lanes t of group 0); dz2 =
+            // [a2 > 0] ds u_j, over a2
+            const float dsg = __shfl_sync(kFull, pd.ds, gq);
+            const float dsg8 = __shfl_sync(kFull, pd.ds, gq + 8);
+#pragma unroll
+            for (int nt = 0; nt < kN2; ++nt) {
+                float v0 = fmaf(dsg8, a2[nt][2], dsg * a2[nt][0]);
+                float v1 = fmaf(dsg8, a2[nt][3], dsg * a2[nt][1]);
+#pragma unroll
+                for (int off = 4; off < 32; off <<= 1) {
+                    v0 += __shfl_xor_sync(kFull, v0, off);
+                    v1 += __shfl_xor_sync(kFull, v1, off);
+                }
+                if (gq == 0) {
+                    float2* const av = reinterpret_cast<float2*>(aj + 8 * nt + 2 * t);
+                    const float2 o = *av;
+                    *av = make_float2(o.x + v0, o.y + v1);
+                }
+            }
+#pragma unroll
+            for (int nt = 0; nt < kN2; ++nt) {
+                const float2 uo = *reinterpret_cast<const float2*>(uj + 8 * nt + 2 * t);
+                a2[nt][0] = a2[nt][0] > 0.f ? dsg * uo.x : 0.f;
+                a2[nt][1] = a2[nt][1] > 0.f ? dsg * uo.y : 0.f;
+                a2[nt][2] = a2[nt][2] > 0.f ? dsg8 * uo.x : 0.f;
+                a2[nt][3] = a2[nt][3] > 0.f ? dsg8 * uo.y : 0.f;
+            }
+            // the weight-gradient products' A operands: a1^T (its four 8 x 8
+            // blocks transposed) and [feat | 1]^T (rows c = gq < 4)
+            unsigned at[2][4], ft[4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                at[mt][0] = movm_trans(a[mt][0]);
+                at[mt][1] = movm_trans(a[mt][2]);
+                at[mt][2] = movm_trans(a[mt][1]);
+                at[mt][3] = movm_trans(a[mt][3]);
+            }
+            ft[0] = movm_trans(t == 0 ? pack_bf16(fg[0], fg[1])
+                               : t == 1 ? pack_bf16(fg[2], 1.f) : 0u);
+            ft[2] = movm_trans(t == 0 ? pack_bf16(fg8[0], fg8[1])
+                               : t == 1 ? pack_bf16(fg8[2], 1.f) : 0u);
+            ft[1] = ft[3] = 0u;
+            // dz2 in three bf16 pieces (lo, mid, hi: added in that order),
+            // k-step ks at a time (its n-tiles 2 ks and 2 ks + 1): the A
+            // operand of dz1 = dz2 W2^T and, transposed, the B operand of
+            // dW2 += a1^T dz2 and db2 += 1^T dz2
+            float z1[kH1 / 8][4];
+#pragma unroll
+            for (int nt = 0; nt < kH1 / 8; ++nt)
+                z1[nt][0] = z1[nt][1] = z1[nt][2] = z1[nt][3] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < kH2 / 16; ++ks) {
+                unsigned ap[3][4];
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    unsigned piece[3];
+                    split3(a2[2 * ks + (v >> 1)][2 * (v & 1)],
+                           a2[2 * ks + (v >> 1)][2 * (v & 1) + 1], piece);
+                    ap[0][v] = piece[0];
+                    ap[1][v] = piece[1];
+                    ap[2][v] = piece[2];
+                }
+#pragma unroll
+                for (int nt = 0; nt < kH1 / 8; ++nt) {
+                    // B[o][k1] = W2[k1][o]: o pairs are W2's 32-bit words
+                    const unsigned* wrow = w2t + (8 * nt + gq) * (kH2 / 2);
+                    const unsigned bw0 = wrow[8 * ks + t], bw1 = wrow[8 * ks + 4 + t];
+#pragma unroll
+                    for (int piece = 0; piece < 3; ++piece)
+                        mma_bf16(z1[nt], ap[piece], bw0, bw1);
+                }
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int nt = 2 * ks + hf;
+                    unsigned b[3][2];
+#pragma unroll
+                    for (int piece = 0; piece < 3; ++piece) {
+                        b[piece][0] = movm_trans(ap[piece][2 * hf]);
+                        b[piece][1] = movm_trans(ap[piece][2 * hf + 1]);
+                    }
+#pragma unroll
+                    for (int mt = 0; mt < 2; ++mt) {
+                        float4& slot = dw2[(mt * kN2 + nt) * 32 + lane];
+                        float acc[4] = {slot.x, slot.y, slot.z, slot.w};
+#pragma unroll
+                        for (int piece = 0; piece < 3; ++piece)
+                            mma_bf16(acc, at[mt], b[piece][0], b[piece][1]);
+                        slot = make_float4(acc[0], acc[1], acc[2], acc[3]);
+                    }
+                    float2* const d2 = reinterpret_cast<float2*>(db2 + 8 * nt + 2 * t);
+                    const float2 d2v = gq == 3 ? *d2 : make_float2(0.f, 0.f);
+                    float acc[4] = {d2v.x, d2v.y, 0.f, 0.f};
+#pragma unroll
+                    for (int piece = 0; piece < 3; ++piece)
+                        mma_bf16(acc, ft, b[piece][0], b[piece][1]);
+                    if (gq == 3) *d2 = make_float2(acc[0], acc[1]);
+                }
+            }
+#pragma unroll
+            for (int nt = 0; nt < kH1 / 8; ++nt) {
+                const unsigned rg = a[nt >> 1][2 * (nt & 1)];
+                const unsigned rg8 = a[nt >> 1][2 * (nt & 1) + 1];
+                z1[nt][0] = lo_bf16(rg) > 0.f ? z1[nt][0] : 0.f;
+                z1[nt][1] = hi_bf16(rg) > 0.f ? z1[nt][1] : 0.f;
+                z1[nt][2] = lo_bf16(rg8) > 0.f ? z1[nt][2] : 0.f;
+                z1[nt][3] = hi_bf16(rg8) > 0.f ? z1[nt][3] : 0.f;
+            }
+            if (dx != nullptr) {
+                // gf = W1 dz1 of pairs gq and gq + 8 (this lane's 8 columns,
+                // then the quad), then pair p's feature backward
+                float gf[kIn];
+#pragma unroll
+                for (int c = 0; c < kIn; ++c) {
+                    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+                    for (int nt = 0; nt < kH1 / 8; ++nt)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const float wv = s_w1[c * kH1 + 8 * nt + 2 * t + e];
+                            s0 = fmaf(wv, z1[nt][e], s0);
+                            s1 = fmaf(wv, z1[nt][2 + e], s1);
+                        }
+                    s0 += __shfl_xor_sync(kFull, s0, 1);
+                    s0 += __shfl_xor_sync(kFull, s0, 2);
+                    s1 += __shfl_xor_sync(kFull, s1, 1);
+                    s1 += __shfl_xor_sync(kFull, s1, 2);
+                    const float v0 = __shfl_sync(kFull, s0, 4 * (p & 7));
+                    const float v1 = __shfl_sync(kFull, s1, 4 * (p & 7));
+                    gf[c] = p < 8 ? v0 : v1;
+                }
+                float4 gi4, gj4 = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (p < nb) {
+                    const float vn = speed(xi);
+                    geo_backward(pair_geo(xi, vn, xj), xi, vn, gf, gi4, gj4);
+                }
+                const bool mine = lane < kMma;
+                dxj.x += warp_sum(mine ? gj4.x : 0.f);
+                dxj.y += warp_sum(mine ? gj4.y : 0.f);
+                dxj.z += warp_sum(mine ? gj4.z : 0.f);
+                dxj.w += warp_sum(mine ? gj4.w : 0.f);
+            }
+            // dW1 | db1 += [feat | 1]^T dz1 (B = dz1 transposed, in pieces)
+#pragma unroll
+            for (int nt = 0; nt < kH1 / 8; ++nt) {
+                unsigned b[3][2];
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    unsigned piece[3];
+                    split3(z1[nt][2 * hf], z1[nt][2 * hf + 1], piece);
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) b[k][hf] = movm_trans(piece[k]);
+                }
+                float2* const d1 = reinterpret_cast<float2*>(dw1 + gq * kH1 + 8 * nt + 2 * t);
+                const float2 d1v = gq < 4 ? *d1 : make_float2(0.f, 0.f);
+                float acc[4] = {d1v.x, d1v.y, 0.f, 0.f};
+#pragma unroll
+                for (int piece = 0; piece < 3; ++piece)
+                    mma_bf16(acc, ft, b[piece][0], b[piece][1]);
+                if (gq < 4) *d1 = make_float2(acc[0], acc[1]);
+            }
+            wr.head = (wr.head + nb) & (kWRing - 1);
+            wr.count -= nb;
+        }
+        // the column's sums: a_sum, s_sum, dx_j, dh_j, dwh_j
+        __syncwarp();
+        if (lane < 16)
+            reinterpret_cast<float4*>(a_sum + (size_t)(mrow + j) * kH2)[lane] =
+                reinterpret_cast<const float4*>(aj)[lane];
+        if (lane == 0) {
+            s_sum[mrow + j] = S;
+            if (dx != nullptr) dx[mrow + j] = dxj;
+        }
+#pragma unroll
+        for (int q = 0; q < kNarrowWidth / 64; ++q)
+            if (2 * (lane + 32 * q) < hdim)
+                reinterpret_cast<float2*>(dhrow)[lane + 32 * q] =
+                    make_float2(dha[q][0], dha[q][1]);
+        __syncwarp();
+        // dwh_j = A_j W3 + S_j b3, a lane's two neighbouring columns f a
+        // 32-bit word of W3's rows
+        for (int f = 2 * lane; f < feat; f += 64) {
+            float v0 = S * ld(b3[b3o + f]), v1 = S * ld(b3[b3o + f + 1]);
+#pragma unroll 32
+            for (int k = 0; k < kH2; ++k) {
+                const unsigned wk = *reinterpret_cast<const unsigned*>(
+                    w3 + w3o + k * feat + f);
+                v0 = fmaf(aj[k], lo_bf16(wk), v0);
+                v1 = fmaf(aj[k], hi_bf16(wk), v1);
+            }
+            *reinterpret_cast<float2*>(dwh + (size_t)(mrow + j) * feat + f) =
+                make_float2(v0, v1);
+        }
+        __syncwarp();            // aj is the next column's
+    }
+    // the warp's partial slot (the finalize adds the slots): dW2 in the
+    // fragment order of its shared array, then db2, dW1, db1
+    __syncwarp();
+    float* const part = partial + (((size_t)m * gridDim.x + blockIdx.x) * kWarps + warp) * kPartial;
+#pragma unroll
+    for (int i = 0; i < 2 * kN2; ++i)
+        reinterpret_cast<float4*>(part)[i * 32 + lane] = dw2[i * 32 + lane];
+    for (int e = lane; e < kH2; e += 32) part[kH1 * kH2 + e] = db2[e];
+    for (int e = lane; e < kTail; e += 32) part[kH1 * kH2 + kH2 + e] = dw1[e];
+}
+
+#ifdef SA_BF16_ENTRIES
+// The bf16 entries' dkv kernels: dkv_mma, in the primary template's
+// signature (the launches, trace names and ptxas lines of the float one's);
+// only the *_bf16.cu translation units (SA_BF16_ENTRIES) see them.
+#define SA_DKV_MMA_PARAMS                                                    \
+    const float4* __restrict__ x4, const int* __restrict__ ids,              \
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ g,    \
+        const float2* __restrict__ stats, const float* __restrict__ r,       \
+        const float* __restrict__ u, const float* __restrict__ cvec,         \
+        const __nv_bfloat16* __restrict__ w1,                                \
+        const __nv_bfloat16* __restrict__ b1,                                \
+        const __nv_bfloat16* __restrict__ w2,                                \
+        const __nv_bfloat16* __restrict__ b2,                                \
+        const __nv_bfloat16* __restrict__ w3,                                \
+        const __nv_bfloat16* __restrict__ b3, float4* __restrict__ dx,       \
+        float* __restrict__ dh, float* __restrict__ dwh,                     \
+        float* __restrict__ a_sum, float* __restrict__ s_sum,                \
+        float* __restrict__ partial, const int n, const int hdim,            \
+        const int feat, const int w, const Members ms
+// The bf16 dkv's resident blocks an SM (at most 168 registers a thread).
+// kernels/social_attention.py's _MMA_DKV_MAX_BLOCKS caps the grid at this
+// many on each of an H100's 132 SMs and must match it (a test reads this
+// line).
+constexpr int kMmaDkvMinBlocks = 3;
+#define SA_DKV_MMA_ARGS x4, ids, h, g, stats, r, u, cvec, w1, b1, w2, b2, w3, \
+    b3, dx, dh, dwh, a_sum, s_sum, partial, n, hdim, feat, w, ms
+
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaDkvMinBlocks)
+bwd_dkv_kernel<__nv_bfloat16, false>(SA_DKV_MMA_PARAMS) {
+    dkv_mma<false>(SA_DKV_MMA_ARGS);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaDkvMinBlocks)
+bwd_dkv_kernel<__nv_bfloat16, true>(SA_DKV_MMA_PARAMS) {
+    dkv_mma<true>(SA_DKV_MMA_ARGS);
+}
+
+#undef SA_DKV_MMA_PARAMS
+#undef SA_DKV_MMA_ARGS
+#endif  // SA_BF16_ENTRIES
+
 // Second pass, kFinThreads threads a block.  The first kW3Tiles x F/16
 // blocks: kW3Rows rows of [dW3; db3] (65 x F) = sum_j [A_j; S_j] (x) wh_j for
 // 16 columns, the N terms in kW3Slices strided slices.  The other
@@ -857,6 +1388,102 @@ bwd_finalize_kernel(const T* __restrict__ wh,
     }
 }
 
+#ifdef SA_BF16_ENTRIES
+// The bf16 entries' finalize: bwd_finalize_kernel's sums in its fixed trees,
+// with the rows of [dW3; db3] kW3RowsM = 2 a block (132 blocks at F = 64,
+// one an SM, instead of 68) and a row's two A_j values read with one 8-byte
+// load, eight j of a slice in flight.
+template <>
+__global__ void __launch_bounds__(kFinThreads)
+bwd_finalize_kernel<__nv_bfloat16>(const __nv_bfloat16* __restrict__ wh,
+                                   const float* __restrict__ a_sum,
+                                   const float* __restrict__ s_sum,
+                                   const float* __restrict__ partial,
+                                   float* __restrict__ dw3,
+                                   float* __restrict__ db3,
+                                   float* __restrict__ dmlp12, const int n,
+                                   const int feat, const int n_slots,
+                                   const Members ms) {
+    __shared__ float red[kFinThreads * kW3RowsM];
+    __shared__ float red2[kFinThreads * kW3RowsM / kGroup];
+    const int t = threadIdx.x;
+    const int m = member(), mrow = m * n, whrow = m * ms.wh;
+    pdl_wait();                  // the dkv kernel's sums are complete
+    const int f_tiles = feat / 16, w3_blocks = kW3TilesM * f_tiles;
+    if ((int)blockIdx.x < w3_blocks) {
+        const int kt = blockIdx.x / f_tiles, fc = blockIdx.x - kt * f_tiles;
+        const int fl = t & 15, slice = t >> 4, f = fc * 16 + fl;
+        const int k0 = kt * kW3RowsM;
+        float acc0 = 0.f, acc1 = 0.f;
+        if (k0 < kH2) {
+#pragma unroll 8
+            for (int j = slice; j < n; j += kW3Slices) {
+                const float w = ld(wh[(size_t)(whrow + j) * feat + f]);
+                const float2 a = *reinterpret_cast<const float2*>(
+                    a_sum + (size_t)(mrow + j) * kH2 + k0);
+                acc0 = fmaf(a.x, w, acc0);
+                acc1 = fmaf(a.y, w, acc1);
+            }
+        } else {
+#pragma unroll 8
+            for (int j = slice; j < n; j += kW3Slices)
+                acc0 = fmaf(s_sum[mrow + j],
+                            ld(wh[(size_t)(whrow + j) * feat + f]), acc0);
+        }
+        red[slice * 16 + fl] = acc0;
+        red[(kW3Slices + slice) * 16 + fl] = acc1;
+        __syncthreads();
+        constexpr int groups = kW3Slices / kGroup;
+        if (t < kW3RowsM * groups * 16) {
+            const int q = t / (groups * 16), gr = (t / 16) % groups;
+            float s = 0.f;
+            for (int sl = gr * kGroup; sl < (gr + 1) * kGroup; ++sl)
+                s += red[(q * kW3Slices + sl) * 16 + fl];
+            red2[(q * groups + gr) * 16 + fl] = s;
+        }
+        __syncthreads();
+        if (t < kW3RowsM * 16) {
+            const int q = t >> 4, k = k0 + q, fo = fc * 16 + fl;
+            float s = 0.f;
+            for (int gr = 0; gr < groups; ++gr) s += red2[(q * groups + gr) * 16 + fl];
+            if (k < kH2) (dw3 + (size_t)m * kH2 * feat)[k * feat + fo] = s;
+            else if (k == kH2) (db3 + (size_t)m * feat)[fo] = s;
+        }
+        return;
+    }
+    // the warps' slots (dkv_mma): dW2[k1][o] at its fragment position
+    const int col = t % kPartCols, slice = t / kPartCols;
+    const int e = ((int)blockIdx.x - w3_blocks) * kPartCols + col;
+    int at = e;
+    if (e < kH1 * kH2) {
+        const int k1 = e / kH2, o = e - k1 * kH2;
+        at = 4 * (((k1 >> 4) * kN2 + (o >> 3)) * 32 + 4 * (k1 & 7) + ((o & 7) >> 1)) +
+             2 * ((k1 >> 3) & 1) + (o & 1);
+    }
+    float acc = 0.f;
+    if (e < kPartial)
+#pragma unroll 4
+        for (int b = slice; b < n_slots; b += kPartSlices)
+            acc += partial[((size_t)m * n_slots + b) * kPartial + at];
+    red[slice * kPartCols + col] = acc;      // [kPartSlices][kPartCols]
+    __syncthreads();
+    constexpr int groups = kPartSlices / kGroup;
+    if (t < groups * kPartCols) {
+        const int gr = t / kPartCols;
+        float s = 0.f;
+        for (int sl = gr * kGroup; sl < (gr + 1) * kGroup; ++sl)
+            s += red[sl * kPartCols + col];
+        red2[gr * kPartCols + col] = s;
+    }
+    __syncthreads();
+    if (t < kPartCols && e < kPartial) {
+        float s = 0.f;
+        for (int gr = 0; gr < groups; ++gr) s += red2[gr * kPartCols + t];
+        (dmlp12 + (size_t)m * kPartial)[e] = s;
+    }
+}
+#endif  // SA_BF16_ENTRIES
+
 // dx_i [M, N, 4] from the forward's u [M, N, 64] and c [M, N]: one launch
 // of `blocks` x `members` blocks, each walking row tiles blockIdx.x,
 // blockIdx.x + blocks, ... of member blockIdx.y; g, stats and r are [M, N,
@@ -898,10 +1525,11 @@ int launch_dq(const void* x4, const void* ids, const void* h, const void* g,
 // and c [M, N]; g, stats and r are [M, N, ...]; `strides` are the member
 // strides of x4, ids, h, wh and w1..b3 (MemberStrides, checked by
 // members_of; null for a single model, M = 1).
-// `blocks` x `members` dkv blocks, one partial slot each: a_sum [M, N, 64],
-// s_sum [M, N] and partial [partial_floats] are scratch.  A partial_floats
-// other than members x blocks x kPartial (the caller sized its slots or
-// dmlp12 differently) is refused with cudaErrorInvalidValue, as are bad
+// `blocks` x `members` dkv blocks, one partial slot each (bf16: one a warp):
+// a_sum [M, N, 64], s_sum [M, N] and partial [partial_floats] are scratch.
+// A partial_floats other than members x blocks x kPartial (bf16: x kWarps;
+// the caller sized its slots or dmlp12 differently) is refused with
+// cudaErrorInvalidValue, as are bad
 // member strides and a scene window max_scene < 0 (0: every column tile
 // scans all N; a column's partners lie in the same window as a row's).
 // Two launches: dkv, then finalize.  h, wh and w1..b3 are T; every output
@@ -920,9 +1548,11 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
     if (max_scene < 0 || !members_of(strides, members, n, hdim, feat, ms))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaSuccess;
+    // partial slots a block: the bf16 dkv's warps keep one each
+    constexpr int slots = std::is_same_v<T, float> ? 1 : kWarps;
     if (blocks <= 0 || !width_ok(hdim, kWide) || !width_ok(feat, kWide) ||
         (long long)partial_floats !=
-            (long long)members * blocks * kPartial)
+            (long long)members * blocks * slots * kPartial)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     bwd_dkv_kernel<T, kWide><<<dim3(blocks, members), kThreads, 0, st>>>(
@@ -939,14 +1569,16 @@ int launch_dkv(const void* x4, const void* ids, const void* h, const void* wh,
         feat, max_scene, ms);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    // the bf16 finalize takes the rows of [dW3; db3] kW3RowsM a block
+    constexpr int w3_tiles = std::is_same_v<T, float> ? kW3Tiles : kW3TilesM;
     return (int)launch_dependent(
         bwd_finalize_kernel<T>,
-        dim3(kW3Tiles * (feat / 16) + kPartBlocks, members),
+        dim3(w3_tiles * (feat / 16) + kPartBlocks, members),
         dim3(kFinThreads), 0, st, static_cast<const T*>(wh),
         static_cast<const float*>(a_sum), static_cast<const float*>(s_sum),
         static_cast<const float*>(partial), static_cast<float*>(dw3),
         static_cast<float*>(db3), static_cast<float*>(dmlp12), n, feat,
-        blocks, ms);
+        blocks * slots, ms);
 }
 
 }  // namespace

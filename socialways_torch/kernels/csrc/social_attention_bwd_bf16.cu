@@ -5,6 +5,7 @@
 // the bf16 instantiation, the float forward kernel took 56 registers
 // instead of its own 50.
 
+#define SA_BF16_ENTRIES     // the tensor-core kernels of the bf16 operands
 #include "social_attention_bwd.cuh"
 
 extern "C" int social_attention_bwd_dq_bf16(SA_DQ_ARGS) {

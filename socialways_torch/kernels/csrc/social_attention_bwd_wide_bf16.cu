@@ -2,6 +2,7 @@
 // at H or F above 128 (any multiple of 16): the kWide instantiation of the kernels
 // in social_attention_bwd.cuh, a translation unit of its own.
 
+#define SA_BF16_ENTRIES     // the tensor-core kernels of the bf16 operands
 #include "social_attention_bwd.cuh"
 
 extern "C" int social_attention_bwd_dq_wide_bf16(SA_DQ_ARGS) {

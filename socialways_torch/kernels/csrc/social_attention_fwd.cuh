@@ -25,10 +25,12 @@
 // bf16, rounded where the Pallas kernel casts (social_attention_pairs.cuh);
 // u and c are float sums of bf16 values (JAX's f . wh up to the order of
 // the sum); p is rounded before p . h while l sums the unrounded p; out,
-// stats, u and c stay float.  The online softmax rounds p against the
-// running max of its batch of 32 pairs, the Pallas kernel against that of
-// its 64-column tile: where a row's max moves between batches the two
-// round p differently, by at most half a bf16 ulp of each term.
+// stats, u and c stay float.  The bf16 kernels are u_prep_mma and fwd_mma
+// (below: a warp a query row, the pair MLP and u on the tensor cores); the
+// online softmax rounds p against the running max of its m-tile of 16
+// pairs, the Pallas kernel against that of its 64-column tile: where a
+// row's max moves between the two the roundings differ, by at most half a
+// bf16 ulp of each term.
 //
 // Design (social_attention_pairs.cuh has the shared pair machinery).
 // - Prologue `u_prep_kernel`: u and c once per agent, 8 agents a block, W3
@@ -64,6 +66,8 @@
 // and registers; what is left is the latency of its phases.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "social_attention_pairs.cuh"
 
@@ -132,6 +136,8 @@ u_prep_kernel(const T* __restrict__ wh, const T* __restrict__ w3,
               const T* __restrict__ b3, float* __restrict__ u,
               float* __restrict__ c, const int n, const int feat,
               const Members ms) {
+    // bf16 operands take u_prep_mma (the specializations below)
+    static_assert(std::is_same_v<T, float>, "bf16: define SA_BF16_ENTRIES");
     __shared__ float s_w3t[kNarrowWidth * (kH2 + 1)];    // W3^T [F][64 + 1]
     __shared__ float s_wh[kPrepRows][kNarrowWidth];
     pdl_launch_dependents();     // the main kernel may start its prefix now
@@ -227,6 +233,9 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
                             float2* __restrict__ stats,
                             const int n, const int hdim, const int w,
                             const Members ms) {
+    // bf16 operands take fwd_mma (the specializations below): this body
+    // runs for float alone
+    static_assert(std::is_same_v<T, float>, "bf16: define SA_BF16_ENTRIES");
     __shared__ __align__(16) float s_w2[kH1 * kH2];
     __shared__ __align__(16) float s_b2[kH2];
     __shared__ float s_w1[kIn * kH1];
@@ -384,6 +393,312 @@ social_attention_fwd_kernel(const float4* __restrict__ x4,
     }
 }
 
+// p . h_j of a warp's m-tile over the 128 columns of h from c0, in pair
+// order: acc[q][e] += p_k h_k[d], d = c0 + 2 (lane + 32 q) + e (a lane's
+// two neighbouring columns a 32-bit word of h_k), the rows of eight pairs
+// loaded at once.  pg, pg8: the p of pairs g and g + 8 (lanes 4 g hold
+// them); col: pair lane & 15's column.
+__device__ __forceinline__ void pool_slice(
+        float (&acc)[kNarrowWidth / 64][2], const float pg, const float pg8,
+        const int col, const __nv_bfloat16* __restrict__ h, const int hdim,
+        const int c0, const int nb, const int lane) {
+    for (int k0 = 0; k0 < nb; k0 += 8) {
+        unsigned hv[8][kNarrowWidth / 64];
+        float pk[8];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+            const int k = k0 + kk;
+            pk[kk] = __shfl_sync(kFull, k < 8 ? pg : pg8, 4 * (k & 7));
+            const unsigned* hk = reinterpret_cast<const unsigned*>(
+                h + (size_t)__shfl_sync(kFull, col, k & 15) * hdim + c0);
+#pragma unroll
+            for (int q = 0; q < kNarrowWidth / 64; ++q)
+                hv[kk][q] = k < nb && c0 + 2 * (lane + 32 * q) < hdim
+                                ? hk[lane + 32 * q] : 0u;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+            if (k0 + kk < nb)
+#pragma unroll
+                for (int q = 0; q < kNarrowWidth / 64; ++q) {
+                    acc[q][0] = fmaf(pk[kk], lo_bf16(hv[kk][q]), acc[q][0]);
+                    acc[q][1] = fmaf(pk[kk], hi_bf16(hv[kk][q]), acc[q][1]);
+                }
+    }
+}
+
+// The bf16 forward on the tensor cores (social_attention_pairs.cuh, "bf16
+// operands on Hopper's tensor cores").  Each warp owns one query row i at a
+// time and walks rows with the stride of the grid's warps (the Python
+// wrapper caps the grid, fwd_blocks), so W2's B fragments, W1, b1 and b2
+// are staged once a block.  Per row: the warp scans [i - w, i + 1 + w)
+// (all N for w = 0), takes its partners in m-tiles of 16 (a partner's
+// features by lane p < 16, layer 1 into A fragments, layer2_scores), and
+// runs the online softmax over each m-tile: m and l in every lane, p
+// rounded to bf16 against the running max after the m-tile, the pooled sum
+// out_i[d] of the first kNarrowWidth columns in registers (a lane's two
+// neighbouring columns a 32-bit word of h_j, pool_slice; kWide: the rest
+// in row i of out, which only this warp touches, a slice of 128 columns at
+// a time, read and written once an m-tile).  A row's bits depend on its
+// pairs alone: no block barrier after the staging, no cross-row sums, so
+// neither the grid nor the window w changes them.
+template <bool kWide>
+__device__ __forceinline__ void fwd_mma(
+        const float4* __restrict__ x4, const int* __restrict__ ids,
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ u,
+        const float* __restrict__ cvec, const __nv_bfloat16* __restrict__ w1,
+        const __nv_bfloat16* __restrict__ b1,
+        const __nv_bfloat16* __restrict__ w2,
+        const __nv_bfloat16* __restrict__ b2, float* __restrict__ out,
+        float2* __restrict__ stats, const int n, const int hdim, const int w,
+        const Members ms) {
+    __shared__ __align__(16) uint2 s_w2f[kW2Frags];
+    __shared__ __align__(16) float s_b2[kH2];
+    __shared__ float s_w1[kIn * kH1];
+    __shared__ float s_b1[kH1];
+    __shared__ int s_ring[kWarps][kWRing];
+
+    // member m's slices, as the float kernel moves its pointers
+    const int m = member();
+    const size_t mrow = (size_t)m * n;
+    x4 += (size_t)m * ms.x4; ids += (size_t)m * ms.ids; h += mrow * hdim;
+    u += mrow * kH2; cvec += mrow; out += mrow * hdim;
+    if (stats != nullptr) stats += mrow;
+    w1 += m * ms.w1; b1 += m * ms.b1; w2 += m * ms.w2; b2 += m * ms.b2;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // the warp's first row: its scan runs while u_prep_kernel does
+    int i = blockIdx.x * kWarps + warp, sid = 0;
+    WarpRing wr{s_ring[warp], 0, 0, 0, 0};
+    if (i < n) {
+        sid = ids[i];
+        wr.next = w == 0 ? 0 : max(0, i - w);
+        wr.end = w == 0 ? n : min(n, i + 1 + w);
+        warp_fill(wr, ids, 0, sid, i);
+    }
+    stage_w2_frags(w2, s_w2f);
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = ld(b2[t]);
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = ld(w1[t]);
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = ld(b1[t]);
+    __syncthreads();
+    // u and c come from u_prep_kernel.  The wait is block-uniform: placed
+    // in a warp's own row loop (warps reach it at different times, some
+    // never), it let reads of u race u_prep_kernel's writes (wrong scores
+    // from stale memory, seen at N = 32,768)
+    pdl_wait();
+
+    const int g = lane >> 2, t = lane & 3, p = lane & 15;
+    for (bool first = true; i < n; i += gridDim.x * kWarps, first = false) {
+        if (!first) {
+            sid = ids[i];
+            wr = WarpRing{s_ring[warp], 0, 0, w == 0 ? 0 : max(0, i - w),
+                          w == 0 ? n : min(n, i + 1 + w)};
+        }
+        const float4 xi = x4[i];
+        const float vn = speed(xi);
+        float mx = kNeg, l = 0.f;
+        // the pooled sum: out_i[d], d = 2 (lane + 32 q) + e, in acc[q][e]
+        float acc[kNarrowWidth / 64][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        float* const orow = out + (size_t)i * hdim;
+        if constexpr (kWide)
+            for (int d = kNarrowWidth + lane; d < hdim; d += 32) orow[d] = 0.f;
+        while (true) {
+            warp_fill(wr, ids, 0, sid, i);
+            if (wr.count == 0) break;
+            const int nb = wr.count < kMma ? wr.count : kMma;
+            // lane p < nb: pair p's column and features (0 past nb)
+            int col = 0;
+            float f[kIn] = {0.f, 0.f, 0.f};
+            if (p < nb) {
+                col = wr.ring[(wr.head + p) & (kWRing - 1)];
+                const Geo q = pair_geo(xi, vn, x4[col]);
+#pragma unroll
+                for (int c = 0; c < kIn; ++c) f[c] = rnd<__nv_bfloat16>(q.feat[c]);
+            }
+            float fg[kIn], fg8[kIn];
+#pragma unroll
+            for (int c = 0; c < kIn; ++c) {
+                fg[c] = __shfl_sync(kFull, f[c], g);
+                fg8[c] = __shfl_sync(kFull, f[c], g + 8);
+            }
+            const int colg = __shfl_sync(kFull, col, g);
+            const int colg8 = __shfl_sync(kFull, col, g + 8);
+            unsigned a[2][4];
+            layer1_frags(fg, fg8, s_w1, s_b1, a);
+            float a2[kN2][4];
+            const float2 sc = layer2_scores(
+                a, s_w2f, s_b2, u + (size_t)colg * kH2, u + (size_t)colg8 * kH2,
+                cvec[colg], cvec[colg8], a2);
+            // online softmax over the m-tile (every lane holds m and l)
+            const bool vg = g < nb, vg8 = g + 8 < nb;
+            const float m_new = fmaxf(mx, warp_max(fmaxf(vg ? sc.x : kNeg,
+                                                         vg8 ? sc.y : kNeg)));
+            const float corr = expf(mx - m_new);
+            const float eg = vg ? expf(sc.x - m_new) : 0.f;
+            const float eg8 = vg8 ? expf(sc.y - m_new) : 0.f;
+            l = l * corr + warp_sum(t == 0 ? eg + eg8 : 0.f);
+            mx = m_new;
+            const float pg = rnd<__nv_bfloat16>(eg), pg8 = rnd<__nv_bfloat16>(eg8);
+#pragma unroll
+            for (int q = 0; q < kNarrowWidth / 64; ++q) {
+                acc[q][0] *= corr;
+                acc[q][1] *= corr;
+            }
+            // p . h_j in pair order (l summed the unrounded p); kWide: the
+            // columns past kNarrowWidth a slice of 128 at a time, in row i
+            // of out
+            pool_slice(acc, pg, pg8, col, h, hdim, 0, nb, lane);
+            if constexpr (kWide)
+                for (int c0 = kNarrowWidth; c0 < hdim; c0 += kNarrowWidth) {
+                    float2* const o2 = reinterpret_cast<float2*>(orow + c0);
+                    float oc[kNarrowWidth / 64][2];
+#pragma unroll
+                    for (int q = 0; q < kNarrowWidth / 64; ++q) {
+                        const bool in = c0 + 2 * (lane + 32 * q) < hdim;
+                        const float2 v = in ? o2[lane + 32 * q] : make_float2(0.f, 0.f);
+                        oc[q][0] = v.x * corr;
+                        oc[q][1] = v.y * corr;
+                    }
+                    pool_slice(oc, pg, pg8, col, h, hdim, c0, nb, lane);
+#pragma unroll
+                    for (int q = 0; q < kNarrowWidth / 64; ++q)
+                        if (c0 + 2 * (lane + 32 * q) < hdim)
+                            o2[lane + 32 * q] = make_float2(oc[q][0], oc[q][1]);
+                }
+            wr.head = (wr.head + nb) & (kWRing - 1);
+            wr.count -= nb;
+        }
+#pragma unroll
+        for (int q = 0; q < kNarrowWidth / 64; ++q)
+            if (2 * (lane + 32 * q) < hdim)
+                reinterpret_cast<float2*>(orow)[lane + 32 * q] = make_float2(
+                    l > 0.f ? acc[q][0] / fmaxf(l, 1e-20f) : 0.f,
+                    l > 0.f ? acc[q][1] / fmaxf(l, 1e-20f) : 0.f);
+        if constexpr (kWide)
+            for (int d = kNarrowWidth + lane; d < hdim; d += 32)
+                orow[d] = l > 0.f ? orow[d] / fmaxf(l, 1e-20f) : 0.f;
+        if (stats != nullptr && lane == 0) stats[i] = make_float2(mx, l);
+    }
+}
+
+// The bf16 u = wh W3^T and c = wh . b3 on the tensor cores: each warp takes
+// 16 rows of wh as the A operand (k = f, any F in multiples of 16), W3's
+// rows as the B operand (B[f][o] = W3[o][f]: f pairs are W3's own 32-bit
+// words, read from the cached weights) and b3 as the first column of a
+// ninth n-tile for c; the products of bf16 values summed in float (the
+// operands' contract, JAX's f . wh up to the order of the sum).  A block
+// of kWarps warps takes kWarps kMma rows.
+__device__ __forceinline__ void u_prep_mma(
+        const __nv_bfloat16* __restrict__ wh,
+        const __nv_bfloat16* __restrict__ w3,
+        const __nv_bfloat16* __restrict__ b3, float* __restrict__ u,
+        float* __restrict__ c, const int n, const int feat,
+        const Members ms) {
+    const int m = member(), mrow = m * n, whrow = m * ms.wh;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kMma;
+    if (r0 >= n) return;
+    const int fw = feat / 2;    // 32-bit words a row of wh or W3
+    const unsigned* const wa = reinterpret_cast<const unsigned*>(wh) +
+                               (size_t)(whrow + min(r0 + g, n - 1)) * fw;
+    const unsigned* const wb = reinterpret_cast<const unsigned*>(wh) +
+                               (size_t)(whrow + min(r0 + g + 8, n - 1)) * fw;
+    const unsigned* const w3w = reinterpret_cast<const unsigned*>(w3 + m * ms.w3);
+    const unsigned* const b3w = reinterpret_cast<const unsigned*>(b3 + m * ms.b3);
+    float acc[kN2 + 1][4];
+#pragma unroll
+    for (int nt = 0; nt <= kN2; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < feat / 16; ++ks) {
+        const int f2 = 8 * ks + t;          // the word of f = 16 ks + 2 t
+        const unsigned a[4] = {wa[f2], wb[f2], wa[f2 + 4], wb[f2 + 4]};
+#pragma unroll
+        for (int nt = 0; nt < kN2; ++nt) {
+            const unsigned* wr = w3w + (size_t)(8 * nt + g) * fw;
+            mma_bf16(acc[nt], a, wr[f2], wr[f2 + 4]);
+        }
+        mma_bf16(acc[kN2], a, g == 0 ? b3w[f2] : 0u, g == 0 ? b3w[f2 + 4] : 0u);
+    }
+    const int ra = r0 + g, rb = r0 + g + 8;
+#pragma unroll
+    for (int nt = 0; nt < kN2; ++nt) {
+        if (ra < n)
+            *reinterpret_cast<float2*>(u + (size_t)(mrow + ra) * kH2 + 8 * nt + 2 * t) =
+                make_float2(acc[nt][0], acc[nt][1]);
+        if (rb < n)
+            *reinterpret_cast<float2*>(u + (size_t)(mrow + rb) * kH2 + 8 * nt + 2 * t) =
+                make_float2(acc[nt][2], acc[nt][3]);
+    }
+    if (t == 0) {
+        if (ra < n) c[mrow + ra] = acc[kN2][0];
+        if (rb < n) c[mrow + rb] = acc[kN2][2];
+    }
+}
+
+#ifdef SA_BF16_ENTRIES
+// The bf16 forward's resident blocks an SM (at most 128 registers a
+// thread).  kernels/social_attention.py's _MMA_FWD_MAX_BLOCKS caps the grid
+// at this many on each of an H100's 132 SMs and must match it (a test reads
+// this line).
+constexpr int kMmaFwdMinBlocks = 4;
+// The bf16 entries' prologue: u_prep_mma (the same launch as the float
+// prologue's, kWarps kMma rows a block, programmatic dependents alike).
+template <>
+__global__ void __launch_bounds__(kThreads)
+u_prep_kernel<__nv_bfloat16, false>(
+        const __nv_bfloat16* __restrict__ wh, const __nv_bfloat16* __restrict__ w3,
+        const __nv_bfloat16* __restrict__ b3, float* __restrict__ u,
+        float* __restrict__ c, const int n, const int feat, const Members ms) {
+    pdl_launch_dependents();     // the main kernel may start its prefix now
+    u_prep_mma(wh, w3, b3, u, c, n, feat, ms);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads)
+u_prep_kernel<__nv_bfloat16, true>(
+        const __nv_bfloat16* __restrict__ wh, const __nv_bfloat16* __restrict__ w3,
+        const __nv_bfloat16* __restrict__ b3, float* __restrict__ u,
+        float* __restrict__ c, const int n, const int feat, const Members ms) {
+    pdl_launch_dependents();
+    u_prep_mma(wh, w3, b3, u, c, n, feat, ms);
+}
+
+// The bf16 entries' main kernels: fwd_mma, in the primary template's
+// signature, so the launches, the names in a trace and ptxas's lines are
+// those of the float kernel's.  Full specializations are compiled wherever
+// they are seen: only the *_bf16.cu translation units (SA_BF16_ENTRIES)
+// see them, so the float libraries hold no bf16 kernel.
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaFwdMinBlocks)
+social_attention_fwd_kernel<__nv_bfloat16, false>(
+        const float4* __restrict__ x4, const int* __restrict__ ids,
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ u,
+        const float* __restrict__ cvec, const __nv_bfloat16* __restrict__ w1,
+        const __nv_bfloat16* __restrict__ b1,
+        const __nv_bfloat16* __restrict__ w2,
+        const __nv_bfloat16* __restrict__ b2, float* __restrict__ out,
+        float2* __restrict__ stats, const int n, const int hdim, const int w,
+        const Members ms) {
+    fwd_mma<false>(x4, ids, h, u, cvec, w1, b1, w2, b2, out, stats, n, hdim,
+                   w, ms);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaFwdMinBlocks)
+social_attention_fwd_kernel<__nv_bfloat16, true>(
+        const float4* __restrict__ x4, const int* __restrict__ ids,
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ u,
+        const float* __restrict__ cvec, const __nv_bfloat16* __restrict__ w1,
+        const __nv_bfloat16* __restrict__ b1,
+        const __nv_bfloat16* __restrict__ w2,
+        const __nv_bfloat16* __restrict__ b2, float* __restrict__ out,
+        float2* __restrict__ stats, const int n, const int hdim, const int w,
+        const Members ms) {
+    fwd_mma<true>(x4, ids, h, u, cvec, w1, b1, w2, b2, out, stats, n, hdim,
+                  w, ms);
+}
+#endif  // SA_BF16_ENTRIES
+
 // Launches u_prep_kernel and the main kernel (`blocks` x `members` blocks,
 // each walking tiles blockIdx.x, blockIdx.x + blocks, ... of member
 // blockIdx.y) on `stream`; does not synchronise, allocates nothing;
@@ -410,7 +725,9 @@ int launch_fwd(const void* x4, const void* ids, const void* h, const void* wh,
     if (blocks <= 0 || !width_ok(hdim, kWide) || !width_ok(feat, kWide))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    u_prep_kernel<T, kWide><<<dim3((n + kPrepRows - 1) / kPrepRows, members),
+    // rows a u_prep block: the bf16 one's warps take kMma each
+    constexpr int prep = std::is_same_v<T, float> ? kPrepRows : kWarps * kMma;
+    u_prep_kernel<T, kWide><<<dim3((n + prep - 1) / prep, members),
                        kThreads, 0, st>>>(
         static_cast<const T*>(wh), static_cast<const T*>(w3),
         static_cast<const T*>(b3), static_cast<float*>(u),

@@ -2,6 +2,7 @@
 // 128 (any multiple of 16): the kWide instantiation of the kernels in
 // social_attention_fwd.cuh, a translation unit of its own.
 
+#define SA_BF16_ENTRIES     // the tensor-core kernels of the bf16 operands
 #include "social_attention_fwd.cuh"
 
 // The operands as in social_attention_fwd_bf16.cu.

@@ -27,12 +27,14 @@
 // Operand type.  Every kernel is a template on T, the type of h, wh and the
 // feature-MLP weights: float, or __nv_bfloat16 for JAX's bf16 operand mode
 // (socialways_tpu/kernels/social_attention.py:96-105, 183-185, 248-258).
-// T values are widened to float in registers and every sum runs in float;
-// rnd<T> rounds to bf16 exactly where the Pallas kernel casts: the three
-// features before W1, a1 before W2, a2 before the u contraction and p
-// before p . h.  x4, the cotangents, stats, u and c stay float.  For
-// T = float, ld, ld4 and rnd are the identity, and the kernels compile to
-// the float code they were.
+// Values are rounded to bf16 exactly where the Pallas kernel casts: the
+// three features before W1, a1 before W2, a2 before the u contraction and p
+// before p . h, and every sum runs in float; x4, the cotangents, stats, u
+// and c stay float.  For T = float, ld, ld4 and rnd are the identity, and
+// the kernels compile to the float code they were.  The bf16 forward, its
+// u prologue and dkv are kernels of their own (explicit specializations in
+// the *_bf16.cu translation units, below: "bf16 operands on Hopper's tensor
+// cores"); the bf16 dq is the template above with the tensor-core layer 2.
 //
 // Member axis.  An ensemble trains M models on the same data at once, and
 // every kernel takes their operands stacked on a leading member axis:
@@ -415,6 +417,242 @@ __device__ __forceinline__ float dot4(const float (&a2i)[4], const float4 u4) {
     s = fmaf(a2i[1], u4.y, s);
     s = fmaf(a2i[2], u4.z, s);
     return fmaf(a2i[3], u4.w, s);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands on Hopper's tensor cores.  The bf16 forward and dkv run the
+// pair MLP one warp at a time: a warp owns one agent (a query row in the
+// forward, a column in dkv), finds its partners with its own id scan
+// (warp_fill) and takes them 16 at a time, an m-tile of
+// mma.m16n8k16.bf16 -> f32, with no block barrier.  Lane (g, t) = (lane >> 2,
+// lane & 3) holds the accumulator rows g and g + 8 (pairs) at the columns
+// 8 nt + 2 t, 8 nt + 2 t + 1 of each 8-column n-tile nt; the A fragment of
+// the same lane holds rows g, g + 8 at k = 2 t, 2 t + 1, 2 t + 8, 2 t + 9 of
+// each 16-wide k-step, so one product's accumulator is the next one's A
+// operand without moving data.  a1 and W2 are bf16 values and the products
+// are summed in float: the operands' own contract (the Pallas kernel's
+// preferred_element_type=float32).  Layer 1 (K = 3) stays FFMA.  The bf16
+// dq (block-wide, as the float kernels) calls the same layer-2 + score
+// routine, so all three kernels rebuild the same score bits.
+
+constexpr int kMma = 16;             // pairs of an m-tile
+constexpr int kN2 = kH2 / 8;         // layer-2 n-tiles
+constexpr int kW2Frags = (kH1 / 16) * kN2 * 32;   // W2's B fragments (uint2)
+
+// Two bf16-exact floats as a bf16x2 register (lo in the low half).
+__device__ __forceinline__ unsigned pack_bf16(const float lo, const float hi) {
+    return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// lo and hi rounded to bf16 (rnd's rounding) as a bf16x2 register: one
+// conversion for two values.
+__device__ __forceinline__ unsigned cvt_bf16x2(const float lo, const float hi) {
+    unsigned d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+}
+
+// The bf16 in the low (high) half of a bf16x2 register, as a float.
+__device__ __forceinline__ float lo_bf16(const unsigned v) {
+    return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_bf16(const unsigned v) {
+    return __uint_as_float(v & 0xffff0000u);
+}
+
+// d += a b on the tensor cores: A 16 x 16 (row), B 16 x 8 (col), bf16
+// operands, float accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned b0, const unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The transpose of the 8 x 8 bf16 matrix whose row lane >> 2, columns
+// 2 (lane & 3) and 2 (lane & 3) + 1 this lane holds in v.
+__device__ __forceinline__ unsigned movm_trans(const unsigned v) {
+    unsigned d;
+    asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(d) : "r"(v));
+    return d;
+}
+
+// f = hi + mid + lo exactly, each a bf16 value (f's 24 significant bits in
+// three pieces of 8; subnormal floats aside), for two floats f0, f1 at once:
+// each piece a bf16x2 register (f0 low).  A bf16 operand times each piece
+// is exact in float, so a product with a float32 cotangent runs on the
+// tensor cores without rounding the cotangent.
+__device__ __forceinline__ void split3(const float f0, const float f1,
+                                       unsigned (&piece)[3]) {
+    const unsigned hi = cvt_bf16x2(f0, f1);
+    const float r0 = f0 - lo_bf16(hi), r1 = f1 - hi_bf16(hi);
+    const unsigned mid = cvt_bf16x2(r0, r1);
+    piece[0] = cvt_bf16x2(r0 - lo_bf16(mid), r1 - hi_bf16(mid));
+    piece[1] = mid;
+    piece[2] = hi;
+}
+
+// W2 [kH1][kH2] (bf16) as the B fragments of layer 2 (K = kH1, N = kH2), in
+// fragment order: entry (ks kN2 + nt) 32 + lane holds lane's (b0, b1) of
+// k-step ks and n-tile nt, so each lane reads its pair with one 8-byte,
+// conflict-free load.  Every thread of a kThreads block calls it.
+__device__ __forceinline__ void stage_w2_frags(const __nv_bfloat16* w2,
+                                               uint2* s_w2f) {
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(w2);
+#pragma unroll
+    for (int e = threadIdx.x; e < kW2Frags; e += kThreads) {
+        const int lane = e & 31, nt = (e >> 5) % kN2, ks = e / (32 * kN2);
+        const int o = 8 * nt + (lane >> 2), k = 16 * ks + 2 * (lane & 3);
+        s_w2f[e] = make_uint2(
+            w[k * kH2 + o] | (unsigned)w[(k + 1) * kH2 + o] << 16,
+            w[(k + 8) * kH2 + o] | (unsigned)w[(k + 9) * kH2 + o] << 16);
+    }
+}
+
+// relu(W1 feat + b1)[k] of one pair before its rounding to bf16: layer1's
+// arithmetic, so a fragment built from it has the bits of layer1's a1^T.
+__device__ __forceinline__ float a1_of(const float (&f)[kIn], const float* s_w1,
+                                       const float* s_b1, const int k) {
+    float t = f[0] * s_w1[k];
+    t = fmaf(f[1], s_w1[kH1 + k], t);
+    t = fmaf(f[2], s_w1[2 * kH1 + k], t);
+    return fmaxf(t + s_b1[k], 0.f);
+}
+
+// Lane (g, t)'s A fragments of layer 2 (a1 of pairs g and g + 8, the
+// features fg and fg8 already rounded to bf16): a[ks] for k-step ks.
+__device__ __forceinline__ void layer1_frags(const float (&fg)[kIn],
+                                             const float (&fg8)[kIn],
+                                             const float* s_w1,
+                                             const float* s_b1,
+                                             unsigned (&a)[2][4]) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+        const int k = 16 * ks + 2 * t;
+        a[ks][0] = cvt_bf16x2(a1_of(fg, s_w1, s_b1, k), a1_of(fg, s_w1, s_b1, k + 1));
+        a[ks][1] = cvt_bf16x2(a1_of(fg8, s_w1, s_b1, k), a1_of(fg8, s_w1, s_b1, k + 1));
+        a[ks][2] = cvt_bf16x2(a1_of(fg, s_w1, s_b1, k + 8), a1_of(fg, s_w1, s_b1, k + 9));
+        a[ks][3] = cvt_bf16x2(a1_of(fg8, s_w1, s_b1, k + 8), a1_of(fg8, s_w1, s_b1, k + 9));
+    }
+}
+
+// The layer-2 + score routine of the bf16 kernels, one warp and one m-tile
+// of 16 pairs: z2 = a1 W2 (16 mma from the A fragments `a` and the staged
+// B fragments), a2 = rnd(relu(z2 + b2)) in the accumulator layout (a2[nt][0,
+// 1]: pair g, a2[nt][2, 3]: pair g + 8), and the scores s = a2 . u_j + c_j
+// of pairs g (u row ug, cg) and g + 8 (ug8, cg8): this lane's 16 products
+// in a fixed order, then the quad's four partials in a fixed tree, so all
+// four lanes of the quad end with the same bits.  u and c stay float.
+__device__ __forceinline__ float2 layer2_scores(const unsigned (&a)[2][4],
+                                                const uint2* s_w2f,
+                                                const float* s_b2,
+                                                const float* ug,
+                                                const float* ug8,
+                                                const float cg,
+                                                const float cg8,
+                                                float (&a2)[kN2][4]) {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < kN2; ++nt)
+        a2[nt][0] = a2[nt][1] = a2[nt][2] = a2[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < kN2; ++nt) {
+            const uint2 b = s_w2f[(ks * kN2 + nt) * 32 + lane];
+            mma_bf16(a2[nt], a[ks], b.x, b.y);
+        }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kN2; ++nt) {
+        const int o = 8 * nt + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(s_b2 + o);
+        const float2 u0 = *reinterpret_cast<const float2*>(ug + o);
+        const float2 u1 = *reinterpret_cast<const float2*>(ug8 + o);
+        const unsigned r0 = cvt_bf16x2(fmaxf(a2[nt][0] + bb.x, 0.f),
+                                       fmaxf(a2[nt][1] + bb.y, 0.f));
+        const unsigned r1 = cvt_bf16x2(fmaxf(a2[nt][2] + bb.x, 0.f),
+                                       fmaxf(a2[nt][3] + bb.y, 0.f));
+        a2[nt][0] = lo_bf16(r0);
+        a2[nt][1] = hi_bf16(r0);
+        a2[nt][2] = lo_bf16(r1);
+        a2[nt][3] = hi_bf16(r1);
+        s0 = fmaf(a2[nt][0], u0.x, s0);
+        s0 = fmaf(a2[nt][1], u0.y, s0);
+        s1 = fmaf(a2[nt][2], u1.x, s1);
+        s1 = fmaf(a2[nt][3], u1.y, s1);
+    }
+    s0 += __shfl_xor_sync(kFull, s0, 1);
+    s0 += __shfl_xor_sync(kFull, s0, 2);
+    s1 += __shfl_xor_sync(kFull, s1, 1);
+    s1 += __shfl_xor_sync(kFull, s1, 2);
+    return make_float2(s0 + cg, s1 + cg8);
+}
+
+// The sums over the 16 lanes of each half warp of v[0 .. 31], scattered: on
+// return v[0] and v[1] of lane l hold the half warp's sums of its v[2 (l &
+// 15)] and v[2 (l & 15) + 1] (four levels of exchanging and adding halves,
+// each sum in a fixed tree).
+__device__ __forceinline__ void half_warp_reduce_scatter(float (&v)[32]) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int lvl = 0; lvl < 4; ++lvl) {
+        const int off = 8 >> lvl, len = 16 >> lvl;
+        const bool upper = (lane & off) != 0;
+#pragma unroll
+        for (int i = 0; i < len; ++i) {
+            const float keep = upper ? v[len + i] : v[i];
+            const float send = upper ? v[i] : v[len + i];
+            v[i] = keep + __shfl_xor_sync(kFull, send, off);
+        }
+    }
+}
+
+// A warp's ring of partners of its agent `self` (scene id sid): agents
+// next, next + 1, ... up to end, in ascending order, the order fill_ring
+// gives a tile's pairs.  head and count are warp-uniform.
+struct WarpRing {
+    int* ring;      // [kWRing] shared, the warp's own
+    int head, count, next, end;
+};
+
+constexpr int kWScan = 8;       // agents a lane id-loads at once (256 a warp)
+constexpr int kWRing = 64;      // a warp's pair ring (entries), a power of two
+static_assert(kWRing >= kMma - 1 + 32, "warp pair ring too small");
+
+// Fills the ring until it holds an m-tile of pairs or the scan reaches end:
+// the ids of the next 32 kWScan agents are loaded at once (lane l: next +
+// 32 q + l), then tested 32 at a time, stopping after the 32 that fill the
+// m-tile (the scan resumes there), so a test adds at most 32 entries to
+// fewer than kMma.  Every lane of the warp calls it.
+__device__ __forceinline__ void warp_fill(WarpRing& wr,
+                                          const int* __restrict__ ids,
+                                          const int id0, const int sid,
+                                          const int self) {
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    while (wr.count < kMma && wr.next < wr.end) {
+        int id_o[kWScan];
+#pragma unroll
+        for (int q = 0; q < kWScan; ++q) {
+            const int o = wr.next + 32 * q + lane;
+            id_o[q] = o < wr.end ? ids[id0 + o] : -1;
+        }
+#pragma unroll
+        for (int q = 0; q < kWScan; ++q) {
+            if (wr.count >= kMma || wr.next >= wr.end) break;
+            const int o = wr.next + lane;
+            const bool hit = id_o[q] >= 0 && id_o[q] == sid && o != self;
+            const unsigned hits = __ballot_sync(kFull, hit);
+            if (hit)
+                wr.ring[(wr.head + wr.count + __popc(hits & below)) & (kWRing - 1)] = o;
+            wr.count += __popc(hits);
+            wr.next += 32;
+        }
+    }
+    __syncwarp();           // the ring's entries are visible to the warp
 }
 
 }  // namespace sa

@@ -55,6 +55,12 @@ Source notes.
   (ops/social.py gives the contract; ``_pallas_forward`` :248-258 and
   ``_pallas_backward`` :464-477 set it).  A bf16 tensor on CUDA launches a
   bf16 kernel or raises: it is never cast up to reach the float32 ones.
+  The bf16 forward, its u prologue and dkv run the pair MLP on Hopper's
+  tensor cores (``mma.sync`` bf16 -> f32), a warp owning a query row or a
+  column and walking them with the stride of a capped grid
+  (``fwd_blocks``, ``dkv_blocks`` with ``op``); dkv keeps a partial slot a
+  warp (``dkv_partial_floats``), its float32 cotangents split exactly into
+  three bf16 pieces; the bf16 dq takes the same layer-2 + score routine.
   Each entry point counts its own launches: ``launches`` for float32,
   ``launches_bf16`` for bf16.  A count is taken when the wrapper is
   called, so a CUDA graph's capture would count launches that never ran
@@ -132,6 +138,12 @@ _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
 _H2 = 64                      # second hidden width of the feature MLP
 _TILE = 2                     # rows (forward, dq) or columns (dkv) a block takes
+_WARPS = 4                    # warps a block (bf16 forward, dkv: a row or column each)
+# the bf16 forward and dkv: a wave of resident blocks, kMmaFwdMinBlocks
+# (social_attention_fwd.cuh) and kMmaDkvMinBlocks (social_attention_bwd.cuh)
+# an SM, the same numbers as their __launch_bounds__
+_MMA_FWD_MAX_BLOCKS = 4 * 132  # 4 resident an SM (128 registers)
+_MMA_DKV_MAX_BLOCKS = 3 * 132  # 3 resident an SM (168 registers)
 _DKV_MAX_BLOCKS = 4 * 132     # 4 a streaming multiprocessor of an H100
 _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
 # above this the dense form's N^2 F pair tensors stop being a good idea on
@@ -287,23 +299,37 @@ def social_attention_bwd_dkv_members_plain(x4, ids, h, wh, g, stats, r,
 
 
 # ------------------------------------------------------------- launch sizes
-def fwd_blocks(n: int) -> int:
-    """Blocks of the forward's main kernel: one per tile of ``_TILE`` rows
-    (128 at N = 256, enough for the H100's 132 SMs)."""
-    return -(-n // _TILE)
+def fwd_blocks(n: int, members: int = 1,
+               op: torch.dtype = torch.float32) -> int:
+    """Blocks of the forward's main kernel (a member's: the grid's x).
+    float32: one per tile of ``_TILE`` rows (128 at N = 256, enough for the
+    H100's 132 SMs).  bf16: one per ``_WARPS`` rows (a warp owns a row and
+    walks rows with the stride of the grid's warps), at most
+    ``_MMA_FWD_MAX_BLOCKS`` over all ``members`` (one wave): the weights
+    are staged once a block.  A row's bits do not depend on the grid."""
+    if op == torch.float32:
+        return -(-n // _TILE)
+    return min(-(-n // _WARPS), max(1, _MMA_FWD_MAX_BLOCKS // members))
 
 
 def dq_blocks(n: int) -> int:
-    """Blocks of dq: one per tile of ``_TILE`` query rows, as the forward.
-    dq keeps no per-block partials, so its grid needs no cap."""
+    """Blocks of dq: one per tile of ``_TILE`` query rows, as the float32
+    forward (bf16 too).  dq keeps no per-block partials, so its grid needs
+    no cap."""
     return fwd_blocks(n)
 
 
-def dkv_blocks(n: int) -> int:
+def dkv_blocks(n: int, op: torch.dtype = torch.float32) -> int:
     """Blocks of dkv: one per tile of ``_TILE`` columns, at most
-    ``_DKV_MAX_BLOCKS``; a block walks tiles with a stride of the grid, so
-    the per-block partials stay bounded at any N."""
-    return min(fwd_blocks(n), _DKV_MAX_BLOCKS)
+    ``_DKV_MAX_BLOCKS`` (bf16: per ``_WARPS`` columns, a warp owning a
+    column, at most ``_MMA_DKV_MAX_BLOCKS``, one wave); a block walks tiles
+    with a stride of the grid, so the per-block partials stay bounded at
+    any N.  A function of N alone: the weight gradients are summed block
+    by block, so a member launch keeps the grid, and the bits, of a solo
+    launch."""
+    if op == torch.float32:
+        return min(-(-n // _TILE), _DKV_MAX_BLOCKS)
+    return min(-(-n // _WARPS), _MMA_DKV_MAX_BLOCKS)
 
 
 def _check_window(max_scene: int) -> None:
@@ -315,18 +341,21 @@ def scan_range(n: int, t0: int, w: int) -> Tuple[int, int]:
     """[lo, hi): the agents a tile whose first agent is ``t0`` id-tests,
     as every kernel computes it.  ``w = 0``: all N.  ``w > 0``: sorted,
     contiguous scenes of at most w rows put every partner of the tile's
-    ``_TILE`` agents within w rows of them."""
+    ``_TILE`` agents within w rows of them.  The bf16 forward and dkv,
+    whose tile is one agent i, scan [i - w, i + 1 + w), inside it."""
     _check_window(w)
     if w == 0:
         return 0, n
     return max(0, t0 - w), min(n, t0 + _TILE + w)
 
 
-def dkv_partial_floats(n: int, members: int = 1) -> int:
+def dkv_partial_floats(n: int, members: int = 1,
+                       op: torch.dtype = torch.float32) -> int:
     """Floats of dkv's partial scratch: one slot of dW2, db2, dW1, db1 per
-    block and member.  The pair batches live in shared memory, fixed in
-    size."""
-    return members * dkv_blocks(n) * _PARTIAL
+    block (``dkv_blocks(n, op)``; bf16: per warp, ``_WARPS`` a block) and
+    member.  The pair batches live in shared memory, fixed in size."""
+    slots = 1 if op == torch.float32 else _WARPS
+    return members * dkv_blocks(n, op) * slots * _PARTIAL
 
 
 # ------------------------------------------------------------------ widths
@@ -521,8 +550,8 @@ def _launch_fwd(x4, ids, h, wh, weights: Sequence[torch.Tensor],
     u, c = torch.empty(lead + (n, _H2), **kw), torch.empty(lead + (n,), **kw)
     _launch(_FWD, "social_attention_fwd", h, max(hdim, wh.shape[-1]), 14, 5,
             strides, x4, ids, h, wh,
-            *weights, out, stats, u, c, n, hdim, wh.shape[-1], fwd_blocks(n),
-            max_scene)
+            *weights, out, stats, u, c, n, hdim, wh.shape[-1],
+            fwd_blocks(n, h.shape[0] if lead else 1, h.dtype), max_scene)
     _count(social_attention_fwd, h)
     return out[..., :width], stats, u, c
 
@@ -595,8 +624,8 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     kw = dict(device=h.device, dtype=torch.float32)
     a_sum = torch.empty(lead + (n, _H2), **kw)
     s_sum = torch.empty(lead + (n,), **kw)
-    partial = torch.empty((dkv_partial_floats(n, h.shape[0] if lead else 1),),
-                          **kw)
+    partial = torch.empty((dkv_partial_floats(n, h.shape[0] if lead else 1,
+                                              h.dtype),), **kw)
     dx = torch.empty(lead + (n, 4), **kw) if need_dx else None
     dh = torch.empty(lead + (n, hdim), **kw)
     dwh = torch.empty(lead + (n, feat), **kw)
@@ -607,7 +636,7 @@ def social_attention_bwd_dkv(x4, ids, h, wh, g, stats, r,
     _launch(_BWD, "social_attention_bwd_dkv", h, max(hdim, feat), 24, 6,
             strides, x4, ids, h,
             wh, g, stats, r, u, c, *weights, a_sum, s_sum, partial, dx, dh,
-            dwh, dw3, db3, dmlp12, n, hdim, feat, dkv_blocks(n),
+            dwh, dw3, db3, dmlp12, n, hdim, feat, dkv_blocks(n, h.dtype),
             partial.numel(), max_scene)
     _count(social_attention_bwd_dkv, h)
     dw2 = dmlp12[..., :32 * _H2].view(lead + (32, _H2))
