@@ -17,8 +17,8 @@ Phases (any failure raises):
    entry, narrow (H and F up to 128) and wide, and fail if any spills or
    a narrow float32 kernel's registers move more than 2 from
    ``PTXAS_KERNELS``; ``cuobjdump -sass`` of every library: the bf16
-   forward, dq and dkv must contain HMMA (the tensor cores), no float32
-   kernel may;
+   forward, dq and dkv must contain HMMA (the tensor cores), the bf16 dq
+   more than the 16 of layer 2 alone, and no float32 kernel may;
 3. the forward kernel against its plain PyTorch version on the card, f32,
    at rtol 2e-4 / atol 2e-5, timed with CUDA events (median of repeats):
    its two launches alone (``_launch_fwd`` with wh = h W + b computed
@@ -345,28 +345,38 @@ def attention_bwd_bound(ids: np.ndarray, n: int, hdim: int, feat: int,
     a2 . u_j with the forward's u_j = W3 wh_j: 96 + 2048 + 64 MAC), take
     g_i . h_j (H) and pull ds back to the features (the z2 cotangent 64,
     64->32: 2048).  dq adds the 32->3 feature cotangent (96); dkv adds
-    dh_j (H), the dW2 outer product (2048), db2/A_j (128) and dW1/db1
-    (128), and per column dwh_j (N 64 F) and dW3, db3 (N 64 F + N F).
-    Neither computes u or c: both read the forward's.  Bytes: x4, ids, h,
-    wh, g, stats, r, u, c and the MLP weights read once, the outputs
-    written once; h, wh and the weights ``op_bytes`` an element.  With
-    bf16 operands the recomputed 3->32 and 32->64 layers (2144 MAC a
-    pair, bf16 x bf16) are costed at the bf16 tensor-core peak; every
-    product with a float32 cotangent or u at the FP32 peak.  ``members``
-    as in ``attention_bound``: x4 and ids once, the rest M times."""
+    dh_j (H), the dW2 outer product (2048), db2 (64), A_j (64) and
+    dW1/db1 (128), and per column dwh_j (N 64 F) and dW3, db3 (N 64 F +
+    N F).  Neither computes u or c: both read the forward's.  Bytes: x4,
+    ids, h, wh, g, stats, r, u, c and the MLP weights read once, the
+    outputs written once; h, wh and the weights ``op_bytes`` an element.
+    With bf16 operands the products the bf16 kernels take on the tensor
+    cores are costed at the bf16 tensor-core peak: the recomputed 3->32
+    and 32->64 layers (2144 MAC a pair, bf16 x bf16) once, and each
+    product of a float32 cotangent, which enters as three exact bf16
+    pieces, three times (dq: 64->32; dkv: 64->32, dW2, db2, dW1/db1);
+    every other product (with u, g or h_j's float cotangent sums) at the
+    FP32 peak.  ``members`` as in ``attention_bound``: x4 and ids once,
+    the rest M times."""
     pairs = _pairs(ids)
     layers = 96 + 2048
-    tc_mac = members * pairs * layers if op_bytes == 2 else 0
-    common = (0 if tc_mac else layers) + 64 + hdim + 64 + 2048
+    if kernel == "dq":
+        split, fma = 2048, 64 + hdim + 64 + 96
+    else:
+        split, fma = 2048 + 2048 + 64 + 128, 64 + hdim + 64 + hdim + 64
+    if op_bytes == 2:
+        tc_mac = members * pairs * (layers + 3 * split)
+        mac = members * pairs * fma
+    else:
+        tc_mac = 0
+        mac = members * pairs * (layers + split + fma)
     in_bytes = 4 * (4 * n + n) + members * (
         4 * (n * hdim + 3 * n + 65 * n)
         + op_bytes * (n * hdim + n * feat + n_mlp))
     if kernel == "dq":
-        mac = members * pairs * (common + 96)
         out_bytes = members * 4 * 4 * n
     else:
-        mac = members * (pairs * (common + hdim + 2048 + 128 + 128)
-                         + 2 * n * 64 * feat + n * feat)
+        mac += members * (2 * n * 64 * feat + n * feat)
         out_bytes = members * 4 * (n * hdim + n * feat + n_mlp)
     out = _bound(2 * mac, in_bytes + out_bytes, 2 * tc_mac)
     out["pairs_needed"] = pairs
@@ -724,15 +734,36 @@ def sass_hmma(sass: str, wide: bool = False) -> dict:
     return out
 
 
-#: the bf16 kernels whose pair MLP runs on the tensor cores (the forward and
-#: dkv, and dq through the shared layer-2 + score routine)
+#: the bf16 kernels whose pair MLP runs on the tensor cores
 HMMA_KERNELS = ("social_attention_fwd_kernel", "bwd_dkv_kernel",
                 "bwd_dq_kernel")
+#: the HMMA that the shared layer-2 + score routine gives a kernel (16
+#: products): the bf16 dq's own products (da1 = dz2 W2^T) must add to them
+LAYER2_HMMA = 16
+
+#: the bf16 dq's times before its warp-owned tensor-core design, us, by
+#: (members, N, window, H = F), printed beside this run's: PERF.md section
+#: 6, row 5 and its widths (kernel_times.py, bf16_times.py; NVIDIA H100
+#: 80GB HBM3, 700 W)
+EARLIER_BF16_DQ_US = {
+    (1, 256, 0, 64): 10.08, (1, 10_000, 16, 64): 102.33,
+    (4, 256, 0, 64): 13.64, (1, 256, 0, 24): 32.80, (1, 256, 0, 100): 34.77,
+    (1, 256, 0, 256): 15.21, (1, 256, 0, 512): 21.65,
+    (1, 256, 0, 640): 24.97, (1, 256, 0, 1024): 35.29}
+
+
+def earlier_dq(members, n, w, hdim, sep: str = ", ") -> str:
+    """``sep`` + "the earlier ... dq X us" for a bf16 dq case of
+    ``EARLIER_BF16_DQ_US``, else ""."""
+    us = EARLIER_BF16_DQ_US.get((members, n, w, hdim))
+    return "" if us is None else (f"{sep}the earlier block-wide FFMA dq "
+                                  f"{us:.2f} us (PERF.md row 5)")
 
 
 def check_sass(_build) -> dict:
     """Phase 2's SASS check: ``cuobjdump -sass`` of every library; the bf16
-    libraries' ``HMMA_KERNELS`` contain HMMA, no float32 kernel does."""
+    libraries' ``HMMA_KERNELS`` contain HMMA, no float32 kernel does, and
+    the bf16 dq (narrow and wide) more than ``LAYER2_HMMA``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
     counts = {}
@@ -746,9 +777,12 @@ def check_sass(_build) -> dict:
     bad = [e for e, k in counts.items()
            if ("[float" in e and k) or ("[bf16" in e and not k
                                          and e.split("[")[0] in HMMA_KERNELS)]
+    bad += [e for e in ("bwd_dq_kernel[bf16]", "bwd_dq_kernel[bf16,wide]")
+            if counts.get(e, 0) <= LAYER2_HMMA]
     if bad or len(counts) != 4 * len(PTXAS_KERNELS):
         raise AssertionError(f"sass: HMMA where it does not belong or "
-                             f"missing where it does: {bad}; {counts}")
+                             f"missing where it does (the bf16 dq above "
+                             f"{LAYER2_HMMA}): {bad}; {counts}")
     return counts
 
 
@@ -2102,7 +2136,9 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
                       f"{p_ms * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.3f}"
                       f" us ({b['bound_by']}, {b['pairs_needed']} pairs), max"
                       f" / median abs err {summary[key][0]:.3e} / "
-                      f"{summary[key][1]:.3e} [{card}]")
+                      f"{summary[key][1]:.3e}"
+                      + (earlier_dq(1, n, w, hdim) if key == "dq" else "")
+                      + f" [{card}]")
     print(f"bf16 kernels [{tag}] N={n}: " + ", ".join(
         f"{k} max/median abs err {v[0]:.3e}/{v[1]:.3e}"
         for k, v in summary.items())
@@ -2514,7 +2550,9 @@ def member_kernel_case(torch, sa, dev, x4, ids, gens, hs, tag, card, op,
               f"{s_ms * 1e3:.2f} us, member plain "
               + (f"{plain_ms[k] * 1e3:.2f} us" if k in plain_ms else "-")
               + f", bound {b['bound_ms'] * 1e3:.3f} us "
-              f"({b['bound_by']}) [{card}]")
+              f"({b['bound_by']})"
+              + (earlier_dq(m, n, max_scene, hdim) if bf16 and k == "dq"
+                 else "") + f" [{card}]")
     print(f"member kernels [{tag}, {'bf16' if bf16 else 'float32'}]: every "
           f"member equals its solo launches bit for bit; max abs error "
           f"against the member plain versions {errs or 'not compared'}")
@@ -2606,8 +2644,9 @@ def width_kernels(torch, sa, dev, obsv_in, x4, ids, card):
         f"H=F={w}: fwd+stats {r['fwd_stats']['ms'] * 1e3:.2f} us, dq "
         f"{r['dq']['ms'] * 1e3:.2f}, dkv {r['dkv']['ms'] * 1e3:.2f} (bf16 "
         f"{r['bf16']['fwd']['ms'] * 1e3:.2f} / {r['bf16']['dq']['ms'] * 1e3:.2f}"
-        f" / {r['bf16']['dkv']['ms'] * 1e3:.2f})" for w, r in res.items())
-        + f" [{card}]")
+        f" / {r['bf16']['dkv']['ms'] * 1e3:.2f}"
+        + earlier_dq(1, 256, 0, w, sep="; ")
+        + ")" for w, r in res.items()) + f" [{card}]")
     return res
 
 

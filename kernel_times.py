@@ -11,10 +11,12 @@ with its finalize (no dx_j), in float32 and bf16, at N = 256 (ETH/UCY-
 like sorted scenes of 2-16, ``chip_smoke.attention_inputs``) and at N =
 10,000 in sorted scenes of 16 scanned at window w = 16
 (``chip_smoke.crowd_inputs``); H = F = 64, random weights from a numpy
-seed.  Each time is ``chip_smoke.median_ms`` (CUDA events, the device
-kept busy).  Prints one JSON object: per case the median time in ms and
-a SHA-256 of the outputs' bytes, so two trees that launch the same
-arithmetic show the same digest.
+seed.  Also dq's member launch at M = 4 (four weight draws and h, shared
+x4 and ids) on both inputs, in float32 and bf16, with its bound
+(``chip_smoke.attention_bwd_bound``).  Each time is
+``chip_smoke.median_ms`` (CUDA events, the device kept busy).  Prints one
+JSON object: per case the median time in ms and a SHA-256 of the outputs'
+bytes, so two trees that launch the same arithmetic show the same digest.
 """
 
 from __future__ import annotations
@@ -77,6 +79,30 @@ def case(torch, sa, cs, x4, ids, h, wh, w, g, max_scene):
     return res
 
 
+def member_dq(torch, sa, cs, dev, x4, h, ids, op, max_scene, members=4):
+    """{"dq": {"ms", "sha256", "bound_ms"}} of dq's member launch: the
+    members' operands (``operands`` with seeds 7, 8, ...) stacked, x4 and
+    ids shared, after the member forward gave stats, u and c."""
+    per = [operands(torch, dev, x4, h, ids, op, 7 + k) for k in range(members)]
+    x, i = per[0][0], per[0][1]
+    stack = lambda ts: torch.stack(ts).contiguous()
+    hh, wh, g = (stack([p[k] for p in per]) for k in (2, 3, 5))
+    w = [stack([p[4][k] for p in per]) for k in range(6)]
+    with torch.no_grad():
+        out, stats, u, c = sa._launch_fwd(x, i, hh, wh, w, True, max_scene)
+        args = (x, i, hh, wh, g, stats, (g * out).sum(-1), w, u, c)
+        fn = lambda: sa.social_attention_bwd_dq(*args, max_scene=max_scene)
+        dx = fn()
+        torch.cuda.synchronize()
+        bound = cs.attention_bwd_bound(
+            ids, h.shape[0], HIDDEN, HIDDEN, sum(t[0].numel() for t in w),
+            "dq", op_bytes=2 if op == torch.bfloat16 else 4, members=members)
+        return {"dq": {"ms": cs.median_ms(torch, fn),
+                       "sha256": hashlib.sha256(
+                           dx.cpu().numpy().tobytes()).hexdigest()[:16],
+                       "bound_ms": bound["bound_ms"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=HERE,
@@ -111,6 +137,8 @@ def main() -> int:
             x, i, hh, wh, ws, g = operands(torch, dev, x4, h, ids, op, 7)
             result[f"{tag} {str(op).split('.')[-1]}"] = case(
                 torch, sa, cs, x, i, hh, wh, ws, g, w)
+            result[f"{tag} M=4 {str(op).split('.')[-1]}"] = member_dq(
+                torch, sa, cs, dev, x4, h, ids, op, w)
     line = json.dumps(result)
     print(line)
     if args.out:

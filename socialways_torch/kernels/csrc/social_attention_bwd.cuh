@@ -55,21 +55,23 @@
 // bf16 operands (the _bf16 entries): h, wh and the weights bf16, the
 // scores rebuilt with the forward's rounding and its layer-2 + score
 // routine (social_attention_pairs.cuh, layer2_scores), so a_ij renormalizes
-// exactly against the forward's (m, l).  The bf16 dkv is dkv_mma (below: a
-// warp a column, every product on the tensor cores), with a finalize of its
-// own; the bf16 dq is bwd_dq_kernel with layer2_scores.  The relu masks
-// come from the float pre-activations; dW2 = a1^T dz2 and dW1 take the
-// rounded a1 and features, A_j the rounded a2.  Every cotangent stays
-// float.  JAX's vjp rounds some per-tile cotangents to bf16 (the transpose
-// of a bf16 dot returns bf16: the cotangents of a2, a1 and the features,
-// and each tile's weight-gradient terms); these kernels keep them float,
-// the more exact of the two.
+// exactly against the forward's (m, l).  The bf16 kernels are their own
+// (below): dq_mma (a warp a query row; the score and da1 = dz2 W2^T on the
+// tensor cores) and dkv_mma (a warp a column, every product on the tensor
+// cores), with a finalize of its own.  The relu masks come from the float
+// pre-activations; dW2 = a1^T dz2 and dW1 take the rounded a1 and
+// features, A_j the rounded a2.  Every cotangent stays float.  JAX's vjp
+// rounds some per-tile cotangents to bf16 (the transpose of a bf16 dot
+// returns bf16: the cotangents of a2, a1 and the features, and each tile's
+// weight-gradient terms); these kernels keep them float, the more exact of
+// the two.
 //
 // Widths.  The narrow kernels (kWide false) take H and F in multiples of
 // 16 up to kNarrowWidth = 128 and are the code they were; the wide ones
 // (kWide, entries social_attention_bwd_wide*.cu, translation units of
 // their own) take any multiple of 16: dq reads g_i from device memory
-// instead of staging it and forms g_i . h_j exactly (gh_exact), dkv
+// instead of staging it and forms g_i . h_j exactly (gh_exact; the bf16 dq
+// likewise, over two lanes, gh_wide), dkv
 // stages h_j whole up to kStageWidth = 512 columns and above that
 // kStageWidth columns at a time (gh_chunked), and keeps dh past the first
 // 2 kThreads elements of a tile in the tile's own rows of dh (dh_wide).
@@ -77,8 +79,10 @@
 // Bound on this card: operations.  Per same-scene pair dq does ~4.4k FMA
 // (features, 3->32->64 recompute, score, g_i . h_j, the 64->32 and 32->3
 // cotangents), dkv ~6.5k (the same plus the dW2 outer product); both are
-// f32 FMA work against ~2 KB of bytes a row.  The pair intermediates never
-// reach device memory, and pairs outside a scene cost one id test.
+// f32 FMA work against ~2 KB of bytes a row (bf16: dq's 64->32 and
+// dkv's products on the tensor cores, the rest FFMA).  The pair
+// intermediates never reach device memory, and pairs outside a scene cost
+// one id test.
 
 #include <cuda_runtime.h>
 
@@ -108,17 +112,6 @@ constexpr int kPartBlocks = (kPartial + kPartCols - 1) / kPartCols;
 constexpr int kW3RowsM = 2;                // the bf16 finalize's rows a block
 constexpr int kW3TilesM = (kH2 + 1 + kW3RowsM - 1) / kW3RowsM;   // 33
 static_assert(kW3Slices % kGroup == 0 && kPartSlices % kGroup == 0, "tree");
-constexpr int kA2Stride = kH2 + 8;         // the bf16 dq's a2 [kBatch][kH2], padded
-
-// The bf16 dq's tensor-core arrays (social_attention_pairs.cuh: W2's B
-// fragments, a batch's a2 rows and scores); none for float operands.
-template <typename T> struct DqMma {};
-template <> struct DqMma<__nv_bfloat16> {
-    uint2 w2f[kW2Frags];
-    float a2[kBatch * kA2Stride];
-    float s[kBatch];
-};
-
 // W1, b1, b2 and W2 (rows padded to kW2Stride) into shared memory, as float.
 template <typename T>
 __device__ __forceinline__ void stage_mlp12(const T* w1, const T* b1,
@@ -190,19 +183,37 @@ __device__ __forceinline__ void gh_chunked(
 // the order of the plain version's g h^T on the card.  In a row where
 // sum_j a_ij (g_i . h_j - r_i) nearly cancels, dx_i is set by how g . h is
 // rounded; in this order the kernel's rounding is the plain version's.
-// gi 16-byte aligned, hj aligned to 4 elements, H a multiple of 4.
+// gi 16-byte aligned, hj aligned to 4 elements, H a multiple of 4; bf16
+// h_j (the bf16 dq, one lane a pair) is read 8 elements (16 bytes) at a
+// time, so hj aligned to 8 and H a multiple of 8.
 template <typename T>
 __device__ __forceinline__ float gh_serial(const float* gi, const T* hj,
                                            const int hdim) {
     const float4* g4 = reinterpret_cast<const float4*>(gi);
     float gh = 0.f;
+    if constexpr (std::is_same_v<T, float>) {
 #pragma unroll 4
-    for (int q = 0; q < hdim / 4; ++q) {
-        const float4 a = g4[q], b = ld4(hj, q);
-        gh = fmaf(a.x, b.x, gh);
-        gh = fmaf(a.y, b.y, gh);
-        gh = fmaf(a.z, b.z, gh);
-        gh = fmaf(a.w, b.w, gh);
+        for (int q = 0; q < hdim / 4; ++q) {
+            const float4 a = g4[q], b = ld4(hj, q);
+            gh = fmaf(a.x, b.x, gh);
+            gh = fmaf(a.y, b.y, gh);
+            gh = fmaf(a.z, b.z, gh);
+            gh = fmaf(a.w, b.w, gh);
+        }
+    } else {
+#pragma unroll 2
+        for (int q = 0; q < hdim / 8; ++q) {
+            const uint4 hv = reinterpret_cast<const uint4*>(hj)[q];
+            const float4 a = g4[2 * q], b = g4[2 * q + 1];
+            gh = fmaf(a.x, lo_bf16(hv.x), gh);
+            gh = fmaf(a.y, hi_bf16(hv.x), gh);
+            gh = fmaf(a.z, lo_bf16(hv.y), gh);
+            gh = fmaf(a.w, hi_bf16(hv.y), gh);
+            gh = fmaf(b.x, lo_bf16(hv.z), gh);
+            gh = fmaf(b.y, hi_bf16(hv.z), gh);
+            gh = fmaf(b.z, lo_bf16(hv.w), gh);
+            gh = fmaf(b.w, hi_bf16(hv.w), gh);
+        }
     }
     return gh;
 }
@@ -241,53 +252,6 @@ __device__ __forceinline__ PairDs pair_ds(const float (&a2i)[4],
     const float s = half_warp_sum(dot4(a2i, u4)) + c;
     const float a = act ? expf(s - m) / fmaxf(l, 1e-20f) : 0.f;
     return {a, a * (gh - r)};
-}
-
-// a_ij and ds_ij of one pair from its score s (the bf16 dq: layer2_scores
-// gave it), as pair_ds forms them.
-__device__ __forceinline__ PairDs pair_ds_of(const float s, const float gh,
-                                             const bool act, const float m,
-                                             const float l, const float r) {
-    const float a = act ? expf(s - m) / fmaxf(l, 1e-20f) : 0.f;
-    return {a, a * (gh - r)};
-}
-
-// The bf16 dq's layer 2 and scores (warps 0 and 1, an m-tile of 16 pairs
-// each): a1 from the batch's a1^T (layer1's bits), layer2_scores with the
-// pairs' u rows and c, and a2 and the scores into shared memory, where the
-// block's register tile reads them.
-__device__ __forceinline__ void dq_scores_mma(const float* s_a1,
-                                              const uint2* s_w2f,
-                                              const float* s_b2,
-                                              const float* __restrict__ u,
-                                              const int mrow, const int* s_col,
-                                              const float* s_c, float* s_a2,
-                                              float* s_s) {
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    const int p0 = 16 * (threadIdx.x >> 5) + (lane >> 2), p1 = p0 + 8;
-    unsigned a[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-        const float* k0 = s_a1 + (16 * ks + 2 * t) * kA1Stride;
-        a[ks][0] = pack_bf16(k0[p0], k0[kA1Stride + p0]);
-        a[ks][1] = pack_bf16(k0[p1], k0[kA1Stride + p1]);
-        a[ks][2] = pack_bf16(k0[8 * kA1Stride + p0], k0[9 * kA1Stride + p0]);
-        a[ks][3] = pack_bf16(k0[8 * kA1Stride + p1], k0[9 * kA1Stride + p1]);
-    }
-    float a2[kN2][4];
-    const float2 sc = layer2_scores(
-        a, s_w2f, s_b2, u + (size_t)(mrow + s_col[p0]) * kH2,
-        u + (size_t)(mrow + s_col[p1]) * kH2, s_c[p0], s_c[p1], a2);
-#pragma unroll
-    for (int nt = 0; nt < kN2; ++nt) {
-        const int o = 8 * nt + 2 * t;
-        *reinterpret_cast<float2*>(s_a2 + p0 * kA2Stride + o) = make_float2(a2[nt][0], a2[nt][1]);
-        *reinterpret_cast<float2*>(s_a2 + p1 * kA2Stride + o) = make_float2(a2[nt][2], a2[nt][3]);
-    }
-    if (t == 0) {
-        s_s[p0] = sc.x;
-        s_s[p1] = sc.y;
-    }
 }
 
 // dz2 = [z2 > 0] ds u_j over this lane's four outputs, written over a2i.
@@ -375,6 +339,9 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               const T* __restrict__ w2, const T* __restrict__ b2,
               float4* __restrict__ dx, const int n, const int hdim,
               const int w, const Members ms) {
+    // bf16 operands take dq_mma (the specializations below): this body
+    // runs for float alone
+    static_assert(std::is_same_v<T, float>, "bf16: define SA_BF16_ENTRIES");
     // Static shared memory, bytes: padded W2 8,704 | a1^T 4,608 | dz2^T
     // 9,216 | dz1 4,224 | ring 4,096 | g_i 1,152 | W1, b1, b2, the batch's
     // features, columns, c_j, g_i . h_j and dx_i terms, the tile's stats
@@ -394,7 +361,6 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
     __shared__ float4 s_xt[kTile];
     __shared__ float s_m[kTile], s_l[kTile], s_r[kTile];
     __shared__ int s_ring[kRing], s_scan[kWarps];
-    __shared__ __align__(16) DqMma<T> s_mma;    // bf16: layer2_scores' arrays
 
     // member m's rows: h, g, stats, r, u, c, dx at m N; x4 and ids at m
     // ms.x4, m ms.ids (0 when shared); its weights at m ms.w*
@@ -402,8 +368,6 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
               irow = m * ms.ids;
     stage_mlp12(w1 + m * ms.w1, b1 + m * ms.b1, w2 + m * ms.w2,
                 b2 + m * ms.b2, s_w1, s_b1, s_w2, s_b2);
-    if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        stage_w2_frags(w2 + m * ms.w2, s_mma.w2f);
     const int pg = threadIdx.x >> 4, og = threadIdx.x & 15;
     const int n_tiles = (n + kTile - 1) / kTile;
 
@@ -477,37 +441,15 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
             __syncthreads();
             layer1<T>(s_feat, s_w1, s_b1, s_a1);
             __syncthreads();
-            if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-                // layer 2 and the scores on the tensor cores, the forward's
-                // and dkv's routine, so a_ij renormalizes exactly
-                if (threadIdx.x < 2 * 32)
-                    dq_scores_mma(s_a1, s_mma.w2f, s_b2, u, mrow, s_col, s_c,
-                                  s_mma.a2, s_mma.s);
-                __syncthreads();
-            }
             {
                 float a2[4][4];
-                if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float4 v = *reinterpret_cast<const float4*>(
-                            s_mma.a2 + (4 * pg + i) * kA2Stride + 4 * og);
-                        a2[i][0] = v.x; a2[i][1] = v.y; a2[i][2] = v.z; a2[i][3] = v.w;
-                    }
-                } else {
-                    layer2_tile<T>(s_a1, s_w2, kW2Stride, s_b2, a2);
-                }
+                layer2_tile<T>(s_a1, s_w2, kW2Stride, s_b2, a2);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int p = 4 * pg + i, col = s_col[p], slot = s_slot[p];
                     const float4 u4 = reinterpret_cast<const float4*>(u + (size_t)(mrow + col) * kH2)[og];
-                    PairDs d;
-                    if constexpr (std::is_same_v<T, __nv_bfloat16>)
-                        d = pair_ds_of(s_mma.s[p], s_gh[p], p < nb, s_m[slot],
-                                       s_l[slot], s_r[slot]);
-                    else
-                        d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
-                                    s_m[slot], s_l[slot], s_r[slot]);
+                    const PairDs d = pair_ds(a2[i], u4, s_c[p], s_gh[p], p < nb,
+                                             s_m[slot], s_l[slot], s_r[slot]);
                     dz2_of(a2[i], u4, d.ds);
                 }
                 store_dz2(s_dz2, a2);
@@ -538,6 +480,337 @@ bwd_dq_kernel(const float4* __restrict__ x4, const int* __restrict__ ids,
         __syncthreads();         // s_xt, s_m, s_l, s_r, s_g are the next tile's
     }
 }
+
+// W2 [kH1][kH2] (bf16) as the B fragments of da1 = dz2 W2^T (K = kH2, N =
+// kH1: B[o][k1] = W2[k1][o], so an o pair is one of W2's 32-bit words), in
+// fragment order: entry (ks kN1 + nt) 32 + lane holds lane's (b0, b1) of
+// k-step ks and n-tile nt, one 8-byte, conflict-free load a lane.  Every
+// thread of a kThreads block calls it.
+constexpr int kN1 = kH1 / 8;                      // da1's n-tiles
+constexpr int kW2TFrags = (kH2 / 16) * kN1 * 32;  // W2^T's B fragments (uint2)
+__device__ __forceinline__ void stage_w2t_frags(const __nv_bfloat16* w2,
+                                                uint2* s_w2t) {
+    const unsigned* const w = reinterpret_cast<const unsigned*>(w2);
+#pragma unroll
+    for (int e = threadIdx.x; e < kW2TFrags; e += kThreads) {
+        const int lane = e & 31, nt = (e >> 5) % kN1, ks = e / (32 * kN1);
+        const unsigned* const row = w + (8 * nt + (lane >> 2)) * (kH2 / 2);
+        s_w2t[e] = make_uint2(row[8 * ks + (lane & 3)], row[8 * ks + 4 + (lane & 3)]);
+    }
+}
+
+// The wide bf16 dq's part of g_i . h_j for lane (p, side): columns 16 q +
+// 8 side + e, e < 8, of g_i (the row in device memory, as the float wide
+// dq reads it) and of hj (16 bytes of h_j a step).  A float times a bf16
+// is exact in double, and the two accumulators (even and odd e) add in a
+// fixed order, so the two lanes' sum is g_i . h_j up to double roundings
+// (gh_exact's, over two lanes).
+__device__ __forceinline__ void gh_wide(double (&acc)[2],
+                                        const float* __restrict__ gi,
+                                        const __nv_bfloat16* __restrict__ hj,
+                                        const int hdim, const int side) {
+#pragma unroll 4
+    for (int q = 0; q < hdim / 16; ++q) {
+        const int d = 16 * q + 8 * side;
+        const uint4 hv = *reinterpret_cast<const uint4*>(hj + d);
+        const float4 ga = reinterpret_cast<const float4*>(gi + d)[0];
+        const float4 gb = reinterpret_cast<const float4*>(gi + d)[1];
+        const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+        const unsigned hw[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            acc[0] = fma((double)gv[2 * k], (double)lo_bf16(hw[k]), acc[0]);
+            acc[1] = fma((double)gv[2 * k + 1], (double)hi_bf16(hw[k]), acc[1]);
+        }
+    }
+}
+
+// The bf16 dq on the tensor cores (social_attention_pairs.cuh, "bf16
+// operands on Hopper's tensor cores").  Each warp owns one query row i at a
+// time and walks rows with the stride of the grid's warps (dq_blocks caps
+// the grid), so W2's two fragment arrays, W1, b1 and b2 are staged once a
+// block.  Per row the warp scans [i - w, i + 1 + w) (all N for w = 0) with
+// warp_fill and takes its partners in m-tiles of 16, in registers and
+// shuffles only:
+//   a partner's features by lane p < 16, layer 1 into A fragments and
+//   layer2_scores (u_j, c_j of each pair), the forward's own routine, so
+//   a_ij renormalizes bit for bit against the forward's (m, l);
+//   g_i . h_j of pair p by lane p (and p + 16), one FMA after another in
+//   the plain version's order (gh_serial, g_i staged in the warp's shared
+//   slice): on rows where ds = a (g . h - r) cancels (a scene of two), dx_i
+//   is that rounding, and this order keeps it the plain version's; kWide
+//   (H above 128) sums exact products in double over two lanes a pair
+//   (gh_wide, g_i read from device memory as the float wide dq reads it;
+//   staged slices of 128 columns spilled at 128 registers);
+//   ds_ij = a_ij (g_i . h_j - r_i), dz2 = [a2 > 0] ds u_j in the
+//   accumulator layout, which is the A operand of da1 = dz2 W2^T (mma,
+//   64 -> 32, 2048 MAC a pair); dz2 stays float32 and enters the product
+//   split exactly into three bf16 pieces (split3, added lo, mid, hi), so
+//   every partial product is exact;
+//   dz1 = [a1 > 0] da1, gf = W1 dz1 (the quad's rows) and the feature
+//   backward of pair p (pair_geo, geo_backward), its dx_i term summed over
+//   the m-tile in a fixed tree and added to the row's sum.
+// A row's bits depend on its pairs alone, in ascending j: no block barrier
+// after the staging, no cross-row sum, so neither the grid nor w changes
+// them, and a member launch equals its solo launches.  Lanes past the
+// m-tile's pairs run on column 0 (real memory) with a = 0, so no load or
+// step is guarded: every term they add is 0.
+template <bool kWide>
+__device__ __forceinline__ void dq_mma(
+        const float4* __restrict__ x4, const int* __restrict__ ids,
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ g,
+        const float2* __restrict__ stats, const float* __restrict__ r,
+        const float* __restrict__ u, const float* __restrict__ cvec,
+        const __nv_bfloat16* __restrict__ w1,
+        const __nv_bfloat16* __restrict__ b1,
+        const __nv_bfloat16* __restrict__ w2,
+        const __nv_bfloat16* __restrict__ b2, float4* __restrict__ dx,
+        const int n, const int hdim, const int w, const Members ms) {
+    // Static shared memory, bytes: W2's layer-2 and da1 B fragments 4,096
+    // each | the warps' g_i slices 2,048 (kWide: 64, unused) | the rings
+    // 1,024 | b2, W1, b1 768 | the warps' dx_i sums 64: 12,096 in all
+    // (kWide 10,112).  x_i, the stats and r_i are read again where they
+    // are needed and dx_i kept in shared memory, not registers: with them
+    // live through the m-tile loop the kernel spilled at 128
+    __shared__ __align__(16) uint2 s_w2f[kW2Frags];
+    __shared__ __align__(16) uint2 s_w2t[kW2TFrags];
+    __shared__ __align__(16) float s_g[kWarps][kWide ? 4 : kNarrowWidth];
+    __shared__ int s_ring[kWarps][kWRing];
+    __shared__ __align__(16) float s_b2[kH2];
+    __shared__ float s_w1[kIn * kH1];
+    __shared__ float s_b1[kH1];
+    __shared__ float4 s_dx[kWarps];    // row i's dx_i, lane 0's alone
+
+    // member m's rows: h, g, stats, r, u, c, dx at m N; x4 and ids at m
+    // ms.x4, m ms.ids (0 when shared); its weights at m ms.w*.  A row
+    // offset at every index, as dkv_mma
+    const int m = member(), mrow = m * n, xrow = m * ms.x4,
+              irow = m * ms.ids;
+    w1 += m * ms.w1; b1 += m * ms.b1; w2 += m * ms.w2; b2 += m * ms.b2;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // the warp's first row: its scan runs while the block stages
+    int i = blockIdx.x * kWarps + warp, sid = 0;
+    WarpRing wr{s_ring[warp], 0, 0, 0, 0};
+    if (i < n) {
+        sid = ids[irow + i];
+        wr.next = w == 0 ? 0 : max(0, i - w);
+        wr.end = w == 0 ? n : min(n, i + 1 + w);
+        warp_fill(wr, ids, irow, sid, i);
+    }
+    stage_w2_frags(w2, s_w2f);
+    stage_w2t_frags(w2, s_w2t);
+    for (int t = threadIdx.x; t < kH2; t += kThreads) s_b2[t] = ld(b2[t]);
+    for (int t = threadIdx.x; t < kIn * kH1; t += kThreads) s_w1[t] = ld(w1[t]);
+    for (int t = threadIdx.x; t < kH1; t += kThreads) s_b1[t] = ld(b1[t]);
+    __syncthreads();
+
+    const int gq = lane >> 2, t = lane & 3, p = lane & 15, side = lane >> 4;
+    float* const gs = s_g[warp];      // g_i of the narrow kernel
+    for (bool first = true; i < n; i += gridDim.x * kWarps, first = false) {
+        if (!first) {
+            sid = ids[irow + i];
+            wr = WarpRing{s_ring[warp], 0, 0, w == 0 ? 0 : max(0, i - w),
+                          w == 0 ? n : min(n, i + 1 + w)};
+        }
+        if constexpr (!kWide) {
+            __syncwarp();        // the row before has read gs
+            if (4 * lane < hdim)
+                reinterpret_cast<float4*>(gs)[lane] = reinterpret_cast<const float4*>(
+                    g + (size_t)(mrow + i) * hdim)[lane];
+            __syncwarp();
+        }
+        if (lane == 0) s_dx[warp] = make_float4(0.f, 0.f, 0.f, 0.f);
+        while (true) {
+            warp_fill(wr, ids, irow, sid, i);
+            if (wr.count == 0) break;
+            const int nb = wr.count < kMma ? wr.count : kMma;
+            const bool act = p < nb;
+            // lane p: pair p's column (0 past nb), x_j and features
+            const int col = act ? wr.ring[(wr.head + p) & (kWRing - 1)] : 0;
+            float f[kIn];
+            {
+                const float4 xi = x4[xrow + i];
+                const Geo q = pair_geo(xi, speed(xi), x4[xrow + col]);
+#pragma unroll
+                for (int c = 0; c < kIn; ++c)
+                    f[c] = act ? rnd<__nv_bfloat16>(q.feat[c]) : 0.f;
+            }
+            // g_i . h_j of pair p
+            const __nv_bfloat16* const hj = h + (size_t)(mrow + col) * hdim;
+            float gh;
+            if constexpr (kWide) {
+                double acc[2] = {0.0, 0.0};
+                gh_wide(acc, g + (size_t)(mrow + i) * hdim, hj, hdim, side);
+                const double ghd = acc[0] + acc[1];
+                gh = (float)(ghd + __shfl_xor_sync(kFull, ghd, 16));
+            } else {
+                gh = gh_serial(gs, hj, hdim);
+            }
+            // layer 1 and layer2_scores of pairs gq and gq + 8
+            float fg[kIn], fg8[kIn];
+#pragma unroll
+            for (int c = 0; c < kIn; ++c) {
+                fg[c] = __shfl_sync(kFull, f[c], gq);
+                fg8[c] = __shfl_sync(kFull, f[c], gq + 8);
+            }
+            const int colg = __shfl_sync(kFull, col, gq);
+            const int colg8 = __shfl_sync(kFull, col, gq + 8);
+            const float* const ug = u + (size_t)(mrow + colg) * kH2;
+            const float* const ug8 = u + (size_t)(mrow + colg8) * kH2;
+            unsigned a[2][4];
+            layer1_frags(fg, fg8, s_w1, s_b1, a);
+            // the relu mask of a1 (rounding keeps the sign) as bits, 4 nt +
+            // e of z1[nt][e] below: the A fragments die with layer 2
+            unsigned a1_pos = 0u;
+#pragma unroll
+            for (int nt = 0; nt < kN1; ++nt) {
+                const unsigned rg = a[nt >> 1][2 * (nt & 1)];
+                const unsigned rg8 = a[nt >> 1][2 * (nt & 1) + 1];
+                a1_pos |= (lo_bf16(rg) > 0.f ? 1u : 0u) << (4 * nt);
+                a1_pos |= (hi_bf16(rg) > 0.f ? 2u : 0u) << (4 * nt);
+                a1_pos |= (lo_bf16(rg8) > 0.f ? 4u : 0u) << (4 * nt);
+                a1_pos |= (hi_bf16(rg8) > 0.f ? 8u : 0u) << (4 * nt);
+            }
+            float a2[kN2][4];
+            const float2 sc = layer2_scores(a, s_w2f, s_b2, ug, ug8,
+                                            cvec[mrow + colg],
+                                            cvec[mrow + colg8], a2);
+            // pair p's a_ij and ds_ij (lane p & 15); row i's stats and r_i
+            // read here, not held through the m-tiles
+            const float s_lo = __shfl_sync(kFull, sc.x, 4 * (p & 7));
+            const float s_hi = __shfl_sync(kFull, sc.y, 4 * (p & 7));
+            const float2 st = stats[mrow + i];
+            const float ap = act ? expf((p < 8 ? s_lo : s_hi) - st.x) / fmaxf(st.y, 1e-20f)
+                                 : 0.f;
+            const float ds = ap * (gh - r[mrow + i]);
+            // dz2 = [a2 > 0] ds u_j, over a2
+            const float dsg = __shfl_sync(kFull, ds, gq);
+            const float dsg8 = __shfl_sync(kFull, ds, gq + 8);
+#pragma unroll
+            for (int nt = 0; nt < kN2; ++nt) {
+                const float2 uo = *reinterpret_cast<const float2*>(ug + 8 * nt + 2 * t);
+                const float2 uo8 = *reinterpret_cast<const float2*>(ug8 + 8 * nt + 2 * t);
+                a2[nt][0] = a2[nt][0] > 0.f ? dsg * uo.x : 0.f;
+                a2[nt][1] = a2[nt][1] > 0.f ? dsg * uo.y : 0.f;
+                a2[nt][2] = a2[nt][2] > 0.f ? dsg8 * uo8.x : 0.f;
+                a2[nt][3] = a2[nt][3] > 0.f ? dsg8 * uo8.y : 0.f;
+            }
+            // da1 = dz2 W2^T: dz2 in three bf16 pieces (lo, mid, hi: added
+            // in that order), k-step ks at a time (its n-tiles 2 ks, 2 ks + 1)
+            float z1[kN1][4];
+#pragma unroll
+            for (int nt = 0; nt < kN1; ++nt)
+                z1[nt][0] = z1[nt][1] = z1[nt][2] = z1[nt][3] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < kH2 / 16; ++ks) {
+                unsigned pc[3][4];
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    unsigned piece[3];
+                    split3(a2[2 * ks + (v >> 1)][2 * (v & 1)],
+                           a2[2 * ks + (v >> 1)][2 * (v & 1) + 1], piece);
+                    pc[0][v] = piece[0];
+                    pc[1][v] = piece[1];
+                    pc[2][v] = piece[2];
+                }
+#pragma unroll
+                for (int nt = 0; nt < kN1; ++nt) {
+                    const uint2 b = s_w2t[(ks * kN1 + nt) * 32 + lane];
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) mma_bf16(z1[nt], pc[k], b.x, b.y);
+                }
+            }
+            // dz1 = [a1 > 0] da1
+#pragma unroll
+            for (int nt = 0; nt < kN1; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    z1[nt][e] = (a1_pos >> (4 * nt + e)) & 1u ? z1[nt][e] : 0.f;
+            // gf = W1 dz1 of pairs gq and gq + 8 (this lane's 8 columns,
+            // then the quad), then pair p's feature backward
+            float gf[kIn];
+#pragma unroll
+            for (int c = 0; c < kIn; ++c) {
+                float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+                for (int nt = 0; nt < kN1; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float wv = s_w1[c * kH1 + 8 * nt + 2 * t + e];
+                        s0 = fmaf(wv, z1[nt][e], s0);
+                        s1 = fmaf(wv, z1[nt][2 + e], s1);
+                    }
+                s0 += __shfl_xor_sync(kFull, s0, 1);
+                s0 += __shfl_xor_sync(kFull, s0, 2);
+                s1 += __shfl_xor_sync(kFull, s1, 1);
+                s1 += __shfl_xor_sync(kFull, s1, 2);
+                const float v0 = __shfl_sync(kFull, s0, 4 * (p & 7));
+                const float v1 = __shfl_sync(kFull, s1, 4 * (p & 7));
+                gf[c] = p < 8 ? v0 : v1;
+            }
+            float4 gi4, gj4;
+            {
+                const float4 xi = x4[xrow + i];
+                const float vn = speed(xi);
+                geo_backward(pair_geo(xi, vn, x4[xrow + col]), xi, vn, gf,
+                             gi4, gj4);
+            }
+            // the m-tile's dx_i terms in a fixed tree over lanes p (lanes
+            // p + 16 hold the same bits), added to the row's sum
+            {
+                const float sx = half_warp_sum(act ? gi4.x : 0.f);
+                const float sy = half_warp_sum(act ? gi4.y : 0.f);
+                const float sz = half_warp_sum(act ? gi4.z : 0.f);
+                const float sw = half_warp_sum(act ? gi4.w : 0.f);
+                if (lane == 0) {
+                    const float4 d = s_dx[warp];
+                    s_dx[warp] = make_float4(d.x + sx, d.y + sy, d.z + sz, d.w + sw);
+                }
+            }
+            wr.head = (wr.head + nb) & (kWRing - 1);
+            wr.count -= nb;
+        }
+        if (lane == 0) dx[mrow + i] = s_dx[warp];
+    }
+}
+
+#ifdef SA_BF16_ENTRIES
+// The bf16 dq's resident blocks an SM (at most 128 registers a thread).
+// kernels/social_attention.py's _MMA_DQ_MAX_BLOCKS caps the grid at this
+// many on each of an H100's 132 SMs and must match it (a test reads this
+// line).
+constexpr int kMmaDqMinBlocks = 4;
+#define SA_DQ_MMA_PARAMS                                                     \
+    const float4* __restrict__ x4, const int* __restrict__ ids,              \
+        const __nv_bfloat16* __restrict__ h, const float* __restrict__ g,    \
+        const float2* __restrict__ stats, const float* __restrict__ r,       \
+        const float* __restrict__ u, const float* __restrict__ cvec,         \
+        const __nv_bfloat16* __restrict__ w1,                                \
+        const __nv_bfloat16* __restrict__ b1,                                \
+        const __nv_bfloat16* __restrict__ w2,                                \
+        const __nv_bfloat16* __restrict__ b2, float4* __restrict__ dx,       \
+        const int n, const int hdim, const int w, const Members ms
+#define SA_DQ_MMA_ARGS x4, ids, h, g, stats, r, u, cvec, w1, b1, w2, b2, dx, \
+    n, hdim, w, ms
+
+// The bf16 entries' dq kernels: dq_mma, in the primary template's
+// signature (the launches, trace names and ptxas lines of the float one's);
+// only the *_bf16.cu translation units (SA_BF16_ENTRIES) see them.
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaDqMinBlocks)
+bwd_dq_kernel<__nv_bfloat16, false>(SA_DQ_MMA_PARAMS) {
+    dq_mma<false>(SA_DQ_MMA_ARGS);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, kMmaDqMinBlocks)
+bwd_dq_kernel<__nv_bfloat16, true>(SA_DQ_MMA_PARAMS) {
+    dq_mma<true>(SA_DQ_MMA_ARGS);
+}
+
+#undef SA_DQ_MMA_PARAMS
+#undef SA_DQ_MMA_ARGS
+#endif  // SA_BF16_ENTRIES
 
 // The wide dh (H above kNarrowWidth): element e >= 2 kThreads of the
 // column tile's [kTile][hdim] accumulates in the tile's own row of dh,
@@ -1486,7 +1759,8 @@ bwd_finalize_kernel<__nv_bfloat16>(const __nv_bfloat16* __restrict__ wh,
 
 // dx_i [M, N, 4] from the forward's u [M, N, 64] and c [M, N]: one launch
 // of `blocks` x `members` blocks, each walking row tiles blockIdx.x,
-// blockIdx.x + blocks, ... of member blockIdx.y; g, stats and r are [M, N,
+// blockIdx.x + blocks, ... of member blockIdx.y (bf16: each warp rows of
+// the grid's warp stride); g, stats and r are [M, N,
 // ...] too; `strides` are the member strides of x4, ids, h and w1..b2
 // (MemberStrides, checked by members_of; null for a single model, M = 1).
 // Launches on `stream`, does not synchronise,

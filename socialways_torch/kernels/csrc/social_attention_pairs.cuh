@@ -32,9 +32,9 @@
 // before p . h, and every sum runs in float; x4, the cotangents, stats, u
 // and c stay float.  For T = float, ld, ld4 and rnd are the identity, and
 // the kernels compile to the float code they were.  The bf16 forward, its
-// u prologue and dkv are kernels of their own (explicit specializations in
-// the *_bf16.cu translation units, below: "bf16 operands on Hopper's tensor
-// cores"); the bf16 dq is the template above with the tensor-core layer 2.
+// u prologue, dq and dkv are kernels of their own (explicit
+// specializations in the *_bf16.cu translation units, below: "bf16
+// operands on Hopper's tensor cores").
 //
 // Member axis.  An ensemble trains M models on the same data at once, and
 // every kernel takes their operands stacked on a leading member axis:
@@ -420,9 +420,9 @@ __device__ __forceinline__ float dot4(const float (&a2i)[4], const float4 u4) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands on Hopper's tensor cores.  The bf16 forward and dkv run the
-// pair MLP one warp at a time: a warp owns one agent (a query row in the
-// forward, a column in dkv), finds its partners with its own id scan
+// bf16 operands on Hopper's tensor cores.  The bf16 forward, dq and dkv run
+// the pair MLP one warp at a time: a warp owns one agent (a query row in
+// the forward and dq, a column in dkv), finds its partners with its own id scan
 // (warp_fill) and takes them 16 at a time, an m-tile of
 // mma.m16n8k16.bf16 -> f32, with no block barrier.  Lane (g, t) = (lane >> 2,
 // lane & 3) holds the accumulator rows g and g + 8 (pairs) at the columns
@@ -431,9 +431,8 @@ __device__ __forceinline__ float dot4(const float (&a2i)[4], const float4 u4) {
 // each 16-wide k-step, so one product's accumulator is the next one's A
 // operand without moving data.  a1 and W2 are bf16 values and the products
 // are summed in float: the operands' own contract (the Pallas kernel's
-// preferred_element_type=float32).  Layer 1 (K = 3) stays FFMA.  The bf16
-// dq (block-wide, as the float kernels) calls the same layer-2 + score
-// routine, so all three kernels rebuild the same score bits.
+// preferred_element_type=float32).  Layer 1 (K = 3) stays FFMA.  All
+// three kernels rebuild the same score bits with the same routine.
 
 constexpr int kMma = 16;             // pairs of an m-tile
 constexpr int kN2 = kH2 / 8;         // layer-2 n-tiles

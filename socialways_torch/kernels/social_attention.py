@@ -55,12 +55,12 @@ Source notes.
   (ops/social.py gives the contract; ``_pallas_forward`` :248-258 and
   ``_pallas_backward`` :464-477 set it).  A bf16 tensor on CUDA launches a
   bf16 kernel or raises: it is never cast up to reach the float32 ones.
-  The bf16 forward, its u prologue and dkv run the pair MLP on Hopper's
-  tensor cores (``mma.sync`` bf16 -> f32), a warp owning a query row or a
-  column and walking them with the stride of a capped grid
-  (``fwd_blocks``, ``dkv_blocks`` with ``op``); dkv keeps a partial slot a
-  warp (``dkv_partial_floats``), its float32 cotangents split exactly into
-  three bf16 pieces; the bf16 dq takes the same layer-2 + score routine.
+  The bf16 forward, its u prologue, dq and dkv run the pair MLP on
+  Hopper's tensor cores (``mma.sync`` bf16 -> f32), a warp owning a query
+  row or a column and walking them with the stride of a capped grid
+  (``fwd_blocks``, ``dq_blocks``, ``dkv_blocks`` with ``op``); dq and dkv
+  split their float32 cotangents exactly into three bf16 pieces, and dkv
+  keeps a partial slot a warp (``dkv_partial_floats``).
   Each entry point counts its own launches: ``launches`` for float32,
   ``launches_bf16`` for bf16.  A count is taken when the wrapper is
   called, so a CUDA graph's capture would count launches that never ran
@@ -138,11 +138,13 @@ _FWD = "social_attention_fwd"
 _BWD = "social_attention_bwd"
 _H2 = 64                      # second hidden width of the feature MLP
 _TILE = 2                     # rows (forward, dq) or columns (dkv) a block takes
-_WARPS = 4                    # warps a block (bf16 forward, dkv: a row or column each)
-# the bf16 forward and dkv: a wave of resident blocks, kMmaFwdMinBlocks
-# (social_attention_fwd.cuh) and kMmaDkvMinBlocks (social_attention_bwd.cuh)
-# an SM, the same numbers as their __launch_bounds__
+_WARPS = 4                    # warps a block (bf16 kernels: a row or column each)
+# the bf16 forward, dq and dkv: a wave of resident blocks, kMmaFwdMinBlocks
+# (social_attention_fwd.cuh), kMmaDqMinBlocks and kMmaDkvMinBlocks
+# (social_attention_bwd.cuh) an SM, the same numbers as their
+# __launch_bounds__
 _MMA_FWD_MAX_BLOCKS = 4 * 132  # 4 resident an SM (128 registers)
+_MMA_DQ_MAX_BLOCKS = 4 * 132   # 4 resident an SM (128 registers)
 _MMA_DKV_MAX_BLOCKS = 3 * 132  # 3 resident an SM (168 registers)
 _DKV_MAX_BLOCKS = 4 * 132     # 4 a streaming multiprocessor of an H100
 _PARTIAL = 32 * _H2 + _H2 + 3 * 32 + 32   # dW2 | db2 | dW1 | db1 per block
@@ -312,11 +314,18 @@ def fwd_blocks(n: int, members: int = 1,
     return min(-(-n // _WARPS), max(1, _MMA_FWD_MAX_BLOCKS // members))
 
 
-def dq_blocks(n: int) -> int:
-    """Blocks of dq: one per tile of ``_TILE`` query rows, as the float32
-    forward (bf16 too).  dq keeps no per-block partials, so its grid needs
-    no cap."""
-    return fwd_blocks(n)
+def dq_blocks(n: int, members: int = 1,
+              op: torch.dtype = torch.float32) -> int:
+    """Blocks of dq (a member's: the grid's x).  float32: one per tile of
+    ``_TILE`` query rows, as the float32 forward; dq keeps no per-block
+    partials, so that grid needs no cap.  bf16: one per ``_WARPS`` rows (a
+    warp owns a row and walks rows with the stride of the grid's warps), at
+    most ``_MMA_DQ_MAX_BLOCKS`` over all ``members`` (one wave): the
+    weights are staged once a block.  A row's bits do not depend on the
+    grid."""
+    if op == torch.float32:
+        return -(-n // _TILE)
+    return min(-(-n // _WARPS), max(1, _MMA_DQ_MAX_BLOCKS // members))
 
 
 def dkv_blocks(n: int, op: torch.dtype = torch.float32) -> int:
@@ -565,7 +574,7 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     ``stats`` [N, 2] = (m, l), ``r`` [N] = g . out and its ``u`` [N, 64] and
     ``c`` [N].  CPU tensors take the plain version, which rebuilds the
     scores from ``wh`` and ignores u and c; CUDA tensors launch the kernel
-    (one launch of ``dq_blocks(N)`` blocks, each tile scanning
+    (one launch of ``dq_blocks(N, M, dtype)`` blocks, each tile scanning
     ``scan_range(N, t0, max_scene)``) or raise.  ``h``, ``wh`` and the
     weights are float32 or bf16 together; the rest and dx are float32.
     Member-stacked operands (``h`` [M, N, H], ``_check_common``; g, stats,
@@ -586,8 +595,8 @@ def social_attention_bwd_dq(x4, ids, h, wh, g, stats, r,
     dx = torch.empty(lead + (n, 4), device=h.device, dtype=torch.float32)
     _launch(_BWD, "social_attention_bwd_dq", h, hdim, 13, 4, strides, x4,
             ids, h,
-            g, stats, r, u, c, *weights[:4], dx, n, hdim, dq_blocks(n),
-            max_scene)
+            g, stats, r, u, c, *weights[:4], dx, n, hdim,
+            dq_blocks(n, h.shape[0] if lead else 1, h.dtype), max_scene)
     _count(social_attention_bwd_dq, h)
     return dx
 

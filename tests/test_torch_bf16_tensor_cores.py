@@ -1,12 +1,12 @@
 """The bf16 social-attention kernels on Hopper's tensor cores
 (csrc/social_attention_pairs.cuh, "bf16 operands on Hopper's tensor
-cores"): the bf16 forward and dkv run the pair MLP one warp and 16 pairs at
-a time on ``mma.sync`` bf16 -> f32, a warp owning a row (a column), and the
-bf16 dq takes the same layer-2 + score routine.
+cores"): the bf16 forward, dq and dkv run the pair MLP one warp and 16
+pairs at a time on ``mma.sync`` bf16 -> f32, a warp owning a row (a
+column); dq also takes da1 = dz2 W2^T on the tensor cores.
 
 On the CPU (every run): the bf16 launch sizes, which these kernels read from
-the wrapper: the forward's grid is a function of N and the member count,
-capped; dkv's of N alone (its weight gradients are summed block by block, so
+the wrapper: the forward's and dq's grids are functions of N and the member
+count, capped; dkv's of N alone (its weight gradients are summed block by block, so
 a member launch keeps a solo launch's grid and bits), and its partial
 scratch follows its grid; the caps on those grids match the kernels'
 launch bounds; and chip_smoke.py's readers of ptxas's and
@@ -20,7 +20,8 @@ w = 0 launch bit for bit), a ragged N = 301, and H = F = 256, 144 and 400
 (the wide entries; the forward pools columns past 128 in slices of 128,
 which 144 and 400 leave partly filled); M = 4
 members, each equal to its solo launch bit for bit; two dkv runs with
-equal bits; and the forward with its memory filled with NaN first.  Bounds, those of tests/test_torch_bf16.py's card
+equal bits; and the forward and dq with their memory filled with NaN
+first (dq also twice with equal bits).  Bounds, those of tests/test_torch_bf16.py's card
 case (sums in another order flip a bf16 rounding of a1 or a2 now and then,
 and the forward rounds p against the running max of its m-tile): out within
 8e-3, m within 1e-3 (1 + |m|), l within 1e-2 l, dx (dq's and dkv's summed)
@@ -67,6 +68,21 @@ def test_torch_bf16_fwd_grid_is_a_function_of_n_and_members(n, members):
     assert sa.fwd_blocks(n) == -(-n // 2)
 
 
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 256, 301, 1000, 2112, 2113,
+                               10_000, 32_768, 1_048_576])
+@pytest.mark.parametrize("members", [1, 2, 4, 8])
+def test_torch_bf16_dq_grid_is_a_function_of_n_and_members(n, members):
+    """The bf16 dq: one block a 4 rows, at most 528 blocks over all members
+    (4 an SM of the H100, one wave; a warp owns a row and walks rows with
+    the grid's stride, so a row's bits do not depend on the grid); the
+    float32 dq keeps one block a tile of 2 rows, whatever the members."""
+    blocks = sa.dq_blocks(n, members, BF)
+    assert blocks == min(-(-n // 4), max(1, 528 // members))
+    assert 1 <= blocks * members <= max(528, members)
+    assert sa.dq_blocks(n, members, torch.float32) == sa.dq_blocks(n)
+    assert sa.dq_blocks(n) == -(-n // 2)
+
+
 @pytest.mark.parametrize("n", [1, 7, 256, 301, 2112, 2113, 10_000,
                                1_048_576])
 @pytest.mark.parametrize("members", [1, 4])
@@ -88,9 +104,10 @@ def test_torch_bf16_dkv_partial_floats_follow_its_grid(n, members):
 
 @pytest.mark.parametrize("source,name,cap", [
     ("social_attention_fwd.cuh", "kMmaFwdMinBlocks", "_MMA_FWD_MAX_BLOCKS"),
+    ("social_attention_bwd.cuh", "kMmaDqMinBlocks", "_MMA_DQ_MAX_BLOCKS"),
     ("social_attention_bwd.cuh", "kMmaDkvMinBlocks", "_MMA_DKV_MAX_BLOCKS")])
 def test_torch_bf16_grid_caps_match_the_launch_bounds(source, name, cap):
-    """The bf16 forward's and dkv's grid caps are one wave of the blocks
+    """The bf16 forward's, dq's and dkv's grid caps are one wave of the blocks
     their ``__launch_bounds__`` keep resident on each of the H100's 132
     SMs: the Python cap and the CUDA constant state one number."""
     path = os.path.join(os.path.dirname(sa.__file__), "csrc", source)
@@ -303,3 +320,25 @@ def test_torch_bf16_forward_reads_no_stale_memory_cuda(n):
         for k, (a, b) in enumerate(zip(res[0], outs)):
             assert bool(a.isfinite().all()), f"output {k} not finite"
             assert torch.equal(a, b), f"output {k} differs between launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10_000, 32_768])
+def test_torch_bf16_dq_writes_every_row_cuda(n):
+    """dq writes every row of dx once (a warp a row, rows without partners
+    0): launched into memory filled with NaN first (a freed block of dx's
+    own size, which the caching allocator hands out again), the w = 0, w =
+    16 and a second w = 0 launch give equal, finite bits."""
+    g16, x4, h, ids, wh, w16, gout = _card_case(n, 31, 16)
+    with torch.no_grad():
+        out, stats, u, c = sa._launch_fwd(x4, ids, h, wh, w16, True, 16)
+        args = (x4, ids, h, wh, gout, stats, (gout * out).sum(-1), w16, u, c)
+    res = []
+    for w in (0, 16, 0):
+        junk = torch.full((n, 4), float("nan"), device="cuda")
+        del junk
+        res.append(sa.social_attention_bwd_dq(*args, max_scene=w))
+        torch.cuda.synchronize()
+    assert bool(res[0].isfinite().all()), "dx not finite"
+    for k, dx in enumerate(res[1:]):
+        assert torch.equal(res[0], dx), f"launch {k + 1} differs from the first"
