@@ -837,7 +837,8 @@ def profile_step(torch, what: str, fn) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dev_events = [e for e in prof.events() if e.device_type.name == "CUDA"
+                  and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.device_time for e in dev_events)
     print(f"profile of {what}: {len(dev_events)} device kernels/copies, "
           f"{busy_us:.1f} us device time; untraced wall {wall_us:.1f} us "
@@ -1397,7 +1398,7 @@ def toy_phase(torch, sa, cli_main, dev, work):
                                            f"socialWays-hotel{suffix}.npz")):
             raise AssertionError(f"no {suffix} checkpoint: "
                                  f"{os.listdir(mdir)}")
-    (trace,) = os.listdir(prof)
+    (trace,) = [f for f in os.listdir(prof) if f != "spans.json"]
     with open(os.path.join(prof, trace)) as fh:
         events = json.load(fh)["traceEvents"]
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}

@@ -54,6 +54,13 @@ through one trainer are each captured anew as they come back.  A capture
 that fails raises: the loop never falls back to eager.  The launch counters of the attention kernels count at
 call time, so each capture's launches are taken back out and credited
 once a replay (``kernels.social_attention.captured_launches``).
+
+Tracing (``utils/profiling.py``): the captured step holds the device
+stamps of its phase boundaries (``gan_step``'s ``train.step`` unit), the
+stamp kernel loaded before the capture; with tracing on each replay is a
+``train.step`` unit whose phases are those stamps.  The counters
+``graph.eager_steps``, ``graph.captures`` and ``graph.replays`` count at
+the call sites, outside the graph.
 """
 
 from __future__ import annotations
@@ -72,6 +79,8 @@ from socialways_torch.kernels.social_attention import (Launches,
                                                        captured_launches,
                                                        credit_launches)
 from socialways_torch.parallel.mesh import any_rank
+from socialways_torch.utils.profiling import (captured_marks, count,
+                                              prepare_stamps, span)
 
 
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
@@ -132,7 +141,8 @@ class EpochGraphs:
 
     def _drop(self) -> None:
         """Drop the graphs, and with them their memory."""
-        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, Launches]] = {}
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, Launches,
+                                      Tuple]] = {}
         self.pool = None
         self.sums: Optional[List[torch.Tensor]] = None
 
@@ -212,11 +222,19 @@ class EpochGraphs:
             outcome = d_phase_due(self.cfg, g_count) if ratio else True
             entry = self.graphs.get(outcome)
             if entry is None:
+                count("graph.eager_steps")
                 self._step(state, n_valid, g_count)
-                self.graphs[outcome] = self._capture(functools.partial(
-                    self._step, state, n_valid, g_count))
+                prepare_stamps(self.idx.device)
+                count("graph.captures")
+                with captured_marks() as marks:
+                    graph = self._capture(functools.partial(
+                        self._step, state, n_valid, g_count))
+                self.graphs[outcome] = (*graph, tuple(marks))
             else:
-                entry[0].replay()
+                with span("train.step", unit=True, device=self.idx.device,
+                          replay=entry[2]):
+                    count("graph.replays")
+                    entry[0].replay()
                 credit_launches(entry[1])
             if g_count is not None:
                 g_count += 1

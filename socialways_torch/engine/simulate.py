@@ -30,7 +30,8 @@ import torch
 
 from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
-from socialways_torch.models.generator import (Generator, decode_rollout,
+from socialways_torch.models.generator import (ROLLOUT_PHASES, Generator,
+                                               decode_rollout,
                                                encode_observation,
                                                generator_rollout)
 from socialways_torch.ops.nn import cast_params
@@ -39,6 +40,7 @@ from socialways_torch.ops.traj import (canonicalize_for_rollout,
 from socialways_torch.parallel.agents import (ring_social_context,
                                               sharded_social_context)
 from socialways_torch.parallel.mesh import all_gather_rows
+from socialways_torch.utils.profiling import phase, prepare_stamps, span
 
 
 def _inputs(g_params, obsv0, n_windows, cfg, generator, noise):
@@ -57,17 +59,24 @@ def _inputs(g_params, obsv0, n_windows, cfg, generator, noise):
 def _windows(rollout, obsv0, noise, cfg) -> torch.Tensor:
     """The window loop: each window canonicalizes its own buffer, rolls it
     out with ``rollout(obsv_in, social_x4, z)``, and maps the predictions
-    back to the world before they re-enter the buffer."""
+    back to the world before they re-enter the buffer.  Each window is a
+    ``sim.window`` unit of the tracer: ``encode`` (from the
+    canonicalization), ``attention``, ``decode``, ``frame``."""
     n_past, obsv, windows = obsv0.shape[1], obsv0, []
     for z in noise:
-        obsv_in, frame, social_x4 = canonicalize_for_rollout(
-            obsv, cfg.agent_frame, cfg.use_social)
-        pred = rollout(obsv_in, social_x4, z)
-        if frame is not None:
-            pred = from_agent_frame_4d(pred, frame)
-        pos = pred[..., :2]
-        windows.append(pos)
-        obsv = torch.cat([obsv, pos], dim=1)[:, -n_past:]
+        with span("sim.window", unit=True, phases=ROLLOUT_PHASES,
+                  device=obsv0.device):
+            phase("encode")
+            obsv_in, frame, social_x4 = canonicalize_for_rollout(
+                obsv, cfg.agent_frame, cfg.use_social)
+            pred = rollout(obsv_in, social_x4, z)
+            phase("frame")
+            if frame is not None:
+                pred = from_agent_frame_4d(pred, frame)
+            pos = pred[..., :2]
+            windows.append(pos)
+            obsv = torch.cat([obsv, pos], dim=1)[:, -n_past:]
+    prepare_stamps(obsv0.device)
     return torch.cat(windows, dim=1).float()
 
 
@@ -80,15 +89,18 @@ def crowd_simulate(g_params: Generator, obsv0: torch.Tensor,
     prediction windows from the observed windows ``obsv0 [N, n_past, 2]``.
 
     ``noise [n_windows, N, noise_len]`` overrides the draw from
-    ``generator`` (tests pass JAX's draw in)."""
-    g_params, obsv0, noise = _inputs(g_params, obsv0, n_windows, cfg,
-                                     generator, noise)
+    ``generator`` (tests pass JAX's draw in).  A ``sim.call`` span of the
+    tracer holds the windows; its own time is the casts and the output."""
+    with span("sim.call", device=obsv0.device):
+        g_params, obsv0, noise = _inputs(g_params, obsv0, n_windows, cfg,
+                                         generator, noise)
 
-    def rollout(obsv_in, social_x4, z):
-        return generator_rollout(g_params, obsv_in, z, cfg.n_next, scene_ids,
-                                 cfg.use_social, social_x4, cfg.decoder,
-                                 max_scene=cfg.max_scene_size)
-    return _windows(rollout, obsv0, noise, cfg)
+        def rollout(obsv_in, social_x4, z):
+            return generator_rollout(g_params, obsv_in, z, cfg.n_next,
+                                     scene_ids, cfg.use_social, social_x4,
+                                     cfg.decoder,
+                                     max_scene=cfg.max_scene_size)
+        return _windows(rollout, obsv0, noise, cfg)
 
 
 @torch.no_grad()
@@ -127,6 +139,7 @@ def crowd_simulate_sharded(g_params: Generator, obsv0: torch.Tensor,
     def rollout(obsv_in, social_x4, z):
         obsv_4d = obsv_to_4d(obsv_in)
         h, c = encode_observation(g_params, obsv_4d)
+        phase("attention")
         if cfg.use_social:
             x4 = obsv_4d[:, -1] if social_x4 is None else social_x4
             s = social_ctx(g_params, x4, h, ids, mesh)

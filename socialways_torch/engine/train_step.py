@@ -131,6 +131,7 @@ from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout, obsv_to_4d,
                                        pred_to_4d, to_agent_frame)
 from socialways_torch.parallel.mesh import all_reduce_sum, psum
+from socialways_torch.utils.profiling import phase, span
 
 
 @dataclasses.dataclass
@@ -641,6 +642,11 @@ class _DataParallel:
                            n.round().to(m.n_samples.dtype))
 
 
+#: a training step's phases, in order: device stamps at their 5
+#: boundaries, captured into the step's CUDA graph (utils/profiling.py)
+STEP_PHASES = ("rollout", "d_update", "g_update", "finish")
+
+
 def _count(n, device) -> torch.Tensor:
     """A valid count as a 0-dim tensor on ``device`` (a host int is copied
     there: the eager step's form of the runner's device counts)."""
@@ -674,6 +680,15 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
     the caller knows it on the host; the solo D/G ratio branches on it
     (None reads the device count, a host sync).  Otherwise nothing of the
     step is read on the host."""
+    with span("train.step", unit=True, phases=STEP_PHASES,
+              device=batch["valid"].device, graphed=True):
+        return _gan_step(state, batch, draws, cfg, n_valid, members, mesh,
+                         n_valid_global, g_count)
+
+
+def _gan_step(state, batch, draws, cfg, n_valid, members, mesh,
+              n_valid_global, g_count):
+    phase("rollout")
     valid = batch["valid"]
     dev = valid.device
     vm = Members(draws.noise.shape[0] if members else None)
@@ -875,6 +890,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
                         a + b for a, b in zip(grads, g)]
         return total, grads
 
+    phase("d_update")
     # D phase: n_unrolling_steps + 1 updates, snapshot after the first
     # (into a backup allocated once); a step the D/G ratio skips leaves D
     # and its optimizer as they are.  Members run it, and each keeps its
@@ -904,6 +920,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
             b = list(d_backup.parameters())
             _select_members(due, b, b, before[:len(b)])
 
+    phase("g_update")
     # G phase against the unrolled D, normalized once (per member)
     def sn_const(d):
         with torch.no_grad():
@@ -999,6 +1016,7 @@ def gan_step(state: TrainState, batch: Dict[str, torch.Tensor],
             g_grads = _grads(g_loss, g_params)
     g_tx.step(state.g_opt, state.g, synced(g_grads), members)
 
+    phase("finish")
     if cfg.g_ema_decay > 0:
         with torch.no_grad():
             ema = list(state.g_ema.parameters())

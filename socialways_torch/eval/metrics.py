@@ -21,13 +21,15 @@ import torch
 
 from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
-from socialways_torch.models.generator import (Generator, decode_rollout,
+from socialways_torch.models.generator import (ROLLOUT_PHASES, Generator,
+                                               decode_rollout,
                                                prepare_rollout)
 from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d)
 from socialways_torch.parallel.mesh import all_reduce_sum
+from socialways_torch.utils.profiling import phase, prepare_stamps, span
 
 
 class EvalSums(NamedTuple):
@@ -60,28 +62,36 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
 
     ``noise`` [K, N, noise_len] overrides the draw from ``generator``.
     Under bf16 the weights, ``obsv`` and the noise are cast before the
-    canonicalization, as JAX casts them."""
+    canonicalization, as JAX casts them.  After the noise draw, the
+    rollout is a ``forecast.request`` unit of the tracer: ``encode`` (from
+    the casts), ``attention``, ``decode`` (from the K repeat), ``frame``."""
     n = obsv.shape[0]
     if noise is None:
         noise = draw_noise(k, n, cfg, generator, obsv.device)
-    cdt = getattr(torch, cfg.compute_dtype)
-    if cdt != obsv.dtype:
-        g_params = cast_params(g_params, cdt)
-        obsv = obsv.to(cdt)
-    noise = noise.to(cdt)
-    obsv_in, frame, social_x4 = canonicalize_for_rollout(
-        obsv, cfg.agent_frame, cfg.use_social)
-    prep = prepare_rollout(g_params, obsv_in, scene_ids, cfg.use_social,
-                           social_states=social_x4,
-                           max_scene=cfg.max_scene_size)
-    # K draws as a batch: row kk*N + i is sample kk of agent i
-    prep_k = tuple(t.repeat(k, 1) for t in prep)
-    out = decode_rollout(g_params, prep_k, noise.reshape(k * n, -1),
-                         cfg.n_next, cfg.decoder)
-    out = out.reshape(k, n, cfg.n_next, 4)
-    if frame is not None:
-        out = from_agent_frame_4d(out, frame)    # frame [N] broadcasts to K
-    return out.float()
+    with span("forecast.request", unit=True, phases=ROLLOUT_PHASES,
+              device=obsv.device):
+        phase("encode")
+        cdt = getattr(torch, cfg.compute_dtype)
+        if cdt != obsv.dtype:
+            g_params = cast_params(g_params, cdt)
+            obsv = obsv.to(cdt)
+        noise = noise.to(cdt)
+        obsv_in, frame, social_x4 = canonicalize_for_rollout(
+            obsv, cfg.agent_frame, cfg.use_social)
+        prep = prepare_rollout(g_params, obsv_in, scene_ids, cfg.use_social,
+                               social_states=social_x4,
+                               max_scene=cfg.max_scene_size)
+        phase("decode")
+        # K draws as a batch: row kk*N + i is sample kk of agent i
+        prep_k = tuple(t.repeat(k, 1) for t in prep)
+        out = decode_rollout(g_params, prep_k, noise.reshape(k * n, -1),
+                             cfg.n_next, cfg.decoder)
+        phase("frame")
+        out = out.reshape(k, n, cfg.n_next, 4)
+        if frame is not None:
+            out = from_agent_frame_4d(out, frame)  # frame [N] broadcasts to K
+        prepare_stamps(out.device)
+        return out.float()
 
 
 def k_sample_rollout_members(g_params: Generator, obsv: torch.Tensor,

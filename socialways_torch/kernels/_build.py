@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc into
 ``build/<name>-<hash>.so`` (the directory is git-ignored), cached by a hash
 of the source and the flags.  Several sources build in parallel, one nvcc
-each.  No ``--use_fast_math``: it changes expf, sqrtf and division, and
+each, and every build compiles the ``COMPANIONS`` beside what it was asked
+for.  No ``--use_fast_math``: it changes expf, sqrtf and division, and
 the kernels are held to their plain versions at f32 tolerances.
 """
 
@@ -22,6 +23,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: compiled (not loaded) by every build: the tracer's stamp
+#: (utils/profiling.py) is then on disk wherever a kernel was built, and a
+#: traced block loads it without running nvcc inside the block
+COMPANIONS = ("trace_stamp",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register / shared-memory / spill report) per kernel
@@ -51,11 +57,12 @@ def _target(name: str) -> str:
 
 
 def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """Compile (in parallel) whatever of ``names`` is not cached, then load
-    all of them.  Raises with nvcc's output if a build fails."""
+    """Compile (in parallel) whatever of ``names`` and ``COMPANIONS`` is
+    not cached, then load ``names``.  Raises with nvcc's output if a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in names:
+    for name in list(names) + [c for c in COMPANIONS if c not in names]:
         if name in _loaded or os.path.isfile(_target(name)):
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

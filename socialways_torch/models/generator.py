@@ -50,8 +50,14 @@ from socialways_torch.ops.lstm import (LSTMCell, lstm_cell, lstm_init,
 from socialways_torch.ops.nn import (MLP, Linear, leaky_relu, linear_apply,
                                      linear_init, mlp_init)
 from socialways_torch.ops.traj import obsv_to_4d
+from socialways_torch.utils.profiling import phase
 
 Prep = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+#: the phases of a rollout unit (a simulated window, a forecast request):
+#: ``prepare_rollout`` starts ``encode`` and ``attention``,
+#: ``decode_rollout`` starts ``decode``, and the caller starts ``frame``
+#: (utils/profiling.py; inside a training step they are not its phases)
+ROLLOUT_PHASES = ("encode", "attention", "decode", "frame")
 
 
 class Generator(nn.Module):
@@ -142,8 +148,10 @@ def prepare_rollout(params: Generator, obsv_p: torch.Tensor,
     """Noise-independent half of the rollout: encode and pool once.
     Returns ``(h, c, s, last_p)``.  ``social_states`` [N, 4] are the
     world-frame last-observed states when ``obsv_p`` is canonical."""
+    phase("encode")
     obsv_4d = obsv_to_4d(obsv_p)
     h, c = encode_observation(params, obsv_4d, remat)
+    phase("attention")
     if use_social:
         if scene_ids is None:
             scene_ids = torch.zeros(obsv_p.shape[0], dtype=torch.int32,
@@ -161,6 +169,7 @@ def decode_rollout(params: Generator, prep: Prep, noise: torch.Tensor,
     """Noise-dependent autoregressive decode -> pred_4d [N, n_next, 4]
     (reference ``predict``, train.py:392-432).  The carry is (h, c, last
     position) and, for the LSTM decoder, its own (h, c) from zeros."""
+    phase("decode")
     h, c, s, last_p = prep
     lstm_dec = decoder == "lstm"
 

@@ -134,9 +134,16 @@ def test_torch_fused_epochs_profile_the_second_block(toy_npz, tmp_path,
     (wrote,) = [i for i, line in enumerate(lines)
                 if line == f"wrote profiler trace to {prof}"]
     assert len(epc) == 3 and epc[0] < wrote < epc[1]
-    (trace,) = os.listdir(prof)
+    # the Chrome trace, and the block's spans beside it: a training step
+    # for each step of the block's 2 epochs
+    trace, spans = sorted(os.listdir(prof), key=lambda f: f == "spans.json")
+    assert spans == "spans.json"
     with open(os.path.join(prof, trace)) as fh:
         assert json.load(fh)["traceEvents"]
+    with open(os.path.join(prof, spans)) as fh:
+        recs = json.load(fh)["spans"]
+    steps = [r for r in recs if r["name"] == "train.step"]
+    assert steps and len(steps) % 2 == 0
 
 
 def _readme_commands():

@@ -145,9 +145,19 @@ def test_torch_cli_train_writes_dumps_log_trace_and_bestcov(toy_npz,
         ("train", 3), ("train", 4), ("eval", 4), ("coverage", 4)]
     assert all(0.0 <= r["coverage"] <= 1.0 for r in recs
                if r["kind"] == "coverage")
-    (trace,) = os.listdir(prof)
+    # the Chrome trace, and the profiled epoch's spans beside it: its
+    # steps, each with the step's four phases
+    trace, spans = sorted(os.listdir(prof), key=lambda f: f == "spans.json")
+    assert spans == "spans.json"
     with open(os.path.join(prof, trace)) as fh:
         assert json.load(fh)["traceEvents"]
+    with open(os.path.join(prof, spans)) as fh:
+        recs = json.load(fh)["spans"]
+    steps = [r["id"] for r in recs if r["name"] == "train.step"]
+    assert steps and all(r["unit"] in steps for r in recs)
+    for i in steps:
+        assert [r["name"] for r in recs if r["parent"] == i] == [
+            "rollout", "d_update", "g_update", "finish"]
     for name in ("", "-best", "-bestcov"):
         assert os.path.isfile(os.path.join(mdir,
                                            f"socialWays-hotel{name}.npz"))
