@@ -16,7 +16,8 @@ Phases (any failure raises):
    print ptxas's registers and spills for each kernel's float and bf16
    entry, narrow (H and F up to 128) and wide, and fail if any spills or
    a narrow float32 kernel's registers move more than 2 from
-   ``PTXAS_KERNELS``; ``cuobjdump -sass`` of every library: the bf16
+   ``PTXAS_KERNELS``; the fused decode at every padded shape and the loo
+   widths' own instantiation, that one without a spill; ``cuobjdump -sass`` of every library: the bf16
    forward, dq and dkv must contain HMMA (the tensor cores), the bf16 dq
    more than the 16 of layer 2 alone, and no float32 kernel may;
 3. the forward kernel against its plain PyTorch version on the card, f32,
@@ -86,8 +87,12 @@ Phases (any failure raises):
    kernel against its plain bf16 version at the loo training chunk (N =
    256), at N = 10,000 in sorted scenes of 16 (w = 16 equal to w = 0 bit
    for bit) and, the forward only, at N = 32,768, each timed alone beside
-   the float32 kernel on the same values and its bound; (b) ``cli train
-   --recipe loo --bf16`` (first step card vs CPU, a profiled step,
+   the float32 kernel on the same values and its bound; the fused decode
+   (``kernels/decode_rollout.py``) at 1,048,576 x 1 and 16,384 x 20 rows
+   against the plain bf16 loop (max and mean bounds, a float32 control
+   that misses the mean bound), timed beside the loop and its bound;
+   (b) ``cli train --recipe loo --bf16`` (first step card vs CPU, a
+   profiled step,
    launches equal to the float32 run's counts, float32 state); (c)
    ``evaluate --bf16`` and ``predict --bf16`` of phase 7's checkpoint, ADE/
    FDE against its float32 evaluate, the K = 20 rollout card vs CPU and
@@ -95,7 +100,9 @@ Phases (any failure raises):
    trajectories card vs CPU at 10,000, a profiled 1M window; (e) ``cli
    train --recipe loo --bf16 --grad-accum 4 --remat-steps
    --max-scene-size 16`` at batch 16,384 on a crowd npz of scenes of 16.
-   Every bf16 run launches no float32 kernel;
+   Every bf16 run launches no float32 kernel, and the fused decode
+   launches once a simulated window, evaluated or predicted chunk and
+   K-draw rollout, none in float32;
 13. the ensemble (``engine/ensemble.py``, the kernels' member axis): (a)
    each kernel's member launch at M = 4 on the loo training chunk's ids,
    float32 and bf16 (forward with and without stats, dq, dkv with and
@@ -786,16 +793,54 @@ def check_sass(_build) -> dict:
     return counts
 
 
+#: the fused decode's library (kernels/decode_rollout.py) and its
+#: instantiation for the crowd and loo widths (64, 64, 32): the (4, 2)
+#: padded shape with the widths known at compile time
+DECODE_LIB, DECODE_CROWD_SHAPE = "decode_rollout_bf16", (4, 2, True)
+
+
+def decode_ptxas(log: str) -> dict:
+    """{(T, ZT, exact): (registers, spill store bytes, spill load bytes)}
+    of the fused decode's instantiations from nvcc's ``-Xptxas -v``
+    output."""
+    out, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*decode_rollout_kernel"
+                      r"ILi(\d+)ELi(\d+)ELb([01])E", line)
+        if m:
+            entry = (int(m.group(1)), int(m.group(2)), m.group(3) == "1")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), *spills)
+            entry, spills = None, (0, 0)
+    return out
+
+
 def build_kernels(_build) -> None:
     """Phase 2: build every kernel (one nvcc a source, in parallel), print
     ptxas's lines, and fail if a kernel spills or a narrow float32
     kernel's registers move more than 2 from ``PTXAS_KERNELS`` (the wide
     kernels, H or F above 128, have no earlier build to hold them to);
-    then the SASS check (``check_sass``)."""
+    the fused decode's every padded shape built, the crowd's without a
+    spill; then the SASS check (``check_sass``)."""
+    from socialways_torch.kernels.decode_rollout import SHAPES
     tic = time.perf_counter()
-    _build.build(KERNELS)
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - tic:.2f} s"
-          f" (parallel nvcc)")
+    _build.build(KERNELS + [DECODE_LIB])
+    print(f"build: {', '.join(KERNELS + [DECODE_LIB])} in "
+          f"{time.perf_counter() - tic:.2f} s (parallel nvcc)")
+    dec = decode_ptxas(_build.build_logs.get(DECODE_LIB, ""))
+    for shape, (regs, st, ld) in sorted(dec.items()):
+        print(f"ptxas: decode_rollout_kernel{list(shape)} {regs} registers, "
+              f"spill stores/loads {st}/{ld} bytes")
+    want = sorted([(t, zt, False) for t, zt in SHAPES] + [DECODE_CROWD_SHAPE])
+    if sorted(dec) != want or sum(dec[DECODE_CROWD_SHAPE][1:]):
+        raise AssertionError(f"ptxas: want the fused decode at {want}, "
+                             f"{DECODE_CROWD_SHAPE} without spills, got "
+                             f"{dec}")
     for name in KERNELS:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
@@ -857,12 +902,10 @@ def profile_step(torch, what: str, fn) -> None:
 
 
 def reset_launches(sa) -> None:
-    """Every kernel's counts to 0, the float32 and the bf16 entries', and
-    their member launches."""
-    for fn in (sa.social_attention_fwd, sa.social_attention_bwd_dq,
-               sa.social_attention_bwd_dkv):
-        fn.launches = fn.launches_bf16 = 0
-        fn.member_launches = fn.member_launches_bf16 = 0
+    """Every kernel's counts to 0: the float32 and the bf16 entries', their
+    member launches and the fused decode's launches (``launch_counts``)."""
+    for fn, counter in sa.launch_counts():
+        setattr(fn, counter, 0)
 
 
 def read_launches(sa, bf16: bool = False) -> dict:
@@ -2147,6 +2190,99 @@ def bf16_kernel_case(torch, sa, g, x4, ids, h, w, tag, card, backward=True,
     return entries, summary
 
 
+#: phase 12's fused decode cases, (prepared rows, draws): a crowd-sim
+#: window and a large forecast request; held to the card test's bounds
+#: (tests/test_torch_decode_rollout_cuda.py): every output within
+#: DECODE_ATOL + DECODE_RTOL |plain| of the plain bf16 loop and the mean
+#: gap within DECODE_MEAN_GAP
+DECODE_CASES = ((CROWD_1M, 1), (16_384, K))
+DECODE_ATOL, DECODE_RTOL, DECODE_MEAN_GAP = 0.05, 0.02, 1e-5
+
+
+def decode_launches(what: str, want: int) -> int:
+    """The fused decode's launches since the last ``reset_launches``, held
+    to ``want`` (one a bf16 window, chunk or K-draw rollout)."""
+    from socialways_torch.kernels.decode_rollout import decode_rollout_bf16
+    got = decode_rollout_bf16.launches
+    if got != want:
+        raise AssertionError(f"{what}: the fused decode launched {got} "
+                             f"times, want {want}")
+    return got
+
+
+def decode_kernel_case(torch, dev, n, r, card) -> dict:
+    """Phase 12a': the fused decode of ``r`` draws of ``n`` prepared rows
+    at the loo widths against the plain bf16 loop on the same operands
+    (grad on, nothing requiring it), one launch; the float32 plain loop on
+    the same values as a control that must miss the mean bound; each
+    timed alone beside the decode's bound (its products at the bf16
+    tensor-core peak against its bytes)."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.kernels.decode_rollout import decode_rollout_bf16
+    from socialways_torch.models.generator import (decode_rollout,
+                                                   init_generator)
+    from socialways_torch.ops.nn import cast_params
+    bf, hd, z = torch.bfloat16, HIDDEN, HIDDEN // 2
+    cfg = TrainConfig(hidden_size=hd, social_feature_size=hd, noise_len=z)
+    g16 = cast_params(init_generator(cfg, torch.Generator().manual_seed(
+        n + r), dev).requires_grad_(False), bf)
+    g32 = cast_params(g16, torch.float32)
+    rng = np.random.RandomState(n + r)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, bf)
+    obsv = t(rng.rand(n, N_PAST, 2) * 4 - 2)
+    prep = (t(np.tanh(rng.randn(n, hd))), t(rng.randn(n, hd) * 0.7),
+            t(rng.randn(n, hd) * 0.5), obsv[:, -1])
+    noise = t(rng.rand(r * n, z))
+
+    def fused():
+        with torch.no_grad():
+            return decode_rollout(g16, prep, noise, N_NEXT)
+
+    def plain():
+        with torch.enable_grad():
+            return decode_rollout(g16, prep, noise, N_NEXT)
+    before = decode_rollout_bf16.launches
+    got = fused()
+    launched = decode_rollout_bf16.launches - before
+    if launched != 1:
+        raise AssertionError(f"decode {n}x{r}: {launched} launches, want 1")
+    want = plain().float()
+    with torch.no_grad():
+        ctrl = decode_rollout(g32, tuple(a.float() for a in prep),
+                              noise.float(), N_NEXT)
+    gap = (got.float() - want).abs()
+    mx, mean = float(gap.max()), float(gap.mean())
+    ctrl_mean = float((ctrl - want).abs().mean())
+    if (got.shape != (r * n, N_NEXT, 4) or not bool(got.isfinite().all())
+            or not bool((gap <= DECODE_ATOL + DECODE_RTOL
+                         * want.abs()).all())
+            or mean > DECODE_MEAN_GAP):
+        raise AssertionError(f"decode {n}x{r}: fused vs plain bf16 max abs "
+                             f"{mx:.3e}, mean {mean:.3e} (bounds "
+                             f"{DECODE_ATOL} + {DECODE_RTOL} |plain|, "
+                             f"{DECODE_MEAN_GAP})")
+    if ctrl_mean <= DECODE_MEAN_GAP:
+        raise AssertionError(f"decode {n}x{r}: the float32 loop on the same "
+                             f"values passes the mean bound ({ctrl_mean:.3e})")
+    d = 2 * hd + z
+    macs = (d * d + d * (d // 2) + (d // 2) * (d // 4) + (d // 4) * 2
+            + 4 * hd + 2 * hd * 4 * hd)            # a row-step; the weights
+    b = _bound(0.0, 2 * (n * (3 * hd + 2) + r * n * (z + N_NEXT * 4)
+                         + macs), tc_flop=2 * r * n * N_NEXT * macs)
+    entry = {"n": n, "r": r, "ms": median_ms(torch, fused),
+             "plain_ms": median_ms(torch, plain, repeats=3),
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "max_abs_err": mx, "mean_abs_err": mean,
+             "control_mean_abs_err": ctrl_mean}
+    print(f"bf16 fused decode {n} rows x {r} draws x {N_NEXT} steps: "
+          f"{entry['ms']:.3f} ms, plain bf16 loop {entry['plain_ms']:.2f} "
+          f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}); vs plain max "
+          f"/ mean abs {mx:.3e} / {mean:.3e} (bounds {DECODE_ATOL} + "
+          f"{DECODE_RTOL} |plain|, {DECODE_MEAN_GAP}), float32 control mean "
+          f"{ctrl_mean:.3e} [{card}]")
+    return entry
+
+
 def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     """Phase 12c: ``evaluate --bf16`` and ``predict --bf16`` of phase 7's
     float32 checkpoint (launches exact, bf16 only), its ADE/FDE against
@@ -2163,7 +2299,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     test_chunks = len(greedy_chunks(ds.test_batches, BATCH))
     with np.load(npz) as d:
         all_chunks = len(greedy_chunks(d["batches"], BATCH))
-    ade, launches = {}, {}
+    ade, launches, decodes = {}, {}, {}
     for tag, extra in (("float32", []), ("bf16", ["--bf16"])):
         reset_launches(sa)
         out = run_cli(cli_main, ["evaluate", "--data", npz, "--model-file",
@@ -2172,8 +2308,10 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
                else read_launches(sa))
         if got != {"fwd": test_chunks, "dq": 0, "dkv": 0}:
             raise AssertionError(f"evaluate {tag}: launched {got}")
+        n_dec = decode_launches(f"evaluate ({tag})",
+                                test_chunks if extra else 0)
         if extra:
-            launches["evaluate"] = got
+            launches["evaluate"], decodes["evaluate"] = got, n_dec
         m = re.search(r"Avg ADE,FDE.*?= \(([\d.]+), ([\d.]+)\).*?= "
                       r"\(([\d.]+), ([\d.]+)\)", out)
         ade[tag] = [float(v) for v in m.groups()]
@@ -2192,6 +2330,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     if got != {"fwd": all_chunks, "dq": 0, "dkv": 0}:
         raise AssertionError(f"predict --bf16: launched {got}")
     launches["predict"] = got
+    decodes["predict"] = decode_launches("predict --bf16", all_chunks)
     with np.load(pred) as d:
         if (d["preds_our"].shape[1:] != (d["obsvs"].shape[0], N_NEXT, 2)
                 or not np.isfinite(d["preds_our"]).all()):
@@ -2204,6 +2343,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     gen, gen_cpu = (restore_generator(ckpt, cfg, d)[0] for d in (dev, "cpu"))
     noise_rng = torch.Generator().manual_seed(5)
     worst, worst_mean, worst_sum = 0.0, 0.0, 0.0
+    reset_launches(sa)
     for i in range(min(2, t_dev.test_packed.n_chunks)):
         noise = draw_noise(K, t_dev.test_packed.width, cfg, noise_rng)
         c_dev, c_cpu = chunk_of(t_dev.test_dev, i), chunk_of(t_cpu.test_dev, i)
@@ -2219,6 +2359,9 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
         s_cpu = eval_chunk(gen_cpu, c_cpu, K, cfg, noise=noise)
         for a, b in zip(s_dev[:4], s_cpu[:4]):
             worst_sum = max(worst_sum, abs(float(a) - float(b)) / float(b))
+    # a K-draw rollout and an eval_chunk a chunk on the card
+    decodes["k_sample"] = decode_launches(
+        "bf16 serving cuda vs cpu", 2 * min(2, t_dev.test_packed.n_chunks))
     if worst > 5e-2 or worst_mean > 1e-3 or worst_sum > 1e-2:
         raise AssertionError(f"bf16 serving cuda vs cpu: rollout max abs "
                              f"{worst:.3e} (5e-2), mean {worst_mean:.3e} "
@@ -2234,6 +2377,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
         for i in range(n_chunks):
             c = chunk_of(t_dev.test_dev, i)
             k_sample_rollout(gen, c["obsvs"], c["scene_ids"], K, cfg, rng_dev)
+    reset_launches(sa)
     rollouts()
     torch.cuda.synchronize()
     tic = time.perf_counter()
@@ -2241,24 +2385,27 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
         rollouts()
     torch.cuda.synchronize()
     roll_s = (time.perf_counter() - tic) / 3
+    decodes["rollouts"] = decode_launches("bf16 rollouts", 4 * n_chunks)
     rate = n_valid * K * N_NEXT / roll_s
     print(f"bf16 rollout: {n_valid} windows x K={K} x {N_NEXT} steps in "
           f"{roll_s * 1e3:.2f} ms = {rate:.4g} agent-steps/s [{card}]")
     return {"ade_fde": ade, "rollout_rate": rate,
-            "cuda_vs_cpu_max_abs": worst, "launches": launches}
+            "cuda_vs_cpu_max_abs": worst, "launches": launches,
+            "decode_launches": decodes}
 
 
 def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
     """Phase 12d: ``cli simulate --bf16`` at 32,768 and 1,048,576 agents
-    (8 bf16 forwards a run, no float32 kernel), the trajectories at 10,000
-    agents and 1 window on the card against the CPU under bf16, and one
-    profiled 1,048,576-agent window."""
+    (8 bf16 forwards and 8 fused decodes a run, no float32 kernel), the
+    trajectories at 10,000 agents and 1 window on the card against the CPU
+    under bf16 (one fused decode), and one profiled 1,048,576-agent
+    window.  Returns (rates, attention launches, decode launches)."""
     from socialways_torch.config import TrainConfig
     from socialways_torch.engine.losses import sample_noise
     from socialways_torch.engine.simulate import crowd_simulate, initial_crowd
     from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
                                                 restore_generator)
-    rates, launches = {}, {"fwd": 0, "dq": 0, "dkv": 0}
+    rates, launches, decodes = {}, {"fwd": 0, "dq": 0, "dkv": 0}, {}
     for agents in (CROWD_BF16, CROWD_1M):
         reset_launches(sa)
         out = run_cli(cli_main, ["simulate", "--model-file", ckpt, "--agents",
@@ -2268,6 +2415,8 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
         got = bf16_launches(sa, f"simulate --bf16 {agents}")
         if got != {"fwd": 8, "dq": 0, "dkv": 0}:
             raise AssertionError(f"simulate --bf16 {agents}: launched {got}")
+        decodes[f"simulate_{agents}"] = decode_launches(
+            f"simulate --bf16 {agents}", 8)
         for k in launches:
             launches[k] += got[k]
         m = re.search(r"x (\d+) steps .* in ([\d.]+) ms = ", out)
@@ -2282,12 +2431,15 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
     obsv0, ids = initial_crowd(CROWD_N, CROWD_SCENE, cfg.n_past, 0)
     noise = sample_noise((1, CROWD_N), cfg, torch.Generator().manual_seed(9))
     traj = []
+    reset_launches(sa)
     for where in (dev, torch.device("cpu")):
         gen = restore_generator(ckpt, cfg, where)[0]
         traj.append(crowd_simulate(
             gen, torch.from_numpy(obsv0).to(where),
             torch.from_numpy(ids).to(where), 1, cfg,
             noise=noise.to(where)).cpu())
+    decodes["simulate_window"] = decode_launches(
+        "simulate bf16 cuda vs cpu", 1)
     diff = (traj[0] - traj[1]).abs()
     if (not bool(traj[0].isfinite().all()) or float(diff.max()) > 2e-2
             or float(diff.mean()) > 1e-3):
@@ -2306,14 +2458,15 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
                         f"[{card}]",
                  lambda: crowd_simulate(gen, obsv0, ids, 1, cfg,
                                         noise=noise))
-    return rates, launches
+    return rates, launches, decodes
 
 
 def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
                card):
     """Phase 12, bf16: (a) the bf16 kernels against their plain bf16
     versions at the loo training chunk, at N = 10,000 in sorted scenes of
-    16 (w = 16 and w = 0, equal bits) and, forward only, at N = 32,768;
+    16 (w = 16 and w = 0, equal bits) and, forward only, at N = 32,768,
+    and the fused decode against the plain bf16 loop (``DECODE_CASES``);
     (b) ``cli train --recipe loo --bf16``; (c) bf16 serving; (d) ``cli
     simulate --bf16``; (e) JAX's crowd memory recipe under bf16."""
     from socialways_torch.config import TrainConfig
@@ -2335,6 +2488,8 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
         kernels[n], errs[n] = bf16_kernel_case(
             torch, sa, g, t(x4c), t(idsc), t(hc), CROWD_SCENE,
             f"crowd N={n}", card, backward=backward)
+    decode = [decode_kernel_case(torch, dev, n, r, card)
+              for n, r in DECODE_CASES]
     launches, rates = {}, {}
     launches["bf16_loo"], rates["bf16_loo"], mdir = gan_run(
         torch, sa, cli_main, dev, npz, work, "bf16_loo", BF16_RUNS["bf16_loo"],
@@ -2347,8 +2502,8 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     print("bf16 loo checkpoint: every parameter and optimizer tensor float32")
     serving = bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card)
     launches.update(serving["launches"])
-    sim_rates, launches["simulate"] = bf16_simulate(torch, sa, cli_main, dev,
-                                                    ckpt, card)
+    sim_rates, launches["simulate"], sim_decodes = bf16_simulate(
+        torch, sa, cli_main, dev, ckpt, card)
     crowd = os.path.join(work, "crowd16-8-12.npz")
     make_ethucy_like_npz(crowd, n_windows=82_000, seed=1, scene=CROWD_SCENE)
     launches["bf16_crowd_train"], rates["bf16_crowd_train"], _ = gan_run(
@@ -2357,7 +2512,9 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     wall = time.perf_counter() - tic_phase
     print(f"bf16 phase: {wall:.2f} s wall [{card}]")
     return {"kernels": kernels, "errs": errs, "launches": launches,
-            "train_rates": rates, "serving": serving,
+            "train_rates": rates, "serving": serving, "decode": decode,
+            "decode_launches": {**serving["decode_launches"],
+                                **sim_decodes},
             "simulate_rates": sim_rates, "wall_s": wall}
 
 
@@ -4748,6 +4905,26 @@ def main() -> int:
                 **({"crowd_32k": bf16["kernels"][CROWD_BF16]["fwd"]}
                    if key == "fwd" else {}),
             })
+        # the fused decode (no TPU counterpart): launches on each bf16
+        # serving path of phase 12, times at a crowd-sim window's rows
+        cases = bf16["decode"]
+        kernels.append({
+            "name": "decode_rollout_bf16",
+            "route": "cuda",
+            "source": src + "decode_rollout_bf16.cu",
+            "replaces": "none (the JAX package leaves the decode to XLA)",
+            "launches": bf16["decode_launches"][f"simulate_{CROWD_1M}"],
+            "launches_by_path": bf16["decode_launches"],
+            "max_abs_err": max(e["max_abs_err"] for e in cases),
+            "mean_abs_err": max(e["mean_abs_err"] for e in cases),
+            "ms": cases[0]["ms"],
+            "plain_ms": cases[0]["plain_ms"],
+            "bound_ms": cases[0]["bound_ms"],
+            "bound_by": cases[0]["bound_by"],
+            "library_ms": None,
+            "launch_floor_ms": floor_ms,
+            "cases": cases,
+        })
         # the member launches (the same entries, M > 1): launches from the
         # ensemble's epoch and evaluate (float32, phase 13; bf16, phase
         # 16c) and from phase 16a's member steps, times at M = 4 on the

@@ -13,7 +13,12 @@ like sorted scenes of 2-16, ``chip_smoke.attention_inputs``) and at N =
 (``chip_smoke.crowd_inputs``); H = F = 64, random weights from a numpy
 seed.  Also dq's member launch at M = 4 (four weight draws and h, shared
 x4 and ids) on both inputs, in float32 and bf16, with its bound
-(``chip_smoke.attention_bwd_bound``).  Each time is
+(``chip_smoke.attention_bwd_bound``).  And, in a tree that has it
+(``socialways_torch.kernels.decode_rollout``), the fused bf16 decode of
+12 steps at 1,048,576 rows (a crowd-sim window) and 16,384 agents x 20
+draws (a large forecast request) at the crowd widths, beside the plain
+bf16 loop on the same operands and the decode's bound (its products at
+989 TFLOP/s against its bytes at 3.35 TB/s).  Each time is
 ``chip_smoke.median_ms`` (CUDA events, the device kept busy).  Prints one
 JSON object: per case the median time in ms and a SHA-256 of the outputs'
 bytes, so two trees that launch the same arithmetic show the same digest.
@@ -103,6 +108,47 @@ def member_dq(torch, sa, cs, dev, x4, h, ids, op, max_scene, members=4):
                        "bound_ms": bound["bound_ms"]}}
 
 
+def decode_case(torch, cs, dev, n, r):
+    """The fused decode of ``r`` draws of ``n`` prepared rows, the plain
+    loop on the same operands (grad on, nothing requiring it) and the
+    bound, in ms."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.models.generator import (decode_rollout,
+                                                   init_generator)
+    from socialways_torch.ops.nn import cast_params
+    H, Z = HIDDEN, HIDDEN // 2
+    cfg = TrainConfig(hidden_size=H, social_feature_size=H, noise_len=Z)
+    g = init_generator(cfg, torch.Generator().manual_seed(3), dev)
+    params = cast_params(g.requires_grad_(False), torch.bfloat16)
+    rng = np.random.RandomState(11)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(
+        dev, torch.bfloat16)
+    prep = (t(np.tanh(rng.randn(n, H))), t(rng.randn(n, H) * 0.7),
+            t(rng.randn(n, H) * 0.5), t(rng.rand(n, 2) * 4 - 2))
+    noise = t(rng.rand(r * n, Z))
+
+    def fused():
+        with torch.no_grad():
+            return decode_rollout(params, prep, noise, 12)
+
+    def plain():
+        with torch.enable_grad():
+            return decode_rollout(params, prep, noise, 12)
+    out = fused()
+    torch.cuda.synchronize()
+    d = H + H + Z
+    macs = (d * d + d * (d // 2) + (d // 2) * (d // 4) + (d // 4) * 2
+            + 4 * H + 2 * H * 4 * H)         # a row-step; the weights
+    flops = 2 * r * n * 12 * macs
+    nbytes = 2 * (n * (3 * H + 2) + r * n * (Z + 12 * 4) + macs)
+    return {"ms": cs.median_ms(torch, fused),
+            "plain_ms": cs.median_ms(torch, plain),
+            "bound_ms": 1e3 * max(flops / 989e12, nbytes / 3.35e12),
+            "sha256": hashlib.sha256(
+                out.view(torch.int16).cpu().numpy().tobytes()
+            ).hexdigest()[:16]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=HERE,
@@ -139,6 +185,10 @@ def main() -> int:
                 torch, sa, cs, x, i, hh, wh, ws, g, w)
             result[f"{tag} M=4 {str(op).split('.')[-1]}"] = member_dq(
                 torch, sa, cs, dev, x4, h, ids, op, w)
+    if os.path.isfile(os.path.join(os.path.dirname(sa.__file__),
+                                   "decode_rollout.py")):
+        for n, r in ((1_048_576, 1), (16_384, 20)):
+            result[f"decode N={n} R={r}"] = decode_case(torch, cs, dev, n, r)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -51,9 +51,9 @@ restore, ``reinit_discriminator``, ``transplant_schedule_clock``) drops
 the graphs and is captured anew after a first eager step, so no step ever
 trains stale tensors.  The runner holds one binding: states alternated
 through one trainer are each captured anew as they come back.  A capture
-that fails raises: the loop never falls back to eager.  The launch counters of the attention kernels count at
+that fails raises: the loop never falls back to eager.  The launch counters of the kernels count at
 call time, so each capture's launches are taken back out and credited
-once a replay (``kernels.social_attention.captured_launches``).
+once a replay (``kernels.launches.captured_launches``).
 
 Tracing (``utils/profiling.py``): the captured step holds the device
 stamps of its phase boundaries (``gan_step``'s ``train.step`` unit), the
@@ -75,9 +75,8 @@ from socialways_torch.config import TrainConfig
 from socialways_torch.engine.train_step import (StepDraws, StepMetrics,
                                                 TrainState, d_phase_due,
                                                 d_ratio_on, gan_step)
-from socialways_torch.kernels.social_attention import (Launches,
-                                                       captured_launches,
-                                                       credit_launches)
+from socialways_torch.kernels.launches import (Launches, captured_launches,
+                                              credit_launches)
 from socialways_torch.parallel.mesh import any_rank
 from socialways_torch.utils.profiling import (captured_marks, count,
                                               prepare_stamps, span)

@@ -964,9 +964,8 @@ def _gan_step(state, batch, draws, cfg, n_valid, members, mesh,
         prep = prepare_rollout(g_view, cast(obsv), scene_ids,
                                cfg.use_social, cast(social_x4),
                                cfg.remat_steps, cfg.max_scene_size)
-        out = decode_rollout(g_view, tuple(t.repeat(r, 1) for t in prep),
-                             cast(z.reshape(r * n, -1)), cfg.n_next,
-                             cfg.decoder, cfg.remat_steps)
+        out = decode_rollout(g_view, prep, cast(z.reshape(r * n, -1)),
+                             cfg.n_next, cfg.decoder, cfg.remat_steps)
         out = out.float().reshape(r, n, cfg.n_next, 4)
         loss = g_part_loss(d_g, {**c, "ph": out[0]}, 1.0, 1.0)
         first = 1

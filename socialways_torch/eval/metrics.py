@@ -23,6 +23,7 @@ from socialways_torch.config import TrainConfig
 from socialways_torch.engine.losses import sample_noise
 from socialways_torch.models.generator import (ROLLOUT_PHASES, Generator,
                                                decode_rollout,
+                                               prep_for_draws,
                                                prepare_rollout)
 from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
@@ -83,9 +84,9 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
                                max_scene=cfg.max_scene_size)
         phase("decode")
         # K draws as a batch: row kk*N + i is sample kk of agent i
-        prep_k = tuple(t.repeat(k, 1) for t in prep)
-        out = decode_rollout(g_params, prep_k, noise.reshape(k * n, -1),
-                             cfg.n_next, cfg.decoder)
+        noise = noise.reshape(k * n, -1)
+        prep = prep_for_draws(g_params, prep, noise, cfg.decoder)
+        out = decode_rollout(g_params, prep, noise, cfg.n_next, cfg.decoder)
         phase("frame")
         out = out.reshape(k, n, cfg.n_next, 4)
         if frame is not None:

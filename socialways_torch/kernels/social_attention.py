@@ -64,10 +64,10 @@ Source notes.
   Each entry point counts its own launches: ``launches`` for float32,
   ``launches_bf16`` for bf16.  A count is taken when the wrapper is
   called, so a CUDA graph's capture would count launches that never ran
-  and its replays none: ``captured_launches`` takes a capture's counts
-  back out and records them, and ``credit_launches`` adds them once a
-  replay (engine/graphed.py), so the counters keep meaning launches on
-  the card.
+  and its replays none: the counters are registered with
+  kernels/launches.py, whose ``captured_launches`` takes a capture's
+  counts back out and ``credit_launches`` adds them once a replay
+  (engine/graphed.py), so the counters keep meaning launches on the card.
 
 - Member axis.  An ensemble (engine/ensemble.py) trains M models on the
   same data as one batched step under ``torch.func.vmap``.  Every launch
@@ -117,15 +117,19 @@ module is ``social_attention``, as JAX's package exports it.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import sys
 import types
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch._C._functorch import is_batchedtensor
 
+# launch_counts, captured_launches and credit_launches are read through
+# this module too
+from socialways_torch.kernels.launches import (captured_launches,
+                                              credit_launches, launch_counts,
+                                              register)
 from socialways_torch.ops.nn import (MLP, Linear, LinearView, linear_apply,
                                      wide)
 from socialways_torch.ops.social import (_NEG_INF, attention_pool,
@@ -830,49 +834,13 @@ def social_attention_chunked(feat_mlp: MLP, attn_w: Linear,
                                 max_scene)
 
 
-for _wrapper in (social_attention_fwd, social_attention_bwd_dq,
-                 social_attention_bwd_dkv):
-    _wrapper.launches = 0          # float32 kernel
-    _wrapper.launches_bf16 = 0     # bf16 kernel
-    _wrapper.member_launches = 0        # of which member launches
-    _wrapper.member_launches_bf16 = 0
-
-
-#: the launch counters of each wrapper
+#: the launch counters of each wrapper: float32 and bf16 kernels, and of
+#: them the member launches (kernels/launches.py keeps the records)
 COUNTERS = ("launches", "launches_bf16", "member_launches",
             "member_launches_bf16")
-_WRAPPERS = (social_attention_fwd, social_attention_bwd_dq,
-             social_attention_bwd_dkv)
-#: a record of launches: (wrapper, counter) -> launches
-Launches = Dict[Tuple[object, str], int]
-
-
-def launch_counts() -> Launches:
-    """Every wrapper's every counter, as they stand."""
-    return {(w, c): getattr(w, c) for w in _WRAPPERS for c in COUNTERS}
-
-
-@contextlib.contextmanager
-def captured_launches() -> Iterator[Launches]:
-    """Around a CUDA graph's capture: yields a record that, when the block
-    ends, holds the launches counted inside it, and takes them back out of
-    the counters (a capture launches nothing)."""
-    before, record = launch_counts(), {}
-    try:
-        yield record
-    finally:
-        for key, n in before.items():
-            wrapper, counter = key
-            if getattr(wrapper, counter) != n:
-                record[key] = getattr(wrapper, counter) - n
-                setattr(wrapper, counter, n)
-
-
-def credit_launches(record: Launches, times: int = 1) -> None:
-    """Count ``record``'s launches ``times`` more times: once for each
-    replay of the graph whose capture recorded them."""
-    for (wrapper, counter), n in record.items():
-        setattr(wrapper, counter, getattr(wrapper, counter) + n * times)
+for _wrapper in (social_attention_fwd, social_attention_bwd_dq,
+                 social_attention_bwd_dkv):
+    register(_wrapper, *COUNTERS)
 
 
 class _CallableModule(types.ModuleType):

@@ -18,6 +18,11 @@ at zero each rollout and rides in the decode carry, then FC h -> 64
 step and each decode step is checkpointed; the social attention is not (its
 forward kernel would run again in the backward).
 
+Under bf16 on CUDA with no gradient recorded, the FC decode of all the
+steps is one hand-written kernel (``kernels/decode_rollout.py``;
+``fused_decode`` says when), whose K draws read the prepared rows in
+place; the plain loop copies them.
+
 The rollout is differentiable on both devices: on CUDA the social context
 goes through the kernels' autograd Function, on the CPU through the
 size-aware dispatch's plain forms under autograd (dense at small N;
@@ -41,16 +46,18 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from socialways_torch.config import TrainConfig, check_supported
 from socialways_torch.device import resolve_device
+from socialways_torch.kernels.decode_rollout import decode_rollout_bf16
 from socialways_torch.kernels.social_attention import social_attention
 from socialways_torch.ops.lstm import (LSTMCell, lstm_cell, lstm_init,
                                        lstm_seq, remat_call, zero_state)
 from socialways_torch.ops.nn import (MLP, Linear, leaky_relu, linear_apply,
                                      linear_init, mlp_init)
 from socialways_torch.ops.traj import obsv_to_4d
-from socialways_torch.utils.profiling import phase
+from socialways_torch.utils.profiling import count, phase
 
 Prep = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 #: the phases of a rollout unit (a simulated window, a forecast request):
@@ -163,14 +170,61 @@ def prepare_rollout(params: Generator, obsv_p: torch.Tensor,
     return h, c, s, obsv_p[:, -1]
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """``t`` lies on a CUDA device (the CPU tests fake it true)."""
+    return t.is_cuda
+
+
+def fused_decode(params: Generator, prep: Prep, noise: torch.Tensor,
+                 decoder: str) -> bool:
+    """Whether ``decode_rollout`` takes the fused kernel
+    (``kernels/decode_rollout.py``): bf16 operands on CUDA, the FC decoder,
+    no gradient being recorded and no functorch transform over ``prep``,
+    ``noise`` or the weights (an ensemble's member ``vmap``).  Everything
+    else (the CPU, float32, the LSTM decoder, a rollout under autograd,
+    with or without ``remat``, members) takes the plain loop."""
+    h = prep[0]
+    return (_on_card(h) and h.dtype == torch.bfloat16 and decoder == "fc"
+            and not torch.is_grad_enabled()
+            and not any(is_functorch_wrapped_tensor(t) for t in
+                        (*prep, noise, params.decoder[0].w)))
+
+
+def _draw_copies(prep: Prep, rows: int) -> Prep:
+    """``rows`` / N copies of the N prepared rows, row r N + i a copy of
+    row i (``prep`` itself when it has ``rows``)."""
+    n = prep[0].shape[0]
+    return prep if rows == n else tuple(t.repeat(rows // n, 1) for t in prep)
+
+
+def prep_for_draws(params: Generator, prep: Prep, noise: torch.Tensor,
+                   decoder: str = "fc") -> Prep:
+    """``prep`` of N rows for a decode of ``noise`` of R N rows as the
+    decode reads it: as it is where ``fused_decode`` holds (the kernel
+    reads row i for every draw), else R copies (``decode_rollout`` makes
+    the same copies itself; a caller that passes them keeps the prepared
+    rows one to one with the output rows)."""
+    if fused_decode(params, prep, noise, decoder):
+        return prep
+    return _draw_copies(prep, noise.shape[0])
+
+
 def decode_rollout(params: Generator, prep: Prep, noise: torch.Tensor,
                    n_next: int, decoder: str = "fc",
                    remat: bool = False) -> torch.Tensor:
-    """Noise-dependent autoregressive decode -> pred_4d [N, n_next, 4]
-    (reference ``predict``, train.py:392-432).  The carry is (h, c, last
-    position) and, for the LSTM decoder, its own (h, c) from zeros."""
+    """Noise-dependent autoregressive decode -> pred_4d [R N, n_next, 4]
+    (reference ``predict``, train.py:392-432) of ``prep`` = (h, c, s,
+    last_p) of N rows and ``noise`` of R N: row r N + i is draw r of
+    prepared row i (``prep`` of R N rows is taken as it is).  The carry is
+    (h, c, last position) and, for the LSTM decoder, its own (h, c) from
+    zeros.  Where ``fused_decode`` holds, one kernel launch decodes and
+    reads each prepared row for its R draws; the plain loop takes R
+    copies of ``prep``."""
     phase("decode")
-    h, c, s, last_p = prep
+    if fused_decode(params, prep, noise, decoder):
+        count("decode.fused")
+        return decode_rollout_bf16(params, prep, noise, n_next)
+    h, c, s, last_p = _draw_copies(prep, noise.shape[0])
     lstm_dec = decoder == "lstm"
 
     def step(params, s, noise, h, c, last_p, *dec):
