@@ -102,7 +102,15 @@ Phases (any failure raises):
    --max-scene-size 16`` at batch 16,384 on a crowd npz of scenes of 16.
    Every bf16 run launches no float32 kernel, and the fused decode
    launches once a simulated window, evaluated or predicted chunk and
-   K-draw rollout, none in float32;
+   K-draw rollout, none in float32; (f) Social GAN's pool kernel
+   (``kernels/social_pool.py``) at the sgan-crowd-sim cell's crowd
+   (1,048,576 agents in scenes of 2-64, w = 64) and at N = 10,000 against
+   the plain bf16 scene-window form (max and mean bounds, a float32
+   kernel control that misses the mean bound), timed beside the plain
+   form and its bound, and its launches from a reset on ``--model sgan``
+   ``simulate --bf16`` (one a window), ``evaluate`` and ``predict
+   --bf16`` (one a chunk), with no attention kernel or fused decode
+   (``chip_smoke.py --sgan`` runs (f) alone);
 13. the ensemble (``engine/ensemble.py``, the kernels' member axis): (a)
    each kernel's member launch at M = 4 on the loo training chunk's ids,
    float32 and bf16 (forward with and without stats, dq, dkv with and
@@ -2283,6 +2291,162 @@ def decode_kernel_case(torch, dev, n, r, card) -> dict:
     return entry
 
 
+#: phase 12a'': Social GAN's pool kernel (kernels/social_pool.py) at the
+#: sgan-crowd-sim cell's crowd (1,048,576 agents in sorted scenes of 2-64,
+#: scene window 64) and at N = 10,000 (scenes of 1-64), each (n, smallest
+#: scene, w); the plain scene-window form takes row blocks of
+#: POOL_PLAIN_BLOCK.  The bounds are the card test's
+#: (tests/test_torch_sgan_cuda.py ATOL and MEAN_GAP for bf16): every output
+#: within POOL_ATOL of the plain bf16 form, the mean gap within
+#: POOL_MEAN_GAP
+POOL_CASES = ((CROWD_1M, 2, 64), (CROWD_N, 1, 64))
+POOL_PLAIN_BLOCK = 512
+POOL_ATOL, POOL_MEAN_GAP = 2e-3, 2e-5
+SGAN_WIDTHS = dict(model="sgan", noise_len=8, noise_dist="gaussian")
+
+
+def pool_launches(what: str, want: int) -> int:
+    """The bf16 pool kernel's launches since the last ``reset_launches``,
+    held to ``want`` (one a bf16 pooling), the float32 entry's to 0."""
+    from socialways_torch.kernels.social_pool import social_pool_fused
+    got = (social_pool_fused.launches_bf16, social_pool_fused.launches)
+    if got != (want, 0):
+        raise AssertionError(f"{what}: the pool kernel launched {got} (bf16, "
+                             f"float32) times, want ({want}, 0)")
+    return want
+
+
+def pool_kernel_case(torch, dev, n, smallest, w, card) -> dict:
+    """Phase 12a'': the pool kernel on ``n`` agents in sorted scenes of
+    ``smallest``-64 (h from the bf16 encoder on random walks) against the
+    plain bf16 scene-window form on the same operands, one launch; the
+    float32 kernel on the same values as a control that must miss the mean
+    bound; the kernel timed alone and the plain form once, beside the
+    pool's bound (``perfbench/sgan_counts.pool_bound``)."""
+    from perfbench.sgan_counts import pool_bound
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.kernels.social_pool import social_pool_fused
+    from socialways_torch.models.sgan import encode, init_sgan
+    from socialways_torch.ops.nn import cast_params
+    from socialways_torch.ops.sgan_pool import social_pool_windowed
+    cfg = TrainConfig(**SGAN_WIDTHS, max_scene_size=w,
+                      compute_dtype="bfloat16")
+    g16 = cast_params(init_sgan(cfg, torch.Generator().manual_seed(n),
+                                dev).requires_grad_(False), torch.bfloat16)
+    g32 = cast_params(g16, torch.float32)
+    rng = np.random.default_rng(n)
+    sizes = rng.integers(smallest, 65, size=n // smallest + 1)
+    ids_np = np.repeat(np.arange(len(sizes)), sizes)[:n].astype(np.int32)
+    walk = np.cumsum(rng.standard_normal((n, N_PAST, 2)) * 0.05, axis=1)
+    obsv = torch.from_numpy((rng.random((n, 1, 2)) * 4 - 2 + walk).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ids = torch.from_numpy(ids_np).to(dev)
+    with torch.no_grad():
+        h = encode(g16, obsv)
+    pos = obsv[:, -1].contiguous()
+
+    def fused():
+        with torch.no_grad():
+            return social_pool_fused(g16.pool_embed, g16.pool_mlp, pos, h,
+                                     ids, w)
+
+    def plain():
+        with torch.no_grad():
+            return social_pool_windowed(g16.pool_embed, g16.pool_mlp, pos, h,
+                                        ids, w, block=POOL_PLAIN_BLOCK)
+    before = social_pool_fused.launches_bf16
+    got = fused()
+    if social_pool_fused.launches_bf16 - before != 1:
+        raise AssertionError(f"pool {n}: the bf16 kernel was not launched "
+                             f"once")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    with torch.no_grad():
+        ctrl = social_pool_fused(g32.pool_embed, g32.pool_mlp, pos.float(),
+                                 h.float(), ids, w)
+    gap = (got - want).abs()
+    mx, mean = float(gap.max()), float(gap.mean())
+    ctrl_mean = float((ctrl - want).abs().mean())
+    if (got.shape != (n, 32) or not bool(got.isfinite().all())
+            or mx > POOL_ATOL or mean > POOL_MEAN_GAP):
+        raise AssertionError(f"pool {n}: kernel vs plain bf16 max abs "
+                             f"{mx:.3e}, mean {mean:.3e} (bounds {POOL_ATOL}, "
+                             f"{POOL_MEAN_GAP})")
+    if ctrl_mean <= POOL_MEAN_GAP:
+        raise AssertionError(f"pool {n}: the float32 kernel on the same "
+                             f"values passes the mean bound ({ctrl_mean:.3e})")
+    b = pool_bound(vars(cfg), ids_np)
+    entry = {"n": n, "scenes": f"{smallest}-64", "w": w, "pairs": b["pairs"],
+             "ms": median_ms(torch, fused), "plain_ms": plain_ms,
+             "plain_block": POOL_PLAIN_BLOCK, "bound_ms": b["bound_ms"],
+             "bound_by": b["bound_by"], "max_abs_err": mx,
+             "mean_abs_err": mean, "control_mean_abs_err": ctrl_mean}
+    print(f"bf16 pool kernel {n} agents (scenes {smallest}-64, {b['pairs']} "
+          f"pairs, w {w}): {entry['ms']:.3f} ms, plain windowed form "
+          f"{plain_ms:.1f} ms (one call, blocks of {POOL_PLAIN_BLOCK}), bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']}); vs plain max / mean abs "
+          f"{mx:.3e} / {mean:.3e} (bounds {POOL_ATOL}, {POOL_MEAN_GAP}), "
+          f"float32 kernel control mean {ctrl_mean:.3e} [{card}]")
+    return entry
+
+
+def sgan_phase(torch, sa, cli_main, dev, npz, work, card) -> dict:
+    """Phase 12f, Social GAN's pool kernel: ``POOL_CASES``, then its
+    launches after ``reset_launches`` on each bf16 serving path of
+    ``--model sgan``: ``cli simulate`` at 1,048,576 agents in scenes of 64
+    (one a window, 2 calls of 4 windows), ``evaluate`` and ``predict`` of
+    a saved Social GAN checkpoint on phase 5's npz (one a chunk), with no
+    attention kernel and no fused decode launched."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.data.dataset import greedy_chunks, load_npz_dataset
+    from socialways_torch.io.checkpoint import save_generator_checkpoint
+    from socialways_torch.kernels import social_pool  # noqa: F401 registers
+    from socialways_torch.models.sgan import init_sgan
+    cases = [pool_kernel_case(torch, dev, n, smallest, w, card)
+             for n, smallest, w in POOL_CASES]
+    launches = {}
+
+    def others(what):
+        f32, b16 = read_launches(sa), read_launches(sa, bf16=True)
+        if any(f32.values()) or any(b16.values()):
+            raise AssertionError(f"{what}: attention kernels launched "
+                                 f"{f32} {b16}")
+        decode_launches(what, 0)
+    reset_launches(sa)
+    out = run_cli(cli_main, ["simulate", "--model", "sgan", "--agents",
+                             str(CROWD_1M), "--scene-size", "64", "--bf16"],
+                  f"simulate --model sgan --bf16 {CROWD_1M} agents", card)
+    if "route=cuda kernel" not in out:
+        raise AssertionError(f"simulate --model sgan: printed {out!r}")
+    launches["simulate"] = pool_launches("simulate --model sgan", 8)
+    others("simulate --model sgan")
+    ds = load_npz_dataset(npz)
+    test_chunks = len(greedy_chunks(ds.test_batches, BATCH))
+    with np.load(npz) as d:
+        all_chunks = len(greedy_chunks(d["batches"], BATCH))
+    cfg = TrainConfig(**SGAN_WIDTHS)
+    ckpt = os.path.join(work, "sgan-init.npz")
+    save_generator_checkpoint(ckpt, init_sgan(
+        cfg, torch.Generator().manual_seed(23), "cpu"), 0, ds.scale, cfg)
+    pred = os.path.join(work, "sgan_predictions.npz")
+    for cmd, argv, want in (
+            ("evaluate", ["evaluate", "--data", npz], test_chunks),
+            ("predict", ["predict", "--data", npz, "--out", pred],
+             all_chunks)):
+        reset_launches(sa)
+        run_cli(cli_main, argv + ["--model-file", ckpt, "--bf16"],
+                f"{cmd} --bf16 (Social GAN checkpoint)", card)
+        launches[cmd] = pool_launches(f"{cmd} of a Social GAN checkpoint",
+                                      want)
+        others(f"{cmd} of a Social GAN checkpoint")
+    print(f"Social GAN pool launches by path {launches} [{card}]")
+    return {"cases": cases, "launches": launches}
+
+
 def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     """Phase 12c: ``evaluate --bf16`` and ``predict --bf16`` of phase 7's
     float32 checkpoint (launches exact, bf16 only), its ADE/FDE against
@@ -2468,7 +2632,8 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     16 (w = 16 and w = 0, equal bits) and, forward only, at N = 32,768,
     and the fused decode against the plain bf16 loop (``DECODE_CASES``);
     (b) ``cli train --recipe loo --bf16``; (c) bf16 serving; (d) ``cli
-    simulate --bf16``; (e) JAX's crowd memory recipe under bf16."""
+    simulate --bf16``; (e) JAX's crowd memory recipe under bf16; (f)
+    Social GAN's pool kernel and its launches (``sgan_phase``)."""
     from socialways_torch.config import TrainConfig
     from socialways_torch.models.generator import init_generator
     tic_phase = time.perf_counter()
@@ -2509,10 +2674,12 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     launches["bf16_crowd_train"], rates["bf16_crowd_train"], _ = gan_run(
         torch, sa, cli_main, dev, crowd, work, "bf16_crowd_train",
         BF16_RUNS["bf16_crowd_train"], cpu_check=False, card=card)
+    sgan = sgan_phase(torch, sa, cli_main, dev, npz, work, card)
     wall = time.perf_counter() - tic_phase
     print(f"bf16 phase: {wall:.2f} s wall [{card}]")
     return {"kernels": kernels, "errs": errs, "launches": launches,
             "train_rates": rates, "serving": serving, "decode": decode,
+            "sgan": sgan,
             "decode_launches": {**serving["decode_launches"],
                                 **sim_decodes},
             "simulate_rates": sim_rates, "wall_s": wall}
@@ -4925,6 +5092,27 @@ def main() -> int:
             "launch_floor_ms": floor_ms,
             "cases": cases,
         })
+        # Social GAN's pool (no TPU counterpart): launches on each bf16
+        # --model sgan serving path of phase 12f, times at the
+        # sgan-crowd-sim cell's crowd
+        cases = bf16["sgan"]["cases"]
+        kernels.append({
+            "name": "social_pool_bf16",
+            "route": "cuda",
+            "source": src + "social_pool.cuh",
+            "replaces": "none (the JAX package has no Social GAN)",
+            "launches": bf16["sgan"]["launches"]["simulate"],
+            "launches_by_path": bf16["sgan"]["launches"],
+            "max_abs_err": max(e["max_abs_err"] for e in cases),
+            "mean_abs_err": max(e["mean_abs_err"] for e in cases),
+            "ms": cases[0]["ms"],
+            "plain_ms": cases[0]["plain_ms"],
+            "bound_ms": cases[0]["bound_ms"],
+            "bound_by": cases[0]["bound_by"],
+            "library_ms": None,
+            "launch_floor_ms": floor_ms,
+            "cases": cases,
+        })
         # the member launches (the same entries, M > 1): launches from the
         # ensemble's epoch and evaluate (float32, phase 13; bf16, phase
         # 16c) and from phase 16a's member steps, times at M = 4 on the
@@ -5019,8 +5207,36 @@ def main() -> int:
     return 0
 
 
+def sgan_only() -> int:
+    """``chip_smoke.py --sgan``: phase 12f alone (Social GAN's pool
+    kernel and its launches on the serving paths), on phase 5's npz
+    made afresh; prints the ``social_pool_bf16`` cases and launches as
+    one JSON line."""
+    import torch
+    sys.path.insert(0, REPO)
+    from socialways_torch.cli.main import main as cli_main
+    from socialways_torch.kernels import social_attention as sa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        npz = os.path.join(work, "ethucy_like-8-12.npz")
+        make_ethucy_like_npz(npz)
+        out = sgan_phase(torch, sa, cli_main, torch.device("cuda"), npz,
+                         work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"social_pool_bf16": out}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--graph-rate"]:
         graph_rate(sys.argv[3], sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ["--sgan"]:
+        sys.exit(sgan_only())
     sys.exit(main())

@@ -78,6 +78,7 @@ flags name it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -132,7 +133,9 @@ _REFUSED = {"eth-ucy": _LOOP_OUTPUTS, "sweep": _LOOP_OUTPUTS}
 #: one given on its command line
 _IGNORED = {"evaluate": _LOOP_OUTPUTS + _ADE_STALL,
             "predict": _LOOP_OUTPUTS + _ADE_STALL,
-            "simulate": _LOOP_OUTPUTS + _ADE_STALL, "sweep": _ADE_STALL}
+            "simulate": tuple(f for f in _LOOP_OUTPUTS + _ADE_STALL
+                              if f != "profile_dir"),
+            "sweep": _ADE_STALL}
 
 
 def _add_loop_mode_flags(p: argparse.ArgumentParser) -> None:
@@ -166,13 +169,12 @@ def _load_generator(args, cfg, device):
     """The checkpoint's generator, or a fresh one drawn from ``cfg.seed``
     when no checkpoint is given."""
     from socialways_torch.io.checkpoint import restore_generator
-    from socialways_torch.models.generator import init_generator
+    from socialways_torch.models import init_model
     if args.model_file:
         gen, epoch, scale = restore_generator(args.model_file, cfg, device)
         print(f"loaded {args.model_file} (epoch {epoch})")
         return gen, epoch, scale
-    gen = init_generator(cfg, torch.Generator().manual_seed(cfg.seed),
-                         device)
+    gen = init_model(cfg, torch.Generator().manual_seed(cfg.seed), device)
     return gen, 0, None
 
 
@@ -403,10 +405,12 @@ def _add_gan_flags(p: argparse.ArgumentParser) -> None:
                         "constant, reference parity)")
     p.add_argument("--info-weight-steps", type=int, default=0)
     p.add_argument("--decoder", default="fc", choices=["fc", "lstm"])
-    p.add_argument("--noise-dist", default="uniform",
+    p.add_argument("--noise-dist", default=None,
                    choices=["uniform", "gaussian"],
-                   help="generator noise distribution (the reference uses "
-                        "U(0,1), torch.rand at train.py:473)")
+                   help="generator noise distribution (default uniform, as "
+                        "the reference draws U(0,1), torch.rand at "
+                        "train.py:473; --model sgan draws gaussian and "
+                        "refuses uniform)")
     p.add_argument("--use-l2-loss", action="store_true")
     p.add_argument("--use-variety-loss", action="store_true")
     p.add_argument("--l2-weight", type=float, default=0.5)
@@ -498,7 +502,11 @@ def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
     p.add_argument("--save-interval", type=int, default=50)
     p.add_argument("--model-dir", default="trained_models")
     p.add_argument("--model", "--m", default="socialWays",
-                   choices=["socialWays"])
+                   choices=["socialWays", "sgan"],
+                   help="socialWays, or sgan: Social GAN with its pooling "
+                        "module (arXiv:1803.10892), served only (simulate, "
+                        "predict, evaluate; its widths: --embedding-dim "
+                        "and the flags beside it)")
     p.add_argument("--dataset", "--data-name", default="hotel")
     p.add_argument("--ade-stall-recover", type=int, default=0,
                    help="after N evals without a >2%% better min-K ADE, "
@@ -515,6 +523,33 @@ def _add_train_flags(p: argparse.ArgumentParser, recipes) -> None:
                         "or diversity-collapse signature (0 = off)")
     _add_gan_flags(p)
     _add_loop_flags(p)
+
+
+def _add_sgan_flags(p: argparse.ArgumentParser) -> None:
+    """Social GAN's widths (sgan's ``--embedding_dim``,
+    ``--encoder_h_dim_g``, ``--decoder_h_dim_g``, ``--mlp_dim``,
+    ``--bottleneck_dim``, ``--noise_dim``; its documented training
+    command's values), read with ``--model sgan`` on the serving
+    commands."""
+    p.add_argument("--embedding-dim", type=int, default=16)
+    p.add_argument("--encoder-h-dim", type=int, default=32)
+    p.add_argument("--decoder-h-dim", type=int, default=32)
+    p.add_argument("--mlp-dim", type=int, default=64)
+    p.add_argument("--bottleneck-dim", type=int, default=32)
+    p.add_argument("--noise-dim", type=int, default=8,
+                   help="--model sgan: the noise width (N(0, I), one draw "
+                        "a scene)")
+
+
+def _refuse_untrainable(args) -> bool:
+    """Print why ``args.model`` cannot be trained (True), or False."""
+    from socialways_torch.config import check_trainable
+    try:
+        check_trainable(_train_cfg(args))
+    except NotImplementedError as err:
+        print(f"error: {err}", file=sys.stderr)
+        return True
+    return False
 
 
 def _add_loop_flags(p: argparse.ArgumentParser) -> None:
@@ -567,7 +602,16 @@ def _train_cfg(args):
               "--d-lr-decay-steps > 0 (the D optimizer falls back to the "
               "shared --lr-decay-* schedule)", file=sys.stderr)
     h = args.hidden_size
-    return TrainConfig(
+    sgan = {}
+    if args.model == "sgan":
+        sgan = dict(noise_len=getattr(args, "noise_dim", 8))
+        for f in ("embedding_dim", "encoder_h_dim", "decoder_h_dim",
+                  "mlp_dim", "bottleneck_dim"):
+            if hasattr(args, f):
+                sgan[f] = getattr(args, f)
+    noise_dist = args.noise_dist or ("gaussian" if args.model == "sgan"
+                                     else "uniform")
+    cfg = TrainConfig(
         dataset=args.dataset,
         batch_size=args.batch_size, n_epochs=args.epochs,
         lr_g=args.g_learning_rate, lr_d=args.d_learning_rate,
@@ -579,7 +623,7 @@ def _train_cfg(args):
         hidden_size=h, social_feature_size=h, noise_len=h // 2,
         latent_dim=args.latent_dim, use_pallas=args.pallas,
         epoch_on_device=not args.host_loop, decoder=args.decoder,
-        noise_dist=args.noise_dist,
+        noise_dist=noise_dist,
         n_latent_codes=args.n_latent_codes,
         latent_code_type=args.latent_code,
         use_l2_loss=args.use_l2_loss,
@@ -607,8 +651,9 @@ def _train_cfg(args):
         seed=args.seed, n_gen_samples=args.n_gen_samples,
         test_interval=args.test_interval, save_interval=args.save_interval,
         model_dir=args.model_dir, dump_dir=args.dump_dir,
-        lnr_model=args.lnr_model,
+        lnr_model=args.lnr_model, model=args.model,
         compute_dtype="bfloat16" if args.bf16 else "float32")
+    return cfg.replace(**sgan) if sgan else cfg
 
 
 def _resumed_train_cfg(args, exists: Callable[[str], bool]):
@@ -703,6 +748,8 @@ def cmd_train(args, device) -> int:
     print JAX's error and give 1; on the card the kernels are built here
     before the ranks start."""
     from socialways_torch.parallel.mesh import mesh_shape, run
+    if _refuse_untrainable(args):
+        return 2
     shape = mesh_shape(str(args.mesh))
     if not shape:
         return _train(args, device)
@@ -948,8 +995,11 @@ def cmd_simulate(args, device) -> int:
     1104-1169): ``--agents`` agents in scenes of ``--scene-size``, each
     starting from a grid point and a random walk of n_past steps drawn from
     numpy's ``RandomState(seed)`` as in JAX, simulated for ``--windows``
-    windows twice; the second call is timed.  A checkpoint decides the model
-    and keeps its own n_past / n_next (JAX forces 8 / 12)."""
+    windows twice; the second call is timed, and with ``--profile-dir`` traced
+    (``utils.profiling.trace``: the Chrome trace and ``spans.json``, the
+    windows' phases and counters).  A checkpoint decides the model and
+    keeps its own n_past / n_next (JAX forces 8 / 12); ``--model sgan``
+    simulates Social GAN."""
     from socialways_torch.engine.simulate import (initial_crowd,
                                                   make_crowd_sim,
                                                   throughput_agent_steps)
@@ -962,7 +1012,7 @@ def cmd_simulate(args, device) -> int:
         if load_checkpoint_config(args.model_file) is None \
                 and not args.use_social:
             cfg = cfg.replace(use_social=True)
-    else:
+    elif cfg.model == "socialWays":
         cfg = cfg.replace(use_social=True)
     cfg = cfg.replace(max_scene_size=args.scene_size)
     gen, _, _ = _load_generator(args, cfg, device)
@@ -981,18 +1031,26 @@ def cmd_simulate(args, device) -> int:
     rng = torch.Generator(device=device)
     sim(gen, obsv0, scene_ids, rng.manual_seed(1))   # builds the kernels
     sync()
-    tic = time.perf_counter()
-    out = sim(gen, obsv0, scene_ids, rng.manual_seed(2))
-    sync()
-    dt = time.perf_counter() - tic
+    traced = contextlib.nullcontext()
+    if args.profile_dir:
+        from socialways_torch.utils.profiling import trace
+        traced = trace(args.profile_dir)
+    with traced:
+        tic = time.perf_counter()
+        out = sim(gen, obsv0, scene_ids, rng.manual_seed(2))
+        sync()
+        dt = time.perf_counter() - tic
 
     route = (f"cuda kernel on {torch.cuda.get_device_name(device)}"
              if device.type == "cuda" else "cpu")
     social = ("on" if cfg.use_social
               else "OFF — checkpoint trained without social")
+    kind = "attention"
+    if cfg.model == "sgan":
+        kind, social = "pooling", "SGAN-P (max over each scene)"
     rate = throughput_agent_steps(n, args.windows, cfg.n_next, dt)
     print(f"simulated {n} agents x {args.windows * cfg.n_next} steps "
-          f"(scenes of {args.scene_size}, social attention {social}, "
+          f"(scenes of {args.scene_size}, social {kind} {social}, "
           f"route={route}) in {dt * 1e3:.3f} ms "
           f"= {rate / 1e6:.2f}M agent-steps/s")
     if args.out:
@@ -1073,6 +1131,8 @@ def cmd_sweep(args, device) -> int:
     from socialways_torch.engine.train_step import eval_params
     from socialways_torch.engine.trainer import Trainer, fork_seed
 
+    if _refuse_untrainable(args):
+        return 2
     base = _train_cfg(args)
     ds = load_npz_dataset(args.data)
     results = {}
@@ -1109,6 +1169,8 @@ def cmd_eth_ucy(args, device) -> int:
     from socialways_torch.engine.ethucy import (prepare_scenes,
                                                 run_leave_one_out)
 
+    if _refuse_untrainable(args):
+        return 2
     cfg = _train_cfg(args)
     scenes = tuple(args.scenes.split(","))
     out = {}
@@ -1250,6 +1312,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "'kalman' (the constant-acceleration Kalman filter "
                         "of ops/kalman.py, rolled forward)")
     _add_train_flags(p, ALL_RECIPES)
+    _add_sgan_flags(p)
     p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("predict",
@@ -1275,6 +1338,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="raw mode: forecast the scene at this timestamp "
                         "(-1 = the latest with a full-history agent)")
     _add_train_flags(p, ALL_RECIPES)
+    _add_sgan_flags(p)
     p.set_defaults(fn=cmd_predict)
 
     p = sub.add_parser("eth-ucy",
@@ -1313,6 +1377,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights are not the JAX package's)")
     p.add_argument("--out", default="", help="optional npz to write")
     _add_train_flags(p, ALL_RECIPES)
+    _add_sgan_flags(p)
     p.set_defaults(fn=cmd_simulate)
     return ap
 

@@ -10,6 +10,17 @@ bfloat16) and ``mesh_shape``, a JAX field that JAX reads nowhere (a mesh
 is ``Trainer(mesh=)`` and ``train --mesh``), are refused by
 ``check_supported``, which names the field, instead of silently training
 another model.
+
+``model`` selects the architecture: ``"socialWays"`` (every field above)
+or ``"sgan"``, Social GAN with its pooling module (Gupta et al., CVPR 2018,
+arXiv:1803.10892; ``models/sgan.py``), served only (``simulate``,
+``predict``, ``evaluate``).  SGAN reads ``embedding_dim``,
+``encoder_h_dim``, ``decoder_h_dim``, ``mlp_dim``, ``bottleneck_dim`` and
+``noise_mix`` beside the shared ``noise_len``, ``noise_dist``,
+``max_scene_size``, ``compute_dtype``, ``n_past`` and ``n_next``; its
+pool's inner width is ``SGAN_POOL_WIDTH``, fixed in the published code.
+Social Ways' own fields (``SOCIAL_WAYS_ONLY``) stay at their defaults
+under SGAN.
 """
 
 from __future__ import annotations
@@ -26,6 +37,23 @@ MODEL_CONFIG_FIELDS = (
     "mb_std", "pac", "spectral_norm", "g_ema_decay",
     "use_social", "agent_frame",
 )
+#: The model fields of Social GAN, which its checkpoints embed beside
+#: ``MODEL_CONFIG_FIELDS`` (a Social Ways checkpoint's ``__config__`` keeps
+#: JAX's fields alone, so the JAX package still reads it).
+SGAN_CONFIG_FIELDS = ("model", "embedding_dim", "encoder_h_dim",
+                      "decoder_h_dim", "mlp_dim", "bottleneck_dim",
+                      "noise_mix")
+#: Social Ways' model fields that Social GAN reads nowhere: a value other
+#: than the default would be ignored without a word, so it is refused
+SOCIAL_WAYS_ONLY = ("hidden_size", "n_lstm_layers", "num_social_features",
+                    "social_feature_size", "decoder", "n_latent_codes",
+                    "latent_code_type", "mb_std", "pac", "spectral_norm",
+                    "use_social", "agent_frame")
+#: the models ``TrainConfig.model`` names
+MODELS = ("socialWays", "sgan")
+#: the hidden width of SGAN's pair MLP (``PoolHiddenNet``'s 512, fixed in
+#: sgan/models.py)
+SGAN_POOL_WIDTH = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +107,15 @@ class TrainConfig:
     g_ema_decay: float = 0.0         # > 0: serve the EMA generator
     use_social: bool = False
     agent_frame: bool = False
+
+    # ---- Social GAN (model="sgan", models/sgan.py; sgan's flag names)
+    model: str = "socialWays"
+    embedding_dim: int = 16
+    encoder_h_dim: int = 32
+    decoder_h_dim: int = 32
+    mlp_dim: int = 64
+    bottleneck_dim: int = 32
+    noise_mix: str = "global"        # one noise vector a scene
 
     # ---- evaluation ----
     n_gen_samples: int = 20
@@ -156,6 +193,12 @@ def check_supported(cfg: TrainConfig) -> None:
     A checkpoint or flag can select one; serving or training it as the
     float32 single-device model instead would silently be a different run
     (the failure socialways_tpu/io/checkpoint.py:11-19 warns about)."""
+    if cfg.model not in MODELS:
+        raise NotImplementedError(f"model={cfg.model!r} is not ported to "
+                                  "socialways_torch")
+    if cfg.model == "sgan":
+        _check_sgan(cfg)
+        return
     if cfg.n_lstm_layers != 1:
         raise ValueError(
             "n_lstm_layers must be 1: the reference's decoder wiring only "
@@ -177,3 +220,41 @@ def check_supported(cfg: TrainConfig) -> None:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} is not ported to "
                 "socialways_torch yet")
+
+
+def checkpoint_fields(cfg: TrainConfig) -> dict:
+    """The model-defining fields a checkpoint of ``cfg`` embeds."""
+    names = MODEL_CONFIG_FIELDS + (SGAN_CONFIG_FIELDS
+                                   if cfg.model == "sgan" else ())
+    return {f: getattr(cfg, f) for f in names}
+
+
+def _check_sgan(cfg: TrainConfig) -> None:
+    """What the SGAN generator is built for: the pooling module, the
+    global noise mix, Gaussian noise (sgan's ``noise_type gaussian``), a
+    decoder state wider than the noise, and none of Social Ways' own
+    fields set."""
+    defaults = TrainConfig()
+    unsupported = [
+        ("noise_mix", cfg.noise_mix != "global"),
+        ("noise_dist", cfg.noise_dist != "gaussian"),
+        ("noise_len", not 0 < cfg.noise_len < cfg.decoder_h_dim),
+        ("dtype", cfg.dtype != "float32"),
+        ("compute_dtype", cfg.compute_dtype not in ("float32", "bfloat16")),
+        ("mesh_shape", cfg.mesh_shape is not None),
+    ] + [(f, getattr(cfg, f) != getattr(defaults, f))
+         for f in SOCIAL_WAYS_ONLY]
+    for field, bad in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r} is not built for "
+                "model='sgan'")
+
+
+def check_trainable(cfg: TrainConfig) -> None:
+    """Raise for a model the port serves but does not train: SGAN's
+    discriminator, losses and the pooling's backward are not ported."""
+    if cfg.model != "socialWays":
+        raise NotImplementedError(
+            f"model={cfg.model!r} is served only (simulate, predict, "
+            "evaluate): its training is not ported to socialways_torch")

@@ -34,6 +34,8 @@ from socialways_torch.models.generator import (ROLLOUT_PHASES, Generator,
                                                decode_rollout,
                                                encode_observation,
                                                generator_rollout)
+from socialways_torch.models.sgan import SGAN_PHASES, is_sgan
+from socialways_torch.models.sgan import rollout as sgan_rollout
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
                                        from_agent_frame_4d, obsv_to_4d)
@@ -56,15 +58,17 @@ def _inputs(g_params, obsv0, n_windows, cfg, generator, noise):
     return g_params, obsv0, noise.to(cdt)
 
 
-def _windows(rollout, obsv0, noise, cfg) -> torch.Tensor:
+def _windows(rollout, obsv0, noise, cfg, phases=ROLLOUT_PHASES
+             ) -> torch.Tensor:
     """The window loop: each window canonicalizes its own buffer, rolls it
     out with ``rollout(obsv_in, social_x4, z)``, and maps the predictions
     back to the world before they re-enter the buffer.  Each window is a
-    ``sim.window`` unit of the tracer: ``encode`` (from the
-    canonicalization), ``attention``, ``decode``, ``frame``."""
+    ``sim.window`` unit of the tracer with ``phases``: ``encode`` (from
+    the canonicalization), ``attention`` (Social GAN: ``pool``),
+    ``decode``, ``frame``."""
     n_past, obsv, windows = obsv0.shape[1], obsv0, []
     for z in noise:
-        with span("sim.window", unit=True, phases=ROLLOUT_PHASES,
+        with span("sim.window", unit=True, phases=phases,
                   device=obsv0.device):
             phase("encode")
             obsv_in, frame, social_x4 = canonicalize_for_rollout(
@@ -89,11 +93,19 @@ def crowd_simulate(g_params: Generator, obsv0: torch.Tensor,
     prediction windows from the observed windows ``obsv0 [N, n_past, 2]``.
 
     ``noise [n_windows, N, noise_len]`` overrides the draw from
-    ``generator`` (tests pass JAX's draw in).  A ``sim.call`` span of the
-    tracer holds the windows; its own time is the casts and the output."""
+    ``generator`` (tests pass JAX's draw in); for Social GAN (``g_params``
+    a ``models.sgan`` generator, which rolls out in the world frame) it is
+    ``[n_windows, S, noise_len]``, one vector a scene id (a draw makes
+    S = N).  A ``sim.call`` span of the tracer holds the windows; its own
+    time is the casts and the output."""
     with span("sim.call", device=obsv0.device):
         g_params, obsv0, noise = _inputs(g_params, obsv0, n_windows, cfg,
                                          generator, noise)
+        if is_sgan(g_params):
+            def rollout_sgan(obsv_in, social_x4, z):
+                return sgan_rollout(g_params, obsv_in, scene_ids, z,
+                                    cfg.n_next, cfg.max_scene_size)
+            return _windows(rollout_sgan, obsv0, noise, cfg, SGAN_PHASES)
 
         def rollout(obsv_in, social_x4, z):
             return generator_rollout(g_params, obsv_in, z, cfg.n_next,
@@ -122,6 +134,9 @@ def crowd_simulate_sharded(g_params: Generator, obsv0: torch.Tensor,
     blocks passed round the ranks, one block held at a time).  Equals
     :func:`crowd_simulate` under the same noise up to float
     reassociation."""
+    if is_sgan(g_params):
+        raise NotImplementedError("model='sgan': the sharded simulation "
+                                  "runs Social Ways only")
     if neighbor_exchange not in ("gather", "ring"):
         raise ValueError(f"neighbor_exchange must be gather or ring, got "
                          f"{neighbor_exchange!r}")

@@ -25,6 +25,8 @@ from socialways_torch.models.generator import (ROLLOUT_PHASES, Generator,
                                                decode_rollout,
                                                prep_for_draws,
                                                prepare_rollout)
+from socialways_torch.models import sgan as sgan_model
+from socialways_torch.models.sgan import SGAN_PHASES, is_sgan
 from socialways_torch.models.stacked import Members
 from socialways_torch.ops.nn import cast_params
 from socialways_torch.ops.traj import (canonicalize_for_rollout,
@@ -65,11 +67,18 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
     Under bf16 the weights, ``obsv`` and the noise are cast before the
     canonicalization, as JAX casts them.  After the noise draw, the
     rollout is a ``forecast.request`` unit of the tracer: ``encode`` (from
-    the casts), ``attention``, ``decode`` (from the K repeat), ``frame``."""
+    the casts), ``attention``, ``decode`` (from the K repeat), ``frame``.
+
+    Social GAN (``g_params`` a ``models.sgan`` generator): ``noise`` is [K, S, noise_len],
+    one vector a scene id and draw (a draw makes S = N); encode, pool and
+    the context run once on N rows and the decode on K N, in the world
+    frame, under the phases ``encode``, ``pool``, ``decode``, ``frame``."""
     n = obsv.shape[0]
     if noise is None:
         noise = draw_noise(k, n, cfg, generator, obsv.device)
-    with span("forecast.request", unit=True, phases=ROLLOUT_PHASES,
+    sgan = is_sgan(g_params)
+    with span("forecast.request", unit=True,
+              phases=SGAN_PHASES if sgan else ROLLOUT_PHASES,
               device=obsv.device):
         phase("encode")
         cdt = getattr(torch, cfg.compute_dtype)
@@ -77,6 +86,11 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
             g_params = cast_params(g_params, cdt)
             obsv = obsv.to(cdt)
         noise = noise.to(cdt)
+        if sgan:
+            out = _sgan_draws(g_params, obsv, scene_ids, noise, cfg)
+            phase("frame")
+            prepare_stamps(out.device)
+            return out.float()
         obsv_in, frame, social_x4 = canonicalize_for_rollout(
             obsv, cfg.agent_frame, cfg.use_social)
         prep = prepare_rollout(g_params, obsv_in, scene_ids, cfg.use_social,
@@ -93,6 +107,20 @@ def k_sample_rollout(g_params: Generator, obsv: torch.Tensor,
             out = from_agent_frame_4d(out, frame)  # frame [N] broadcasts to K
         prepare_stamps(out.device)
         return out.float()
+
+
+def _sgan_draws(g_params, obsv: torch.Tensor,
+                scene_ids: Optional[torch.Tensor], noise: torch.Tensor,
+                cfg: TrainConfig) -> torch.Tensor:
+    """[K, N, n_next, 4] of Social GAN's K draws: prepare once, then one
+    decode of K N rows, row kk N + i draw kk of agent i."""
+    n, k = obsv.shape[0], noise.shape[0]
+    if scene_ids is None:
+        scene_ids = torch.zeros(n, dtype=torch.int32, device=obsv.device)
+    prep = sgan_model.prepare(g_params, obsv, scene_ids, cfg.max_scene_size)
+    z = sgan_model.scene_noise(noise, scene_ids).reshape(k * n, -1)
+    out = sgan_model.decode(g_params, prep, z, cfg.n_next)
+    return out.reshape(k, n, cfg.n_next, 4)
 
 
 def k_sample_rollout_members(g_params: Generator, obsv: torch.Tensor,

@@ -10,7 +10,9 @@ Adam state as ``.g_opt/[0]/.count`` (int32) and
 ``.g_opt/[1]/.count``; under a gradient clip, optax's ``chain(clip,
 adam)`` puts an empty state first and the Adam keys one level deeper,
 ``.g_opt/[1]/[0]/.count``), plus ``__epoch__``, ``__rng__`` (a uint32[2]
-JAX key), ``__scale__/*`` and ``__config__`` (the JSON of ``MODEL_CONFIG_FIELDS``).
+JAX key), ``__scale__/*`` and ``__config__`` (the JSON of
+``config.checkpoint_fields``: ``MODEL_CONFIG_FIELDS``, and for Social GAN
+its own fields too).
 This module reads and writes those keys as strings, without JAX, so the
 two packages read each other's checkpoints.  The port's own random stream
 travels beside ``__rng__`` as ``__torch_rng__/<device type>``.
@@ -32,11 +34,12 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from socialways_torch.config import MODEL_CONFIG_FIELDS, TrainConfig
+from socialways_torch.config import TrainConfig, checkpoint_fields
 from socialways_torch.data.scale import Scale
 from socialways_torch.device import resolve_device
 from socialways_torch.engine.train_step import TrainState, init_train_state
-from socialways_torch.models.generator import Generator, init_generator
+from socialways_torch.models import init_model
+from socialways_torch.models.generator import Generator
 
 _PATH_ENTRY = re.compile(r"^\[(?:'([^']*)'|(\d+))\]$")
 
@@ -104,10 +107,12 @@ def adopt_checkpoint_config(cfg: TrainConfig, path: str,
                             warn_stream=None) -> TrainConfig:
     """``cfg`` with the checkpoint's model-defining fields adopted.  A
     requested value that differs from both the default and the checkpoint
-    is a contradiction: warn, and use the checkpoint's value."""
+    is a contradiction: warn, and use the checkpoint's value.  A config
+    without ``model`` (JAX's fields alone) is a Social Ways checkpoint's."""
     saved = load_checkpoint_config(path)
     if saved is None:
         return cfg
+    saved = {"model": "socialWays", **saved}
     warn_stream = warn_stream if warn_stream is not None else sys.stderr
     defaults = TrainConfig()
     overrides = {}
@@ -143,7 +148,7 @@ def restore_generator(path: str, cfg: TrainConfig, device=None
     if not flat:
         raise KeyError(f"checkpoint {path} has no {prefix[:-1]} generator "
                        f"(g_ema_decay={cfg.g_ema_decay})")
-    gen = init_generator(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     state = generator_params_from_jax(flat)
     expected = gen.state_dict()
     for k, v in expected.items():
@@ -183,7 +188,7 @@ def save_generator_checkpoint(path: str, g_params: Generator, epoch: int,
         for k, v in scale.to_dict().items():
             payload[f"__scale__/{k}"] = np.asarray(v)
     if cfg is not None:
-        cfg_dict = {f: getattr(cfg, f) for f in MODEL_CONFIG_FIELDS}
+        cfg_dict = checkpoint_fields(cfg)
         payload["__config__"] = np.asarray(json.dumps(cfg_dict))
     tmp = path + ".tmp.npz"
     np.savez(tmp, **payload)
@@ -334,7 +339,7 @@ def save_checkpoint(path: str, state: TrainState, epoch: int,
         for k, v in scale.to_dict().items():
             payload[f"__scale__/{k}"] = np.asarray(v)
     if cfg is not None:
-        cfg_dict = {f: getattr(cfg, f) for f in MODEL_CONFIG_FIELDS}
+        cfg_dict = checkpoint_fields(cfg)
         payload["__config__"] = np.asarray(json.dumps(cfg_dict))
     tmp = path + ".tmp.npz"
     np.savez(tmp, **payload)

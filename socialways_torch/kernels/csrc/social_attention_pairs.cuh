@@ -625,7 +625,11 @@ static_assert(kWRing >= kMma - 1 + 32, "warp pair ring too small");
 // the ids of the next 32 kWScan agents are loaded at once (lane l: next +
 // 32 q + l), then tested 32 at a time, stopping after the 32 that fill the
 // m-tile (the scan resumes there), so a test adds at most 32 entries to
-// fewer than kMma.  Every lane of the warp calls it.
+// fewer than kMma.  Every lane of the warp calls it.  kSelf: `self` pairs
+// with itself too (Social GAN's pool, social_pool.cuh, takes the diagonal
+// pair); the attention kernels leave it false, which compiles to the test
+// they had.
+template <bool kSelf = false>
 __device__ __forceinline__ void warp_fill(WarpRing& wr,
                                           const int* __restrict__ ids,
                                           const int id0, const int sid,
@@ -643,7 +647,7 @@ __device__ __forceinline__ void warp_fill(WarpRing& wr,
         for (int q = 0; q < kWScan; ++q) {
             if (wr.count >= kMma || wr.next >= wr.end) break;
             const int o = wr.next + lane;
-            const bool hit = id_o[q] >= 0 && id_o[q] == sid && o != self;
+            const bool hit = id_o[q] >= 0 && id_o[q] == sid && (kSelf || o != self);
             const unsigned hits = __ballot_sync(kFull, hit);
             if (hit)
                 wr.ring[(wr.head + wr.count + __popc(hits & below)) & (kWRing - 1)] = o;

@@ -28,7 +28,7 @@ from socialways_tpu.engine import Trainer as JaxTrainer
 from socialways_tpu.engine import losses as jlosses
 from socialways_tpu.io.checkpoint import save_checkpoint as jax_save
 from socialways_torch.cli import main as cli
-from socialways_torch.config import TrainConfig
+from socialways_torch.config import SGAN_CONFIG_FIELDS, TrainConfig
 from socialways_torch.data.dataset import load_npz_dataset
 from socialways_torch.engine.train_step import init_train_state
 from socialways_torch.eval import metrics as tmetrics
@@ -43,6 +43,12 @@ STRUCTURE = ["--noise-dist", "gaussian", "--latent-code", "categorical",
 #: repository, and simulate's XLA route, which the card does not have
 DELIBERATE = {"eth-ucy": {"--compare-reference", "--ref-epochs"},
               "simulate": {"--no-pallas"}}
+#: options the port adds to JAX's: Social GAN's widths on the commands that
+#: serve it (``--model sgan``; JAX has no Social GAN)
+_SGAN_WIDTHS = {"--embedding-dim", "--encoder-h-dim", "--decoder-h-dim",
+                "--mlp-dim", "--bottleneck-dim", "--noise-dim"}
+ADDED = {"evaluate": _SGAN_WIDTHS, "predict": _SGAN_WIDTHS,
+         "simulate": _SGAN_WIDTHS}
 
 
 @pytest.fixture(scope="module")
@@ -180,6 +186,9 @@ def test_torch_sweep_takes_every_recipe(recipe, capsys):
     want = jax_cli._cfg_from_args(jax_cli.build_parser().parse_args(
         jax_cli._apply_recipe(argv)))
     for f in dataclasses.fields(TrainConfig):
+        if f.name in SGAN_CONFIG_FIELDS:        # JAX has no Social GAN
+            assert getattr(got, f.name) == getattr(TrainConfig(), f.name)
+            continue
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert "NOTE" not in capsys.readouterr().err
 
@@ -221,11 +230,12 @@ def _subparsers(ap):
     jax_cli.build_parser())))
 def test_torch_subcommand_options_equal_jax(command):
     """Each subcommand's option strings are JAX's, apart from
-    ``DELIBERATE``; the port's own ``--lr-g`` / ``--lr-d`` aliases are
-    gone."""
+    ``DELIBERATE`` and the port's ``ADDED``; the port's own ``--lr-g`` /
+    ``--lr-d`` aliases are gone."""
     want = {s for a in _subparsers(jax_cli.build_parser())[command]._actions
             for s in a.option_strings}
     got = {s for a in _subparsers(cli.build_parser())[command]._actions
            for s in a.option_strings}
-    assert got == want - DELIBERATE.get(command, set())
+    assert got == ((want - DELIBERATE.get(command, set()))
+                   | ADDED.get(command, set()))
     assert not {"--lr-g", "--lr-d"} & got

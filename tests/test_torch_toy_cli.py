@@ -23,7 +23,7 @@ from socialways_tpu.eval.metrics import EvalSums, finalize_eval
 from socialways_tpu.io.checkpoint import _flatten
 from socialways_tpu.io.checkpoint import restore_checkpoint as jax_restore
 from socialways_torch.cli import main as cli
-from socialways_torch.config import TrainConfig
+from socialways_torch.config import SGAN_CONFIG_FIELDS, TrainConfig
 from socialways_torch.data.dataset import load_npz_dataset
 from socialways_torch.engine.trainer import Trainer
 from test_torch_toy_stats import write_dump_tree
@@ -68,6 +68,9 @@ def test_torch_train_flags_build_jax_config(argv, toy_npz):
     got = cli._train_cfg(cli.parse_args(["--cpu"] + cmd))
     for f in dataclasses.fields(TrainConfig):
         if f.name in ("n_past", "n_next"):
+            continue
+        if f.name in SGAN_CONFIG_FIELDS:        # JAX has no Social GAN
+            assert getattr(got, f.name) == getattr(TrainConfig(), f.name)
             continue
         assert getattr(got, f.name) == getattr(want, f.name), f.name
 
@@ -261,8 +264,12 @@ def test_torch_cli_sweep_writes_jax_keys(toy_npz, tmp_path, capsys):
 
 
 def test_torch_jax_config_has_every_port_field():
-    """The port's TrainConfig is a subset of JAX's, default for default."""
+    """The port's TrainConfig is a subset of JAX's, default for default,
+    apart from Social GAN's fields (JAX has no Social GAN)."""
     for f in dataclasses.fields(TrainConfig):
+        if f.name in SGAN_CONFIG_FIELDS:
+            assert not hasattr(JaxConfig(), f.name)
+            continue
         assert getattr(JaxConfig(), f.name) == getattr(TrainConfig(), f.name)
 
 
