@@ -17,7 +17,9 @@ Phases (any failure raises):
    entry, narrow (H and F up to 128) and wide, and fail if any spills or
    a narrow float32 kernel's registers move more than 2 from
    ``PTXAS_KERNELS``; the fused decode at every padded shape and the loo
-   widths' own instantiation, that one without a spill; ``cuobjdump -sass`` of every library: the bf16
+   widths' own instantiation, that one without a spill; the fused
+   encoder at every padded hidden width (16, 32, 48, 64) without a spill;
+   ``cuobjdump -sass`` of every library: the bf16
    forward, dq and dkv must contain HMMA (the tensor cores), the bf16 dq
    more than the 16 of layer 2 alone, and no float32 kernel may;
 3. the forward kernel against its plain PyTorch version on the card, f32,
@@ -90,8 +92,11 @@ Phases (any failure raises):
    the float32 kernel on the same values and its bound; the fused decode
    (``kernels/decode_rollout.py``) at 1,048,576 x 1 and 16,384 x 20 rows
    against the plain bf16 loop (max and mean bounds, a float32 control
-   that misses the mean bound), timed beside the loop and its bound;
-   (b) ``cli train --recipe loo --bf16`` (first step card vs CPU, a
+   that misses the mean bound), timed beside the loop and its bound; the
+   fused encoder (``kernels/encode_observation.py``) at 1,048,576 and
+   16,384 rows of 8 steps against the plain bf16 encode likewise
+   (``chip_smoke.py --encode`` runs its build check and these cases
+   alone); (b) ``cli train --recipe loo --bf16`` (first step card vs CPU, a
    profiled step,
    launches equal to the float32 run's counts, float32 state); (c)
    ``evaluate --bf16`` and ``predict --bf16`` of phase 7's checkpoint, ADE/
@@ -100,9 +105,9 @@ Phases (any failure raises):
    trajectories card vs CPU at 10,000, a profiled 1M window; (e) ``cli
    train --recipe loo --bf16 --grad-accum 4 --remat-steps
    --max-scene-size 16`` at batch 16,384 on a crowd npz of scenes of 16.
-   Every bf16 run launches no float32 kernel, and the fused decode
-   launches once a simulated window, evaluated or predicted chunk and
-   K-draw rollout, none in float32; (f) Social GAN's pool kernel
+   Every bf16 run launches no float32 kernel, and the fused decode and
+   the fused encoder launch once a simulated window, evaluated or
+   predicted chunk and K-draw rollout each, none in float32; (f) Social GAN's pool kernel
    (``kernels/social_pool.py``) at the sgan-crowd-sim cell's crowd
    (1,048,576 agents in scenes of 2-64, w = 64) and at N = 10,000 against
    the plain bf16 scene-window form (max and mean bounds, a float32
@@ -807,25 +812,58 @@ def check_sass(_build) -> dict:
 DECODE_LIB, DECODE_CROWD_SHAPE = "decode_rollout_bf16", (4, 2, True)
 
 
-def decode_ptxas(log: str) -> dict:
-    """{(T, ZT, exact): (registers, spill store bytes, spill load bytes)}
-    of the fused decode's instantiations from nvcc's ``-Xptxas -v``
-    output."""
-    out, entry, spills = {}, None, (0, 0)
+def _entry_ptxas(log: str, entry: str, key) -> dict:
+    """{key(match): (registers, spill store bytes, spill load bytes)} of
+    the entry functions whose mangled name matches the regex ``entry``,
+    from nvcc's ``-Xptxas -v`` output."""
+    out, found, spills = {}, None, (0, 0)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '[^']*decode_rollout_kernel"
-                      r"ILi(\d+)ELi(\d+)ELb([01])E", line)
+        m = re.search(r"Compiling entry function '[^']*" + entry, line)
         if m:
-            entry = (int(m.group(1)), int(m.group(2)), m.group(3) == "1")
+            found = key(m)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry is not None:
-            out[entry] = (int(m.group(1)), *spills)
-            entry, spills = None, (0, 0)
+        if m and found is not None:
+            out[found] = (int(m.group(1)), *spills)
+            found, spills = None, (0, 0)
     return out
+
+
+def decode_ptxas(log: str) -> dict:
+    """{(T, ZT, exact): (registers, spill store bytes, spill load bytes)}
+    of the fused decode's instantiations."""
+    return _entry_ptxas(
+        log, r"decode_rollout_kernelILi(\d+)ELi(\d+)ELb([01])E",
+        lambda m: (int(m.group(1)), int(m.group(2)), m.group(3) == "1"))
+
+
+#: the fused encoder's library (kernels/encode_observation.py) and its
+#: instantiations, one a padded hidden width of 16 HT columns
+ENCODE_LIB, ENCODE_TILES = "encode_observation_bf16", (1, 2, 3, 4)
+
+
+def encode_ptxas(log: str) -> dict:
+    """{HT: (registers, spill store bytes, spill load bytes)} of the fused
+    encoder's instantiations."""
+    return _entry_ptxas(log, r"encode_observation_kernelILi(\d+)E",
+                        lambda m: int(m.group(1)))
+
+
+def check_encode_build(_build) -> dict:
+    """The fused encoder's ptxas lines, printed; fails unless every padded
+    width is built without a spill."""
+    enc = encode_ptxas(_build.build_logs.get(ENCODE_LIB, ""))
+    for ht, (regs, st, ld) in sorted(enc.items()):
+        print(f"ptxas: encode_observation_kernel<{ht}> {regs} registers, "
+              f"spill stores/loads {st}/{ld} bytes")
+    if sorted(enc) != list(ENCODE_TILES) or any(
+            sum(v[1:]) for v in enc.values()):
+        raise AssertionError(f"ptxas: want the fused encoder at "
+                             f"{ENCODE_TILES} without spills, got {enc}")
+    return enc
 
 
 def build_kernels(_build) -> None:
@@ -834,11 +872,12 @@ def build_kernels(_build) -> None:
     kernel's registers move more than 2 from ``PTXAS_KERNELS`` (the wide
     kernels, H or F above 128, have no earlier build to hold them to);
     the fused decode's every padded shape built, the crowd's without a
-    spill; then the SASS check (``check_sass``)."""
+    spill; the fused encoder's every width without a spill
+    (``check_encode_build``); then the SASS check (``check_sass``)."""
     from socialways_torch.kernels.decode_rollout import SHAPES
     tic = time.perf_counter()
-    _build.build(KERNELS + [DECODE_LIB])
-    print(f"build: {', '.join(KERNELS + [DECODE_LIB])} in "
+    _build.build(KERNELS + [DECODE_LIB, ENCODE_LIB])
+    print(f"build: {', '.join(KERNELS + [DECODE_LIB, ENCODE_LIB])} in "
           f"{time.perf_counter() - tic:.2f} s (parallel nvcc)")
     dec = decode_ptxas(_build.build_logs.get(DECODE_LIB, ""))
     for shape, (regs, st, ld) in sorted(dec.items()):
@@ -849,6 +888,7 @@ def build_kernels(_build) -> None:
         raise AssertionError(f"ptxas: want the fused decode at {want}, "
                              f"{DECODE_CROWD_SHAPE} without spills, got "
                              f"{dec}")
+    check_encode_build(_build)
     for name in KERNELS:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
@@ -2207,14 +2247,17 @@ DECODE_CASES = ((CROWD_1M, 1), (16_384, K))
 DECODE_ATOL, DECODE_RTOL, DECODE_MEAN_GAP = 0.05, 0.02, 1e-5
 
 
-def decode_launches(what: str, want: int) -> int:
-    """The fused decode's launches since the last ``reset_launches``, held
-    to ``want`` (one a bf16 window, chunk or K-draw rollout)."""
+def fused_launches(what: str, want: int) -> tuple:
+    """(decode, encoder): the fused decode's and the fused encoder's
+    launches since the last ``reset_launches`` as read, each held to
+    ``want`` (one a bf16 window, chunk or K-draw rollout)."""
     from socialways_torch.kernels.decode_rollout import decode_rollout_bf16
-    got = decode_rollout_bf16.launches
-    if got != want:
-        raise AssertionError(f"{what}: the fused decode launched {got} "
-                             f"times, want {want}")
+    from socialways_torch.kernels.encode_observation import (
+        encode_observation_bf16)
+    got = (decode_rollout_bf16.launches, encode_observation_bf16.launches)
+    if got != (want, want):
+        raise AssertionError(f"{what}: the fused decode and encoder "
+                             f"launched {got} times, want {want} each")
     return got
 
 
@@ -2287,6 +2330,109 @@ def decode_kernel_case(torch, dev, n, r, card) -> dict:
           f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}); vs plain max "
           f"/ mean abs {mx:.3e} / {mean:.3e} (bounds {DECODE_ATOL} + "
           f"{DECODE_RTOL} |plain|, {DECODE_MEAN_GAP}), float32 control mean "
+          f"{ctrl_mean:.3e} [{card}]")
+    return entry
+
+
+#: phase 12a's fused encoder cases, rows of N_PAST steps at hidden 64: a
+#: crowd-sim window and a large forecast request; held to the card test's
+#: bounds (tests/test_torch_encode_observation_cuda.py): h and c within
+#: ENCODE_ATOL + ENCODE_RTOL |plain| of the plain bf16 encode and the
+#: mean gap within ENCODE_MEAN_GAP
+ENCODE_CASES = (CROWD_1M, 16_384)
+ENCODE_ATOL, ENCODE_RTOL, ENCODE_MEAN_GAP = 0.02, 0.02, 1.5e-6
+
+
+def encode_operands(torch, dev, n, seed, steps=N_PAST):
+    """A bf16 generator of hidden HIDDEN drawn from ``seed`` (nothing
+    requiring grad) and obsv_4d [n, steps, 4] bf16 of ``n`` random walks in
+    a canonical frame, on ``dev``: the fused encoder's operands here and
+    in kernel_times.py."""
+    from socialways_torch.config import TrainConfig
+    from socialways_torch.models.generator import init_generator
+    from socialways_torch.ops.nn import cast_params
+    from socialways_torch.ops.traj import obsv_to_4d
+    cfg = TrainConfig(hidden_size=HIDDEN, social_feature_size=HIDDEN,
+                      noise_len=HIDDEN // 2)
+    g16 = cast_params(init_generator(cfg, torch.Generator().manual_seed(
+        seed), dev).requires_grad_(False), torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    walk = np.cumsum(rng.randn(n, steps, 2) * 0.1, axis=1)
+    p = rng.rand(n, 1, 2) * 4 - 2 + walk - walk[:, -1:]
+    x = obsv_to_4d(torch.from_numpy(p.astype(np.float32)).to(
+        dev, torch.bfloat16))
+    return g16, x
+
+
+def encode_bound(n, steps=N_PAST) -> dict:
+    """The fused encoder's bound at hidden HIDDEN: its products (the
+    embedding and the LSTM's [e | h] W, a row-step) at the bf16
+    tensor-core peak against its bytes (x, the final h and c, the
+    weights)."""
+    hd = HIDDEN
+    macs = 4 * hd + 2 * hd * 4 * hd                # a row-step; the weights
+    return _bound(0.0, 2 * (n * steps * 4 + 2 * n * hd + macs),
+                  tc_flop=2 * n * steps * macs)
+
+
+def encode_kernel_case(torch, dev, n, card) -> dict:
+    """Phase 12a: the fused encoder on ``n`` random walks of N_PAST steps
+    at hidden 64 against the plain bf16 encode on the same operands (grad
+    on, nothing requiring it), one launch; the float32 plain encode on the
+    same values as a control that must miss the mean bound; each timed
+    alone beside the encoder's bound (``encode_bound``)."""
+    from socialways_torch.kernels.encode_observation import (
+        encode_observation_bf16)
+    from socialways_torch.models.generator import encode_observation
+    from socialways_torch.ops.nn import cast_params
+    hd = HIDDEN
+    g16, x = encode_operands(torch, dev, n, n)
+    g32 = cast_params(g16, torch.float32)
+
+    def fused():
+        with torch.no_grad():
+            return encode_observation(g16, x)
+
+    def plain():
+        with torch.enable_grad():
+            return encode_observation(g16, x)
+    before = encode_observation_bf16.launches
+    got = fused()
+    if encode_observation_bf16.launches - before != 1:
+        raise AssertionError(f"encode {n}: the fused encoder was not "
+                             f"launched once")
+    want = plain()
+    with torch.no_grad():
+        ctrl = encode_observation(g32, x.float())
+    mx = mean = ctrl_mean = 0.0
+    for a, b, cf in zip(got, want, ctrl):
+        gap = (a.float() - b.float()).abs()
+        if (a.shape != (n, hd) or not bool(a.isfinite().all())
+                or not bool((gap <= ENCODE_ATOL + ENCODE_RTOL
+                             * b.float().abs()).all())):
+            raise AssertionError(f"encode {n}: fused vs plain bf16 max abs "
+                                 f"{float(gap.max()):.3e} (bound "
+                                 f"{ENCODE_ATOL} + {ENCODE_RTOL} |plain|)")
+        mx, mean = max(mx, float(gap.max())), max(mean, float(gap.mean()))
+        ctrl_mean = max(ctrl_mean, float((cf - b.float()).abs().mean()))
+    if mean > ENCODE_MEAN_GAP:
+        raise AssertionError(f"encode {n}: fused vs plain bf16 mean abs "
+                             f"{mean:.3e} (bound {ENCODE_MEAN_GAP})")
+    if ctrl_mean <= ENCODE_MEAN_GAP:
+        raise AssertionError(f"encode {n}: the float32 encode on the same "
+                             f"values passes the mean bound ({ctrl_mean:.3e})")
+    b = encode_bound(n)
+    entry = {"n": n, "steps": N_PAST, "ms": median_ms(torch, fused),
+             "plain_ms": median_ms(torch, plain, repeats=3),
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "max_abs_err": mx, "mean_abs_err": mean,
+             "control_mean_abs_err": ctrl_mean}
+    print(f"bf16 fused encoder {n} rows x {N_PAST} steps: {entry['ms']:.3f} "
+          f"ms, plain bf16 encode {entry['plain_ms']:.2f} ms, bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']}, "
+          f"{100 * b['bound_ms'] / entry['ms']:.1f} % of it); vs plain max / "
+          f"mean abs {mx:.3e} / {mean:.3e} (bounds {ENCODE_ATOL} + "
+          f"{ENCODE_RTOL} |plain|, {ENCODE_MEAN_GAP}), float32 control mean "
           f"{ctrl_mean:.3e} [{card}]")
     return entry
 
@@ -2415,7 +2561,7 @@ def sgan_phase(torch, sa, cli_main, dev, npz, work, card) -> dict:
         if any(f32.values()) or any(b16.values()):
             raise AssertionError(f"{what}: attention kernels launched "
                                  f"{f32} {b16}")
-        decode_launches(what, 0)
+        fused_launches(what, 0)
     reset_launches(sa)
     out = run_cli(cli_main, ["simulate", "--model", "sgan", "--agents",
                              str(CROWD_1M), "--scene-size", "64", "--bf16"],
@@ -2463,7 +2609,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     test_chunks = len(greedy_chunks(ds.test_batches, BATCH))
     with np.load(npz) as d:
         all_chunks = len(greedy_chunks(d["batches"], BATCH))
-    ade, launches, decodes = {}, {}, {}
+    ade, launches, fused = {}, {}, {}
     for tag, extra in (("float32", []), ("bf16", ["--bf16"])):
         reset_launches(sa)
         out = run_cli(cli_main, ["evaluate", "--data", npz, "--model-file",
@@ -2472,10 +2618,10 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
                else read_launches(sa))
         if got != {"fwd": test_chunks, "dq": 0, "dkv": 0}:
             raise AssertionError(f"evaluate {tag}: launched {got}")
-        n_dec = decode_launches(f"evaluate ({tag})",
-                                test_chunks if extra else 0)
+        n_fused = fused_launches(f"evaluate ({tag})",
+                                 test_chunks if extra else 0)
         if extra:
-            launches["evaluate"], decodes["evaluate"] = got, n_dec
+            launches["evaluate"], fused["evaluate"] = got, n_fused
         m = re.search(r"Avg ADE,FDE.*?= \(([\d.]+), ([\d.]+)\).*?= "
                       r"\(([\d.]+), ([\d.]+)\)", out)
         ade[tag] = [float(v) for v in m.groups()]
@@ -2494,7 +2640,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
     if got != {"fwd": all_chunks, "dq": 0, "dkv": 0}:
         raise AssertionError(f"predict --bf16: launched {got}")
     launches["predict"] = got
-    decodes["predict"] = decode_launches("predict --bf16", all_chunks)
+    fused["predict"] = fused_launches("predict --bf16", all_chunks)
     with np.load(pred) as d:
         if (d["preds_our"].shape[1:] != (d["obsvs"].shape[0], N_NEXT, 2)
                 or not np.isfinite(d["preds_our"]).all()):
@@ -2524,7 +2670,7 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
         for a, b in zip(s_dev[:4], s_cpu[:4]):
             worst_sum = max(worst_sum, abs(float(a) - float(b)) / float(b))
     # a K-draw rollout and an eval_chunk a chunk on the card
-    decodes["k_sample"] = decode_launches(
+    fused["k_sample"] = fused_launches(
         "bf16 serving cuda vs cpu", 2 * min(2, t_dev.test_packed.n_chunks))
     if worst > 5e-2 or worst_mean > 1e-3 or worst_sum > 1e-2:
         raise AssertionError(f"bf16 serving cuda vs cpu: rollout max abs "
@@ -2549,13 +2695,13 @@ def bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card):
         rollouts()
     torch.cuda.synchronize()
     roll_s = (time.perf_counter() - tic) / 3
-    decodes["rollouts"] = decode_launches("bf16 rollouts", 4 * n_chunks)
+    fused["rollouts"] = fused_launches("bf16 rollouts", 4 * n_chunks)
     rate = n_valid * K * N_NEXT / roll_s
     print(f"bf16 rollout: {n_valid} windows x K={K} x {N_NEXT} steps in "
           f"{roll_s * 1e3:.2f} ms = {rate:.4g} agent-steps/s [{card}]")
     return {"ade_fde": ade, "rollout_rate": rate,
             "cuda_vs_cpu_max_abs": worst, "launches": launches,
-            "decode_launches": decodes}
+            "fused_launches": fused}
 
 
 def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
@@ -2569,7 +2715,7 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
     from socialways_torch.engine.simulate import crowd_simulate, initial_crowd
     from socialways_torch.io.checkpoint import (adopt_checkpoint_config,
                                                 restore_generator)
-    rates, launches, decodes = {}, {"fwd": 0, "dq": 0, "dkv": 0}, {}
+    rates, launches, fused = {}, {"fwd": 0, "dq": 0, "dkv": 0}, {}
     for agents in (CROWD_BF16, CROWD_1M):
         reset_launches(sa)
         out = run_cli(cli_main, ["simulate", "--model-file", ckpt, "--agents",
@@ -2579,7 +2725,7 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
         got = bf16_launches(sa, f"simulate --bf16 {agents}")
         if got != {"fwd": 8, "dq": 0, "dkv": 0}:
             raise AssertionError(f"simulate --bf16 {agents}: launched {got}")
-        decodes[f"simulate_{agents}"] = decode_launches(
+        fused[f"simulate_{agents}"] = fused_launches(
             f"simulate --bf16 {agents}", 8)
         for k in launches:
             launches[k] += got[k]
@@ -2602,7 +2748,7 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
             gen, torch.from_numpy(obsv0).to(where),
             torch.from_numpy(ids).to(where), 1, cfg,
             noise=noise.to(where)).cpu())
-    decodes["simulate_window"] = decode_launches(
+    fused["simulate_window"] = fused_launches(
         "simulate bf16 cuda vs cpu", 1)
     diff = (traj[0] - traj[1]).abs()
     if (not bool(traj[0].isfinite().all()) or float(diff.max()) > 2e-2
@@ -2622,7 +2768,7 @@ def bf16_simulate(torch, sa, cli_main, dev, ckpt, card):
                         f"[{card}]",
                  lambda: crowd_simulate(gen, obsv0, ids, 1, cfg,
                                         noise=noise))
-    return rates, launches, decodes
+    return rates, launches, fused
 
 
 def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
@@ -2630,7 +2776,8 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     """Phase 12, bf16: (a) the bf16 kernels against their plain bf16
     versions at the loo training chunk, at N = 10,000 in sorted scenes of
     16 (w = 16 and w = 0, equal bits) and, forward only, at N = 32,768,
-    and the fused decode against the plain bf16 loop (``DECODE_CASES``);
+    the fused decode against the plain bf16 loop (``DECODE_CASES``) and
+    the fused encoder against the plain bf16 encode (``ENCODE_CASES``);
     (b) ``cli train --recipe loo --bf16``; (c) bf16 serving; (d) ``cli
     simulate --bf16``; (e) JAX's crowd memory recipe under bf16; (f)
     Social GAN's pool kernel and its launches (``sgan_phase``)."""
@@ -2655,6 +2802,7 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
             f"crowd N={n}", card, backward=backward)
     decode = [decode_kernel_case(torch, dev, n, r, card)
               for n, r in DECODE_CASES]
+    encode = [encode_kernel_case(torch, dev, n, card) for n in ENCODE_CASES]
     launches, rates = {}, {}
     launches["bf16_loo"], rates["bf16_loo"], mdir = gan_run(
         torch, sa, cli_main, dev, npz, work, "bf16_loo", BF16_RUNS["bf16_loo"],
@@ -2667,7 +2815,7 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     print("bf16 loo checkpoint: every parameter and optimizer tensor float32")
     serving = bf16_serving(torch, sa, cli_main, dev, npz, ckpt, card)
     launches.update(serving["launches"])
-    sim_rates, launches["simulate"], sim_decodes = bf16_simulate(
+    sim_rates, launches["simulate"], sim_fused = bf16_simulate(
         torch, sa, cli_main, dev, ckpt, card)
     crowd = os.path.join(work, "crowd16-8-12.npz")
     make_ethucy_like_npz(crowd, n_windows=82_000, seed=1, scene=CROWD_SCENE)
@@ -2679,9 +2827,9 @@ def bf16_phase(torch, sa, cli_main, dev, npz, ckpt, work, train_chunk,
     print(f"bf16 phase: {wall:.2f} s wall [{card}]")
     return {"kernels": kernels, "errs": errs, "launches": launches,
             "train_rates": rates, "serving": serving, "decode": decode,
-            "sgan": sgan,
-            "decode_launches": {**serving["decode_launches"],
-                                **sim_decodes},
+            "encode": encode, "sgan": sgan,
+            "fused_launches": {**serving["fused_launches"],
+                               **sim_fused},
             "simulate_rates": sim_rates, "wall_s": wall}
 
 
@@ -5080,8 +5228,31 @@ def main() -> int:
             "route": "cuda",
             "source": src + "decode_rollout_bf16.cu",
             "replaces": "none (the JAX package leaves the decode to XLA)",
-            "launches": bf16["decode_launches"][f"simulate_{CROWD_1M}"],
-            "launches_by_path": bf16["decode_launches"],
+            "launches": bf16["fused_launches"][f"simulate_{CROWD_1M}"][0],
+            "launches_by_path": {k: v[0] for k, v in
+                                 bf16["fused_launches"].items()},
+            "max_abs_err": max(e["max_abs_err"] for e in cases),
+            "mean_abs_err": max(e["mean_abs_err"] for e in cases),
+            "ms": cases[0]["ms"],
+            "plain_ms": cases[0]["plain_ms"],
+            "bound_ms": cases[0]["bound_ms"],
+            "bound_by": cases[0]["bound_by"],
+            "library_ms": None,
+            "launch_floor_ms": floor_ms,
+            "cases": cases,
+        })
+        # the fused encoder (no TPU counterpart): launches on each bf16
+        # serving path of phase 12 (its own counter), times at a crowd-sim
+        # window's rows
+        cases = bf16["encode"]
+        kernels.append({
+            "name": "encode_observation_bf16",
+            "route": "cuda",
+            "source": src + "encode_observation_bf16.cu",
+            "replaces": "none (the JAX package leaves the encoder to XLA)",
+            "launches": bf16["fused_launches"][f"simulate_{CROWD_1M}"][1],
+            "launches_by_path": {k: v[1] for k, v in
+                                 bf16["fused_launches"].items()},
             "max_abs_err": max(e["max_abs_err"] for e in cases),
             "mean_abs_err": max(e["mean_abs_err"] for e in cases),
             "ms": cases[0]["ms"],
@@ -5233,10 +5404,32 @@ def sgan_only() -> int:
     return 0
 
 
+def encode_only() -> int:
+    """``chip_smoke.py --encode``: the fused encoder's build check
+    (``check_encode_build``) and phase 12a's ``ENCODE_CASES``; prints the
+    ``encode_observation_bf16`` cases as one JSON line."""
+    import torch
+    sys.path.insert(0, REPO)
+    from socialways_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.build([ENCODE_LIB])
+    check_encode_build(_build)
+    cases = [encode_kernel_case(torch, torch.device("cuda"), n, smi)
+             for n in ENCODE_CASES]
+    print(json.dumps({"encode_observation_bf16": cases}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--graph-rate"]:
         graph_rate(sys.argv[3], sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--sgan"]:
         sys.exit(sgan_only())
+    if sys.argv[1:2] == ["--encode"]:
+        sys.exit(encode_only())
     sys.exit(main())

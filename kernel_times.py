@@ -18,7 +18,11 @@ x4 and ids) on both inputs, in float32 and bf16, with its bound
 12 steps at 1,048,576 rows (a crowd-sim window) and 16,384 agents x 20
 draws (a large forecast request) at the crowd widths, beside the plain
 bf16 loop on the same operands and the decode's bound (its products at
-989 TFLOP/s against its bytes at 3.35 TB/s).  Each time is
+989 TFLOP/s against its bytes at 3.35 TB/s); and the bf16 observation
+encoder (the embedding and 8 LSTM steps; in a tree that has it,
+``kernels.encode_observation``, one kernel) at 1,048,576 rows (a
+crowd-sim window) and 16,384 (a large forecast request) at hidden 64,
+beside the plain bf16 encode and its bound likewise.  Each time is
 ``chip_smoke.median_ms`` (CUDA events, the device kept busy).  Prints one
 JSON object: per case the median time in ms and a SHA-256 of the outputs'
 bytes, so two trees that launch the same arithmetic show the same digest.
@@ -149,6 +153,33 @@ def decode_case(torch, cs, dev, n, r):
             ).hexdigest()[:16]}
 
 
+def encode_case(torch, cs, dev, n):
+    """The bf16 encode of ``n`` rows of ``cs.N_PAST`` observed steps at
+    hidden 64 (``cs.encode_operands``) as the tree runs it without a
+    gradient (one kernel where it has one), the plain path on the same
+    operands (grad on, nothing requiring it) and ``cs.encode_bound``, in
+    ms."""
+    from socialways_torch.models.generator import encode_observation
+    params, x = cs.encode_operands(torch, dev, n, 13)
+
+    def fused():
+        with torch.no_grad():
+            return encode_observation(params, x)
+
+    def plain():
+        with torch.enable_grad():
+            return encode_observation(params, x)
+    h, c = fused()
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in (h, c):
+        digest.update(t.view(torch.int16).cpu().numpy().tobytes())
+    return {"ms": cs.median_ms(torch, fused),
+            "plain_ms": cs.median_ms(torch, plain),
+            "bound_ms": cs.encode_bound(n)["bound_ms"],
+            "sha256": digest.hexdigest()[:16]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=HERE,
@@ -189,6 +220,8 @@ def main() -> int:
                                    "decode_rollout.py")):
         for n, r in ((1_048_576, 1), (16_384, 20)):
             result[f"decode N={n} R={r}"] = decode_case(torch, cs, dev, n, r)
+    for n in (1_048_576, 16_384):
+        result[f"encode N={n} T=8"] = encode_case(torch, cs, dev, n)
     line = json.dumps(result)
     print(line)
     if args.out:

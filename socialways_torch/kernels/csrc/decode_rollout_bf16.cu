@@ -39,7 +39,10 @@
 // never the bytes: 1.9 ms of products at 989 TFLOP/s for 1M rows x 12
 // steps against 0.2 ms of bytes at 3.35 TB/s.
 //
-// Design.  Intermediates never leave the SM.
+// Design.  Intermediates never leave the SM.  The staging, the LSTM step
+// and the persistent launch are lstm_mma.cuh's, shared with the fused
+// encoder (encode_observation_bf16.cu); the decode sums a gate's two
+// n-tiles of a hidden k-tile at once (its 168 registers).
 // - Weights resident in shared memory: every block stages the decoder's
 //   four layers, the embedding and the encoder LSTM's fused W [2h, 4h] once
 //   (~150 KB bf16 at hidden 64, with their biases in float), each in
@@ -68,6 +71,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "lstm_mma.cuh"                 // staging, bias_init, the LSTM step, launch
 #include "social_attention_pairs.cuh"   // mma_bf16, cvt_bf16x2, lo/hi_bf16
 
 namespace decode {
@@ -77,6 +81,11 @@ using sa::cvt_bf16x2;
 using sa::hi_bf16;
 using sa::lo_bf16;
 using sa::mma_bf16;
+using lstm::bias_init;
+using lstm::lstm_step;
+using lstm::persistent_launch;
+using lstm::stage_bias;
+using lstm::stage_frags;
 
 constexpr int kWarps = 12;              // warps a block, a tile each (168 registers)
 constexpr int kThreads = kWarps * 32;
@@ -115,41 +124,6 @@ struct Args {
     long long n, rows, lp_stride;
     int n_next, hid, soc, nz;
 };
-
-// W [K real rows][ld] staged as KT x NT B fragments; row_of(k) and
-// col_of(n) map a padded index to W's (-1: a zero of the padding).
-template <int KT, int NT, class RowOf, class ColOf>
-__device__ void stage_frags(uint2* dst, const bf16* w, const int ld,
-                            RowOf row_of, ColOf col_of) {
-    for (int e = threadIdx.x; e < KT * NT * 32; e += kThreads) {
-        const int lane = e & 31, f = e >> 5, kt = f % KT, nt = f / KT;
-        const int n = col_of(8 * nt + (lane >> 2));
-        const int k0 = 16 * kt + 2 * (lane & 3);
-        auto at = [&](const int k) -> unsigned {
-            const int r = row_of(k);
-            return r < 0 || n < 0 ? 0u
-                : (unsigned)__bfloat16_as_ushort(w[(long long)r * ld + n]);
-        };
-        dst[e] = make_uint2(at(k0) | at(k0 + 1) << 16,
-                            at(k0 + 8) | at(k0 + 9) << 16);
-    }
-}
-
-template <int NP, class ColOf>
-__device__ void stage_bias(float* dst, const bf16* b, ColOf col_of) {
-    for (int n = threadIdx.x; n < NP; n += kThreads) {
-        const int j = col_of(n);
-        dst[n] = j < 0 ? 0.f : __bfloat162float(b[j]);
-    }
-}
-
-// The accumulators of n-tile columns 8 nt + 2t, + 1, for rows g and g + 8,
-// started at the bias.
-__device__ __forceinline__ void bias_init(float (&acc)[4], const float* bias,
-                                          const int col) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    acc[0] = b.x; acc[1] = b.y; acc[2] = b.x; acc[3] = b.y;
-}
 
 __device__ __forceinline__ unsigned leaky_bf16x2(const unsigned v) {
     // max(x, bf16(x * 0.2002)): x for x > 0, the rounded product otherwise
@@ -194,11 +168,6 @@ __device__ __forceinline__ void dense(unsigned (&out)[OT][4],
             out[ot][2 * j + 1] = r1;
         }
     }
-}
-
-// torch's float sigmoid: 1 / (1 + exp(-x)), precise expf and division.
-__device__ __forceinline__ float sigm(const float x) {
-    return 1.0f / (1.0f + expf(-x));
 }
 
 // Columns 16 kt + 2t (+ 1) and 16 kt + 8 + 2t (+ 1), kt < KT, of rows ra
@@ -276,20 +245,21 @@ decode_rollout_kernel(const Args p) {
         const int q = k % HP;
         return q < H ? (k / HP) * H + q : -1;
     };
-    stage_frags<K1T, Dm::N1 / 8>(f1, p.w1, D1, x_row, below(D1));
-    stage_frags<Dm::N1 / 16, Dm::N2 / 8>(f2, p.w2, D2, below(D1),
-                                         below(D2));
-    stage_frags<Dm::N2 / 16, Dm::N3 / 8>(f3, p.w3, D3, below(D2),
-                                         below(D3));
-    stage_frags<Dm::N3 / 16, 1>(f4, p.w4, 2, below(D3), below(2));
-    stage_frags<1, HP / 8>(fe, p.we, H, below(4), below(H));
-    stage_frags<Dm::KL / 16, Dm::NL / 8>(fl, p.wl, 4 * H, l_row, l_row);
-    stage_bias<Dm::N1>(b1, p.b1, below(D1));
-    stage_bias<Dm::N2>(b2, p.b2, below(D2));
-    stage_bias<Dm::N3>(b3, p.b3, below(D3));
-    stage_bias<Dm::N4>(b4, p.b4, below(2));
-    stage_bias<HP>(be, p.be, below(H));
-    stage_bias<Dm::NL>(bl, p.bl, l_row);
+    stage_frags<kThreads, K1T, Dm::N1 / 8>(f1, p.w1, D1, x_row, below(D1));
+    stage_frags<kThreads, Dm::N1 / 16, Dm::N2 / 8>(f2, p.w2, D2, below(D1),
+                                                   below(D2));
+    stage_frags<kThreads, Dm::N2 / 16, Dm::N3 / 8>(f3, p.w3, D3, below(D2),
+                                                   below(D3));
+    stage_frags<kThreads, Dm::N3 / 16, 1>(f4, p.w4, 2, below(D3), below(2));
+    stage_frags<kThreads, 1, HP / 8>(fe, p.we, H, below(4), below(H));
+    stage_frags<kThreads, Dm::KL / 16, Dm::NL / 8>(fl, p.wl, 4 * H, l_row,
+                                                   l_row);
+    stage_bias<kThreads, Dm::N1>(b1, p.b1, below(D1));
+    stage_bias<kThreads, Dm::N2>(b2, p.b2, below(D2));
+    stage_bias<kThreads, Dm::N3>(b3, p.b3, below(D3));
+    stage_bias<kThreads, Dm::N4>(b4, p.b4, below(2));
+    stage_bias<kThreads, HP>(be, p.be, below(H));
+    stage_bias<kThreads, Dm::NL>(bl, p.bl, l_row);
     __syncthreads();
 
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -352,55 +322,8 @@ decode_rollout_kernel(const Args p) {
             unsigned e[HT][4];
             dense<1, HT, false>(e, pv, fe, be, lane);
 
-            // the encoder LSTM on [e | h]: hidden k-tile ot's four gates
-            // are n-tiles q HP / 8 + 2 ot + j, q = i, f, g, o
-            unsigned hn[HT][4];
-#pragma unroll
-            for (int ot = 0; ot < HT; ++ot) {
-                float acc[4][2][4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q)
-#pragma unroll
-                    for (int j = 0; j < 2; ++j)
-                        bias_init(acc[q][j], bl, q * HP + 16 * ot + 8 * j + 2 * t);
-#pragma unroll
-                for (int kt = 0; kt < 2 * HT; ++kt) {
-                    const unsigned(&a)[4] = kt < HT ? e[kt] : x[kt - HT];
-#pragma unroll
-                    for (int q = 0; q < 4; ++q)
-#pragma unroll
-                        for (int j = 0; j < 2; ++j) {
-                            const uint2 b = fl[((q * HP / 8 + 2 * ot + j) * 2 * HT
-                                                + kt) * 32 + lane];
-                            mma_bf16(acc[q][j], a, b.x, b.y);
-                        }
-                }
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-#pragma unroll
-                    for (int half = 0; half < 2; ++half) {   // rows g, g + 8
-                        const unsigned cold = cw[ot][2 * j + half];
-                        float cn[2], hv[2];
-#pragma unroll
-                        for (int k = 0; k < 2; ++k) {
-                            const int el = 2 * half + k;
-                            const float c0 = k ? hi_bf16(cold) : lo_bf16(cold);
-                            const float ig = sigm(acc[0][j][el]);
-                            const float fg = sigm(acc[1][j][el]);
-                            const float gg = tanhf(acc[2][j][el]);
-                            const float og = sigm(acc[3][j][el]);
-                            cn[k] = __fadd_rn(__fmul_rn(fg, c0),
-                                              __fmul_rn(ig, gg));
-                            hv[k] = __fmul_rn(og, tanhf(cn[k]));
-                        }
-                        cw[ot][2 * j + half] = cvt_bf16x2(cn[0], cn[1]);
-                        hn[ot][2 * j + half] = cvt_bf16x2(hv[0], hv[1]);
-                    }
-            }
-#pragma unroll
-            for (int kt = 0; kt < HT; ++kt)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) x[kt][i] = hn[kt][i];
+            // the encoder LSTM on [e | h]: h is x's first HT k-tiles
+            lstm_step<HT, 2>(e, x, cw, fl, bl, lane);
         }
     }
 }
@@ -416,24 +339,9 @@ template <int T, int ZT, bool kExact = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
     using Dm = Dims<T, ZT>;
     static_assert(Dm::kSmem <= 227 * 1024, "weights past an SM's memory");
-    auto kernel = decode_rollout_kernel<T, ZT, kExact>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Dm::kSmem);
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess
-        || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev)) != cudaSuccess
-        || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kernel, kThreads, Dm::kSmem)) != cudaSuccess)
-        return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long tiles = (a.rows + kRows - 1) / kRows;
-    const long long want = (tiles + kWarps - 1) / kWarps;
-    const int blocks = (int)(want < (long long)sms * per_sm
-                                 ? want : (long long)sms * per_sm);
-    kernel<<<blocks, kThreads, Dm::kSmem, stream>>>(a);
-    return cudaGetLastError();
+    return persistent_launch<kWarps>(decode_rollout_kernel<T, ZT, kExact>,
+                                     Dm::kSmem, (a.rows + kRows - 1) / kRows,
+                                     a, stream);
 }
 
 }  // namespace decode

@@ -57,11 +57,12 @@ def _entry():
     return f
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           device: torch.device, rows_strided: bool = False) -> None:
+def check_bf16(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+               device: torch.device, rows_strided: bool = False) -> None:
     """bf16 on ``device`` with ``shape``; contiguous, or (``rows_strided``,
-    read two columns at a time) unit columns, an even row stride and
-    4-byte aligned."""
+    read two columns at a time) unit columns, even strides in every other
+    dimension and 4-byte aligned.  The operand check of the fused LSTM
+    kernels' wrappers (this one and ``kernels/encode_observation.py``)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.bfloat16:
@@ -70,9 +71,10 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if rows_strided:
-        if t.stride(1) != 1 or t.stride(0) % 2:
-            raise ValueError(f"{name} needs unit columns and an even row "
-                             f"stride, got strides {t.stride()}")
+        if t.stride(-1) != 1 or any(st % 2 for st in t.stride()[:-1]):
+            raise ValueError(f"{name} needs unit columns and even strides "
+                             f"in the other dimensions, got strides "
+                             f"{t.stride()}")
         if t.data_ptr() % 4:
             raise ValueError(f"{name} must be 4-byte aligned")
     elif not t.is_contiguous():
@@ -113,8 +115,8 @@ def decode_rollout_bf16(params, prep: Sequence[torch.Tensor],
                          f"got {len(layers)} layers")
     for name, t, shape in [("h", h, (n, hid)), ("c", c, (n, hid)),
                            ("s", s, (n, soc)), ("noise", noise, (rows, nz))]:
-        _check(name, t, shape, dev)
-    _check("last_p", last_p, (n, 2), dev, rows_strided=True)
+        check_bf16(name, t, shape, dev)
+    check_bf16("last_p", last_p, (n, 2), dev, rows_strided=True)
     weights = []
     for i, p in enumerate(layers):
         weights += [(f"decoder.{i}.w", p.w, (widths[i], widths[i + 1])),
@@ -124,7 +126,7 @@ def decode_rollout_bf16(params, prep: Sequence[torch.Tensor],
                 ("encoder.w", params.encoder.w, (2 * hid, 4 * hid)),
                 ("encoder.b", params.encoder.b, (4 * hid,))]
     for name, t, shape in weights:
-        _check(name, t, shape, dev)
+        check_bf16(name, t, shape, dev)
     if dev.type != "cuda":
         raise ValueError(f"the fused decode runs on CUDA, h is on {dev}")
     out = torch.empty((rows, n_next, 4), dtype=torch.bfloat16, device=dev)

@@ -18,8 +18,10 @@ at zero each rollout and rides in the decode carry, then FC h -> 64
 step and each decode step is checkpointed; the social attention is not (its
 forward kernel would run again in the backward).
 
-Under bf16 on CUDA with no gradient recorded, the FC decode of all the
-steps is one hand-written kernel (``kernels/decode_rollout.py``;
+Under bf16 on CUDA with no gradient recorded, the encoder (the embedding
+and every observed LSTM step) is one hand-written kernel
+(``kernels/encode_observation.py``; ``fused_encode`` says when), and so is
+the FC decode of all the steps (``kernels/decode_rollout.py``;
 ``fused_decode`` says when), whose K draws read the prepared rows in
 place; the plain loop copies them.
 
@@ -51,6 +53,8 @@ from torch._C._functorch import is_functorch_wrapped_tensor
 from socialways_torch.config import TrainConfig, check_supported
 from socialways_torch.device import resolve_device
 from socialways_torch.kernels.decode_rollout import decode_rollout_bf16
+from socialways_torch.kernels.encode_observation import (
+    encode_observation_bf16)
 from socialways_torch.kernels.social_attention import social_attention
 from socialways_torch.ops.lstm import (LSTMCell, lstm_cell, lstm_init,
                                        lstm_seq, remat_call, zero_state)
@@ -123,9 +127,31 @@ def _decoder_lstm_fc_apply(layers: MLP, x: torch.Tensor) -> torch.Tensor:
     return linear_apply(layers[3], x)
 
 
+def fused_encode(params: Generator, obsv_4d: torch.Tensor) -> bool:
+    """Whether ``encode_observation`` takes the fused kernel
+    (``kernels/encode_observation.py``): ``obsv_4d`` on CUDA, it and the
+    embedding's and encoder's weights bf16, no gradient being recorded and
+    no functorch transform over them (an ensemble's member ``vmap``).
+    Everything else (the CPU, float32, an encode under autograd, with or
+    without ``remat``, members) takes the plain path.  Past hidden 64 the
+    kernel raises, naming its widths, as the fused decode does."""
+    weights = (params.embed.w, params.embed.b, params.encoder.w,
+               params.encoder.b)
+    return (_on_card(obsv_4d) and not torch.is_grad_enabled()
+            and all(t.dtype == torch.bfloat16 for t in (obsv_4d, *weights))
+            and not any(is_functorch_wrapped_tensor(t)
+                        for t in (obsv_4d, *weights)))
+
+
 def encode_observation(params: Generator, obsv_4d: torch.Tensor,
                        remat: bool = False):
-    """obsv_4d [N, T, 4] -> (h, c), each [N, hidden]."""
+    """obsv_4d [N, T, 4] -> (h, c), each [N, hidden]: the embedding, then
+    the encoder LSTM from a zero state over the T steps.  Where
+    ``fused_encode`` holds, one kernel launch."""
+    if fused_encode(params, obsv_4d):
+        state = encode_observation_bf16(params, obsv_4d)
+        count("encode.fused")
+        return state
     emb = linear_apply(params.embed, obsv_4d)
     state = zero_state(obsv_4d.shape[0], params.embed.w.shape[1],
                        obsv_4d.device, obsv_4d.dtype)
